@@ -1,0 +1,432 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py               # all phases
+    python3 chip_smoke.py --phases ABC  # build and kernel checks only
+    python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
+
+Builds the port's two CUDA kernels from csrc/, holds each against its
+plain PyTorch version on the card, drives the main path (the CLI's
+path-traced Cornell box at 1024x1024, depth 5) and times both kernels
+against their plain versions. Phases:
+
+  A  build the dense-hit kernel (K1) and the path-trace megakernel (K2)
+  B  K1 vs plain: 1,048,576 rays, closest and any hit, two prim tables
+  C  K2 vs plain: 65,536 lanes at depth 5 on both bundled scenes, from a
+     primary-sample matrix and from in-kernel Philox; the wavefront over
+     K1 vs the same plain version, on those and on many_lights.json (72
+     lights, which pt.render_lanes routes to the wavefront: K1's launches
+     there are recorded as `launches_wavefront_route`)
+  D  main path: the CLI renders scenes/cornell_port at 1024^2 through the
+     megakernel (launch counts of that run alone, spp/s, Mrays/s, the
+     radiance against the plain version's lane by lane), then again over
+     about one second of spp for a steadier rate
+  E  times, in windows of about one second, kernel and plain in turns:
+     K1 vs plain at 1M rays; K2 alone vs plain from the same primary
+     rays at 1024^2 depth 5, and the camera that makes those rays
+
+Every check that fails exits non-zero before the last line. The last two
+lines are the kernels' JSON record and
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Outputs (PNGs, compiler reports) go to build/chip_smoke/ unless --out
+names another directory.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(REPO, "build", "chip_smoke")   # set by --out
+SCENES = ("scenes/cornell_port/scene.json", "scenes/cornell_port/materials.json")
+MANY_LIGHTS = "scenes/cornell_port/many_lights.json"   # 72 lights: wavefront
+K1_SRC = "gpu_pathtracer_tpu_torch/csrc/dense.cu"
+K2_SRC = "gpu_pathtracer_tpu_torch/csrc/pt_fused.cu"
+K1_TPU = "gpu_pathtracer_tpu/geom/dense_tpu.py:29"
+K2_TPU = "gpu_pathtracer_tpu/integrators/pt_fused.py:977"
+SEED = 2024
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the card over `reps` runs (CUDA events,
+    after one warm-up run)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_windows(fns: dict, window_ms: float = 1000.0) -> dict:
+    """Time each fn of `fns` ({name: fn}) in windows of about `window_ms`
+    on the card, in turns a, b, ..., ..., b, a -> {name: [ms per run, one
+    value per window]}."""
+    reps = {k: max(3, int(window_ms / max(cuda_ms(f, 1), 1e-3)))
+            for k, f in fns.items()}
+    order = list(fns) + list(fns)[::-1]
+    out = {k: [] for k in fns}
+    for k in order:
+        out[k].append(cuda_ms(fns[k], reps[k]))
+    return out
+
+
+def close_frac(a, b) -> float:
+    """Share of lanes with |a - b| <= 1e-4 + 1e-3 |b| in all channels."""
+    return ((a - b).abs() <= 1e-4 + 1e-3 * b.abs()).all(1) \
+        .float().mean().item()
+
+
+def reset_counts(*stats) -> None:
+    for st in stats:
+        st.launches = st.plain_cuda = 0
+
+
+def synthetic_table(rng, n_prims=512):
+    """A 512-row dense_prims table of all three prim types inside the
+    Cornell room: 256 triangles, 128 spheres, 128 line segments."""
+    from gpu_pathtracer_tpu_torch.scene.model import GeometryType
+    t = np.zeros((n_prims, 16), np.float32)
+    n_tri, n_sph = n_prims // 2, n_prims // 4
+    lo, hi = np.array([-0.9, 0.1, -0.9]), np.array([0.9, 1.9, 0.9])
+    v0 = rng.uniform(lo, hi, (n_prims, 3)).astype(np.float32)
+    t[:, 0:3] = v0
+    tri = slice(0, n_tri)
+    t[tri, 3:6] = rng.normal(0, 0.15, (n_tri, 3))      # e1
+    t[tri, 6:9] = rng.normal(0, 0.15, (n_tri, 3))      # e2
+    t[tri, 9] = int(GeometryType.TRIANGLE)
+    sph = slice(n_tri, n_tri + n_sph)
+    t[sph, 9] = int(GeometryType.SPHERE)
+    t[sph, 10] = rng.uniform(0.01, 0.08, n_sph)
+    lin = slice(n_tri + n_sph, n_prims)
+    t[lin, 3:6] = v0[lin] + rng.normal(0, 0.2, (n_prims - n_tri - n_sph, 3))
+    t[lin, 9] = int(GeometryType.LINE)
+    t[lin, 10] = rng.uniform(0.005, 0.02, n_prims - n_tri - n_sph)
+    t[lin, 11] = rng.uniform(0.002, 0.01, n_prims - n_tri - n_sph)
+    t[:, 12] = np.arange(n_prims)
+    return t
+
+
+def random_rays(rng, n, dev):
+    """n rays with origins inside the room and uniform directions."""
+    ro = rng.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    rd = rng.normal(size=(n, 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.where(rng.random(n) < 0.5, np.inf, rng.uniform(0.1, 2.0, n))
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    return (f(ro).contiguous(), f(rd).contiguous(),
+            torch.full((n,), 1e-3, device=dev), f(tmax))
+
+
+def phase_b(dev, rng, records):
+    """K1 vs its plain version at 1,048,576 rays, closest and any hit."""
+    from gpu_pathtracer_tpu_torch.geom import dense, dense_cuda
+    from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+    scene, _ = flatten_scene(load_scene(os.path.join(REPO, SCENES[0])), dev)
+    tables = {"cornell_port": scene.dense_prims,
+              "synthetic512": torch.as_tensor(synthetic_table(rng),
+                                              device=dev)}
+    n = 1 << 20
+    ro, rd, tmin, tmax = random_rays(rng, n, dev)
+    max_err = 0.0
+    for name, table in tables.items():
+        t_k, p_k = dense_cuda.dense_hit_cuda(table, ro, rd, tmin, tmax, False)
+        f_k = dense_cuda.dense_hit_cuda(table, ro, rd, tmin, tmax, True)
+        t_p, p_p = dense.dense_closest_torch(table, ro, rd, tmin, tmax)
+        f_p = dense.dense_any_torch(table, ro, rd, tmin, tmax)
+        torch.cuda.synchronize()
+        same = p_k == p_p
+        both = same & (p_k >= 0)
+        rel = ((t_k - t_p).abs() / t_p.abs().clamp_min(1e-30))[both]
+        err = (t_k - t_p).abs()[both]
+        same_frac = same.float().mean().item()
+        any_frac = (f_k == f_p).float().mean().item()
+        rel_max = rel.max().item() if rel.numel() else 0.0
+        max_err = max(max_err, err.max().item() if err.numel() else 0.0)
+        print(f"[B] K1 {name}: {n} rays, hit {(p_k >= 0).float().mean():.4f}"
+              f", prim equal {same_frac:.6f}, t max rel err {rel_max:.3e}, "
+              f"any-hit equal {any_frac:.6f}")
+        check(same_frac >= 0.9999, f"K1 {name}: prim equal on {same_frac}")
+        check(rel_max <= 1e-4, f"K1 {name}: t rel err {rel_max}")
+        check(any_frac >= 0.9999, f"K1 {name}: any-hit equal on {any_frac}")
+    records["dense_hit"]["max_abs_err"] = max_err
+
+
+def phase_c(dev, rng, records):
+    """K2 vs its plain version on the same uniforms, 65,536 lanes; the
+    wavefront over K1 vs the same plain version. On many_lights.json the
+    wavefront is reached through pt.render_lanes' routing, and K1's
+    launches in that call are recorded apart from the main path's."""
+    from gpu_pathtracer_tpu_torch.core.rng import (
+        PSS_BOUNCE_DIMS, PSS_CAM_DIMS,
+    )
+    from gpu_pathtracer_tpu_torch.geom import dense_cuda
+    from gpu_pathtracer_tpu_torch.integrators import pt, pt_fused
+    from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+
+    max_err = 0.0
+    for path in (*SCENES, MANY_LIGHTS):
+        scene, static = flatten_scene(load_scene(os.path.join(REPO, path)),
+                                      dev)
+        fused = path != MANY_LIGHTS
+        check(pt_fused.supports(static) == fused, f"{path}: routing")
+        check(static.max_depth == 5, f"{path}: depth {static.max_depth}")
+        n_pix = static.width * static.height
+        ids = torch.arange(0, n_pix, n_pix // 65536, device=dev,
+                           dtype=torch.int32)[:65536]
+        px, py = ids % static.width, ids // static.width
+        d = PSS_CAM_DIMS + static.max_depth * PSS_BOUNCE_DIMS
+        for mode in ("psample", "philox") if fused else ():
+            ps = None
+            if mode == "psample":
+                ps = torch.as_tensor(rng.random((d, ids.numel()),
+                                                dtype=np.float32), device=dev)
+            li_k, r_k = pt_fused.render_lanes(scene, static, SEED, 1, px, py,
+                                              True, ps)
+            li_p, r_p = pt_fused.render_lanes_torch(scene, static, SEED, 1,
+                                                    px, py, True, ps)
+            torch.cuda.synchronize()
+            frac = close_frac(li_k, li_p)
+            exact = (li_k == li_p).all(1).float().mean().item()
+            m_k, m_p = li_k.double().mean().item(), li_p.double().mean().item()
+            ratio = m_k / m_p
+            max_err = max(max_err, (li_k - li_p).abs().max().item())
+            print(f"[C] K2 {os.path.basename(path)} {mode}: "
+                  f"{ids.numel()} lanes, agree {frac:.6f} (differ "
+                  f"{1 - frac:.6f}, bit-equal {exact:.6f}), mean ratio "
+                  f"{ratio:.7f}, rays {int(r_k)} vs {int(r_p)}")
+            check(frac >= 0.99, f"K2 {path} {mode}: agree on {frac}")
+            check(abs(ratio - 1.0) <= 1e-3, f"K2 {path} {mode}: mean ratio "
+                  f"{ratio}")
+            check(bool(torch.isfinite(li_k).all()), "K2: non-finite li")
+        # the other route of pt.render_lanes: the wavefront over K1
+        reset_counts(dense_cuda.STATS, pt_fused.STATS)
+        if fused:
+            li_w = pt.wavefront(scene, static, SEED, 1, px, py)
+        else:
+            li_w = pt.render_lanes(scene, static, SEED, 1, px, py)
+        torch.cuda.synchronize()
+        k1_n, k2_n = dense_cuda.STATS.launches, pt_fused.STATS.launches
+        li_p = pt_fused.render_lanes_torch(scene, static, SEED, 1, px, py)
+        frac = close_frac(li_w, li_p)
+        print(f"[C] wavefront over K1 {os.path.basename(path)} philox: "
+              f"agree {frac:.6f}, bit-equal "
+              f"{(li_w == li_p).all(1).float().mean().item():.6f}, "
+              f"K1 launches {k1_n}")
+        check(frac >= 0.99, f"wavefront {path}: agree on {frac}")
+        check(k1_n > 0 and k2_n == 0, f"wavefront {path}: launches K1 "
+              f"{k1_n}, K2 {k2_n}")
+        if not fused:
+            records["dense_hit"]["launches_wavefront_route"] = k1_n
+    records["pt_fused"]["max_abs_err"] = max_err
+
+
+def phase_d(dev, card, records):
+    """The main path through the CLI: the Cornell box at 1024^2, depth 5,
+    which pt.render_lanes routes to K2; launch counts, spp/s, Mrays/s, and
+    the radiance against the plain version's lane by lane."""
+    from gpu_pathtracer_tpu_torch.geom import dense_cuda
+    from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    from gpu_pathtracer_tpu_torch.run import cli
+
+    def render(spp, name):
+        out = os.path.join(OUT, name)
+        return cli.main([os.path.join(REPO, SCENES[0]), "--spp", str(spp),
+                         "--out", out, "--seed", str(SEED)]), out
+
+    render(1, "warmup.png")                     # the warm-up spp
+    reset_counts(dense_cuda.STATS, pt_fused.STATS)
+    res, png = render(8, "cornell_port.png")
+    k2_n, k1_n = pt_fused.STATS.launches, dense_cuda.STATS.launches
+    plain = pt_fused.STATS.plain_cuda + dense_cuda.STATS.plain_cuda
+    records["pt_fused"]["launches"] = k2_n
+    records["dense_hit"]["launches"] = k1_n
+    print(f"[D] cornell_port through K2: {res['spp']} spp of 1024x1024 "
+          f"depth 5 in {res['seconds']:.6f} s: {res['spp_per_s']:.3f} spp/s,"
+          f" {res['mrays_per_s']:.1f} Mrays/s ({card})")
+    print(f"[D] launches in the main-path run: K2 {k2_n}, K1 {k1_n}; "
+          f"plain-version calls on CUDA tensors: {plain}")
+    check(k2_n > 0, "main path never launched K2")
+    check(k1_n == 0, f"main path launched K1 {k1_n} times: routing")
+    check(plain == 0, f"{plain} plain-version calls on CUDA in phase D")
+
+    r = res["renderer"]
+    rad = r.radiance()
+    img = r.image()
+    check(rad.shape == (1024, 1024, 3) and img.shape == (1024, 1024, 3),
+          f"image shape {rad.shape}")
+    check(bool(np.isfinite(rad).all() and np.isfinite(img).all()),
+          "non-finite image")
+    check(os.path.getsize(png) > 0, "PNG not written")
+    # the plain version at the same seed and iterations, lane by lane
+    acc = torch.zeros_like(r.acc)
+    for it in range(1, r.iteration + 1):
+        acc += pt_fused.render_lanes_torch(r.device_scene, r.static, SEED, it,
+                                           r._px, r._py)
+    li_k, li_p = r.acc / r.iteration, acc / r.iteration
+    frac = close_frac(li_k, li_p)
+    exact = (li_k == li_p).all(1).float().mean().item()
+    err = (li_k - li_p).abs().max().item()
+    ratio = li_k.double().mean().item() / li_p.double().mean().item()
+    records["pt_fused"]["max_abs_err"] = max(
+        records["pt_fused"].get("max_abs_err", 0.0), err)
+    print(f"[D] radiance vs plain version, {li_k.shape[0]} lanes x "
+          f"{r.iteration} spp: agree {frac:.6f} (differ {1 - frac:.6f}, "
+          f"bit-equal {exact:.6f}), max abs err {err:.3e}, mean ratio "
+          f"{ratio:.7f}; wrote {png}")
+    check(frac >= 0.99, f"main path: agree on {frac}")
+    check(abs(ratio - 1.0) <= 1e-3, f"main path: mean ratio {ratio}")
+
+    # a steadier rate: the same CLI over about one second of spp
+    n_spp = max(8, int(res["spp_per_s"]))
+    res_l, _ = render(n_spp, "cornell_port_long.png")
+    print(f"[D] cornell_port through K2: {n_spp} spp in "
+          f"{res_l['seconds']:.6f} s: {res_l['spp_per_s']:.3f} spp/s, "
+          f"{res_l['mrays_per_s']:.1f} Mrays/s ({card})")
+
+
+def phase_e(dev, rng, card, records):
+    """Kernel vs plain version times at the main path's shapes, each in
+    windows of about one second, in turns."""
+    from gpu_pathtracer_tpu_torch.core.rng import PSS_CAM_DIMS, lane_stream
+    from gpu_pathtracer_tpu_torch.geom import dense, dense_cuda
+    from gpu_pathtracer_tpu_torch.integrators import pt, pt_fused
+    from gpu_pathtracer_tpu_torch.integrators.common import primary_rays
+    from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+    scene, static = flatten_scene(load_scene(os.path.join(REPO, SCENES[0])),
+                                  dev)
+    n = 1 << 20
+    ro, rd, tmin, tmax = random_rays(rng, n, dev)
+    table = scene.dense_prims
+    t1 = timed_windows({
+        "kernel": lambda: dense_cuda.dense_hit_cuda(table, ro, rd, tmin,
+                                                    tmax, False),
+        "plain": lambda: dense.dense_closest_torch(table, ro, rd, tmin,
+                                                   tmax)})
+    # K2 alone on the main path's primary rays (one spp of 1024^2), its
+    # plain version from the same rays, and the camera that makes them
+    ids = torch.arange(n, device=dev, dtype=torch.int32)
+    px, py = ids % static.width, ids // static.width
+    lanes = pt.lane_ids_of(static, px, py)
+
+    def camera():
+        rng0 = lane_stream(SEED, 1, lanes, None, 0, PSS_CAM_DIMS)
+        return primary_rays(scene, static, rng0, px, py)
+
+    p_ro, p_rd = camera()
+    lanes32 = lanes.to(torch.int32)
+    t2 = timed_windows({
+        "kernel": lambda: pt_fused.fused_call(scene, static, SEED, 1,
+                                              lanes32, p_ro, p_rd),
+        "plain": lambda: pt.trace_paths(scene, static, SEED, 1, lanes, p_ro,
+                                        p_rd, plain=True),
+        "camera": camera})
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    span = lambda v: f"{min(v):.4f}-{max(v):.4f}"  # noqa: E731
+    print(f"[E] K1 closest hit, 1M rays, cornell_port table: kernel "
+          f"{mean(t1['kernel']):.4f} ms (windows {span(t1['kernel'])}), "
+          f"plain {mean(t1['plain']):.4f} ms ({span(t1['plain'])}) ({card})")
+    print(f"[E] K2 alone, one spp of 1024x1024 depth 5 from given primary "
+          f"rays: kernel {mean(t2['kernel']):.4f} ms (windows "
+          f"{span(t2['kernel'])}), plain {mean(t2['plain']):.4f} ms "
+          f"({span(t2['plain'])}); camera (plain PyTorch, both routes) "
+          f"{mean(t2['camera']):.4f} ms ({span(t2['camera'])}) ({card})")
+    records["dense_hit"].update(ms=mean(t1["kernel"]),
+                                plain_ms=mean(t1["plain"]))
+    records["pt_fused"].update(ms=mean(t2["kernel"]),
+                               plain_ms=mean(t2["plain"]))
+
+
+def main() -> None:
+    global OUT
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="ABCDE",
+                    help="phases to run after the build (default all)")
+    ap.add_argument("--out", default=OUT,
+                    help="directory for the PNGs and compiler reports")
+    args = ap.parse_args()
+    phases = args.phases.upper()
+    OUT = os.path.abspath(args.out)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this test needs a GPU")
+    card = card_line()
+    print(card, flush=True)
+    sys.path.insert(0, REPO)
+    try:
+        from gpu_pathtracer_tpu_torch import kernels
+    except ImportError as e:
+        fail(f"the port's package is not beside this script: {e}")
+    os.makedirs(OUT, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+    records = {
+        "dense_hit": {"name": "dense_hit", "route": "cuda", "source": K1_SRC,
+                      "replaces": K1_TPU},
+        "pt_fused": {"name": "pt_fused", "route": "cuda", "source": K2_SRC,
+                     "replaces": K2_TPU},
+    }
+
+    t0 = time.time()
+    for name in ("dense", "pt_fused"):
+        kernels.load_library(name)
+        b = kernels.BUILDS[name]
+        report = [ln for ln in b.ptxas.splitlines()
+                  if "registers" in ln or "spill" in ln]
+        print(f"[A] built {name} in {b.seconds:.2f} s: "
+              f"{' | '.join(s.strip() for s in report) or 'cached'}")
+        with open(os.path.join(OUT, f"ptxas_{name}.txt"), "w") as f:
+            f.write(b.ptxas)
+    print(f"[A] builds done in {time.time() - t0:.2f} s")
+
+    if "B" in phases:
+        phase_b(dev, rng, records)
+    if "C" in phases:
+        phase_c(dev, rng, records)
+    if "D" in phases:
+        phase_d(dev, card, records)
+    if "E" in phases:
+        phase_e(dev, rng, card, records)
+    if phases != "ABCDE":
+        print(f"[{phases}] done: a partial run prints no result")
+        sys.exit(0)
+
+    print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

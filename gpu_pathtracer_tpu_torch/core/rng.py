@@ -1,0 +1,143 @@
+"""Counter-based random numbers that the CUDA kernels reproduce bit for bit.
+
+The JAX package draws from threefry keys folded per draw site
+(gpu_pathtracer_tpu/core/rng.py) and, inside its megakernel, from the
+TPU's own generator; neither can be reproduced on a GPU. The port draws
+every uniform from Philox4x32-10 (Salmon et al., SC'11), addressed like
+the JAX package's primary-sample matrix `psample [4 + 8*depth, N]`
+(rng.py:61-106): site d of lane i is
+
+    u = (philox4x32_10(counter=(i, d >> 2, 0, 0),
+                       key=(seed, iteration))[d & 3] >> 8) * 2**-24
+
+Sites 0-3 are the camera (pixel jitter x, y, aperture u1, u2); site
+4 + 8*b + k is bounce b's draw k (0 light pick, 1-2 light uv, 3-5 BSDF
+u1 u2 u3, 6 Russian roulette). The lane id is the pixel index, so a
+result does not depend on tiling, and csrc/pt_fused.cu computes the same
+bits from the same formula. The uint32 arithmetic is emulated in int64
+with masks, valid on either device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PSS_CAM_DIMS = 4
+PSS_BOUNCE_DIMS = 8
+
+MASK32 = 0xFFFFFFFF
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+
+
+def _mulhilo(m: int, x):
+    """(hi, lo) 32-bit halves of m * x; m a uint32 constant, x an int64
+    tensor holding uint32 values. 16-bit limbs keep every partial
+    product below 2**49."""
+    p_lo = x * (m & 0xFFFF)
+    p_hi = x * (m >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32 with 10 rounds. Counters: int64 tensors of uint32
+    values (broadcastable); keys: Python ints. Returns 4 int64 tensors."""
+    k0 &= MASK32
+    k1 &= MASK32
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W0) & MASK32
+            k1 = (k1 + PHILOX_W1) & MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def bits_to_uniform(w):
+    """uint32 word -> U[0, 1) with 24 bits, exact in float32."""
+    return (w >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+class PhiloxStream:
+    """RngStream-compatible Philox reader: each draw reads the next site.
+
+    `base` is the first site of this scope and `budget` bounds the sites
+    it may consume, exactly like PrimarySampleStream; `shape` arguments
+    are accepted for interface parity and ignored (every draw is one
+    value per lane). The four words of a counter block are computed once.
+    """
+
+    def __init__(self, seed: int, iteration: int, lane_ids, base: int = 0,
+                 budget: int | None = None):
+        self._key = (int(seed) & MASK32, int(iteration) & MASK32)
+        self._lanes = lane_ids.to(torch.int64) & MASK32
+        self._base = base
+        self._budget = budget
+        self._site = 0
+        self._block = None
+        self._words = None
+
+    def _row(self):
+        if self._budget is not None and self._site >= self._budget:
+            raise ValueError(
+                f"random-site budget exceeded: {self._site + 1} > "
+                f"{self._budget} (raise PSS_BOUNCE_DIMS)")
+        d = self._base + self._site
+        self._site += 1
+        if self._block != d >> 2:
+            z = torch.zeros_like(self._lanes)
+            self._words = philox4x32_10(self._lanes, z + (d >> 2), z, z,
+                                        *self._key)
+            self._block = d >> 2
+        return bits_to_uniform(self._words[d & 3])
+
+    def uniform(self, shape=()):
+        return self._row()
+
+    def uniform2(self, shape=()):
+        return self._row(), self._row()
+
+    def uniform3(self, shape=()):
+        return self._row(), self._row(), self._row()
+
+
+class PrimarySampleStream:
+    """RngStream-compatible reader of an explicit primary-sample matrix
+    `u [D, N]` (rng.py:70-106): each site reads the next row."""
+
+    def __init__(self, u, base: int = 0, budget: int | None = None):
+        self._u = u
+        self._base = base
+        self._budget = budget
+        self._site = 0
+
+    def _row(self):
+        if self._budget is not None and self._site >= self._budget:
+            raise ValueError(
+                f"primary-sample budget exceeded: {self._site + 1} > "
+                f"{self._budget} (raise PSS_BOUNCE_DIMS)")
+        r = self._u[self._base + self._site]
+        self._site += 1
+        return r
+
+    def uniform(self, shape=()):
+        return self._row()
+
+    def uniform2(self, shape=()):
+        return self._row(), self._row()
+
+    def uniform3(self, shape=()):
+        return self._row(), self._row(), self._row()
+
+
+def lane_stream(seed: int, iteration: int, lane_ids, psample, base: int,
+                budget: int):
+    """The stream for one scope (camera or one bounce): the psample rows
+    when a matrix is given, else Philox at the same sites."""
+    if psample is not None:
+        return PrimarySampleStream(psample, base, budget)
+    return PhiloxStream(seed, iteration, lane_ids, base, budget)

@@ -1,0 +1,137 @@
+// Ray/primitive intersection shared by the dense hit kernel (dense.cu)
+// and the path-trace kernel (pt_fused.cu).
+//
+// The three routines match gpu_pathtracer_tpu/geom/traverse.py:63-121
+// and dense_tpu.py:54-123 (the reference's mesh.h:45-67, sphere.h:26-69,
+// line.h:33-73) and the port's plain versions in geom/dense.py, operation
+// for operation. Each returns whether the prim is hit within
+// [tmin, tmax] and writes its t.
+#pragma once
+
+#include "vec.cuh"
+
+// prim type codes of the dense_prims table (column 9); -1 marks pad rows
+#define PRIM_TRIANGLE 0.f
+#define PRIM_LINE 1.f
+#define PRIM_SPHERE 2.f
+
+// Moller-Trumbore against edges e1 = v1 - v0, e2 = v2 - v0.
+__device__ __forceinline__ bool tri_hit(V3 ro, V3 rd, V3 v0, V3 e1, V3 e2,
+                                        float tmin, float tmax_, float* t) {
+  V3 s1 = cross(rd, e2);
+  float div = dot(s1, e1);
+  bool ok = fabsf(div) >= 1e-8f;
+  float inv = 1.f / (ok ? div : 1.f);
+  V3 s = sub(ro, v0);
+  float b1 = dot(s, s1) * inv;
+  ok = ok && (b1 >= 0.f) && (b1 <= 1.f);
+  V3 s2 = cross(s, e1);
+  float b2 = dot(rd, s2) * inv;
+  ok = ok && (b2 >= 0.f) && (b1 + b2 <= 1.f);
+  *t = dot(e2, s2) * inv;
+  return ok && (*t >= tmin) && (*t <= tmax_);
+}
+
+// Quadratic, near root if beyond tmin else far root (sphere.h:42-69).
+__device__ __forceinline__ bool sphere_hit(V3 ro, V3 rd, V3 c, float r,
+                                           float tmin, float tmax_,
+                                           float* t) {
+  V3 op = sub(ro, c);
+  float b = dot(op, rd);
+  float cq = dot(op, op) - r * r;
+  float delta = b * b - cq;
+  bool ok = delta >= 0.f;
+  float sq = sqrtf(tmax(delta, 0.f));
+  float t1 = -b - sq;
+  float t2 = -b + sq;
+  bool use1 = t1 > tmin;
+  *t = use1 ? t1 : t2;
+  ok = ok && (*t > 0.f) && (*t <= tmax_);
+  return ok && (use1 || (t1 > 0.f) || (t2 > tmin));
+}
+
+// Ray vs segment p0-p1 of width lerped w0 -> w1 (line.h:33-73); also
+// returns the segment parameter s.
+__device__ __forceinline__ bool line_hit(V3 ro, V3 rd, V3 p0, V3 p1,
+                                         float w0, float w1, float tmin,
+                                         float tmax_, float* t, float* s) {
+  V3 v = sub(p1, p0);
+  V3 w = sub(ro, p0);
+  float a = dot(rd, rd);
+  float b = dot(rd, v);
+  float c = dot(v, v);
+  float d = dot(rd, w);
+  float e = dot(v, w);
+  float det = a * c - b * b;
+  bool ok = det != 0.f;
+  float det_s = ok ? det : 1.f;
+  *t = (b * e - c * d) / det_s;
+  *s = tclamp((a * e - b * d) / det_s, 0.f, 1.f);
+  ok = ok && (*t >= tmin) && (*t <= tmax_);
+  V3 prl = sub(add(ro, scl(rd, *t)), add(p0, scl(v, *s)));
+  float d2 = dot(prl, prl);
+  float rr = w0 * (1.f - *s) + w1 * *s;
+  return ok && (d2 <= rr * rr);
+}
+
+// One dense_prims row [16] (staged as 4 float4) against a ray: v0 in
+// columns 0-2, e1 / p1 in 3-5, e2 in 6-8, type in 9, radii in 10-11.
+__device__ __forceinline__ bool prim_hit(const float4* row, V3 ro, V3 rd,
+                                         float tmin, float tmax_, float* t) {
+  const float4 q0 = row[0], q1 = row[1], q2 = row[2];
+  const float type = q2.y;
+  const V3 v0 = mk(q0.x, q0.y, q0.z);
+  const V3 a = mk(q0.w, q1.x, q1.y);
+  if (type == PRIM_TRIANGLE) {
+    return tri_hit(ro, rd, v0, a, mk(q1.z, q1.w, q2.x), tmin, tmax_, t);
+  }
+  if (type == PRIM_SPHERE) {
+    return sphere_hit(ro, rd, v0, q2.z, tmin, tmax_, t);
+  }
+  if (type == PRIM_LINE) {
+    float s;
+    return line_hit(ro, rd, v0, a, q2.z, q2.w, tmin, tmax_, t, &s);
+  }
+  return false;  // pad row
+}
+
+// Closest prim of an n_prims-row table staged in shared memory. Returns
+// the prim row (-1 for a miss) and leaves the hit's t in *t (tmax_ on a
+// miss). A row must beat the best t strictly, so ties keep the FIRST
+// row and a hit exactly at tmax_ does not count, like the JAX package's
+// dense_closest and geom/dense.py::dense_closest_torch.
+__device__ __forceinline__ int closest_loop(const float4* prims, int n_prims,
+                                            V3 ro, V3 rd, float tmin,
+                                            float tmax_, float* t) {
+  float best_t = tmax_;
+  int best = -1;
+  for (int p = 0; p < n_prims; ++p) {
+    float tp;
+    if (prim_hit(prims + 4 * p, ro, rd, tmin, best_t, &tp) && tp < best_t) {
+      best_t = tp;
+      best = p;
+    }
+  }
+  *t = best_t;
+  return best;
+}
+
+// Any hit within [tmin, tmax_]: stops at the first row that is hit.
+__device__ __forceinline__ bool any_loop(const float4* prims, int n_prims,
+                                         V3 ro, V3 rd, float tmin,
+                                         float tmax_) {
+  for (int p = 0; p < n_prims; ++p) {
+    float tp;
+    if (prim_hit(prims + 4 * p, ro, rd, tmin, tmax_, &tp)) return true;
+  }
+  return false;
+}
+
+// Stage a [n_prims, 16] f32 table into shared memory (all threads of
+// the block take part; ends with a barrier).
+__device__ __forceinline__ void stage_prims(float4* dst, const float* src,
+                                            int n_prims) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  for (int i = threadIdx.x; i < 4 * n_prims; i += blockDim.x) dst[i] = s4[i];
+  __syncthreads();
+}

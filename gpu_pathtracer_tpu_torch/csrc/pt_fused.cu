@@ -1,0 +1,764 @@
+// Path-trace megakernel: the whole PT estimator, one thread per path.
+//
+// Replaces the TPU kernel gpu_pathtracer_tpu/integrators/pt_fused.py::
+// _kernel (pallas_call at pt_fused.py:1272), which keeps a 4096-path tile
+// in VMEM and walks it through SEG-bounce segments.
+//
+// What bounds it on an H100: instruction throughput and latency of a long,
+// divergent per-thread program. Per bounce a path tests up to 512 prims twice
+// (closest hit, shadow ray), then runs one of six BSDF models; it reads
+// 24 bytes of ray and writes 16 bytes of result per PATH, so device
+// memory is idle and the prim loop's arithmetic dominates. Divergence
+// comes from material models and from paths that die at different
+// bounces.
+//
+// Design: one thread carries one path through every bounce in registers
+// (no SEG segmenting, no state in device memory between bounces, no lane
+// padding); a dead path leaves the loop. Each block stages the dense
+// prim table (<= 512 x 64 B = 32 KB) in shared memory once, so the prim
+// loops read broadcast rows; the hit-attribute, material and light rows
+// are read through the read-only cache. The code is the plain PyTorch
+// wavefront of integrators/pt.py (its plain version) written per thread:
+// the same operations in the same order, the same random sites (Philox
+// below, or rows of an explicit primary-sample matrix), and the same
+// table reads, so the two agree lane by lane. Speed is later work.
+#include "intersect.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// constants (double expressions rounded to float, as PyTorch rounds a
+// Python float operand to the tensor's float32)
+// ---------------------------------------------------------------------------
+#define PI_D 3.14159265358979323846
+constexpr float kPi = (float)PI_D;
+constexpr float kTwoPi = (float)(2.0 * PI_D);
+constexpr float kInvPi = (float)(1.0 / PI_D);
+constexpr float kSubstrateK = (float)(28.0 / (23.0 * PI_D));
+constexpr float kLuma0 = 0.212671f, kLuma1 = 0.715160f, kLuma2 = 0.072169f;
+
+// MaterialType (scene/model.py)
+enum { LAMBERTIAN = 0, MIRROR = 1, DIELECTRIC = 2, ROUGHDIELECTRIC = 3,
+       ROUGHCONDUCTOR = 4, SUBSTRATE = 5 };
+
+// table layouts (scene/flatten.py)
+constexpr int kPrimAttrs = 40;   // v0 v1 v2 | n0 n1 n2 | uv | dpdv | r0 r1 |
+                                 // type mat light ...
+constexpr int kMatAttrs = 24;    // type aU aV iIOR oIOR | k | eta | diffuse |
+                                 // specular | ...
+constexpr int kLightAttrs = 24;  // v0 v1 v2 | n0 n1 n2 | radiance | ...
+constexpr int kCamDims = 4;      // core/rng.py PSS_CAM_DIMS
+constexpr int kBounceDims = 8;   // core/rng.py PSS_BOUNCE_DIMS
+
+__device__ __forceinline__ V3 ldg3(const float* p) {
+  return mk(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+}
+
+// ---------------------------------------------------------------------------
+// Philox4x32-10 (core/rng.py): site d of lane i is word d & 3 of
+// philox(counter = (i, d >> 2, 0, 0), key = (seed, iteration)) >> 8, * 2^-24
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
+                                               uint32_t k0, uint32_t k1) {
+  uint32_t c2 = 0u, c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+__device__ __forceinline__ float bits_to_uniform(uint32_t w) {
+  return (float)(w >> 8) * (1.0f / 16777216.0f);
+}
+
+// The 8 sites of one bounce: psample rows when given, else Philox.
+struct BounceDraws {
+  float u[kBounceDims];
+};
+
+__device__ __forceinline__ void bounce_draws(BounceDraws* d, int bounce,
+                                             uint32_t lane, int lane_col,
+                                             int n, uint32_t seed,
+                                             uint32_t iteration,
+                                             const float* psample) {
+  const int base = kCamDims + bounce * kBounceDims;
+  if (psample) {
+#pragma unroll
+    for (int k = 0; k < kBounceDims; ++k)
+      d->u[k] = __ldg(psample + (size_t)(base + k) * n + lane_col);
+    return;
+  }
+  const uint4 a = philox4x32_10(lane, (uint32_t)(base >> 2), seed, iteration);
+  const uint4 b =
+      philox4x32_10(lane, (uint32_t)((base >> 2) + 1), seed, iteration);
+  d->u[0] = bits_to_uniform(a.x);
+  d->u[1] = bits_to_uniform(a.y);
+  d->u[2] = bits_to_uniform(a.z);
+  d->u[3] = bits_to_uniform(a.w);
+  d->u[4] = bits_to_uniform(b.x);
+  d->u[5] = bits_to_uniform(b.y);
+  d->u[6] = bits_to_uniform(b.z);
+  d->u[7] = bits_to_uniform(b.w);
+}
+
+// ---------------------------------------------------------------------------
+// core/vecmath.py, core/sampling.py
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float luminance(V3 c) {
+  return c.x * kLuma0 + c.y * kLuma1 + c.z * kLuma2;
+}
+__device__ __forceinline__ bool same_hemisphere(V3 a, V3 b, V3 n) {
+  return dot(a, n) * dot(b, n) > 0.f;
+}
+__device__ __forceinline__ float length(V3 v) {
+  return sqrtf(tmax(dot(v, v), 0.f));
+}
+// refract(wi, n, etai, etat), wi pointing away from the surface
+__device__ __forceinline__ V3 refract(V3 wi, V3 n, float etai, float etat) {
+  const float cosi = dot(wi, n);
+  const bool enter = cosi > 0.f;
+  const float ei = enter ? etai : etat;
+  const float et = enter ? etat : etai;
+  const float eta = ei / et;
+  const float sini2 = 1.f - cosi * cosi;
+  const float sint2 = sini2 * eta * eta;
+  const float cost = sqrtf(tmax(1.f - sint2, 0.f));
+  const float sign = enter ? -1.f : 1.f;
+  return normalize(add(scl(sub(scl(n, cosi), wi), eta), scl(n, sign * cost)));
+}
+// make_coordinate(n) -> u (w is returned through *w)
+__device__ __forceinline__ V3 make_coordinate(V3 n, V3* w_out) {
+  const bool use_x = fabsf(n.x) > fabsf(n.y);
+  const float inv_x = 1.f / sqrtf(n.x * n.x + n.z * n.z + 1e-30f);
+  const float inv_y = 1.f / sqrtf(n.y * n.y + n.z * n.z + 1e-30f);
+  const V3 w = use_x ? mk(n.z * inv_x, 0.f, -n.x * inv_x)
+                     : mk(0.f, n.z * inv_y, -n.y * inv_y);
+  *w_out = w;
+  return cross(w, n);
+}
+// (cos, sin) of 2 pi u from one transcendental
+__device__ __forceinline__ void sincos_2pi(float u, float* c, float* s) {
+  *c = cosf(kTwoPi * u);
+  const float r = sqrtf(tmax(1.f - *c * *c, 0.f));
+  *s = u <= 0.5f ? r : -r;
+}
+__device__ __forceinline__ V3 cosine_hemisphere(float u1, float u2,
+                                                float* pdf) {
+  const float st = sqrtf(tmax(u1, 0.f));
+  const float ct = sqrtf(tmax(1.f - u1, 0.f));
+  float cphi, sphi;
+  sincos_2pi(u2, &cphi, &sphi);
+  *pdf = ct * kInvPi;
+  return mk(st * cphi, ct, st * sphi);
+}
+__device__ __forceinline__ float power_heuristic(float f, float g) {
+  const float denom = f * f + g * g;
+  return denom > 0.f ? f * f / denom : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// shade/bsdf.py (radiance transport)
+// ---------------------------------------------------------------------------
+struct Mat {
+  int type;
+  float au, av, inside, outside;
+  V3 k, eta, diffuse, specular;
+};
+
+__device__ __forceinline__ Mat gather_material(const float* mats, int idx) {
+  const float* a = mats + (size_t)(idx < 0 ? 0 : idx) * kMatAttrs;
+  Mat m;
+  m.type = (int)__ldg(a);
+  m.au = __ldg(a + 1);
+  m.av = __ldg(a + 2);
+  m.inside = __ldg(a + 3);
+  m.outside = __ldg(a + 4);
+  m.k = ldg3(a + 5);
+  m.eta = ldg3(a + 8);
+  m.diffuse = ldg3(a + 11);
+  m.specular = ldg3(a + 14);
+  return m;
+}
+
+__device__ __forceinline__ bool is_delta(int t) {
+  return t == MIRROR || t == DIELECTRIC;
+}
+
+__device__ __forceinline__ float dielectric_fresnel(float cosi, float cost,
+                                                    float etai, float etat) {
+  const float d1 = etat * cosi + etai * cost;
+  const float d2 = etai * cosi + etat * cost;
+  const float rparl = (etat * cosi - etai * cost) / (fabsf(d1) > 1e-30f ? d1
+                                                                        : 1.f);
+  const float rperp = (etai * cosi - etat * cost) / (fabsf(d2) > 1e-30f ? d2
+                                                                        : 1.f);
+  return 0.5f * (rparl * rparl + rperp * rperp);
+}
+
+__device__ __forceinline__ float conduct_fresnel1(float c, float e, float k) {
+  const float tmp = (e * e + k * k) * c * c;
+  const float rparl2 =
+      (tmp - 2.f * e * c + 1.f) / (tmp + 2.f * e * c + 1.f);
+  const float tmp_f = e * e + k * k;
+  const float rperp2 =
+      (tmp_f - 2.f * e * c + c * c) / (tmp_f + 2.f * e * c + c * c);
+  return 0.5f * (rparl2 + rperp2);
+}
+__device__ __forceinline__ V3 conduct_fresnel(float c, V3 eta, V3 k) {
+  return mk(conduct_fresnel1(c, eta.x, k.x), conduct_fresnel1(c, eta.y, k.y),
+            conduct_fresnel1(c, eta.z, k.z));
+}
+
+__device__ __forceinline__ V3 schlick_fresnel(V3 spec, float costheta) {
+  const float c = 1.f - costheta;
+  const float c5 = c * c * c * c * c;
+  return mk(spec.x + c5 * (1.f - spec.x), spec.y + c5 * (1.f - spec.y),
+            spec.z + c5 * (1.f - spec.z));
+}
+
+__device__ __forceinline__ float ggx_d(V3 wh, V3 n, V3 dpdu, float au,
+                                       float av) {
+  const float costheta = dot(wh, n);
+  const float ct = tclamp(costheta, 0.f, 1.f);
+  const float ct2 = ct * ct;
+  const float st2 = 1.f - ct2;
+  const float ct4 = ct2 * ct2;
+  const float tt2 = st2 / tmax(ct2, 1e-12f);
+  const float cosphi = dot(normalize(sub(wh, scl(n, ct))), dpdu);
+  const float cosphi2 = cosphi * cosphi;
+  const float sinphi2 = 1.f - cosphi2;
+  const float sqr = 1.f + tt2 * (cosphi2 / (au * au) + sinphi2 / (av * av));
+  const float d = 1.f / (kPi * au * av * tmax(ct4 * sqr * sqr, 1e-30f));
+  return costheta > 0.f ? d : 0.f;
+}
+
+__device__ __forceinline__ float smith_g(V3 w, V3 n, V3 wh, V3 dpdu, float au,
+                                         float av) {
+  const float wdn = dot(w, n);
+  const bool ok = wdn * dot(w, wh) >= 0.f;
+  const float sintheta = sqrtf(tclamp(1.f - wdn * wdn, 0.f, 1.f));
+  const float tantheta = sintheta / (fabsf(wdn) > 1e-12f ? wdn : 1e-12f);
+  const float cosphi = dot(normalize(sub(w, scl(n, wdn))), dpdu);
+  const float cosphi2 = cosphi * cosphi;
+  const float sinphi2 = 1.f - cosphi2;
+  const float alpha2 = cosphi2 * au * au + sinphi2 * av * av;
+  const float sqr = alpha2 * tantheta * tantheta;
+  const float g = 2.f / (1.f + sqrtf(1.f + sqr));
+  return (ok && isfinite(tantheta)) ? g : 0.f;
+}
+
+__device__ __forceinline__ float ggx_g(V3 a, V3 b, V3 n, V3 wh, V3 dpdu,
+                                       float au, float av) {
+  return smith_g(a, n, wh, dpdu, au, av) * smith_g(b, n, wh, dpdu, au, av);
+}
+
+// local (+Y up) GGX half vector; aniso = the scene has an anisotropic
+// material (StaticConfig.has_aniso), which selects the tan/atan form
+__device__ __forceinline__ V3 sample_ggx(float au, float av, float u1,
+                                         float u2, bool aniso) {
+  const float denom = u1 * (au * av - 1.f) + 1.f;
+  const float ct_iso =
+      sqrtf(tclamp((1.f - u1) / tmax(denom, 1e-30f), 0.f, 1.f));
+  if (!aniso) {
+    float cphi, sphi;
+    sincos_2pi(u2, &cphi, &sphi);
+    const float st_iso = sqrtf(tclamp(1.f - ct_iso * ct_iso, 0.f, 1.f));
+    return mk(st_iso * cphi, ct_iso, st_iso * sphi);
+  }
+  const float phi_iso = kTwoPi * u2;
+  const float base = atanf(av / au * tanf(kTwoPi * u2));
+  const float phi_a =
+      u2 <= 0.25f ? base : (u2 >= 0.75f ? base + kTwoPi : base + kPi);
+  const float sinphi = sinf(phi_a);
+  const float cosphi2 = 1.f - sinphi * sinphi;
+  const float sinphi2 = sinphi * sinphi;
+  const float inv_a = 1.f / (cosphi2 / (au * au) + sinphi2 / (av * av));
+  const float theta =
+      atanf(sqrtf(tmax(inv_a * u1 / tmax(1.f - u1, 1e-12f), 0.f)));
+  const float ct_a = cosf(theta);
+  const bool iso = au == av;
+  const float costheta = iso ? ct_iso : ct_a;
+  const float phi = iso ? phi_iso : phi_a;
+  const float sintheta = sqrtf(tclamp(1.f - costheta * costheta, 0.f, 1.f));
+  return mk(sintheta * cosf(phi), costheta, sintheta * sinf(phi));
+}
+
+__device__ __forceinline__ void substrate_fr_pdf(const Mat& m, V3 wi, V3 wo,
+                                                 V3 n, V3 dpdu, V3* fr,
+                                                 float* pdf) {
+  const float c0 = fabsf(dot(wi, n));
+  const float c1 = fabsf(dot(wo, n));
+  const float cons0 = 1.f - 0.5f * c0;
+  const float cons1 = 1.f - 0.5f * c1;
+  const float k5 = (1.f - cons0 * cons0 * cons0 * cons0 * cons0) *
+                   (1.f - cons1 * cons1 * cons1 * cons1 * cons1);
+  const V3 rd = m.diffuse, rs = m.specular;
+  const V3 diffuse = mk(kSubstrateK * rd.x * (1.f - rs.x) * k5,
+                        kSubstrateK * rd.y * (1.f - rs.y) * k5,
+                        kSubstrateK * rd.z * (1.f - rs.z) * k5);
+  const V3 wh = normalize(add(wi, wo));
+  const float D = ggx_d(wh, n, dpdu, m.au, m.av);
+  const float denom = 4.f * fabsf(dot(wo, wh)) * tmax(c0, c1);
+  const float s = D / tmax(denom, 1e-12f);
+  const V3 sf = schlick_fresnel(rs, dot(wo, wh));
+  *fr = add(diffuse, mk(s * sf.x, s * sf.y, s * sf.z));
+  const float dwh = dot(wi, wh);
+  *pdf = 0.5f * (c1 * kInvPi + D * fabsf(dot(wh, n)) /
+                                   (4.f * (fabsf(dwh) > 1e-12f ? dwh : 1e-12f)));
+}
+
+// reflection / refraction scale and pdf of the rough dielectric
+__device__ __forceinline__ void rough_dielectric_lobes(
+    const Mat& m, V3 wi_in, V3 wo, V3 n, V3 wh, V3 dpdu, float ei, float et,
+    float eta, float fresnel, float f_refl, float* s_refl, float* pdf_refl,
+    float* s_refr, float* pdf_refr) {
+  const float D = ggx_d(wh, n, dpdu, m.au, m.av);
+  const float G = ggx_g(wi_in, wo, n, wh, dpdu, m.au, m.av);
+  const float abs_in_n = fabsf(dot(wi_in, n));
+  const float abs_out_n = fabsf(dot(wo, n));
+  *s_refl = f_refl * D * G / tmax(4.f * abs_in_n * abs_out_n, 1e-12f);
+  *pdf_refl = D * fabsf(dot(wh, n)) / tmax(4.f * fabsf(dot(wh, wi_in)),
+                                           1e-12f) * f_refl;
+  const float c = et * dot(wo, wh) + ei * dot(wi_in, wh);
+  const float c2 = tmax(c * c, 1e-12f);
+  float sr = ei * ei * D * G * (1.f - fresnel) * fabsf(dot(wi_in, wh)) *
+             fabsf(dot(wo, wh)) / tmax(abs_out_n * abs_in_n * c2, 1e-12f);
+  *s_refr = sr * (1.f / tmax(eta * eta, 1e-12f));
+  *pdf_refr = (1.f - fresnel) * D * fabsf(dot(wh, n)) * et * et *
+              fabsf(dot(wo, wh)) / c2;
+}
+
+// Fr dispatch (eval_bsdf): delta models give 0
+__device__ void eval_bsdf(const Mat& m, V3 wi, V3 wo, V3 nor, V3 dpdu,
+                          V3* fr, float* pdf) {
+  *fr = mk(0.f, 0.f, 0.f);
+  *pdf = 0.f;
+  if (m.type == LAMBERTIAN) {
+    if (same_hemisphere(wi, wo, nor)) {
+      *fr = scl(m.diffuse, kInvPi);
+      *pdf = fabsf(dot(wo, nor)) * kInvPi;
+    }
+  } else if (m.type == ROUGHCONDUCTOR) {
+    if (same_hemisphere(wi, wo, nor)) {
+      const V3 n = face_forward(nor, wi);
+      const V3 wh = normalize(add(wi, wo));
+      const float cosi = dot(wo, wh);
+      const float D = ggx_d(wh, n, dpdu, m.au, m.av);
+      const float G = ggx_g(wi, wo, n, wh, dpdu, m.au, m.av);
+      const V3 F = conduct_fresnel(fabsf(cosi), m.eta, m.k);
+      const float denom = 4.f * fabsf(dot(wi, n)) * fabsf(dot(wo, n));
+      *fr = scl(mul(m.specular, F), D * G / tmax(denom, 1e-12f));
+      *pdf = D * fabsf(dot(wh, n)) / tmax(4.f * fabsf(dot(wi, wh)), 1e-12f);
+    }
+  } else if (m.type == SUBSTRATE) {
+    if (same_hemisphere(wi, wo, nor))
+      substrate_fr_pdf(m, wi, wo, face_forward(nor, wi), dpdu, fr, pdf);
+  } else if (m.type == ROUGHDIELECTRIC) {
+    const V3 wi_in = wi;
+    const V3 wn = neg(wi_in);
+    const V3 n = nor;
+    const bool is_reflect = dot(wi_in, n) * dot(wo, n) > 0.f;
+    const bool enter = dot(wn, n) < 0.f;
+    const float ei = enter ? m.outside : m.inside;
+    const float et = enter ? m.inside : m.outside;
+    const V3 wh = normalize(neg(add(scl(wi_in, ei), scl(wo, et))));
+    const float eta = ei / et;
+    const float cosi = dot(wn, wh);
+    const float sint2 = eta * eta * (1.f - cosi * cosi);
+    const float cost = sqrtf(tclamp(1.f - sint2, 0.f, 1.f));
+    const float fresnel = dielectric_fresnel(fabsf(cost), fabsf(cosi), et, ei);
+    float s_refl, pdf_refl, s_refr, pdf_refr;
+    rough_dielectric_lobes(m, wi_in, wo, n, wh, dpdu, ei, et, eta, fresnel,
+                           fresnel, &s_refl, &pdf_refl, &s_refr, &pdf_refr);
+    *fr = scl(m.specular, is_reflect ? s_refl : s_refr);
+    *pdf = is_reflect ? pdf_refl : pdf_refr;
+  }
+}
+
+// SampleBSDF dispatch (sample_bsdf) -> wo, fr, pdf
+__device__ void sample_bsdf(const Mat& m, V3 wi, V3 nor, V3 dpdu, float u1,
+                            float u2, float u3, bool aniso, V3* wo, V3* fr,
+                            float* pdf) {
+  const V3 zero = mk(0.f, 0.f, 0.f);
+  *wo = zero;
+  *fr = zero;
+  *pdf = 0.f;
+  if (m.type == LAMBERTIAN) {
+    const V3 n = face_forward(nor, wi);
+    const V3 local = cosine_hemisphere(u1, u2, pdf);
+    *wo = to_world(local, dpdu, n, cross(dpdu, n));
+    *fr = scl(m.diffuse, kInvPi);
+  } else if (m.type == MIRROR) {
+    *wo = reflect(wi, nor);
+    *fr = divs(m.specular, tmax(fabsf(dot(*wo, nor)), 1e-12f));
+    *pdf = 1.f;
+  } else if (m.type == DIELECTRIC) {
+    const V3 wn = neg(wi);
+    const V3 n = nor;
+    const float cosi = dot(wn, n);
+    const bool enter = cosi < 0.f;
+    const float ei = enter ? m.outside : m.inside;
+    const float et = enter ? m.inside : m.outside;
+    const float eta = ei / et;
+    const float sint2 = eta * eta * (1.f - cosi * cosi);
+    const float cost = sqrtf(tclamp(1.f - sint2, 0.f, 1.f));
+    const bool tir = sint2 > 1.f;
+    const float fresnel = dielectric_fresnel(fabsf(cost), fabsf(cosi), et, ei);
+    const bool refr = !tir && (u1 > fresnel);
+    *wo = refr ? refract(wi, nor, m.outside, m.inside) : reflect(wi, n);
+    const float abs_cos = tmax(fabsf(dot(*wo, n)), 1e-12f);
+    const V3 base = divs(m.specular, abs_cos);
+    *fr = refr ? scl(scl(base, 1.f - fresnel), eta * eta)
+               : scl(base, tir ? 1.f : fresnel);
+    *pdf = tir ? 1.f : (refr ? 1.f - fresnel : fresnel);
+  } else if (m.type == ROUGHCONDUCTOR) {
+    const V3 n = face_forward(nor, wi);
+    const V3 wh = to_world(sample_ggx(m.au, m.av, u1, u2, aniso), dpdu, n,
+                           cross(dpdu, n));
+    *wo = reflect(wi, wh);
+    if (same_hemisphere(wi, *wo, nor)) {
+      const float cosi = dot(*wo, wh);
+      const V3 F = conduct_fresnel(fabsf(cosi), m.eta, m.k);
+      const float D = ggx_d(wh, n, dpdu, m.au, m.av);
+      const float G = ggx_g(wi, *wo, n, wh, dpdu, m.au, m.av);
+      const float denom = 4.f * fabsf(dot(wi, n)) * fabsf(dot(*wo, n));
+      *fr = scl(mul(m.specular, F), D * G / tmax(denom, 1e-12f));
+      *pdf = D * fabsf(dot(wh, n)) / tmax(4.f * fabsf(dot(wi, wh)), 1e-12f);
+    }
+  } else if (m.type == SUBSTRATE) {
+    const V3 n = face_forward(nor, wi);
+    const V3 ww = cross(dpdu, n);
+    if (u1 < 0.5f) {
+      float unused;
+      *wo = to_world(cosine_hemisphere(tmin(u1 * 2.f, 1.f), u2, &unused),
+                     dpdu, n, ww);
+    } else {
+      const float ux = tclamp((u1 - 0.5f) * 2.f, 0.f, 1.f);
+      *wo = reflect(wi, to_world(sample_ggx(m.au, m.av, ux, u2, aniso), dpdu,
+                                 n, ww));
+    }
+    if (same_hemisphere(wi, *wo, n)) substrate_fr_pdf(m, wi, *wo, n, dpdu,
+                                                      fr, pdf);
+  } else if (m.type == ROUGHDIELECTRIC) {
+    const V3 wi_in = wi;
+    const V3 wn = neg(wi_in);
+    const V3 n = nor;
+    const V3 wh = to_world(sample_ggx(m.au, m.av, u1, u2, aniso), dpdu, n,
+                           cross(dpdu, n));
+    const bool enter = dot(wn, n) < 0.f;
+    const float ei = enter ? m.outside : m.inside;
+    const float et = enter ? m.inside : m.outside;
+    const float eta = ei / et;
+    const float cosi = dot(wn, wh);
+    const float sint2 = eta * eta * (1.f - cosi * cosi);
+    const float cost = sqrtf(tclamp(1.f - sint2, 0.f, 1.f));
+    const bool tir = sint2 > 1.f;
+    const float fresnel = dielectric_fresnel(fabsf(cost), fabsf(cosi), et, ei);
+    const bool refr = !tir && (u3 > fresnel);
+    if (refr) {
+      const float sign = enter ? -1.f : 1.f;
+      *wo = normalize(add(scl(sub(wn, scl(wh, cosi)), eta),
+                          scl(wh, sign * cost)));
+    } else {
+      *wo = reflect(wi_in, wh);
+    }
+    float s_refl, pdf_refl, s_refr, pdf_refr;
+    rough_dielectric_lobes(m, wi_in, *wo, n, wh, dpdu, ei, et, eta, fresnel,
+                           tir ? 1.f : fresnel, &s_refl, &pdf_refl, &s_refr,
+                           &pdf_refr);
+    *fr = scl(m.specular, refr ? s_refr : s_refl);
+    *pdf = refr ? pdf_refr : pdf_refl;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// geom/traverse.py::_hit_attributes for one lane
+// ---------------------------------------------------------------------------
+struct Hit {
+  V3 pos, nor, dpdu;
+  int mat, light;
+};
+
+__device__ Hit hit_attributes(const float* prim_attrs, int prim, V3 ro, V3 rd,
+                              float t) {
+  const float* a = prim_attrs + (size_t)prim * kPrimAttrs;
+  const int type = (int)__ldg(a + 29);
+  const V3 v0 = ldg3(a);
+  Hit h;
+  h.pos = add(ro, scl(rd, t));
+  h.nor = mk(0.f, 0.f, 0.f);
+  h.dpdu = h.nor;
+  if (type == 0) {  // triangle: barycentrics recomputed at t
+    const V3 e1 = sub(ldg3(a + 3), v0);
+    const V3 e2 = sub(ldg3(a + 6), v0);
+    const V3 s1 = cross(rd, e2);
+    const float divisor = dot(s1, e1);
+    const float inv_div = 1.f / (fabsf(divisor) > 1e-30f ? divisor : 1.f);
+    const V3 s = sub(ro, v0);
+    const float b1 = dot(s, s1) * inv_div;
+    const V3 s2 = cross(s, e1);
+    const float b2 = dot(rd, s2) * inv_div;
+    const float w0 = 1.f - b1 - b2;
+    h.nor = normalize(add(add(scl(ldg3(a + 9), w0), scl(ldg3(a + 12), b1)),
+                          scl(ldg3(a + 15), b2)));
+    h.dpdu = normalize(cross(h.nor, ldg3(a + 24)));
+  } else if (type == 2) {  // sphere
+    h.nor = normalize(sub(h.pos, v0));
+    h.dpdu = normalize(mk((float)(-2.0 * PI_D) * h.pos.y, kTwoPi * h.pos.x,
+                          0.f));
+  } else if (type == 1) {  // line: camera-facing normal
+    h.nor = neg(rd);
+    V3 w;
+    h.dpdu = make_coordinate(h.nor, &w);
+  }
+  h.mat = (int)__ldg(a + 30);
+  h.light = (int)__ldg(a + 31);
+  return h;
+}
+
+// ---------------------------------------------------------------------------
+// shade/lights.py (area lights)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float tri_area(V3 v0, V3 v1, V3 v2) {
+  return 0.5f * length(cross(sub(v1, v0), sub(v2, v0)));
+}
+
+// light_choice_pdf: cdf[i + 1] - cdf[i], i clamped to [0, L]
+__device__ __forceinline__ float light_choice_pdf(const float* cdf, int idx,
+                                                  int n_lights) {
+  const int i = idx < 0 ? 0 : (idx > n_lights ? n_lights : idx);
+  return __ldg(cdf + i + 1) - __ldg(cdf + i);
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+struct Params {
+  const float* ro;
+  const float* rd;
+  const int32_t* lanes;
+  int n;
+  uint32_t seed, iteration;
+  const float* psample;
+  const float* dense_prims;
+  int n_prims;
+  const float* prim_attrs;
+  const float* mats;
+  const float* lights;
+  int n_lights;
+  const float* cdf;
+  int max_depth;
+  float eps;
+  bool aniso;
+  float* li_out;
+  int32_t* rays_out;
+};
+
+// Emitter radiance reached by the ray (ro, rd) that found `h`, MIS
+// weighted against prev_pdf unless `full` (pt.py::_arrival_credit).
+// Returns whether the path goes on.
+__device__ __forceinline__ bool arrival_credit(const Params& p, const Hit& h,
+                                               V3 ro, V3 rd, V3 beta,
+                                               bool full, float prev_pdf,
+                                               V3* li) {
+  if (h.light < 0) return true;
+  const int lidx = h.light;
+  const float* la = p.lights + (size_t)lidx * kLightAttrs;
+  const V3 rad = ldg3(la + 18);
+  const V3 le = dot(h.nor, neg(rd)) > 0.f ? rad : mk(0.f, 0.f, 0.f);
+  if (!is_black(le)) {
+    float w = 1.f;
+    if (!full) {
+      const float pdf_area =
+          1.f / tmax(tri_area(ldg3(la), ldg3(la + 3), ldg3(la + 6)), 1e-30f);
+      const float lchoice = light_choice_pdf(p.cdf, lidx, p.n_lights);
+      const V3 seg = sub(h.pos, ro);
+      const float len2 = dot(seg, seg);
+      const float cos_l = fabsf(dot(h.nor, rd));
+      const float l_pdf = pdf_area * len2 / tmax(cos_l, 1e-30f);
+      w = power_heuristic(prev_pdf, l_pdf * lchoice);
+    }
+    *li = add(*li, scl(mul(beta, le), w));
+  }
+  return !full;  // bounce-0 / specular emitter hits end the path
+}
+
+__global__ void __launch_bounds__(128)
+    pt_fused_kernel(Params p) {
+  extern __shared__ float4 table[];
+  stage_prims(table, p.dense_prims, p.n_prims);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+
+  const uint32_t lane = (uint32_t)p.lanes[i];
+  V3 ro = load3(p.ro + 3 * i);
+  V3 rd = load3(p.rd + 3 * i);
+  V3 li = mk(0.f, 0.f, 0.f);
+  V3 beta = mk(1.f, 1.f, 1.f);
+  bool specular = false;
+  bool alive = true;
+  float prev_pdf = 1.f;
+  int rays = 0;
+  const float inf = __int_as_float(0x7f800000);
+
+  for (int b = 0; b < p.max_depth; ++b) {
+    BounceDraws u;
+    bounce_draws(&u, b, lane, i, p.n, p.seed, p.iteration, p.psample);
+
+    // closest hit + arrival credit
+    ++rays;
+    float t;
+    const int prim = closest_loop(table, p.n_prims, ro, rd, p.eps, inf, &t);
+    if (prim < 0) {
+      alive = false;
+      break;
+    }
+    const Hit h = hit_attributes(p.prim_attrs, prim, ro, rd, t);
+    if (!arrival_credit(p, h, ro, rd, beta, specular || b == 0, prev_pdf,
+                        &li)) {
+      alive = false;
+      break;
+    }
+
+    const Mat m = gather_material(p.mats, h.mat);
+    const V3 wi = neg(rd);
+
+    // NEE: light pick, area sample, shadow ray, BSDF eval, MIS
+    if (!is_delta(m.type)) {
+      int cnt = 0;
+      for (int l = 0; l < p.n_lights + 2; ++l) cnt += __ldg(p.cdf + l) <= u.u[0];
+      int idx = cnt - 1;
+      idx = idx < 0 ? 0 : (idx > p.n_lights ? p.n_lights : idx);
+      const float choice_pdf = light_choice_pdf(p.cdf, idx, p.n_lights);
+      const float* la =
+          p.lights + (size_t)(idx < p.n_lights ? idx : p.n_lights - 1) *
+                         kLightAttrs;
+      const V3 v0 = ldg3(la), v1 = ldg3(la + 3), v2 = ldg3(la + 6);
+      const float su1 = sqrtf(tmax(u.u[1], 0.f));
+      const float bu = 1.f - su1;
+      const float bv = u.u[2] * su1;
+      const float bw = 1.f - bu - bv;
+      const V3 lp = add(add(scl(v0, bu), scl(v1, bv)), scl(v2, bw));
+      const V3 lnor = normalize(add(add(scl(ldg3(la + 9), bu),
+                                        scl(ldg3(la + 12), bv)),
+                                    scl(ldg3(la + 15), bw)));
+      const V3 d = sub(lp, h.pos);
+      const float dist2 = dot(d, d);
+      const V3 nd = normalize(d);
+      const float cos_l = fabsf(dot(lnor, nd));
+      float light_pdf = dist2 / tmax(tri_area(v0, v1, v2) * cos_l, 1e-30f);
+      if (dot(lnor, d) >= 0.f) light_pdf = 0.f;
+      const V3 rad = light_pdf != 0.f ? ldg3(la + 18) : mk(0.f, 0.f, 0.f);
+      if (!is_black(rad) && light_pdf > 0.f) {
+        ++rays;
+        const float st = sqrtf(tmax(dist2 - p.eps, 0.f));
+        if (!any_loop(table, p.n_prims, h.pos, nd, p.eps, st)) {
+          V3 fr;
+          float sample_pdf;
+          eval_bsdf(m, wi, nd, h.nor, h.dpdu, &fr, &sample_pdf);
+          const float denom = light_pdf * choice_pdf;
+          const float weight = power_heuristic(denom, sample_pdf);
+          const float cos_s = fabsf(dot(h.nor, nd));
+          const float dm = tmax(denom, 1e-30f);
+          const V3 ld = mk(weight * fr.x * rad.x * cos_s / dm,
+                           weight * fr.y * rad.y * cos_s / dm,
+                           weight * fr.z * rad.z * cos_s / dm);
+          li = add(li, mul(beta, ld));
+        }
+      }
+    }
+
+    // BSDF sample: continuation ray + MIS pdf
+    V3 wo, fr;
+    float pdf;
+    sample_bsdf(m, wi, h.nor, h.dpdu, u.u[3], u.u[4], u.u[5], p.aniso, &wo,
+                &fr, &pdf);
+    if (is_black(fr) || pdf <= 0.f) {
+      alive = false;
+      break;
+    }
+    const float cos_o = fabsf(dot(h.nor, wo));
+    const float pm = tmax(pdf, 1e-30f);
+    beta = mk(beta.x * fr.x * cos_o / pm, beta.y * fr.y * cos_o / pm,
+              beta.z * fr.z * cos_o / pm);
+    specular = is_delta(m.type);
+    prev_pdf = pdf;
+    ro = h.pos;
+    rd = wo;
+
+    // Russian roulette after bounce 3
+    if (b > 3) {
+      const float illumate = tclamp(1.f - luminance(beta), 0.f, 1.f);
+      if (u.u[6] < illumate) {
+        alive = false;
+        break;
+      }
+      beta = scl(beta, 1.f / tmax(1.f - illumate, 1e-30f));
+    }
+  }
+  if (alive) {
+    // epilogue: the last continuation ray's emitter credit
+    ++rays;
+    float t;
+    const int prim = closest_loop(table, p.n_prims, ro, rd, p.eps, inf, &t);
+    if (prim >= 0) {
+      const Hit h = hit_attributes(p.prim_attrs, prim, ro, rd, t);
+      arrival_credit(p, h, ro, rd, beta, specular, prev_pdf, &li);
+    }
+  }
+
+  // NaN/Inf guard: a poisoned lane is zeroed
+  if (!finite3(li)) li = mk(0.f, 0.f, 0.f);
+  store3(p.li_out + 3 * i, li);
+  p.rays_out[i] = rays;
+}
+
+}  // namespace
+
+// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int pt_fused(const float* ro, const float* rd,
+                        const int32_t* lanes, int n, uint32_t seed,
+                        uint32_t iteration, const float* psample,
+                        const float* dense_prims,
+                        int n_prims, const float* prim_attrs,
+                        const float* mat_attrs, const float* light_attrs,
+                        int n_lights, const float* light_cdf, int max_depth,
+                        float eps, int aniso, float* li_out,
+                        int32_t* rays_out, void* stream) {
+  Params p;
+  p.ro = ro;
+  p.rd = rd;
+  p.lanes = lanes;
+  p.n = n;
+  p.seed = seed;
+  p.iteration = iteration;
+  p.psample = psample;
+  p.dense_prims = dense_prims;
+  p.n_prims = n_prims;
+  p.prim_attrs = prim_attrs;
+  p.mats = mat_attrs;
+  p.lights = light_attrs;
+  p.n_lights = n_lights;
+  p.cdf = light_cdf;
+  p.max_depth = max_depth;
+  p.eps = eps;
+  p.aniso = aniso != 0;
+  p.li_out = li_out;
+  p.rays_out = rays_out;
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  const size_t smem = sizeof(float4) * 4 * (size_t)n_prims;
+  pt_fused_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,165 @@
+"""Wavefront path tracer (the reference Path kernel, pathtracer.cu:880-1021).
+
+The port of gpu_pathtracer_tpu/integrators/pt.py for the dense regime.
+Per bounce: closest hit -> arrival credit (emitter hit, MIS against the
+previous BSDF pdf) -> NEE -> BSDF sample (continuation + MIS pdf) ->
+Russian roulette after bounce 3; an epilogue intersection collects the
+last bounce's arrival credit. Lane state is a set of [N] / [N, 3]
+tensors; dead lanes are masked, never compacted, so lane i's draws
+depend on lane i alone.
+
+Random numbers: site d of lane i (lane id = pixel index) comes from the
+Philox stream of core/rng.py, or from row d of an explicit
+primary-sample matrix `psample [4 + 8 * max_depth, N]`; the megakernel
+(integrators/pt_fused.py) reads the very same sites.
+
+Routing follows the JAX package: on CUDA tensors `render_lanes` hands
+every scene that `pt_fused.supports` admits to the megakernel, the rest
+run this wavefront over the dense-hit kernel; on CPU tensors the
+wavefront runs over the plain intersection.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpu_pathtracer_tpu_torch.core.rng import (
+    PSS_BOUNCE_DIMS, PSS_CAM_DIMS, lane_stream,
+)
+from gpu_pathtracer_tpu_torch.core.sampling import power_heuristic
+from gpu_pathtracer_tpu_torch.core.vecmath import dot, is_black, luminance
+from gpu_pathtracer_tpu_torch.geom import traverse
+from gpu_pathtracer_tpu_torch.integrators.common import (
+    direct_light_nee, primary_rays,
+)
+from gpu_pathtracer_tpu_torch.shade import bsdf as bsdf_mod
+from gpu_pathtracer_tpu_torch.shade import lights as lights_mod
+
+
+def lane_ids_of(static, pixel_x, pixel_y):
+    """The lane id that keys every random site: the pixel index."""
+    return pixel_y.long() * static.width + pixel_x.long()
+
+
+def _arrival_credit(scene, static, hit, ro, rd, li, beta, specular,
+                    prev_pdf, alive, first: bool):
+    """Emitter radiance reached by the continuation ray, MIS-weighted
+    against the BSDF pdf that generated it (pathtracer.cu:906-922,
+    953-992 folded). Returns (li, alive)."""
+    full = specular | first
+    alive = alive & hit.valid
+    if static.n_lights > 0:
+        lidx = torch.clamp_min(hit.light_idx, 0)
+        emitter = alive & (hit.light_idx >= 0)
+        le = lights_mod.area_light_le(scene, hit.light_idx, hit.nor, -rd)
+        pdf_area, _ = lights_mod.area_light_pdf(scene, lidx, rd, hit.nor)
+        lchoice = lights_mod.light_choice_pdf(scene, lidx)
+        seg = hit.pos - ro
+        len2 = dot(seg, seg)
+        cos_l = torch.abs(dot(hit.nor, rd))
+        l_pdf = pdf_area * len2 / torch.clamp_min(cos_l, 1e-30)
+        w = torch.where(full, 1.0, power_heuristic(prev_pdf, l_pdf * lchoice))
+        emitter = emitter & ~is_black(le)
+        li = li + torch.where(emitter[:, None], beta * le * w[:, None], 0.0)
+        # bounce-0 / specular emitter hits end the path (pathtracer.cu:
+        # 917-922); MIS-credited hits continue
+        alive = alive & ~((hit.light_idx >= 0) & full)
+    return li, alive
+
+
+def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
+                 with_stats: bool = False, psample=None):
+    """Per-lane radiance [N, 3] for one path-traced sample per lane.
+
+    with_stats=True also returns the rays traced (closest hits + shadow
+    rays) as a 0-d int64 tensor on the lanes' device."""
+    from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    if pixel_x.is_cuda and pt_fused.supports(static):
+        return pt_fused.render_lanes(scene, static, seed, iteration, pixel_x,
+                                     pixel_y, with_stats, psample)
+    return wavefront(scene, static, seed, iteration, pixel_x, pixel_y,
+                     with_stats, psample, plain=False)
+
+
+def wavefront(scene, static, seed, iteration, pixel_x, pixel_y,
+              with_stats=False, psample=None, plain=False):
+    """The wavefront estimator; `plain` runs it over the plain PyTorch
+    intersection on any device (the megakernel's reference)."""
+    lanes = lane_ids_of(static, pixel_x, pixel_y)
+    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS)
+    ro, rd = primary_rays(scene, static, rng0, pixel_x, pixel_y)
+    return trace_paths(scene, static, seed, iteration, lanes, ro, rd,
+                       with_stats, psample, plain)
+
+
+def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
+                with_stats=False, psample=None, plain=False):
+    """The wavefront's bounces from given primary rays: the part of the
+    estimator that the megakernel (pt_fused.fused_call) replaces."""
+    n = ro.shape[0]
+    dev = ro.device
+    eps = scene.epsilon
+
+    li = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    specular = torch.zeros(n, dtype=torch.bool, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    prev_pdf = torch.ones(n, dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+
+    for b in range(static.max_depth):
+        rng = lane_stream(seed, iteration, lanes, psample,
+                          PSS_CAM_DIMS + b * PSS_BOUNCE_DIMS, PSS_BOUNCE_DIMS)
+        rays = rays + alive.sum()
+        hit = traverse.intersect_closest(
+            scene, static, ro, rd, eps, torch.where(alive, torch.inf, eps),
+            plain)
+        li, alive = _arrival_credit(scene, static, hit, ro, rd, li, beta,
+                                    specular, prev_pdf, alive, b == 0)
+
+        mat = bsdf_mod.gather_materials(scene, static, hit.mat_idx)
+        wi = -rd
+        not_delta = ~bsdf_mod.is_delta(mat.type)
+
+        # NEE light-sample branch (pathtracer.cu:925-951)
+        ld, lit, shadow = direct_light_nee(scene, static, rng, hit.pos,
+                                           hit.nor, hit.dpdu, mat, wi,
+                                           alive & not_delta, plain)
+        li = li + torch.where(lit[:, None], beta * ld, 0.0)
+        rays = rays + shadow.sum()
+
+        # one BSDF sample: continuation + MIS pdf (pathtracer.cu:997-1008)
+        u1, u2, u3 = rng.uniform3()
+        wo, fr, pdf = bsdf_mod.sample_bsdf(
+            mat, wi, hit.nor, hit.dpdu, u1, u2, u3, static.material_types)
+        alive = alive & ~(is_black(fr) | (pdf <= 0.0))
+        beta_next = beta * fr * torch.abs(dot(hit.nor, wo))[:, None] \
+            / torch.clamp_min(pdf, 1e-30)[:, None]
+        beta = torch.where(alive[:, None], beta_next, beta)
+        specular = torch.where(alive, bsdf_mod.is_delta(mat.type), specular)
+        prev_pdf = torch.where(alive, pdf, prev_pdf)
+        ro = torch.where(alive[:, None], hit.pos, ro)
+        rd = torch.where(alive[:, None], wo, rd)
+
+        # Russian roulette after bounce 3 (pathtracer.cu:1010-1016)
+        u_rr = rng.uniform()
+        if b > 3:
+            illumate = torch.clamp(1.0 - luminance(beta), 0.0, 1.0)
+            alive = alive & ~(u_rr < illumate)
+            rr_scale = 1.0 / torch.clamp_min(1.0 - illumate, 1e-30)
+            beta = torch.where(alive[:, None], beta * rr_scale[:, None],
+                               beta)
+
+    # epilogue: the last continuation ray's emitter credit
+    rays = rays + alive.sum()
+    hit = traverse.intersect_closest(
+        scene, static, ro, rd, eps, torch.where(alive, torch.inf, eps), plain)
+    li, _ = _arrival_credit(scene, static, hit, ro, rd, li, beta, specular,
+                            prev_pdf, alive, False)
+
+    # NaN/Inf guard (pathtracer.cu:1019-1020): poisoned lanes are zeroed
+    bad = ~torch.isfinite(li).all(dim=-1)
+    li = torch.where(bad[:, None], 0.0, li)
+    if with_stats:
+        return li, rays
+    return li

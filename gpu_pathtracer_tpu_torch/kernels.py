@@ -1,0 +1,122 @@
+"""Build the port's CUDA kernels (csrc/*.cu) and count their launches.
+
+Each kernel source is compiled by `nvcc` into its own shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so a
+build takes seconds). The build runs at first use, into `build/` at the
+root of the checkout, keyed by a hash of the csrc/ sources and the
+flags, so a changed source is rebuilt and an unchanged one is reused.
+There is no fallback: a missing `nvcc`, a failed build or a failed load
+raises.
+
+`-fmad=false` keeps nvcc from contracting a*b+c into one fused
+multiply-add: the kernels then round every operation like the plain
+PyTorch versions beside them, which is what lets them be held to those
+versions lane by lane. No fast-math flag is given, so division and sqrt
+are IEEE-rounded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+
+@dataclass
+class KernelStats:
+    """Counters one kernel's wrapper keeps: `launches` counts kernel
+    launches, `plain_cuda` counts calls of its plain PyTorch version on
+    CUDA tensors (the reference path, never the main path)."""
+    launches: int = 0
+    plain_cuda: int = 0
+
+
+@dataclass
+class BuildInfo:
+    path: str
+    seconds: float      # 0.0 when the library was already built
+    ptxas: str          # nvcc's -Xptxas -v report (registers, spills)
+
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILDS: dict[str, BuildInfo] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built on this machine")
+    return found
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (once) and load csrc/<name>.cu as build/<name>-<hash>.so."""
+    if name in _LIBS:
+        return _LIBS[name]
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    so = BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+    seconds, ptxas = 0.0, ""
+    if not so.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        os.replace(tmp, so)
+        ptxas = proc.stderr
+    lib = ctypes.CDLL(str(so))
+    _LIBS[name] = lib
+    BUILDS[name] = BuildInfo(str(so), seconds, ptxas)
+    return lib
+
+
+def check_launch(rc: int, kernel: str) -> None:
+    """Raise on a non-zero cudaGetLastError() returned by a launcher."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
+
+
+def check_cuda_f32(name: str, t: torch.Tensor, shape: tuple,
+                   device: torch.device) -> None:
+    """Raise unless `t` is a contiguous float32 tensor of `shape` (None
+    entries are free) on the CUDA `device`."""
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")

@@ -1,0 +1,99 @@
+"""Progressive renderer: one `render_iteration` adds one sample per pixel.
+
+The port of gpu_pathtracer_tpu/run/renderer.py for the "pixel" kind
+(path tracing). Pixels are processed in tiles of `tile_size` lanes; the
+film accumulates in a [W*H, 3] tensor on `device`. Every random site is
+keyed by (seed, iteration, pixel index), so the image does not depend on
+the tile size.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpu_pathtracer_tpu_torch.film import film as film_mod
+from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
+from gpu_pathtracer_tpu_torch.scene.model import HostScene, IntegratorType
+from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+
+DEFAULT_TILE = 1 << 20
+
+
+def lane_program(integrator: IntegratorType):
+    """Integrator dispatch: the per-pixel lane program. Only path tracing
+    is ported."""
+    from gpu_pathtracer_tpu_torch.integrators import pt
+    if integrator == IntegratorType.PT:
+        return pt.render_lanes
+    raise NotImplementedError(
+        f"integrator {integrator.name} is not ported yet (ROADMAP.md, "
+        f"still to port: item 4)")
+
+
+def resolve_device(device) -> torch.device:
+    """The device to render on; a CUDA device that is absent raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda."
+                           "is_available() is false")
+    return device
+
+
+class Renderer:
+    def __init__(self, scene: HostScene | str, tile_size: int = DEFAULT_TILE,
+                 seed: int = 0, integrator: IntegratorType | None = None,
+                 max_depth: int | None = None, device="cuda"):
+        if isinstance(scene, str):
+            scene = load_scene(scene)
+        self.device = resolve_device(device)
+        self.host = scene
+        self.device_scene, self.static = flatten_scene(scene, self.device)
+        import dataclasses
+        repl = {}
+        if integrator is not None:
+            repl["integrator"] = integrator
+        if max_depth is not None:
+            repl["max_depth"] = max_depth
+        if repl:
+            self.static = dataclasses.replace(self.static, **repl)
+        self.width = self.static.width
+        self.height = self.static.height
+        self.seed = seed
+        self._program = lane_program(self.static.integrator)
+        n = self.width * self.height
+        self.tile_size = min(tile_size, n)
+        ids = torch.arange(n, device=self.device, dtype=torch.int32)
+        # y = 0 is the bottom row, like the reference's GL-oriented film
+        self._px = ids % self.width
+        self._py = ids // self.width
+        self.acc = torch.zeros((n, 3), dtype=torch.float32,
+                               device=self.device)
+        self.rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.iteration = 0
+
+    def render_iteration(self) -> None:
+        """Add one sample per pixel to the film (no host synchronisation)."""
+        self.iteration += 1
+        n = self.acc.shape[0]
+        for t0 in range(0, n, self.tile_size):
+            t1 = min(t0 + self.tile_size, n)
+            li, rays = self._program(
+                self.device_scene, self.static, self.seed, self.iteration,
+                self._px[t0:t1], self._py[t0:t1], with_stats=True)
+            self.acc[t0:t1] += li
+            self.rays += rays
+
+    def render(self, spp: int):
+        for _ in range(spp):
+            self.render_iteration()
+        return self.image()
+
+    def radiance(self):
+        """Mean radiance film [H, W, 3] numpy (row 0 = bottom)."""
+        acc = (self.acc / max(self.iteration, 1)).cpu().numpy()
+        return acc.reshape(self.height, self.width, 3)
+
+    def image(self):
+        """Tonemapped display image [H, W, 3] numpy (row 0 = bottom)."""
+        img = film_mod.tonemap(self.acc, self.iteration, self.static.filmic)
+        return img.cpu().numpy().reshape(self.height, self.width, 3)

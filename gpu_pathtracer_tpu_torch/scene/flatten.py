@@ -1,0 +1,505 @@
+"""Flatten a HostScene + BVH into device tensors.
+
+The port of gpu_pathtracer_tpu/scene/flatten.py (flatten.py:403-916) for
+the fields the path-tracing slice reads: geometry, the BVH node arrays,
+materials, area lights and their pick CDF, the camera, the world sphere
+and the packed tables the kernels take (`dense_prims`, `fused_attrs`,
+`mat_attrs`, `light_attrs`, plus `prim_attrs` and `block_bbox`). The
+numpy table code is the JAX package's, so both packages compute on the
+same values. Textures, environment lights, media, BSSRDFs and the
+BVH8/TLAS tables are not ported yet: a scene that needs them raises
+NotImplementedError naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from gpu_pathtracer_tpu_torch.geom.bvh import build_bvh
+from gpu_pathtracer_tpu_torch.geom.dense_cuda import DENSE_MAX
+from gpu_pathtracer_tpu_torch.scene.model import (
+    GeometryType, HostScene, IntegratorType,
+)
+from gpu_pathtracer_tpu_torch.scene.parse import (
+    ROADMAP_MEDIA, ROADMAP_TEXTURES,
+)
+
+LUMA64 = np.array([0.212671, 0.715160, 0.072169])
+BLOCK = 64        # prims per culling block (block_bbox rows)
+
+
+@dataclass
+class DeviceCamera:
+    """Camera record (camera.h:8-46, precomputed film constants)."""
+    position: torch.Tensor      # [3]
+    u: torch.Tensor             # [3]
+    v: torch.Tensor             # [3]
+    w: torch.Tensor             # [3]
+    resolution: torch.Tensor    # [2] (x, y)
+    distance: torch.Tensor      # 0-d
+    half_w: torch.Tensor        # 0-d: film half-width at `distance`
+    half_h: torch.Tensor        # 0-d
+    pixel2screen: torch.Tensor  # [2]
+    ratio: torch.Tensor         # 0-d: focalDistance / distance
+    area: torch.Tensor          # 0-d: 4*half_w*half_h
+    aperture: torch.Tensor      # 0-d
+    focal: torch.Tensor         # 0-d
+
+
+@dataclass
+class DeviceScene:
+    """The slice's scene tensors, all on `device` (layouts as the JAX
+    package's DeviceScene)."""
+    device: torch.device
+
+    node_bbox_min: torch.Tensor      # [Nn, 3]
+    node_bbox_max: torch.Tensor      # [Nn, 3]
+    node_second_child: torch.Tensor  # [Nn] i32 (-1 for leaves)
+    node_start: torch.Tensor         # [Nn] i32
+    node_end: torch.Tensor           # [Nn] i32 (inclusive)
+
+    # primitives, leaf-contiguous BVH order
+    prim_type: torch.Tensor          # [P] i32 (GeometryType)
+    v0: torch.Tensor                 # [P, 3] tri v0 | line p0 | centre
+    v1: torch.Tensor                 # [P, 3] tri v1 | line p1
+    v2: torch.Tensor                 # [P, 3] tri v2
+    n0: torch.Tensor                 # [P, 3]
+    n1: torch.Tensor                 # [P, 3]
+    n2: torch.Tensor                 # [P, 3]
+    uv0: torch.Tensor                # [P, 2]
+    uv1: torch.Tensor                # [P, 2]
+    uv2: torch.Tensor                # [P, 2]
+    dpdv_unit: torch.Tensor          # [P, 3] shading-frame column
+    radius0: torch.Tensor            # [P] sphere radius | line width0
+    radius1: torch.Tensor            # [P] line width1
+    mat_idx: torch.Tensor            # [P] i32
+    light_idx: torch.Tensor          # [P] i32
+    bssrdf_idx: torch.Tensor         # [P] i32
+    medium_inside: torch.Tensor      # [P] i32
+    medium_outside: torch.Tensor     # [P] i32
+
+    m_type: torch.Tensor             # [M] i32
+    m_alpha_u: torch.Tensor          # [M]
+    m_alpha_v: torch.Tensor          # [M]
+    m_inside_ior: torch.Tensor       # [M]
+    m_outside_ior: torch.Tensor      # [M]
+    m_k: torch.Tensor                # [M, 3]
+    m_eta: torch.Tensor              # [M, 3]
+    m_diffuse: torch.Tensor          # [M, 3]
+    m_specular: torch.Tensor         # [M, 3]
+
+    l_v0: torch.Tensor               # [L, 3]
+    l_v1: torch.Tensor               # [L, 3]
+    l_v2: torch.Tensor               # [L, 3]
+    l_n0: torch.Tensor               # [L, 3]
+    l_n1: torch.Tensor               # [L, 3]
+    l_n2: torch.Tensor               # [L, 3]
+    l_radiance: torch.Tensor         # [L, 3]
+    l_medium: torch.Tensor           # [L] i32
+    light_cdf: torch.Tensor          # [L + 2] normalized power CDF
+
+    world_center: torch.Tensor       # [3] scene bounding-sphere centre
+    world_radius: float
+
+    # [Pp, 16]: v0(3) a(3) b(3) type r0 r1 prim_idx pad(3); a/b = e1/e2
+    # for triangles, p1/- for lines; type -1 on the pad rows
+    dense_prims: torch.Tensor
+    block_bbox: torch.Tensor         # [nb, 8]: min(3) max(3) pad(2)
+    # [P, 40]: v0 v1 v2 | n0 n1 n2 | uv0 uv1 uv2 | dpdv | r0 r1 |
+    #   type mat light bssrdf med_in med_out | pad
+    prim_attrs: torch.Tensor
+    # [Pp, 16]: n0(3) n1(3) n2(3) dpdv(3) mat light type pad
+    fused_attrs: torch.Tensor
+    # [M, 24]: type aU aV iIOR oIOR | k | eta | diffuse | specular | pad
+    mat_attrs: torch.Tensor
+    # [L, 24]: v0 v1 v2 | n0 n1 n2 | radiance | medium | area | pick pdf
+    light_attrs: torch.Tensor
+
+    camera: DeviceCamera
+    epsilon: float                   # ray offset (pathtracer.cu:38)
+
+
+@dataclass(frozen=True)
+class StaticConfig:
+    """Scene facts the integrators branch on (hashable)."""
+    width: int
+    height: int
+    integrator: IntegratorType
+    max_depth: int
+    n_lights: int
+    has_triangles: bool
+    has_spheres: bool
+    has_lines: bool
+    has_aniso: bool
+    filmic: bool
+    environment_camera: bool
+    n_primitives: int
+    n_nodes: int
+    material_types: tuple  # sorted tuple of MaterialType ints present
+
+
+def _tri_dpdv(pos: np.ndarray, uv: np.ndarray) -> np.ndarray:
+    """Per-triangle dpdv column of the shading frame (mesh.h:69-91);
+    MakeCoordinate's `w` of the geometric normal when the uv determinant
+    is degenerate."""
+    e1 = pos[:, 1] - pos[:, 0]
+    e2 = pos[:, 2] - pos[:, 0]
+    duv1 = uv[:, 1] - uv[:, 0]
+    duv2 = uv[:, 2] - uv[:, 0]
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    ok = np.abs(det) >= 1e-8
+    inv = 1.0 / np.where(ok, det, 1.0)
+    dpdv = (-duv2[:, 0:1] * e1 + duv1[:, 0:1] * e2) * inv[:, None]
+
+    nn = np.cross(e1, e2)
+    nn /= np.maximum(np.linalg.norm(nn, axis=-1, keepdims=True), 1e-30)
+    use_x = np.abs(nn[:, 0]) > np.abs(nn[:, 1])
+    inv_x = 1.0 / np.sqrt(nn[:, 0] ** 2 + nn[:, 2] ** 2 + 1e-30)
+    wx = np.stack([nn[:, 2] * inv_x, np.zeros_like(inv_x),
+                   -nn[:, 0] * inv_x], -1)
+    inv_y = 1.0 / np.sqrt(nn[:, 1] ** 2 + nn[:, 2] ** 2 + 1e-30)
+    wy = np.stack([np.zeros_like(inv_y), nn[:, 2] * inv_y,
+                   -nn[:, 1] * inv_y], -1)
+    w = np.where(use_x[:, None], wx, wy)
+
+    out = np.where(ok[:, None], dpdv, w)
+    ln = np.linalg.norm(out, axis=-1, keepdims=True)
+    return (out / np.maximum(ln, 1e-30)).astype(np.float32)
+
+
+def _prim_bboxes(scene: HostScene):
+    """Per-primitive AABBs for the BVH build."""
+    n = len(scene.primitives)
+    bmin = np.empty((n, 3), np.float32)
+    bmax = np.empty((n, 3), np.float32)
+    for i, p in enumerate(scene.primitives):
+        if p.type == GeometryType.TRIANGLE:
+            tri = scene.tri_positions[p.tri_index]
+            bmin[i] = tri.min(axis=0)
+            bmax[i] = tri.max(axis=0)
+        elif p.type == GeometryType.SPHERE:
+            bmin[i] = p.center - p.radius
+            bmax[i] = p.center + p.radius
+        else:  # LINE (line.h:15-25)
+            w = max(p.width0, p.width1)
+            bmin[i] = np.minimum(p.p0, p.p1) - w
+            bmax[i] = np.maximum(p.p0, p.p1) + w
+    return bmin, bmax
+
+
+def _check_supported(scene: HostScene) -> None:
+    if scene.textures:
+        raise NotImplementedError(
+            "textured materials are not ported yet " + ROADMAP_TEXTURES)
+    if scene.infinite is not None:
+        raise NotImplementedError(
+            "environment lights are not ported yet " + ROADMAP_TEXTURES)
+    if scene.mediums:
+        raise NotImplementedError(
+            "participating media are not ported yet " + ROADMAP_MEDIA)
+    if scene.bssrdfs:
+        raise NotImplementedError(
+            "BSSRDF materials are not ported yet " + ROADMAP_MEDIA)
+
+
+def flatten_numpy(scene: HostScene) -> tuple[dict, dict]:
+    """HostScene -> (arrays, static): the DeviceScene fields as numpy
+    arrays (camera fields under "camera") and the StaticConfig fields."""
+    _check_supported(scene)
+    bmin, bmax = _prim_bboxes(scene)
+    bvh = build_bvh(bmin, bmax)
+    order = bvh.prim_order
+    P = order.shape[0]
+
+    prim_type = np.zeros(P, np.int32)
+    v0 = np.zeros((P, 3), np.float32)
+    v1 = np.zeros((P, 3), np.float32)
+    v2 = np.zeros((P, 3), np.float32)
+    n0 = np.zeros((P, 3), np.float32)
+    n1 = np.zeros((P, 3), np.float32)
+    n2 = np.zeros((P, 3), np.float32)
+    uv0 = np.zeros((P, 2), np.float32)
+    uv1 = np.zeros((P, 2), np.float32)
+    uv2 = np.zeros((P, 2), np.float32)
+    radius0 = np.zeros(P, np.float32)
+    radius1 = np.zeros(P, np.float32)
+    mat_idx = np.full(P, -1, np.int32)
+    light_idx = np.full(P, -1, np.int32)
+    bssrdf_idx = np.full(P, -1, np.int32)
+    medium_inside = np.full(P, -1, np.int32)
+    medium_outside = np.full(P, -1, np.int32)
+
+    tri_rows = []
+    tri_slots = []
+    for slot, pi in enumerate(order):
+        p = scene.primitives[pi]
+        prim_type[slot] = int(p.type)
+        mat_idx[slot] = p.matIdx
+        light_idx[slot] = p.lightIdx
+        bssrdf_idx[slot] = p.bssrdfIdx
+        medium_inside[slot] = p.mediumInside
+        medium_outside[slot] = p.mediumOutside
+        if p.type == GeometryType.TRIANGLE:
+            tri_rows.append(p.tri_index)
+            tri_slots.append(slot)
+        elif p.type == GeometryType.SPHERE:
+            v0[slot] = p.center
+            radius0[slot] = p.radius
+        else:
+            v0[slot] = p.p0
+            v1[slot] = p.p1
+            radius0[slot] = p.width0
+            radius1[slot] = p.width1
+
+    dpdv = np.zeros((P, 3), np.float32)
+    if tri_rows:
+        tr = np.asarray(tri_rows)
+        ts = np.asarray(tri_slots)
+        pos = scene.tri_positions[tr]
+        nor = scene.tri_normals[tr]
+        uvs = scene.tri_uvs[tr]
+        v0[ts], v1[ts], v2[ts] = pos[:, 0], pos[:, 1], pos[:, 2]
+        n0[ts], n1[ts], n2[ts] = nor[:, 0], nor[:, 1], nor[:, 2]
+        uv0[ts], uv1[ts], uv2[ts] = uvs[:, 0], uvs[:, 1], uvs[:, 2]
+        dpdv[ts] = _tri_dpdv(pos, uvs)
+
+    # ---- materials ----------------------------------------------------
+    M = max(len(scene.materials), 1)
+    m_type = np.zeros(M, np.int32)
+    m_alpha_u = np.full(M, 0.01, np.float32)
+    m_alpha_v = np.full(M, 0.01, np.float32)
+    m_inside = np.ones(M, np.float32)
+    m_outside = np.ones(M, np.float32)
+    m_k = np.zeros((M, 3), np.float32)
+    m_eta = np.zeros((M, 3), np.float32)
+    m_diffuse = np.ones((M, 3), np.float32)
+    m_specular = np.ones((M, 3), np.float32)
+    for i, m in enumerate(scene.materials):
+        m_type[i] = int(m.type)
+        m_alpha_u[i] = m.alphaU
+        m_alpha_v[i] = m.alphaV
+        m_inside[i] = m.insideIOR
+        m_outside[i] = m.outsideIOR
+        m_k[i] = m.k
+        m_eta[i] = m.eta
+        m_diffuse[i] = m.diffuse
+        m_specular[i] = m.specular
+
+    # ---- lights -------------------------------------------------------
+    L = max(len(scene.lights), 1)
+    l_v0 = np.zeros((L, 3), np.float32)
+    l_v1 = np.zeros((L, 3), np.float32)
+    l_v2 = np.zeros((L, 3), np.float32)
+    l_n0 = np.zeros((L, 3), np.float32)
+    l_n1 = np.zeros((L, 3), np.float32)
+    l_n2 = np.zeros((L, 3), np.float32)
+    l_rad = np.zeros((L, 3), np.float32)
+    l_med = np.full(L, -1, np.int32)
+    for i, lt in enumerate(scene.lights):
+        l_v0[i], l_v1[i], l_v2[i] = scene.tri_positions[lt.tri_index]
+        l_n0[i], l_n1[i], l_n2[i] = scene.tri_normals[lt.tri_index]
+        l_rad[i] = lt.radiance
+        l_med[i] = lt.medium
+
+    # world bounding sphere from the BVH root box (bbox.h:98-101)
+    rb_min, rb_max = bvh.root_box
+    center = 0.5 * (rb_min + rb_max)
+    radius = float(np.linalg.norm(rb_max - center))
+
+    # light-pick CDF (scene.h:64-82)
+    powers = []
+    for i, lt in enumerate(scene.lights):
+        area = 0.5 * np.linalg.norm(np.cross(l_v1[i] - l_v0[i],
+                                             l_v2[i] - l_v0[i]))
+        powers.append(float(LUMA64 @ (lt.radiance * area * np.pi)))
+    cdf = np.zeros(L + 2, np.float64)
+    if powers:
+        cs = np.cumsum(powers)
+        total = cs[-1] if cs[-1] > 0 else 1.0
+        cdf[1:1 + len(powers)] = cs / total
+        cdf[1 + len(powers):] = 1.0
+
+    # ---- camera (camera.h:31-46, distance=0.1 per main.cpp:270) -------
+    cam = scene.camera
+    half_h = np.tan(np.deg2rad(0.5 * cam.fov)) * cam.distance
+    half_w = half_h * scene.width / scene.height
+    f32 = np.float32
+    camera = dict(
+        position=np.asarray(cam.position, f32), u=np.asarray(cam.u, f32),
+        v=np.asarray(cam.v, f32), w=np.asarray(cam.w, f32),
+        resolution=np.asarray([scene.width, scene.height], f32),
+        distance=f32(cam.distance), half_w=f32(half_w), half_h=f32(half_h),
+        pixel2screen=np.asarray([2.0 * half_w / scene.width,
+                                 2.0 * half_h / scene.height], f32),
+        ratio=f32(cam.focalDistance / cam.distance),
+        area=f32(4.0 * half_w * half_h), aperture=f32(cam.apertureRadius),
+        focal=f32(cam.focalDistance))
+
+    # dense-intersection table (type -1 pad rows never match); the row
+    # counts follow the JAX package so the tables compare field by field
+    Pp = (P + 7) // 8 * 8 if P <= DENSE_MAX else (P + 63) // 64 * 64
+    dense_prims = np.zeros((Pp, 16), np.float32)
+    dense_prims[P:, 9] = -1.0
+    is_tri_col = (prim_type == int(GeometryType.TRIANGLE))[:, None]
+    dense_prims[:P, 0:3] = v0
+    dense_prims[:P, 3:6] = np.where(is_tri_col, v1 - v0, v1)
+    dense_prims[:P, 6:9] = np.where(is_tri_col, v2 - v0, 0.0)
+    dense_prims[:P, 9] = prim_type
+    dense_prims[:P, 10] = radius0
+    dense_prims[:P, 11] = radius1
+    dense_prims[:P, 12] = np.arange(P)
+
+    # block-culling bbox table over 64-prim runs of the leaf order
+    pb_min = np.where(
+        np.arange(Pp)[:, None] < P,
+        np.concatenate([bmin[order], np.zeros((Pp - P, 3), np.float32)]),
+        np.inf)
+    pb_max = np.where(
+        np.arange(Pp)[:, None] < P,
+        np.concatenate([bmax[order], np.zeros((Pp - P, 3), np.float32)]),
+        -np.inf)
+    nb = (Pp + BLOCK - 1) // BLOCK
+    pad_rows = nb * BLOCK - Pp
+    pb_min = np.concatenate(
+        [pb_min, np.full((pad_rows, 3), np.inf, np.float32)])
+    pb_max = np.concatenate(
+        [pb_max, np.full((pad_rows, 3), -np.inf, np.float32)])
+    block_bbox = np.zeros((nb, 8), np.float32)
+    block_bbox[:, 0:3] = pb_min.reshape(nb, BLOCK, 3).min(axis=1)
+    block_bbox[:, 3:6] = pb_max.reshape(nb, BLOCK, 3).max(axis=1)
+
+    prim_attrs = np.zeros((P, 40), np.float32)
+    prim_attrs[:, 0:3] = v0
+    prim_attrs[:, 3:6] = v1
+    prim_attrs[:, 6:9] = v2
+    prim_attrs[:, 9:12] = n0
+    prim_attrs[:, 12:15] = n1
+    prim_attrs[:, 15:18] = n2
+    prim_attrs[:, 18:20] = uv0
+    prim_attrs[:, 20:22] = uv1
+    prim_attrs[:, 22:24] = uv2
+    prim_attrs[:, 24:27] = dpdv
+    prim_attrs[:, 27] = radius0
+    prim_attrs[:, 28] = radius1
+    prim_attrs[:, 29] = prim_type
+    prim_attrs[:, 30] = mat_idx
+    prim_attrs[:, 31] = light_idx
+    prim_attrs[:, 32] = bssrdf_idx
+    prim_attrs[:, 33] = medium_inside
+    prim_attrs[:, 34] = medium_outside
+
+    fused_attrs = np.zeros((Pp, 16), np.float32)
+    fused_attrs[:P, 0:3] = n0
+    fused_attrs[:P, 3:6] = n1
+    fused_attrs[:P, 6:9] = n2
+    fused_attrs[:P, 9:12] = dpdv
+    fused_attrs[:P, 12] = mat_idx
+    fused_attrs[:P, 13] = light_idx
+    fused_attrs[:P, 14] = prim_type
+    fused_attrs[P:, 12:14] = -1.0
+
+    mat_attrs = np.zeros((M, 24), np.float32)
+    mat_attrs[:, 0] = m_type
+    mat_attrs[:, 1] = m_alpha_u
+    mat_attrs[:, 2] = m_alpha_v
+    mat_attrs[:, 3] = m_inside
+    mat_attrs[:, 4] = m_outside
+    mat_attrs[:, 5:8] = m_k
+    mat_attrs[:, 8:11] = m_eta
+    mat_attrs[:, 11:14] = m_diffuse
+    mat_attrs[:, 14:17] = m_specular
+    mat_attrs[:, 17] = -1.0   # texture index: textures are not ported
+
+    light_attrs = np.zeros((L, 24), np.float32)
+    light_attrs[:, 0:3] = l_v0
+    light_attrs[:, 3:6] = l_v1
+    light_attrs[:, 6:9] = l_v2
+    light_attrs[:, 9:12] = l_n0
+    light_attrs[:, 12:15] = l_n1
+    light_attrs[:, 15:18] = l_n2
+    light_attrs[:, 18:21] = l_rad
+    light_attrs[:, 21] = l_med
+    light_attrs[:, 22] = 0.5 * np.linalg.norm(
+        np.cross(l_v1 - l_v0, l_v2 - l_v0), axis=-1)
+    light_attrs[:, 23] = (cdf[1:L + 1] - cdf[0:L]).astype(np.float32)
+
+    arrays = dict(
+        node_bbox_min=bvh.bbox_min, node_bbox_max=bvh.bbox_max,
+        node_second_child=bvh.second_child, node_start=bvh.start,
+        node_end=bvh.end,
+        prim_type=prim_type, v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
+        uv0=uv0, uv1=uv1, uv2=uv2, dpdv_unit=dpdv,
+        radius0=radius0, radius1=radius1, mat_idx=mat_idx,
+        light_idx=light_idx, bssrdf_idx=bssrdf_idx,
+        medium_inside=medium_inside, medium_outside=medium_outside,
+        m_type=m_type, m_alpha_u=m_alpha_u, m_alpha_v=m_alpha_v,
+        m_inside_ior=m_inside, m_outside_ior=m_outside, m_k=m_k,
+        m_eta=m_eta, m_diffuse=m_diffuse, m_specular=m_specular,
+        l_v0=l_v0, l_v1=l_v1, l_v2=l_v2, l_n0=l_n0, l_n1=l_n1, l_n2=l_n2,
+        l_radiance=l_rad, l_medium=l_med,
+        light_cdf=cdf.astype(np.float32),
+        world_center=center, world_radius=np.float32(radius),
+        dense_prims=dense_prims, block_bbox=block_bbox,
+        prim_attrs=prim_attrs, fused_attrs=fused_attrs,
+        mat_attrs=mat_attrs, light_attrs=light_attrs,
+        camera=camera, epsilon=np.float32(scene.epsilon))
+    static = dict(
+        width=scene.width, height=scene.height,
+        integrator=scene.integrator.type,
+        max_depth=scene.integrator.maxDepth,
+        n_lights=len(scene.lights),
+        has_triangles=bool((prim_type == int(GeometryType.TRIANGLE)).any()),
+        has_spheres=bool((prim_type == int(GeometryType.SPHERE)).any()),
+        has_lines=bool((prim_type == int(GeometryType.LINE)).any()),
+        has_aniso=any(m.alphaU != m.alphaV for m in scene.materials),
+        filmic=scene.camera.filmic,
+        environment_camera=scene.camera.environment,
+        n_primitives=P, n_nodes=bvh.n_nodes,
+        material_types=tuple(sorted({int(m.type)
+                                     for m in scene.materials})))
+    return arrays, static
+
+
+def device_scene_from_numpy(arrays: dict, static: dict, device
+                            ) -> tuple[DeviceScene, StaticConfig]:
+    """Build the port's (DeviceScene, StaticConfig) from numpy fields.
+
+    `arrays` maps DeviceScene field names to arrays (the camera's fields
+    as a dict under "camera"); `static` maps StaticConfig field names to
+    values. Extra keys are ignored, so the JAX package's DeviceScene and
+    StaticConfig, read out field by field, carry across as they are.
+    """
+    device = torch.device(device)
+
+    def tensor(a):
+        a = np.array(a)   # a writable copy
+        dtype = torch.int32 if a.dtype.kind in "iu" else torch.float32
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    cam = DeviceCamera(**{f.name: tensor(arrays["camera"][f.name])
+                          for f in dataclasses.fields(DeviceCamera)})
+    fields = {}
+    for f in dataclasses.fields(DeviceScene):
+        if f.name == "device":
+            fields[f.name] = device
+        elif f.name == "camera":
+            fields[f.name] = cam
+        elif f.name in ("world_radius", "epsilon"):
+            fields[f.name] = float(np.float32(arrays[f.name]))
+        else:
+            fields[f.name] = tensor(arrays[f.name])
+    st = {f.name: static[f.name] for f in dataclasses.fields(StaticConfig)}
+    st["integrator"] = IntegratorType(int(st["integrator"]))
+    st["material_types"] = tuple(int(t) for t in st["material_types"])
+    return DeviceScene(**fields), StaticConfig(**st)
+
+
+def flatten_scene(scene: HostScene, device
+                  ) -> tuple[DeviceScene, StaticConfig]:
+    """HostScene -> (DeviceScene on `device`, StaticConfig)."""
+    arrays, static = flatten_numpy(scene)
+    return device_scene_from_numpy(arrays, static, device)

@@ -1,0 +1,79 @@
+"""Area-light sampling: the light pick, emissive-triangle sampling, Le.
+
+The port of the area-light half of gpu_pathtracer_tpu/shade/lights.py
+(the reference's Area, area.h:7-42, and its light-pick distribution,
+scene.h:64-82). Environment lights are not ported yet (ROADMAP.md, still
+to port: item 3).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpu_pathtracer_tpu_torch.core.sampling import uniform_triangle
+from gpu_pathtracer_tpu_torch.core.vecmath import (
+    cross, dot, length, normalize,
+)
+
+
+def pick_light(scene, u):
+    """Search the normalized power CDF. Returns (idx[N], choice_pdf[N]):
+    the last i with cdf[i] <= u, as searchsorted(side="right") - 1."""
+    cdf = scene.light_cdf
+    idx = torch.searchsorted(cdf, u.contiguous(), right=True) - 1
+    idx = torch.clamp(idx, 0, cdf.shape[0] - 2).to(torch.int32)
+    return idx, light_choice_pdf(scene, idx)
+
+
+def light_choice_pdf(scene, idx):
+    """PdfFromLightDistribution (pathtracer.cu:183-185)."""
+    cdf = scene.light_cdf
+    i = torch.clamp(idx, 0, cdf.shape[0] - 2).long()
+    return cdf[i + 1] - cdf[i]
+
+
+def _light_rows(scene, idx):
+    a = scene.light_attrs[torch.clamp_min(idx, 0).long()]
+    return (a[:, 0:3], a[:, 3:6], a[:, 6:9],
+            a[:, 9:12], a[:, 12:15], a[:, 15:18], a[:, 18:21])
+
+
+def _tri_area(v0, v1, v2):
+    return 0.5 * length(cross(v1 - v0, v2 - v0))
+
+
+def sample_area_light(scene, idx, pos, u1, u2, epsilon):
+    """Area::SampleLight toward a shading point (area.h:14-19 +
+    mesh.h:100-109): solid-angle pdf, one-sided emission.
+
+    Returns (radiance[N,3], shadow_o, shadow_d, shadow_tmax, light_nor,
+    pdf)."""
+    v0, v1, v2, n0, n1, n2, rad = _light_rows(scene, idx)
+    bu, bv = uniform_triangle(u1, u2)
+    w = 1.0 - bu - bv
+    p = bu[..., None] * v0 + bv[..., None] * v1 + w[..., None] * v2
+    nor = normalize(bu[..., None] * n0 + bv[..., None] * n1
+                    + w[..., None] * n2)
+    d = p - pos
+    dist2 = dot(d, d)
+    nd = normalize(d)
+    cos_l = torch.abs(dot(nor, nd))
+    pdf = dist2 / torch.clamp_min(_tri_area(v0, v1, v2) * cos_l, 1e-30)
+    # one-sided: emission only against the normal (mesh.h:107-108)
+    pdf = torch.where(dot(nor, d) >= 0.0, 0.0, pdf)
+    radiance = torch.where((pdf != 0.0)[..., None], rad, 0.0)
+    tmax = torch.sqrt(torch.clamp_min(dist2 - epsilon, 0.0))
+    return radiance, pos, nd, tmax, nor, pdf
+
+
+def area_light_pdf(scene, idx, ray_d, nor):
+    """Area::Pdf (area.h:28-32): (pdfA = 1/area, pdfW = |cos|/pi)."""
+    v0, v1, v2, _, _, _, _ = _light_rows(scene, idx)
+    pdf_a = 1.0 / torch.clamp_min(_tri_area(v0, v1, v2), 1e-30)
+    return pdf_a, torch.abs(dot(ray_d, nor)) * (1.0 / torch.pi)
+
+
+def area_light_le(scene, idx, nor, dir_out):
+    """Area::Le (area.h:38-41): one-sided emission."""
+    rad = scene.light_attrs[torch.clamp_min(idx, 0).long()][:, 18:21]
+    return torch.where((dot(nor, dir_out) > 0.0)[..., None], rad, 0.0)

@@ -1,0 +1,103 @@
+"""Scene ingest parity: the port's parse + flatten vs the JAX package's.
+
+Every DeviceScene field the port has must equal the JAX package's
+`flatten_scene(host, cache=False)` field, both when the port flattens the
+scene itself and when the JAX fields are carried across with
+`device_scene_from_numpy`.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity as tp
+from gpu_pathtracer_tpu_torch.scene import flatten as tf
+from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+
+
+@pytest.fixture(params=["cornell", "materials", "many_lights",
+                        "sphere_line"])
+def scene_path(request, tmp_path):
+    if request.param == "sphere_line":
+        return tp.write_sphere_line_scene(tmp_path)
+    if request.param == "many_lights":
+        return tp.MANY_LIGHTS
+    return tp.PORT_SCENES[request.param]
+
+
+def _port_arrays(scene):
+    """DeviceScene -> {field: numpy} (camera fields under "camera")."""
+    out = {}
+    for f in dataclasses.fields(scene):
+        v = getattr(scene, f.name)
+        if f.name == "camera":
+            out[f.name] = {c.name: getattr(v, c.name).numpy()
+                           for c in dataclasses.fields(v)}
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v.numpy()
+        elif f.name != "device":
+            out[f.name] = np.float32(v)
+    return out
+
+
+def _assert_fields_equal(port, jax_arrays):
+    for name, v in port.items():
+        if name == "camera":
+            for c, cv in v.items():
+                np.testing.assert_array_equal(cv, jax_arrays["camera"][c],
+                                              err_msg=f"camera.{c}")
+            continue
+        ref = np.asarray(jax_arrays[name])
+        assert v.shape == ref.shape, name
+        np.testing.assert_array_equal(v, ref.astype(v.dtype), err_msg=name)
+
+
+def test_flatten_matches_jax(scene_path, monkeypatch):
+    jd, js = tp.jax_flatten(scene_path, monkeypatch)
+    jax_arrays, jax_static = tp.jax_fields(jd, js)
+    scene, static = tf.flatten_scene(load_scene(str(scene_path)), "cpu")
+    assert scene.dense_prims.shape[0] >= static.n_primitives
+    _assert_fields_equal(_port_arrays(scene), jax_arrays)
+    for name, v in dataclasses.asdict(static).items():
+        assert v == jax_static[name], name
+
+
+def test_device_scene_from_numpy_matches_jax(scene_path, monkeypatch):
+    jd, js = tp.jax_flatten(scene_path, monkeypatch)
+    jax_arrays, _ = tp.jax_fields(jd, js)
+    scene, static = tp.port_scene_from_jax(jd, js)
+    _assert_fields_equal(_port_arrays(scene), jax_arrays)
+    assert scene.device == torch.device("cpu")
+    assert static.n_primitives == js.n_primitives
+    assert static.material_types == js.material_types
+
+
+def test_scenes_fit_the_megakernel():
+    from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    for path in (*tp.PORT_SCENES.values(), tp.MANY_LIGHTS):
+        _, static = tf.flatten_scene(load_scene(str(path)), "cpu")
+        assert static.n_primitives <= 512
+        assert static.max_depth == 5
+        assert pt_fused.supports(static) == (path != tp.MANY_LIGHTS)
+        assert static.n_lights == (72 if path == tp.MANY_LIGHTS else 2)
+
+
+@pytest.mark.parametrize("feature", ["environment", "medium"])
+def test_unported_features_raise(tmp_path, feature):
+    scene = json.loads(tp.PORT_SCENES["cornell"].read_text())
+    base = tp.PORT_SCENES["cornell"].parent
+    for unit in scene["scene"] + scene["light"]:
+        unit["mesh"] = str(base / unit["mesh"])
+    if feature == "environment":
+        scene["light"].append({"infinite": "sky.exr"})
+    else:
+        scene["medium"] = [{"name": "fog", "type": "homogeneous",
+                            "sigmaA": [0.1, 0.1, 0.1],
+                            "sigmaS": [0.1, 0.1, 0.1]}]
+    path = tmp_path / "scene.json"
+    path.write_text(json.dumps(scene))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf.flatten_scene(load_scene(str(path)), "cpu")

@@ -1,0 +1,86 @@
+"""Where the time goes in the port's main path, on one NVIDIA GPU.
+
+    python3 tools/profile_port.py [--spp 4] [scene.json ...]
+
+Renders each scene (default: scenes/cornell_port/scene.json, which takes
+the megakernel, and many_lights.json, whose 72 lights send it through
+the wavefront over the dense-hit kernel) at its own resolution and
+depth under torch.profiler after one warm-up spp, and prints per scene:
+wall time per spp, device time per spp summed over kernels, the device's
+idle share of the window, and the kernels that take the most device
+time. Needs a CUDA device; prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def profile(renderer, spp: int):
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    renderer.render_iteration()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(spp):
+            renderer.render_iteration()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, _device_us(e), e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    return wall, rows
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("scenes", nargs="*", default=[
+        os.path.join(REPO, "scenes", "cornell_port", name)
+        for name in ("scene.json", "many_lights.json")])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    sys.path.insert(0, REPO)
+    from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    from gpu_pathtracer_tpu_torch.run.renderer import Renderer
+    for path in args.scenes:
+        r = Renderer(path, device="cuda")
+        wall, rows = profile(r, args.spp)
+        dev_us = sum(us for _, us, _ in rows)
+        regime = ("megakernel" if pt_fused.supports(r.static)
+                  else "wavefront over K1")
+        print(f"[{os.path.basename(path)}, {regime}] {r.width}x{r.height} "
+              f"depth {r.static.max_depth}: "
+              f"wall {1e3 * wall / args.spp:.3f} ms/spp, device "
+              f"{dev_us / 1e3 / args.spp:.3f} ms/spp, idle share "
+              f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
+        for key, us, count in rows[:8]:
+            print(f"    {us / 1e3 / args.spp:9.3f} ms/spp  "
+                  f"{100 * us / max(dev_us, 1e-9):5.1f}%  x{count // args.spp}"
+                  f"/spp  {key[:90]}")
+
+
+if __name__ == "__main__":
+    main()
