@@ -4,25 +4,40 @@
     python3 chip_smoke.py --phases ABC  # build and kernel checks only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
 
-Builds the port's two CUDA kernels from csrc/, holds each against its
-plain PyTorch version on the card, drives the main path (the CLI's
-path-traced Cornell box at 1024x1024, depth 5) and times both kernels
-against their plain versions. Phases:
+Builds the port's four CUDA kernels from csrc/, holds each against its
+plain PyTorch version on the card, drives the main paths (the CLI's
+path-traced Cornell box and large-mesh scenes at 1024x1024, depth 5)
+and times the kernels against their plain versions. Phases:
 
-  A  build the dense-hit kernel (K1) and the path-trace megakernel (K2)
-  B  K1 vs plain: 1,048,576 rays, closest and any hit, two prim tables
+  A  build the dense-hit kernel (K1), the path-trace megakernel (K2), the
+     block-culled hit kernel (K3) and the BVH8 walk (K4), one nvcc each,
+     all at once
+  B  K1 vs plain: 1,048,576 rays, closest and any hit, two prim tables;
+     K3 (scenes/knot_port/blocked.json), K4 flat (scene.json) and K4
+     instanced (forest.json) vs plain on 1,048,576 random, primary and
+     first-bounce rays each, closest and any hit; K3 vs K4 on
+     blocked.json's rays; K4's stack-overflow flag
   C  K2 vs plain: 65,536 lanes at depth 5 on both bundled scenes, from a
      primary-sample matrix and from in-kernel Philox; the wavefront over
      K1 vs the same plain version, on those and on many_lights.json (72
      lights, which pt.render_lanes routes to the wavefront: K1's launches
-     there are recorded as `launches_wavefront_route`)
-  D  main path: the CLI renders scenes/cornell_port at 1024^2 through the
-     megakernel (launch counts of that run alone, spp/s, Mrays/s, the
-     radiance against the plain version's lane by lane), then again over
-     about one second of spp for a steadier rate
+     there are recorded as `launches_wavefront_route`); the wavefront over
+     K3, K4 flat and K4 instanced vs the plain wavefront on the knot
+     scenes, 65,536 lanes
+  D  the main paths through the CLI, each with every launch count set to
+     0 just before it and read just after: scenes/cornell_port at 1024^2
+     through the megakernel (spp/s, Mrays/s, the radiance against the
+     plain version's lane by lane), then over about one second of spp;
+     scenes/knot_port/scene.json at 1024^2 through K4 (one warm-up spp
+     held against the plain wavefront on all 1,048,576 lanes, then 8
+     timed spp: spp/s, Mrays/s, host build seconds); forest.json (K4
+     instanced) and blocked.json (K3) the same with 2 timed spp
   E  times, in windows of about one second, kernel and plain in turns:
      K1 vs plain at 1M rays; K2 alone vs plain from the same primary
-     rays at 1024^2 depth 5, and the camera that makes those rays
+     rays at 1024^2 depth 5, and the camera that makes those rays; K3 on
+     blocked.json, K4 flat on scene.json, K4 instanced on forest.json
+     vs plain on the 1M primary and first-bounce rays; K4 flat on
+     blocked.json's table beside K3
 
 Every check that fails exits non-zero before the last line. The last two
 lines are the kernels' JSON record and
@@ -46,11 +61,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "build", "chip_smoke")   # set by --out
 SCENES = ("scenes/cornell_port/scene.json", "scenes/cornell_port/materials.json")
 MANY_LIGHTS = "scenes/cornell_port/many_lights.json"   # 72 lights: wavefront
-K1_SRC = "gpu_pathtracer_tpu_torch/csrc/dense.cu"
-K2_SRC = "gpu_pathtracer_tpu_torch/csrc/pt_fused.cu"
-K1_TPU = "gpu_pathtracer_tpu/geom/dense_tpu.py:29"
-K2_TPU = "gpu_pathtracer_tpu/integrators/pt_fused.py:977"
+KNOT = {   # the large-mesh scenes, by the kernel their route runs
+    "blocked": "scenes/knot_port/blocked.json",   # 16,012 prims: K3
+    "scene": "scenes/knot_port/scene.json",       # 100,012 prims: K4 flat
+    "forest": "scenes/knot_port/forest.json",     # 1,000,012: K4 instanced
+}
+KERNELS = {   # name: (source, TPU kernel it replaces)
+    "dense": ("gpu_pathtracer_tpu_torch/csrc/dense.cu",
+              "gpu_pathtracer_tpu/geom/dense_tpu.py:29"),
+    "pt_fused": ("gpu_pathtracer_tpu_torch/csrc/pt_fused.cu",
+                 "gpu_pathtracer_tpu/integrators/pt_fused.py:977"),
+    "blocked": ("gpu_pathtracer_tpu_torch/csrc/blocked.cu",
+                "gpu_pathtracer_tpu/geom/dense_tpu.py:316"),
+    "bvh8_walk": ("gpu_pathtracer_tpu_torch/csrc/bvh8_walk.cu",
+                  "gpu_pathtracer_tpu/geom/packet_tpu.py:126"),
+}
 SEED = 2024
+_FLAT = {}   # scene path -> (DeviceScene, StaticConfig, host seconds)
 
 
 def fail(msg: str) -> None:
@@ -85,11 +112,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_windows(fns: dict, window_ms: float = 1000.0) -> dict:
+def timed_windows(fns: dict, window_ms: float = 1000.0,
+                  min_reps: int = 3) -> dict:
     """Time each fn of `fns` ({name: fn}) in windows of about `window_ms`
-    on the card, in turns a, b, ..., ..., b, a -> {name: [ms per run, one
-    value per window]}."""
-    reps = {k: max(3, int(window_ms / max(cuda_ms(f, 1), 1e-3)))
+    (at least `min_reps` runs) on the card, in turns a, b, ..., ..., b, a
+    -> {name: [ms per run, one value per window]}."""
+    reps = {k: max(min_reps, int(window_ms / max(cuda_ms(f, 1), 1e-3)))
             for k, f in fns.items()}
     order = list(fns) + list(fns)[::-1]
     out = {k: [] for k in fns}
@@ -107,6 +135,84 @@ def close_frac(a, b) -> float:
 def reset_counts(*stats) -> None:
     for st in stats:
         st.launches = st.plain_cuda = 0
+
+
+def all_stats() -> dict:
+    """{kernel name: its wrapper's KernelStats}."""
+    from gpu_pathtracer_tpu_torch.geom import (
+        blocked_cuda, dense_cuda, packet_cuda,
+    )
+    from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    return {"dense_hit": dense_cuda.STATS, "pt_fused": pt_fused.STATS,
+            "blocked": blocked_cuda.STATS, "bvh8_walk": packet_cuda.STATS}
+
+
+def flat(key: str, dev):
+    """The knot scene `key` flattened on `dev` (once per run)."""
+    from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+    path = os.path.join(REPO, KNOT[key])
+    if path not in _FLAT:
+        t0 = time.perf_counter()
+        scene, static = flatten_scene(load_scene(path), dev)
+        _FLAT[path] = (scene, static, time.perf_counter() - t0)
+    return _FLAT[path][:2]
+
+
+def hit_check(label, closest_k, closest_p, any_k, any_p) -> float:
+    """Kernel vs plain hits on one ray set: prim equal and any-hit equal
+    on >= 99.99% of lanes, t within 1e-4 relative where the prim agrees.
+    Returns the largest |t_kernel - t_plain| there."""
+    (t_k, p_k), (t_p, p_p) = closest_k, closest_p
+    same = p_k == p_p
+    both = same & (p_k >= 0)
+    err = (t_k - t_p).abs()[both]
+    rel = err / t_p.abs()[both].clamp_min(1e-30)
+    same_frac = same.float().mean().item()
+    any_frac = (any_k == any_p).float().mean().item()
+    rel_max = rel.max().item() if rel.numel() else 0.0
+    print(f"[B] {label}: {p_k.numel()} rays, hit "
+          f"{(p_k >= 0).float().mean():.4f}, prim equal {same_frac:.6f}, "
+          f"t max rel err {rel_max:.3e}, any-hit equal {any_frac:.6f} "
+          f"(any-hit hit {any_k.float().mean():.4f})")
+    check(same_frac >= 0.9999, f"{label}: prim equal on {same_frac}")
+    check(rel_max <= 1e-4, f"{label}: t rel err {rel_max}")
+    check(any_frac >= 0.9999, f"{label}: any-hit equal on {any_frac}")
+    return err.max().item() if err.numel() else 0.0
+
+
+def ray_sets(scene, static, rng, dev) -> dict:
+    """1,048,576 rays each: random rays in the room, the scene's primary
+    rays (the camera at 1024^2, Philox seed SEED) and first-bounce rays
+    (from the primary hits, cosine-distributed about the normal facing
+    the camera ray). {name: (ro, rd, tmin, tmax closest, tmax any)}."""
+    from gpu_pathtracer_tpu_torch.core.rng import PSS_CAM_DIMS, lane_stream
+    from gpu_pathtracer_tpu_torch.core.vecmath import face_forward, normalize
+    from gpu_pathtracer_tpu_torch.geom import traverse
+    from gpu_pathtracer_tpu_torch.integrators import pt
+    from gpu_pathtracer_tpu_torch.integrators.common import primary_rays
+    n = static.width * static.height
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    tmin = torch.full((n,), float(scene.epsilon), device=dev)
+    out = {}
+    ro, rd, _, tmax = random_rays(rng, n, dev)
+    out["random"] = (ro, rd, tmin, tmax, tmax)
+    ids = torch.arange(n, device=dev, dtype=torch.int32)
+    px, py = ids % static.width, ids // static.width
+    lanes = pt.lane_ids_of(static, px, py)
+    ro, rd = primary_rays(scene, static,
+                          lane_stream(SEED, 1, lanes, None, 0, PSS_CAM_DIMS),
+                          px, py)
+    ro, rd = ro.contiguous(), rd.contiguous()
+    inf = torch.full((n,), torch.inf, device=dev)
+    out["primary"] = (ro, rd, tmin, inf, f32(rng.uniform(0.5, 8.0, n)))
+    hit = traverse.intersect_closest(scene, static, ro, rd, tmin, inf)
+    nf = face_forward(hit.nor, -rd)
+    d2 = normalize(nf + normalize(f32(rng.normal(size=(n, 3)))))
+    ro2 = torch.where(hit.valid[:, None], hit.pos, ro).contiguous()
+    rd2 = torch.where(hit.valid[:, None], d2, rd).contiguous()
+    out["bounce"] = (ro2, rd2, tmin, inf, f32(rng.uniform(0.1, 2.0, n)))
+    return out
 
 
 def synthetic_table(rng, n_prims=512):
@@ -178,6 +284,101 @@ def phase_b(dev, rng, records):
         check(rel_max <= 1e-4, f"K1 {name}: t rel err {rel_max}")
         check(any_frac >= 0.9999, f"K1 {name}: any-hit equal on {any_frac}")
     records["dense_hit"]["max_abs_err"] = max_err
+    phase_b_large(dev, rng, records)
+
+
+def k3_pair(scene, static):
+    """(kernel, plain) of K3 on a flattened scene: f(ro, rd, tmin, tmax,
+    any_hit)."""
+    from gpu_pathtracer_tpu_torch.geom import blocked, blocked_cuda, dense
+    kinds = dense.kinds_of(static)
+    return (lambda *a: blocked_cuda.blocked_hit_cuda(
+                scene.dense_prims, scene.block_bbox, *a),
+            lambda *a: blocked.blocked_hit_torch(
+                scene.dense_prims, scene.block_bbox, *a, kinds))
+
+
+def k4_pair(scene, static):
+    """(kernel, plain) of K4 on a flattened scene (flat or instanced)."""
+    from gpu_pathtracer_tpu_torch.geom import dense, packet, packet_cuda
+    kinds = dense.kinds_of(static)
+    args = (scene.bvh8_table, scene.bvh8_aux, static.bvh8_n_inst)
+    return (lambda ro, rd, t0, t1, any_hit: packet_cuda.bvh8_walk_cuda(
+                *args, ro, rd, t0, t1, any_hit, static.bvh8_stack),
+            lambda ro, rd, t0, t1, any_hit: packet.walk_torch(
+                *args, ro, rd, t0, t1, any_hit, kinds, static.bvh8_stack))
+
+
+RAYS = {}   # knot scene key -> its ray sets (phases B and E)
+
+
+def knot_rays(key, dev, rng) -> dict:
+    """The ray sets of knot scene `key`, made once per run."""
+    if key not in RAYS:
+        RAYS[key] = ray_sets(*flat(key, dev), rng, dev)
+    return RAYS[key]
+
+
+def phase_b_large(dev, rng, records):
+    """K3 and K4 vs their plain versions on 1M rays of each set, K3 vs K4
+    on blocked.json, and K4's stack-overflow flag."""
+    from gpu_pathtracer_tpu_torch.geom import packet_cuda, traverse
+    errs = {"blocked": 0.0, "bvh8_walk": 0.0}
+    for key, (kname, pair) in (("blocked", ("K3", k3_pair)),
+                               ("scene", ("K4 flat", k4_pair)),
+                               ("forest", ("K4 instanced", k4_pair))):
+        scene, static = flat(key, dev)
+        want = {"blocked": "blocked", "scene": "bvh8",
+                "forest": "instanced"}[key]
+        check(traverse.regime(static) == want,
+              f"{key}: regime {traverse.regime(static)}, want {want}")
+        print(f"[B] {KNOT[key]}: {static.n_primitives} prims, BVH8 "
+              f"{static.bvh8_rows} rows ({static.bvh8_n8} node rows), "
+              f"{static.bvh8_n_inst} instances, stack {static.bvh8_stack}, "
+              f"host build {_FLAT[os.path.join(REPO, KNOT[key])][2]:.2f} s")
+        kern, plain = pair(scene, static)
+        rec = "blocked" if kname == "K3" else "bvh8_walk"
+        for set_name, (ro, rd, t0, t1, t_any) in knot_rays(key, dev,
+                                                          rng).items():
+            ck = kern(ro, rd, t0, t1, False)
+            ak = kern(ro, rd, t0, t_any, True)
+            cp = plain(ro, rd, t0, t1, False)
+            ap = plain(ro, rd, t0, t_any, True)
+            torch.cuda.synchronize()
+            errs[rec] = max(errs[rec], hit_check(
+                f"{kname} {key} {set_name}", ck, cp, ak, ap))
+    for rec, e in errs.items():
+        records[rec]["max_abs_err"] = e
+
+    # K3 against K4 on the same 16k-prim scene
+    scene, static = flat("blocked", dev)
+    k3, _ = k3_pair(scene, static)
+    k4, _ = k4_pair(scene, static)
+    for set_name, (ro, rd, t0, t1, _) in knot_rays("blocked", dev,
+                                                   rng).items():
+        (t3, p3), (t4, p4) = k3(ro, rd, t0, t1, False), k4(ro, rd, t0, t1,
+                                                           False)
+        both = (p3 >= 0) & (p4 >= 0)
+        rel = ((t3 - t4).abs() / t4.abs().clamp_min(1e-30))[both]
+        found = ((p3 >= 0) == (p4 >= 0)).float().mean().item()
+        rel_max = rel.max().item() if rel.numel() else 0.0
+        print(f"[B] K3 vs K4 blocked {set_name}: found equal {found:.6f}, "
+              f"prim equal {(p3 == p4).float().mean().item():.6f}, t max "
+              f"rel err {rel_max:.3e}")
+        check(found >= 0.9999, f"K3 vs K4 {set_name}: found equal {found}")
+        check(rel_max <= 1e-4, f"K3 vs K4 {set_name}: t rel err {rel_max}")
+
+    # a stack too small for the tree must raise, never drop a ray
+    scene, static = flat("scene", dev)
+    ro, rd, t0, t1, _ = knot_rays("scene", dev, rng)["primary"]
+    try:
+        packet_cuda.bvh8_walk_cuda(scene.bvh8_table, scene.bvh8_aux, 0, ro,
+                                   rd, t0, t1, False, 2)
+    except RuntimeError as e:
+        check("stack" in str(e), f"K4 overflow: {e}")
+        print(f"[B] K4 with a 2-entry stack raises: {e}")
+    else:
+        fail("K4 with a 2-entry stack did not report an overflow")
 
 
 def phase_c(dev, rng, records):
@@ -249,12 +450,39 @@ def phase_c(dev, rng, records):
             records["dense_hit"]["launches_wavefront_route"] = k1_n
     records["pt_fused"]["max_abs_err"] = max_err
 
+    # the wavefront over K3 / K4 against the plain wavefront
+    stats = all_stats()
+    for key, kname in (("blocked", "blocked"), ("scene", "bvh8_walk"),
+                       ("forest", "bvh8_walk")):
+        scene, static = flat(key, dev)
+        n_pix = static.width * static.height
+        ids = torch.arange(0, n_pix, n_pix // 65536, device=dev,
+                           dtype=torch.int32)[:65536]
+        px, py = ids % static.width, ids // static.width
+        reset_counts(*stats.values())
+        li_k, r_k = pt.render_lanes(scene, static, SEED, 1, px, py, True)
+        torch.cuda.synchronize()
+        counts = {k: st.launches for k, st in stats.items()}
+        li_p, r_p = pt.wavefront(scene, static, SEED, 1, px, py, True,
+                                 plain=True)
+        frac = close_frac(li_k, li_p)
+        ratio = li_k.double().mean().item() / li_p.double().mean().item()
+        print(f"[C] wavefront over {kname} {os.path.basename(KNOT[key])}: "
+              f"{ids.numel()} lanes, agree {frac:.6f}, bit-equal "
+              f"{(li_k == li_p).all(1).float().mean().item():.6f}, mean "
+              f"ratio {ratio:.7f}, rays {int(r_k)} vs {int(r_p)}, launches "
+              f"{counts}")
+        check(frac >= 0.99, f"wavefront {key}: agree on {frac}")
+        check(abs(ratio - 1.0) <= 1e-3, f"wavefront {key}: ratio {ratio}")
+        check(bool(torch.isfinite(li_k).all()), f"{key}: non-finite li")
+        check(counts[kname] > 0 and sum(counts.values()) == counts[kname],
+              f"wavefront {key}: launches {counts}")
+
 
 def phase_d(dev, card, records):
     """The main path through the CLI: the Cornell box at 1024^2, depth 5,
     which pt.render_lanes routes to K2; launch counts, spp/s, Mrays/s, and
     the radiance against the plain version's lane by lane."""
-    from gpu_pathtracer_tpu_torch.geom import dense_cuda
     from gpu_pathtracer_tpu_torch.integrators import pt_fused
     from gpu_pathtracer_tpu_torch.run import cli
 
@@ -264,19 +492,21 @@ def phase_d(dev, card, records):
                          "--out", out, "--seed", str(SEED)]), out
 
     render(1, "warmup.png")                     # the warm-up spp
-    reset_counts(dense_cuda.STATS, pt_fused.STATS)
+    stats = all_stats()
+    reset_counts(*stats.values())
     res, png = render(8, "cornell_port.png")
-    k2_n, k1_n = pt_fused.STATS.launches, dense_cuda.STATS.launches
-    plain = pt_fused.STATS.plain_cuda + dense_cuda.STATS.plain_cuda
+    counts = {k: st.launches for k, st in stats.items()}
+    plain = sum(st.plain_cuda for st in stats.values())
+    k2_n, k1_n = counts["pt_fused"], counts["dense_hit"]
     records["pt_fused"]["launches"] = k2_n
     records["dense_hit"]["launches"] = k1_n
     print(f"[D] cornell_port through K2: {res['spp']} spp of 1024x1024 "
           f"depth 5 in {res['seconds']:.6f} s: {res['spp_per_s']:.3f} spp/s,"
           f" {res['mrays_per_s']:.1f} Mrays/s ({card})")
-    print(f"[D] launches in the main-path run: K2 {k2_n}, K1 {k1_n}; "
-          f"plain-version calls on CUDA tensors: {plain}")
+    print(f"[D] launches in the main-path run: {counts}; plain-version "
+          f"calls on CUDA tensors: {plain}")
     check(k2_n > 0, "main path never launched K2")
-    check(k1_n == 0, f"main path launched K1 {k1_n} times: routing")
+    check(sum(counts.values()) == k2_n, f"main path launched {counts}")
     check(plain == 0, f"{plain} plain-version calls on CUDA in phase D")
 
     r = res["renderer"]
@@ -312,6 +542,60 @@ def phase_d(dev, card, records):
     print(f"[D] cornell_port through K2: {n_spp} spp in "
           f"{res_l['seconds']:.6f} s: {res_l['spp_per_s']:.3f} spp/s, "
           f"{res_l['mrays_per_s']:.1f} Mrays/s ({card})")
+
+    for key, kname, spp in (("scene", "bvh8_walk", 8),
+                            ("forest", "bvh8_walk", 2),
+                            ("blocked", "blocked", 2)):
+        knot_main_path(key, kname, spp, card, records)
+
+
+def knot_main_path(key, kname, spp, card, records):
+    """A large-mesh main path through the CLI: one warm-up spp, held
+    against the plain wavefront on every lane, then `spp` timed spp
+    whose launches must all be kernel `kname`'s."""
+    from gpu_pathtracer_tpu_torch.integrators import pt
+    from gpu_pathtracer_tpu_torch.run import cli
+    path = os.path.join(REPO, KNOT[key])
+    stats = all_stats()
+
+    def render(n, name):
+        return cli.main([path, "--spp", str(n), "--seed", str(SEED),
+                         "--out", os.path.join(OUT, name)])
+
+    warm = render(1, f"knot_{key}_1spp.png")
+    r = warm["renderer"]
+    li_p = pt.wavefront(r.device_scene, r.static, SEED, 1, r._px, r._py,
+                        plain=True)
+    li_k = r.acc
+    frac = close_frac(li_k, li_p)
+    ratio = li_k.double().mean().item() / li_p.double().mean().item()
+    err = (li_k - li_p).abs().max().item()
+    print(f"[D] {KNOT[key]} warm-up spp vs plain wavefront: {li_k.shape[0]} "
+          f"lanes, agree {frac:.6f} (bit-equal "
+          f"{(li_k == li_p).all(1).float().mean().item():.6f}), max abs err "
+          f"{err:.3e}, mean ratio {ratio:.7f}")
+    check(frac >= 0.99, f"{key} main path: agree on {frac}")
+    check(abs(ratio - 1.0) <= 1e-3, f"{key} main path: mean ratio {ratio}")
+    del warm, r, li_p, li_k
+
+    reset_counts(*stats.values())
+    res = render(spp, f"knot_{key}.png")
+    counts = {k: st.launches for k, st in stats.items()}
+    plain = sum(st.plain_cuda for st in stats.values())
+    img = res["renderer"].image()
+    check(img.shape == (1024, 1024, 3) and bool(np.isfinite(img).all()),
+          f"{key}: image {img.shape}, finite {np.isfinite(img).all()}")
+    print(f"[D] {KNOT[key]} through {kname}: {spp} spp of 1024x1024 depth "
+          f"{res['renderer'].static.max_depth} in {res['seconds']:.6f} s: "
+          f"{res['spp_per_s']:.3f} spp/s, {res['mrays_per_s']:.1f} Mrays/s, "
+          f"host build {res['build_seconds']:.2f} s ({card}); launches "
+          f"{counts}, plain-version calls on CUDA {plain}")
+    check(counts[kname] > 0, f"{key}: main path never launched {kname}")
+    check(sum(counts.values()) == counts[kname],
+          f"{key}: main path launched {counts}")
+    check(plain == 0, f"{key}: {plain} plain-version calls on CUDA")
+    field = "launches_instanced" if key == "forest" else "launches"
+    records[kname][field] = counts[kname]
 
 
 def phase_e(dev, rng, card, records):
@@ -366,6 +650,35 @@ def phase_e(dev, rng, card, records):
     records["pt_fused"].update(ms=mean(t2["kernel"]),
                                plain_ms=mean(t2["plain"]))
 
+    # K3 / K4 closest hit on each scene's 1M primary and bounce rays
+    for key, kname, pair, rec in (
+            ("blocked", "K3", k3_pair, "blocked"),
+            ("scene", "K4 flat", k4_pair, "bvh8_walk"),
+            ("forest", "K4 instanced", k4_pair, "bvh8_walk"),
+            ("blocked", "K4 flat (K3's scene)", k4_pair, None)):
+        scene, static = flat(key, dev)
+        kern, plain = pair(scene, static)
+        for set_name in ("primary", "bounce"):
+            ro, rd, t_lo, t_hi, _ = knot_rays(key, dev, rng)[set_name]
+            fns = {"kernel": lambda: kern(ro, rd, t_lo, t_hi, False)}
+            if rec is not None:
+                fns["plain"] = lambda: plain(ro, rd, t_lo, t_hi, False)
+            t = timed_windows(fns, min_reps=1)
+            line = (f"[E] {kname} closest hit, {KNOT[key]} 1M {set_name} "
+                    f"rays: kernel {mean(t['kernel']):.4f} ms (windows "
+                    f"{span(t['kernel'])})")
+            if rec is not None:
+                line += (f", plain {mean(t['plain']):.4f} ms "
+                         f"({span(t['plain'])})")
+                if key != "forest" and set_name == "primary":
+                    records[rec].update(ms=mean(t["kernel"]),
+                                        plain_ms=mean(t["plain"]))
+                if key == "forest" and set_name == "primary":
+                    records[rec].update(
+                        ms_instanced=mean(t["kernel"]),
+                        plain_ms_instanced=mean(t["plain"]))
+            print(line + f" ({card})")
+
 
 def main() -> None:
     global OUT
@@ -392,15 +705,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
     records = {
-        "dense_hit": {"name": "dense_hit", "route": "cuda", "source": K1_SRC,
-                      "replaces": K1_TPU},
-        "pt_fused": {"name": "pt_fused", "route": "cuda", "source": K2_SRC,
-                     "replaces": K2_TPU},
-    }
+        ("dense_hit" if name == "dense" else name): {
+            "name": "dense_hit" if name == "dense" else name,
+            "route": "cuda", "source": src, "replaces": tpu}
+        for name, (src, tpu) in KERNELS.items()}
 
     t0 = time.time()
-    for name in ("dense", "pt_fused"):
-        kernels.load_library(name)
+    kernels.build(list(KERNELS))
+    for name in KERNELS:
         b = kernels.BUILDS[name]
         report = [ln for ln in b.ptxas.splitlines()
                   if "registers" in ln or "spill" in ln]

@@ -1,11 +1,13 @@
-// Ray/primitive intersection shared by the dense hit kernel (dense.cu)
-// and the path-trace kernel (pt_fused.cu).
+// Ray/primitive and ray/box intersection shared by the dense hit kernel
+// (dense.cu), the path-trace kernel (pt_fused.cu), the block-culled hit
+// kernel (blocked.cu) and the BVH8 walk (bvh8_walk.cu).
 //
-// The three routines match gpu_pathtracer_tpu/geom/traverse.py:63-121
+// The three prim routines match gpu_pathtracer_tpu/geom/traverse.py:63-121
 // and dense_tpu.py:54-123 (the reference's mesh.h:45-67, sphere.h:26-69,
 // line.h:33-73) and the port's plain versions in geom/dense.py, operation
 // for operation. Each returns whether the prim is hit within
-// [tmin, tmax] and writes its t.
+// [tmin, tmax] and writes its t. The slab test matches geom/blocked.py::
+// slab.
 #pragma once
 
 #include "vec.cuh"
@@ -125,6 +127,33 @@ __device__ __forceinline__ bool any_loop(const float4* prims, int n_prims,
     if (prim_hit(prims + 4 * p, ro, rd, tmin, tmax_, &tp)) return true;
   }
   return false;
+}
+
+// 1 / d with |d| kept >= 1e-20 (sign kept, -0 counts as +): slab planes
+// stay finite for axis-parallel rays (dense_tpu.py:324-330).
+__device__ __forceinline__ float safe_inv(float d) {
+  return 1.f / (fabsf(d) > 1e-20f ? d : (d >= 0.f ? 1e-20f : -1e-20f));
+}
+
+// Slab test of the box [lo, hi] against a ray (origin o, inverse
+// direction inv): hit when tf > 1e-5, tn <= tf and tn <= tmax_; writes
+// the entry distance tn.
+__device__ __forceinline__ bool slab_hit(V3 lo, V3 hi, V3 o, V3 inv,
+                                         float tmax_, float* tn_out) {
+  float t1 = (lo.x - o.x) * inv.x;
+  float t2 = (hi.x - o.x) * inv.x;
+  float tn = tmin(t1, t2);
+  float tf = tmax(t1, t2);
+  t1 = (lo.y - o.y) * inv.y;
+  t2 = (hi.y - o.y) * inv.y;
+  tn = tmax(tn, tmin(t1, t2));
+  tf = tmin(tf, tmax(t1, t2));
+  t1 = (lo.z - o.z) * inv.z;
+  t2 = (hi.z - o.z) * inv.z;
+  tn = tmax(tn, tmin(t1, t2));
+  tf = tmin(tf, tmax(t1, t2));
+  *tn_out = tn;
+  return (tf > 1e-5f) && (tn <= tf) && (tn <= tmax_);
 }
 
 // Stage a [n_prims, 16] f32 table into shared memory (all threads of

@@ -42,12 +42,20 @@ def _sub(a, b):
     return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
 
 
-def _chunk_hits(rows, ro, rd, tmin, tmax, kinds):
+def chunk_hits(rows, ro, rd, tmin, tmax, kinds):
     """Hit test of a [C, 16] chunk of rows against [N] rays.
 
     Rays are tuples of [N, 1] components, rows give [1, C] ones; returns
-    (ok [N, C], t [N, C]). Matches csrc/intersect.cuh::prim_hit."""
-    col = [rows[:, c][None, :] for c in range(12)]
+    (ok [N, C], t [N, C])."""
+    return rec_hits([rows[:, c][None, :] for c in range(12)], ro, rd, tmin,
+                    tmax, kinds)
+
+
+def rec_hits(col, ro, rd, tmin, tmax, kinds):
+    """Hit test of dense_prims records against rays, all broadcast
+    together: `col` holds the records' first 12 columns, `ro`/`rd` the
+    rays' 3 components; returns (ok, t) with `t <= tmax` accepted.
+    Matches csrc/intersect.cuh::prim_hit operation for operation."""
     ptype = col[9]
     v0 = (col[0], col[1], col[2])
     a = (col[3], col[4], col[5])
@@ -143,7 +151,7 @@ def dense_closest_torch(prims, ro, rd, tmin, tmax, kinds=(True, True, True)):
     tmin_c = tmin[:, None]
     for c0 in range(0, prims.shape[0], CHUNK):
         rows = prims[c0:c0 + CHUNK]
-        ok, t = _chunk_hits(rows, ro_c, rd_c, tmin_c, best_t[:, None], kinds)
+        ok, t = chunk_hits(rows, ro_c, rd_c, tmin_c, best_t[:, None], kinds)
         t_chunk, j = torch.min(torch.where(ok, t, torch.inf), dim=1)
         better = t_chunk < best_t
         best_t = torch.where(better, t_chunk, best_t)
@@ -159,51 +167,42 @@ def dense_any_torch(prims, ro, rd, tmin, tmax, kinds=(True, True, True)):
     tmin_c = tmin[:, None]
     tmax_c = tmax[:, None]
     for c0 in range(0, prims.shape[0], CHUNK):
-        ok, _ = _chunk_hits(prims[c0:c0 + CHUNK], ro_c, rd_c, tmin_c, tmax_c,
-                            kinds)
+        ok, _ = chunk_hits(prims[c0:c0 + CHUNK], ro_c, rd_c, tmin_c, tmax_c,
+                           kinds)
         found = found | torch.any(ok, dim=1)
     return found
 
 
-def _kinds(static):
+def kinds_of(static):
     return (static.has_triangles, static.has_spheres, static.has_lines)
 
 
-def _check_size(static):
-    if static.n_primitives > DENSE_MAX:
-        raise NotImplementedError(
-            f"{static.n_primitives} prims: only the dense regime (<= "
-            f"{DENSE_MAX}) is ported yet (ROADMAP.md, still to port: item 2)")
-
-
-def _f32n(x, n, device):
+def f32n(x, n, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device) \
         .expand(n).contiguous()
 
 
-def dense_closest(scene, static, ro, rd, tmin, tmax):
+def dense_closest(scene, static, ro, rd, tmin, tmax, plain: bool = False):
     """Brute-force closest hit -> (best_t [N], best_prim [N] i32,
-    found [N]). CUDA tensors launch the kernel, CPU tensors run the plain
-    version."""
-    _check_size(static)
-    if ro.is_cuda:
+    found [N]). CUDA tensors launch the kernel unless `plain`; CPU
+    tensors run the plain version."""
+    if ro.is_cuda and not plain:
         n = ro.shape[0]
         t, prim = dense_cuda.dense_hit_cuda(
             scene.dense_prims, ro.contiguous(), rd.contiguous(),
-            _f32n(tmin, n, ro.device), _f32n(tmax, n, ro.device), False)
+            f32n(tmin, n, ro.device), f32n(tmax, n, ro.device), False)
     else:
         t, prim = dense_closest_torch(scene.dense_prims, ro, rd, tmin, tmax,
-                                      _kinds(static))
+                                      kinds_of(static))
     return t, prim, prim >= 0
 
 
-def dense_any(scene, static, ro, rd, tmin, tmax):
+def dense_any(scene, static, ro, rd, tmin, tmax, plain: bool = False):
     """Brute-force any hit -> found [N] bool (kernel on CUDA tensors)."""
-    _check_size(static)
-    if ro.is_cuda:
+    if ro.is_cuda and not plain:
         n = ro.shape[0]
         return dense_cuda.dense_hit_cuda(
             scene.dense_prims, ro.contiguous(), rd.contiguous(),
-            _f32n(tmin, n, ro.device), _f32n(tmax, n, ro.device), True)
+            f32n(tmin, n, ro.device), f32n(tmax, n, ro.device), True)
     return dense_any_torch(scene.dense_prims, ro, rd, tmin, tmax,
-                           _kinds(static))
+                           kinds_of(static))

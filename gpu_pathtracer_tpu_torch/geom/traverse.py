@@ -1,11 +1,21 @@
 """Closest- and any-hit queries and the hit record.
 
-The port of gpu_pathtracer_tpu/geom/traverse.py for the dense regime
-(<= DENSE_MAX prims): `intersect_closest` / `intersect_any` run
-geom/dense.py (the CUDA kernel on CUDA tensors), `_hit_attributes`
-rebuilds the shading record from (t, prim), and `brute_force_closest` is
-the per-prim oracle. The BVH stack walk and the block-culled and packet
-regimes are not ported yet (ROADMAP.md, still to port: item 2).
+The port of gpu_pathtracer_tpu/geom/traverse.py. `intersect_closest` /
+`intersect_any` route by the scene alone, as the JAX package routes on
+its TPU (traverse.py:231-307), on both devices:
+
+- instanced scenes (static.bvh8_n_inst > 0): the BVH8 walk, instanced
+  (geom/packet.py, K4);
+- P <= DENSE_MAX (512): brute force (geom/dense.py, K1);
+- P <= BLOCKED_MAX (65,536): block culling (geom/blocked.py, K3);
+- otherwise: the BVH8 walk, flat (K4).
+
+Each regime launches its CUDA kernel on CUDA tensors and runs its plain
+PyTorch version on CPU tensors; `plain=True` forces the plain version on
+any device (the reference path). `_hit_attributes` rebuilds the shading
+record from (t, prim), and `brute_force_closest` is the per-prim oracle.
+The JAX package's binary-BVH stack walk (`_traverse`) is a test oracle
+there and is not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +27,7 @@ import torch
 from gpu_pathtracer_tpu_torch.core.vecmath import (
     INV_PI, INV_TWO_PI, TWO_PI, cross, dot, make_coordinate, normalize,
 )
-from gpu_pathtracer_tpu_torch.geom import dense
+from gpu_pathtracer_tpu_torch.geom import blocked, dense, packet
 from gpu_pathtracer_tpu_torch.scene.model import GeometryType
 
 
@@ -76,28 +86,40 @@ def _line_intersect(ro, rd, p0, p1, w0, w1, tmin, tmax):
     return ok & (dot(prl, prl) <= r * r), t, s
 
 
+def regime(static) -> str:
+    """The intersection regime of a scene: "instanced", "dense",
+    "blocked" or "bvh8"."""
+    if static.bvh8_n_inst:
+        return "instanced"
+    if static.n_primitives <= dense.DENSE_MAX:
+        return "dense"
+    if static.n_primitives <= blocked.BLOCKED_MAX:
+        return "blocked"
+    return "bvh8"
+
+
+def _queries(static):
+    """(closest, any) hit functions of the scene's regime."""
+    r = regime(static)
+    if r == "dense":
+        return dense.dense_closest, dense.dense_any
+    if r == "blocked":
+        return blocked.blocked_closest, blocked.blocked_any
+    return packet.walk_closest, packet.walk_any
+
+
 def intersect_closest(scene, static, ro, rd, tmin, tmax,
                       plain: bool = False) -> Hit:
     """Closest-hit query (pathtracer.cu:214-255). `plain` forces the plain
     PyTorch intersection on any device (the reference path)."""
-    if plain:
-        dense._check_size(static)
-        t, prim = dense.dense_closest_torch(scene.dense_prims, ro, rd, tmin,
-                                            tmax, dense._kinds(static))
-        found = prim >= 0
-    else:
-        t, prim, found = dense.dense_closest(scene, static, ro, rd, tmin,
-                                             tmax)
+    t, prim, found = _queries(static)[0](scene, static, ro, rd, tmin, tmax,
+                                         plain)
     return _hit_attributes(scene, static, ro, rd, t, prim, found)
 
 
 def intersect_any(scene, static, ro, rd, tmin, tmax, plain: bool = False):
     """Any-hit (shadow) query (pathtracer.cu:257-296) -> bool [N]."""
-    if plain:
-        dense._check_size(static)
-        return dense.dense_any_torch(scene.dense_prims, ro, rd, tmin, tmax,
-                                     dense._kinds(static))
-    return dense.dense_any(scene, static, ro, rd, tmin, tmax)
+    return _queries(static)[1](scene, static, ro, rd, tmin, tmax, plain)
 
 
 def _hit_attributes(scene, static, ro, rd, t, prim, found) -> Hit:

@@ -1,22 +1,34 @@
 """Wavefront path tracer (the reference Path kernel, pathtracer.cu:880-1021).
 
-The port of gpu_pathtracer_tpu/integrators/pt.py for the dense regime.
-Per bounce: closest hit -> arrival credit (emitter hit, MIS against the
-previous BSDF pdf) -> NEE -> BSDF sample (continuation + MIS pdf) ->
-Russian roulette after bounce 3; an epilogue intersection collects the
-last bounce's arrival credit. Lane state is a set of [N] / [N, 3]
-tensors; dead lanes are masked, never compacted, so lane i's draws
-depend on lane i alone.
+The port of gpu_pathtracer_tpu/integrators/pt.py. Per bounce: closest
+hit -> arrival credit (emitter hit, MIS against the previous BSDF pdf)
+-> NEE -> BSDF sample (continuation + MIS pdf) -> Russian roulette after
+bounce 3; an epilogue intersection collects the last bounce's arrival
+credit. Lane state is a set of [N] / [N, 3] tensors; dead lanes are
+masked.
 
 Random numbers: site d of lane i (lane id = pixel index) comes from the
 Philox stream of core/rng.py, or from row d of an explicit
 primary-sample matrix `psample [4 + 8 * max_depth, N]`; the megakernel
 (integrators/pt_fused.py) reads the very same sites.
 
+Coherence sorts (pt.py:80-98, 133-165, 238-256, 278-283): above
+DENSE_MAX prims, where the block-culled and BVH8 walks care how close
+neighbouring rays are, the primary rays are shuffled into pixel-morton
+order, the lanes are re-sorted after every bounce by the next ray's
+direction octant and origin cell (dead lanes last), and the radiance is
+scattered back to the caller's order at the end. Each sort is one stable
+torch.sort and one gather of the packed lane state. The lane ids travel
+with the lanes and key every draw, and every step is per lane, so the
+sorted estimator equals the unsorted one bit for bit, lane for lane. An
+explicit `psample` (rows indexed by position) runs unsorted, as in the
+JAX package.
+
 Routing follows the JAX package: on CUDA tensors `render_lanes` hands
 every scene that `pt_fused.supports` admits to the megakernel, the rest
-run this wavefront over the dense-hit kernel; on CPU tensors the
-wavefront runs over the plain intersection.
+run this wavefront over the intersection kernel of their regime
+(geom/traverse.py); on CPU tensors the wavefront runs over the plain
+intersection.
 """
 
 from __future__ import annotations
@@ -29,8 +41,9 @@ from gpu_pathtracer_tpu_torch.core.rng import (
 from gpu_pathtracer_tpu_torch.core.sampling import power_heuristic
 from gpu_pathtracer_tpu_torch.core.vecmath import dot, is_black, luminance
 from gpu_pathtracer_tpu_torch.geom import traverse
+from gpu_pathtracer_tpu_torch.geom.dense import DENSE_MAX
 from gpu_pathtracer_tpu_torch.integrators.common import (
-    direct_light_nee, primary_rays,
+    direct_light_nee, morton_bits, permute_lanes, primary_rays,
 )
 from gpu_pathtracer_tpu_torch.shade import bsdf as bsdf_mod
 from gpu_pathtracer_tpu_torch.shade import lights as lights_mod
@@ -39,6 +52,24 @@ from gpu_pathtracer_tpu_torch.shade import lights as lights_mod
 def lane_ids_of(static, pixel_x, pixel_y):
     """The lane id that keys every random site: the pixel index."""
     return pixel_y.long() * static.width + pixel_x.long()
+
+
+def _sort_key(scene, ro, rd, alive):
+    """Wavefront coherence key (pt.py:80-98): direction octant above a
+    4-bit-per-axis origin morton code; dead lanes sort last."""
+    q = torch.clamp(((ro - scene.world_center)
+                     / (2.0 * max(scene.world_radius, 1e-6)) + 0.5)
+                    * 15.999, 0.0, 15.0).to(torch.int64)
+    octant = ((rd > 0.0).to(torch.int64)
+              << torch.arange(3, device=rd.device)).sum(-1)
+    return torch.where(alive, (octant << 12) | morton_bits(q, 4), 1 << 20)
+
+
+def _pixel_key(static, lanes):
+    """Pixel-morton key of the primary rays (pt.py:148-165): tiles each
+    run of lanes into a compact screen square."""
+    xy = torch.stack([lanes % static.width, lanes // static.width], -1)
+    return morton_bits(xy, 10)
 
 
 def _arrival_credit(scene, static, hit, ro, rd, li, beta, specular,
@@ -95,10 +126,18 @@ def wavefront(scene, static, seed, iteration, pixel_x, pixel_y,
 def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
                 with_stats=False, psample=None, plain=False):
     """The wavefront's bounces from given primary rays: the part of the
-    estimator that the megakernel (pt_fused.fused_call) replaces."""
+    estimator that the megakernel (pt_fused.fused_call) replaces. Lanes
+    are sorted for coherence above DENSE_MAX prims unless `psample` is
+    given; the radiance comes back in the order of `lanes`."""
     n = ro.shape[0]
     dev = ro.device
     eps = scene.epsilon
+    sort = psample is None and static.n_primitives > DENSE_MAX
+    slot = torch.arange(n, device=dev)   # the caller's order
+    if sort:
+        order = torch.sort(_pixel_key(static, lanes), stable=True).indices
+        (ro, rd), (lanes, slot) = permute_lanes(order, (ro, rd),
+                                                (lanes, slot))
 
     li = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
@@ -150,12 +189,24 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
             beta = torch.where(alive[:, None], beta * rr_scale[:, None],
                                beta)
 
+        if sort:   # re-sort by the next ray's coherence key
+            order = torch.sort(_sort_key(scene, ro, rd, alive),
+                               stable=True).indices
+            flags = specular.to(torch.int32) | (alive.to(torch.int32) << 1)
+            (ro, rd, li, beta, prev_pdf), (lanes, slot, flags) = \
+                permute_lanes(order, (ro, rd, li, beta, prev_pdf),
+                              (lanes, slot, flags))
+            specular = (flags & 1) != 0
+            alive = (flags & 2) != 0
+
     # epilogue: the last continuation ray's emitter credit
     rays = rays + alive.sum()
     hit = traverse.intersect_closest(
         scene, static, ro, rd, eps, torch.where(alive, torch.inf, eps), plain)
     li, _ = _arrival_credit(scene, static, hit, ro, rd, li, beta, specular,
                             prev_pdf, alive, False)
+    if sort:   # back to the caller's lane order
+        li = torch.empty_like(li).index_put_((slot.long(),), li)
 
     # NaN/Inf guard (pathtracer.cu:1019-1020): poisoned lanes are zeroed
     bad = ~torch.isfinite(li).all(dim=-1)

@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels (csrc/*.cu) and count their launches.
 
-Each kernel source is compiled by `nvcc` into its own shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers, so a
-build takes seconds). The build runs at first use, into `build/` at the
-root of the checkout, keyed by a hash of the csrc/ sources and the
-flags, so a changed source is rebuilt and an unchanged one is reused.
-There is no fallback: a missing `nvcc`, a failed build or a failed load
-raises.
+Each kernel source (csrc/<name>.cu: dense, pt_fused, blocked,
+bvh8_walk) is compiled by `nvcc` into its own shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds). The build runs at first use, into `build/` at the root
+of the checkout, keyed by a hash of the csrc/ sources and the flags, so
+a changed source is rebuilt and an unchanged one is reused; `build`
+compiles several sources at once, one nvcc process each. There is no
+fallback: a missing `nvcc`, a failed build or a failed load raises.
 
 `-fmad=false` keeps nvcc from contracting a*b+c into one fused
 multiply-add: the kernels then round every operation like the plain
@@ -67,35 +68,54 @@ def _nvcc() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load csrc/<name>.cu as build/<name>-<hash>.so."""
-    if name in _LIBS:
-        return _LIBS[name]
-    src = CSRC / f"{name}.cu"
+def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    so = BUILD / f"{name}-{h.hexdigest()[:16]}.so"
-    seconds, ptxas = 0.0, ""
-    if not so.exists():
-        BUILD.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
+    return h.hexdigest()[:16]
+
+
+def build(names) -> None:
+    """Build (once) and load csrc/<name>.cu as build/<name>-<hash>.so for
+    each name, running the nvcc processes of the missing ones at once."""
+    todo = [n for n in names if n not in _LIBS]
+    if not todo:
+        return
+    key = _source_hash()
+    jobs = {}
+    for name in todo:
+        so = BUILD / f"{name}-{key}.so"
+        if not so.exists():
+            BUILD.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs[name] = (proc, tmp, time.perf_counter())
+    reports, failed = {}, []
+    for name, (proc, tmp, t0) in jobs.items():   # wait for every one
+        _, err = proc.communicate()
+        reports[name] = (time.perf_counter() - t0, err)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        os.replace(tmp, so)
-        ptxas = proc.stderr
-    lib = ctypes.CDLL(str(so))
-    _LIBS[name] = lib
-    BUILDS[name] = BuildInfo(str(so), seconds, ptxas)
-    return lib
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n{err}")
+        else:
+            os.replace(tmp, BUILD / f"{name}-{key}.so")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in todo:
+        so = BUILD / f"{name}-{key}.so"
+        _LIBS[name] = ctypes.CDLL(str(so))
+        seconds, ptxas = reports.get(name, (0.0, ""))
+        BUILDS[name] = BuildInfo(str(so), seconds, ptxas)
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built at first use."""
+    build([name])
+    return _LIBS[name]
 
 
 def check_launch(rc: int, kernel: str) -> None:
@@ -108,7 +128,9 @@ def check_cuda_f32(name: str, t: torch.Tensor, shape: tuple,
                    device: torch.device) -> None:
     """Raise unless `t` is a contiguous float32 tensor of `shape` (None
     entries are free) on the CUDA `device`."""
-    if not t.is_cuda or t.device != device:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
     if t.dtype != torch.float32:
         raise ValueError(f"{name} must be float32, got {t.dtype}")

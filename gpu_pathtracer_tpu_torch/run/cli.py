@@ -76,10 +76,11 @@ def main(argv=None):
         scene.width = scene.height = args.size
     r = Renderer(scene, tile_size=args.tile, seed=args.seed,
                  max_depth=args.depth, device=device)
+    build_s = time.time() - t0
     print(f"[scene] {r.static.n_primitives} prims, {r.width}x{r.height}, "
           f"integrator={r.static.integrator.name}, depth "
           f"{r.static.max_depth}, device {device} "
-          f"(built in {time.time() - t0:.2f}s)")
+          f"(built in {build_s:.2f}s)")
 
     _sync(device)
     t0 = time.time()
@@ -100,7 +101,8 @@ def main(argv=None):
     if args.exr:
         save_exr(args.exr, r.radiance()[::-1])
         print(f"[out] wrote {args.exr}")
-    return {"seconds": dt, "spp": args.spp, "rays": rays,
+    return {"seconds": dt, "build_seconds": build_s, "spp": args.spp,
+            "rays": rays,
             "spp_per_s": args.spp / dt, "mrays_per_s": rays / dt / 1e6,
             "renderer": r}
 

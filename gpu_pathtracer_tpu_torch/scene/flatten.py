@@ -3,12 +3,20 @@
 The port of gpu_pathtracer_tpu/scene/flatten.py (flatten.py:403-916) for
 the fields the path-tracing slice reads: geometry, the BVH node arrays,
 materials, area lights and their pick CDF, the camera, the world sphere
-and the packed tables the kernels take (`dense_prims`, `fused_attrs`,
-`mat_attrs`, `light_attrs`, plus `prim_attrs` and `block_bbox`). The
+and the packed tables the kernels take (`dense_prims`, `block_bbox`,
+the unified BVH8 table `bvh8_table` with its instance table `bvh8_aux`,
+`fused_attrs`, `mat_attrs`, `light_attrs`, plus `prim_attrs`). The
 numpy table code is the JAX package's, so both packages compute on the
-same values. Textures, environment lights, media, BSSRDFs and the
-BVH8/TLAS tables are not ported yet: a scene that needs them raises
-NotImplementedError naming its ROADMAP item.
+same values. Textures, environment lights, media and BSSRDFs are not
+ported yet: a scene that needs them raises NotImplementedError naming
+its ROADMAP item.
+
+Instancing (geom/tlas.py): with `instancing`, repeated meshes become
+instances of one BLAS, the prims are laid out (instance, blas-local),
+and the binary BVH is a one-leaf stand-in, as in the JAX package
+(flatten.py:403-434). The JAX package plans instances on a TPU or under
+an environment variable; the port plans them when asked, and
+`flatten_scene` asks on a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,7 +27,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gpu_pathtracer_tpu_torch.geom.bvh import build_bvh
+from gpu_pathtracer_tpu_torch.geom import bvh8 as bvh8_mod
+from gpu_pathtracer_tpu_torch.geom import tlas as tlas_mod
+from gpu_pathtracer_tpu_torch.geom.blocked_cuda import BLOCK
+from gpu_pathtracer_tpu_torch.geom.bvh import FlatBVH, build_bvh
 from gpu_pathtracer_tpu_torch.geom.dense_cuda import DENSE_MAX
 from gpu_pathtracer_tpu_torch.scene.model import (
     GeometryType, HostScene, IntegratorType,
@@ -29,7 +40,6 @@ from gpu_pathtracer_tpu_torch.scene.parse import (
 )
 
 LUMA64 = np.array([0.212671, 0.715160, 0.072169])
-BLOCK = 64        # prims per culling block (block_bbox rows)
 
 
 @dataclass
@@ -109,6 +119,12 @@ class DeviceScene:
     # for triangles, p1/- for lines; type -1 on the pad rows
     dense_prims: torch.Tensor
     block_bbox: torch.Tensor         # [nb, 8]: min(3) max(3) pad(2)
+    # [rows, 128]: the unified BVH8 table (geom/bvh8.py; TLAS rows first
+    # when instanced, geom/tlas.py)
+    bvh8_table: torch.Tensor
+    # [n_inst, 20]: world->blas xform(12) root row, slot base, world
+    # bbox min(3) max(3) per instance; one zero row when flat
+    bvh8_aux: torch.Tensor
     # [P, 40]: v0 v1 v2 | n0 n1 n2 | uv0 uv1 uv2 | dpdv | r0 r1 |
     #   type mat light bssrdf med_in med_out | pad
     prim_attrs: torch.Tensor
@@ -140,6 +156,11 @@ class StaticConfig:
     n_primitives: int
     n_nodes: int
     material_types: tuple  # sorted tuple of MaterialType ints present
+    bvh8_n8: int           # node rows of the unified BVH8 table
+    bvh8_rows: int         # all its rows (nodes, leaves, zero row)
+    bvh8_tlas_rows: int    # TLAS node rows at its front (0 when flat)
+    bvh8_n_inst: int       # instances (0 = flat scene)
+    bvh8_stack: int        # stack entries a walk needs (bvh8.stack_bound)
 
 
 def _tri_dpdv(pos: np.ndarray, uv: np.ndarray) -> np.ndarray:
@@ -171,17 +192,26 @@ def _tri_dpdv(pos: np.ndarray, uv: np.ndarray) -> np.ndarray:
     return (out / np.maximum(ln, 1e-30)).astype(np.float32)
 
 
-def _prim_bboxes(scene: HostScene):
+def _prim_fields(scene: HostScene) -> np.ndarray:
+    """[P, 7] int64 per primitive: type, tri_index, matIdx, lightIdx,
+    bssrdfIdx, mediumInside, mediumOutside."""
+    return np.array([(int(p.type), p.tri_index, p.matIdx, p.lightIdx,
+                      p.bssrdfIdx, p.mediumInside, p.mediumOutside)
+                     for p in scene.primitives], np.int64).reshape(-1, 7)
+
+
+def _prim_bboxes(scene: HostScene, fields: np.ndarray):
     """Per-primitive AABBs for the BVH build."""
     n = len(scene.primitives)
     bmin = np.empty((n, 3), np.float32)
     bmax = np.empty((n, 3), np.float32)
-    for i, p in enumerate(scene.primitives):
-        if p.type == GeometryType.TRIANGLE:
-            tri = scene.tri_positions[p.tri_index]
-            bmin[i] = tri.min(axis=0)
-            bmax[i] = tri.max(axis=0)
-        elif p.type == GeometryType.SPHERE:
+    tri = fields[:, 0] == int(GeometryType.TRIANGLE)
+    pos = scene.tri_positions[fields[tri, 1]]
+    bmin[tri] = pos.min(axis=1)
+    bmax[tri] = pos.max(axis=1)
+    for i in np.nonzero(~tri)[0]:
+        p = scene.primitives[i]
+        if p.type == GeometryType.SPHERE:
             bmin[i] = p.center - p.radius
             bmax[i] = p.center + p.radius
         else:  # LINE (line.h:15-25)
@@ -206,16 +236,35 @@ def _check_supported(scene: HostScene) -> None:
             "BSSRDF materials are not ported yet " + ROADMAP_MEDIA)
 
 
-def flatten_numpy(scene: HostScene) -> tuple[dict, dict]:
+def flatten_numpy(scene: HostScene, instancing: bool = False
+                  ) -> tuple[dict, dict]:
     """HostScene -> (arrays, static): the DeviceScene fields as numpy
-    arrays (camera fields under "camera") and the StaticConfig fields."""
+    arrays (camera fields under "camera") and the StaticConfig fields
+    (all but `bvh8_stack`, which device_scene_from_numpy derives).
+    `instancing` plans TLAS/BLAS instances (geom/tlas.py)."""
     _check_supported(scene)
-    bmin, bmax = _prim_bboxes(scene)
-    bvh = build_bvh(bmin, bmax)
-    order = bvh.prim_order
+    fields = _prim_fields(scene)
+    bmin, bmax = _prim_bboxes(scene, fields)
+    plan = tlas_mod.plan_instances(scene, bmin, bmax) if instancing \
+        else None
+    if plan is None:
+        bvh = build_bvh(bmin, bmax)
+        order = bvh.prim_order
+    else:
+        # one-leaf stand-in: its prim order is the instanced slot layout
+        order = plan.order
+        bvh = FlatBVH(
+            bbox_min=bmin.min(0)[None], bbox_max=bmax.max(0)[None],
+            is_leaf=np.ones(1, bool), second_child=np.full(1, -1, np.int32),
+            start=np.zeros(1, np.int32),
+            end=np.asarray([order.shape[0] - 1], np.int32),
+            prim_order=order)
     P = order.shape[0]
 
-    prim_type = np.zeros(P, np.int32)
+    of = fields[order]
+    prim_type = of[:, 0].astype(np.int32)
+    mat_idx, light_idx, bssrdf_idx, medium_inside, medium_outside = (
+        of[:, k].astype(np.int32) for k in range(2, 7))
     v0 = np.zeros((P, 3), np.float32)
     v1 = np.zeros((P, 3), np.float32)
     v2 = np.zeros((P, 3), np.float32)
@@ -227,26 +276,11 @@ def flatten_numpy(scene: HostScene) -> tuple[dict, dict]:
     uv2 = np.zeros((P, 2), np.float32)
     radius0 = np.zeros(P, np.float32)
     radius1 = np.zeros(P, np.float32)
-    mat_idx = np.full(P, -1, np.int32)
-    light_idx = np.full(P, -1, np.int32)
-    bssrdf_idx = np.full(P, -1, np.int32)
-    medium_inside = np.full(P, -1, np.int32)
-    medium_outside = np.full(P, -1, np.int32)
 
-    tri_rows = []
-    tri_slots = []
-    for slot, pi in enumerate(order):
-        p = scene.primitives[pi]
-        prim_type[slot] = int(p.type)
-        mat_idx[slot] = p.matIdx
-        light_idx[slot] = p.lightIdx
-        bssrdf_idx[slot] = p.bssrdfIdx
-        medium_inside[slot] = p.mediumInside
-        medium_outside[slot] = p.mediumOutside
-        if p.type == GeometryType.TRIANGLE:
-            tri_rows.append(p.tri_index)
-            tri_slots.append(slot)
-        elif p.type == GeometryType.SPHERE:
+    is_tri = prim_type == int(GeometryType.TRIANGLE)
+    for slot in np.nonzero(~is_tri)[0]:
+        p = scene.primitives[order[slot]]
+        if p.type == GeometryType.SPHERE:
             v0[slot] = p.center
             radius0[slot] = p.radius
         else:
@@ -256,9 +290,9 @@ def flatten_numpy(scene: HostScene) -> tuple[dict, dict]:
             radius1[slot] = p.width1
 
     dpdv = np.zeros((P, 3), np.float32)
-    if tri_rows:
-        tr = np.asarray(tri_rows)
-        ts = np.asarray(tri_slots)
+    if is_tri.any():
+        ts = np.nonzero(is_tri)[0]
+        tr = of[ts, 1]
         pos = scene.tri_positions[tr]
         nor = scene.tri_normals[tr]
         uvs = scene.tri_uvs[tr]
@@ -372,6 +406,16 @@ def flatten_numpy(scene: HostScene) -> tuple[dict, dict]:
     block_bbox[:, 0:3] = pb_min.reshape(nb, BLOCK, 3).min(axis=1)
     block_bbox[:, 3:6] = pb_max.reshape(nb, BLOCK, 3).max(axis=1)
 
+    # the unified BVH8 table (geom/bvh8.py), instanced when planned
+    if plan is None:
+        bvh8_table, bvh8_n8 = bvh8_mod.build_bvh8(bvh, dense_prims[:P])
+        bvh8_aux = np.zeros((1, tlas_mod.AUX_COLS), np.float32)
+        bvh8_tlas_rows = bvh8_n_inst = 0
+    else:
+        bvh8_table, bvh8_n8, bvh8_aux, bvh8_tlas_rows = \
+            tlas_mod.build_instanced_table(plan, dense_prims[:P], bmin, bmax)
+        bvh8_n_inst = plan.n_inst
+
     prim_attrs = np.zeros((P, 40), np.float32)
     prim_attrs[:, 0:3] = v0
     prim_attrs[:, 3:6] = v1
@@ -444,6 +488,7 @@ def flatten_numpy(scene: HostScene) -> tuple[dict, dict]:
         light_cdf=cdf.astype(np.float32),
         world_center=center, world_radius=np.float32(radius),
         dense_prims=dense_prims, block_bbox=block_bbox,
+        bvh8_table=bvh8_table, bvh8_aux=bvh8_aux,
         prim_attrs=prim_attrs, fused_attrs=fused_attrs,
         mat_attrs=mat_attrs, light_attrs=light_attrs,
         camera=camera, epsilon=np.float32(scene.epsilon))
@@ -460,7 +505,9 @@ def flatten_numpy(scene: HostScene) -> tuple[dict, dict]:
         environment_camera=scene.camera.environment,
         n_primitives=P, n_nodes=bvh.n_nodes,
         material_types=tuple(sorted({int(m.type)
-                                     for m in scene.materials})))
+                                     for m in scene.materials})),
+        bvh8_n8=bvh8_n8, bvh8_rows=int(bvh8_table.shape[0]),
+        bvh8_tlas_rows=bvh8_tlas_rows, bvh8_n_inst=bvh8_n_inst)
     return arrays, static
 
 
@@ -472,6 +519,7 @@ def device_scene_from_numpy(arrays: dict, static: dict, device
     as a dict under "camera"); `static` maps StaticConfig field names to
     values. Extra keys are ignored, so the JAX package's DeviceScene and
     StaticConfig, read out field by field, carry across as they are.
+    `bvh8_stack` is computed here from the BVH8 table.
     """
     device = torch.device(device)
 
@@ -492,14 +540,23 @@ def device_scene_from_numpy(arrays: dict, static: dict, device
             fields[f.name] = float(np.float32(arrays[f.name]))
         else:
             fields[f.name] = tensor(arrays[f.name])
-    st = {f.name: static[f.name] for f in dataclasses.fields(StaticConfig)}
+    st = {f.name: static[f.name] for f in dataclasses.fields(StaticConfig)
+          if f.name != "bvh8_stack"}
+    st["bvh8_stack"] = bvh8_mod.stack_bound(
+        np.asarray(arrays["bvh8_table"]), np.asarray(arrays["bvh8_aux"]),
+        int(st["bvh8_n_inst"]))
     st["integrator"] = IntegratorType(int(st["integrator"]))
     st["material_types"] = tuple(int(t) for t in st["material_types"])
     return DeviceScene(**fields), StaticConfig(**st)
 
 
-def flatten_scene(scene: HostScene, device
+def flatten_scene(scene: HostScene, device, instancing: bool | None = None
                   ) -> tuple[DeviceScene, StaticConfig]:
-    """HostScene -> (DeviceScene on `device`, StaticConfig)."""
-    arrays, static = flatten_numpy(scene)
+    """HostScene -> (DeviceScene on `device`, StaticConfig). Repeated
+    meshes are instanced when `instancing` is true; None means "when
+    `device` is a CUDA device"."""
+    device = torch.device(device)
+    if instancing is None:
+        instancing = device.type == "cuda"
+    arrays, static = flatten_numpy(scene, instancing)
     return device_scene_from_numpy(arrays, static, device)

@@ -196,6 +196,13 @@ def load_scene(path: str) -> HostScene:
         raise ValueError(f'There is no material named:["{name}"]')
 
     # ---- scene[] geometry (parsescene.cpp:332-490) ---------------------
+    meshes: dict[str, objloader.TriMesh] = {}   # each OBJ is read once
+
+    def load_obj(path: str) -> objloader.TriMesh:
+        if path not in meshes:
+            meshes[path] = objloader.load_obj(path)
+        return meshes[path]
+
     for unit in doc.get("scene", []):
         if "mesh" in unit:
             mat_name = unit.get("material", "")
@@ -211,8 +218,7 @@ def load_scene(path: str) -> HostScene:
                 unit.get("rotate", [0, 0, 0]),
                 unit.get("scale", [1, 1, 1]))
             mesh_path = os.path.join(base, unit["mesh"])
-            mesh = objloader.transform_mesh(
-                objloader.load_obj(mesh_path), trs)
+            mesh = objloader.transform_mesh(load_obj(mesh_path), trs)
             tri_ids = scene.append_triangles(mesh)
             p_start = len(scene.primitives)
             for t in tri_ids:
@@ -266,7 +272,7 @@ def load_scene(path: str) -> HostScene:
                 unit.get("rotate", [0, 0, 0]),
                 unit.get("scale", [1, 1, 1]))
             mesh = objloader.transform_mesh(
-                objloader.load_obj(os.path.join(base, unit["mesh"])), trs)
+                load_obj(os.path.join(base, unit["mesh"])), trs)
             tri_ids = scene.append_triangles(mesh)
             for t in tri_ids:
                 light_idx = len(scene.lights)

@@ -100,6 +100,9 @@ def test_port_oracle_matches_dense(scenes):
 
 
 def test_plain_flag_and_size_limit(scenes):
+    """`plain` gives the same hits; past DENSE_MAX prims there is no size
+    limit any more: the same query takes the block-culled regime and
+    finds the same hits (ties between equal-t prims may pick another)."""
     _, _, td, ts, ro, rd, tmax = scenes
     args = (torch.as_tensor(ro), torch.as_tensor(rd), float(td.epsilon),
             torch.as_tensor(tmax))
@@ -108,5 +111,9 @@ def test_plain_flag_and_size_limit(scenes):
     assert torch.equal(a.prim_idx, b.prim_idx) and torch.equal(a.t, b.t)
     import dataclasses
     big = dataclasses.replace(ts, n_primitives=dense.DENSE_MAX + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        traverse.intersect_any(td, big, *args)
+    assert traverse.regime(big) == "blocked"
+    c = traverse.intersect_closest(td, big, *args)
+    assert torch.equal(a.valid, c.valid) and torch.equal(a.t, c.t)
+    assert (a.prim_idx == c.prim_idx).float().mean() >= 0.999
+    assert torch.equal(traverse.intersect_any(td, big, *args),
+                       traverse.intersect_any(td, ts, *args))

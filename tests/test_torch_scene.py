@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from gpu_pathtracer_tpu_torch.geom import bvh8
 from gpu_pathtracer_tpu_torch.scene import flatten as tf
 from gpu_pathtracer_tpu_torch.scene.parse import load_scene
 
@@ -61,6 +62,9 @@ def test_flatten_matches_jax(scene_path, monkeypatch):
     scene, static = tf.flatten_scene(load_scene(str(scene_path)), "cpu")
     assert scene.dense_prims.shape[0] >= static.n_primitives
     _assert_fields_equal(_port_arrays(scene), jax_arrays)
+    # bvh8_stack is the port's own, derived from the JAX-equal table
+    jax_static["bvh8_stack"] = bvh8.stack_bound(
+        jax_arrays["bvh8_table"], jax_arrays["bvh8_aux"], js.bvh8_n_inst)
     for name, v in dataclasses.asdict(static).items():
         assert v == jax_static[name], name
 

@@ -3,12 +3,14 @@
     python3 tools/profile_port.py [--spp 4] [scene.json ...]
 
 Renders each scene (default: scenes/cornell_port/scene.json, which takes
-the megakernel, and many_lights.json, whose 72 lights send it through
-the wavefront over the dense-hit kernel) at its own resolution and
-depth under torch.profiler after one warm-up spp, and prints per scene:
-wall time per spp, device time per spp summed over kernels, the device's
-idle share of the window, and the kernels that take the most device
-time. Needs a CUDA device; prints the card's name and power limit first.
+the megakernel; many_lights.json, whose 72 lights send it through the
+wavefront over the dense-hit kernel; and the large-mesh scenes of
+scenes/knot_port, through the wavefront over the block-culled kernel or
+the BVH8 walk) at its own resolution and depth under torch.profiler
+after one warm-up spp, and prints per scene: wall time per spp, device
+time per spp summed over kernels, the device's idle share of the window,
+and the kernels that take the most device time. Needs a CUDA device;
+prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -54,8 +56,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("scenes", nargs="*", default=[
-        os.path.join(REPO, "scenes", "cornell_port", name)
-        for name in ("scene.json", "many_lights.json")])
+        os.path.join(REPO, "scenes", folder, name)
+        for folder, name in (("cornell_port", "scene.json"),
+                             ("cornell_port", "many_lights.json"),
+                             ("knot_port", "scene.json"),
+                             ("knot_port", "forest.json"),
+                             ("knot_port", "blocked.json"))])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -63,6 +69,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     sys.path.insert(0, REPO)
+    from gpu_pathtracer_tpu_torch.geom import traverse
     from gpu_pathtracer_tpu_torch.integrators import pt_fused
     from gpu_pathtracer_tpu_torch.run.renderer import Renderer
     for path in args.scenes:
@@ -70,7 +77,7 @@ def main() -> None:
         wall, rows = profile(r, args.spp)
         dev_us = sum(us for _, us, _ in rows)
         regime = ("megakernel" if pt_fused.supports(r.static)
-                  else "wavefront over K1")
+                  else f"wavefront, {traverse.regime(r.static)} regime")
         print(f"[{os.path.basename(path)}, {regime}] {r.width}x{r.height} "
               f"depth {r.static.max_depth}: "
               f"wall {1e3 * wall / args.spp:.3f} ms/spp, device "
