@@ -4,26 +4,35 @@
     python3 chip_smoke.py --phases ABC  # build and kernel checks only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
 
-Builds the port's four CUDA kernels from csrc/, holds each against its
+Builds the port's five CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
-path-traced Cornell box and large-mesh scenes at 1024x1024, depth 5)
-and times the kernels against their plain versions. Phases:
+path-traced Cornell box and large-mesh scenes, and its volumetric path
+tracer on the smoke scene, at 1024x1024, depth 5) and times the kernels
+against their plain versions. Phases:
 
   A  build the dense-hit kernel (K1), the path-trace megakernel (K2), the
-     block-culled hit kernel (K3) and the BVH8 walk (K4), one nvcc each,
-     all at once
+     block-culled hit kernel (K3), the BVH8 walk (K4) and the media
+     tracking kernel (track.cu, K5's counterpart), one nvcc each, all at
+     once
   B  K1 vs plain: 1,048,576 rays, closest and any hit, two prim tables;
      K3 (scenes/knot_port/blocked.json), K4 flat (scene.json) and K4
      instanced (forest.json) vs plain on 1,048,576 random, primary and
      first-bounce rays each, closest and any hit; K3 vs K4 on
-     blocked.json's rays; K4's stack-overflow flag
+     blocked.json's rays; K4's stack-overflow flag; on 1,048,576 rays
+     through scenes/smoke_port's smoke box: track's segment_majorants
+     (K5's function) bit-equal to the plain version, with and without
+     the global-majorant fallback, its walk vs the plain walk in sample
+     mode and in tr mode for ett 0, 1 and 2 (bit-equal on >= 99.99% of
+     lanes, equal candidate counts), and rays that miss the box (Tr
+     exactly 1, no candidate)
   C  K2 vs plain: 65,536 lanes at depth 5 on both bundled scenes, from a
      primary-sample matrix and from in-kernel Philox; the wavefront over
      K1 vs the same plain version, on those and on many_lights.json (72
      lights, which pt.render_lanes routes to the wavefront: K1's launches
      there are recorded as `launches_wavefront_route`); the wavefront over
      K3, K4 flat and K4 instanced vs the plain wavefront on the knot
-     scenes, 65,536 lanes
+     scenes, 65,536 lanes; the VPT wavefront over K1 + track vs the
+     all-plain VPT on smoke_port, 65,536 lanes, and its rays traced
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after: scenes/cornell_port at 1024^2
      through the megakernel (spp/s, Mrays/s, the radiance against the
@@ -31,13 +40,20 @@ and times the kernels against their plain versions. Phases:
      scenes/knot_port/scene.json at 1024^2 through K4 (one warm-up spp
      held against the plain wavefront on all 1,048,576 lanes, then 8
      timed spp: spp/s, Mrays/s, host build seconds); forest.json (K4
-     instanced) and blocked.json (K3) the same with 2 timed spp
+     instanced) and blocked.json (K3) the same with 2 timed spp;
+     scenes/smoke_port with --integrator vpt (one warm-up spp held
+     against the plain VPT on all lanes, then 2 timed spp; track and K1
+     must launch, K2 must not)
   E  times, in windows of about one second, kernel and plain in turns:
      K1 vs plain at 1M rays; K2 alone vs plain from the same primary
      rays at 1024^2 depth 5, and the camera that makes those rays; K3 on
      blocked.json, K4 flat on scene.json, K4 instanced on forest.json
      vs plain on the 1M primary and first-bounce rays; K4 flat on
-     blocked.json's table beside K3
+     blocked.json's table beside K3; segment_majorants vs plain vs the
+     one PyTorch call of K5's lookup (med_sv_max[idx] on the same
+     [1M, 42] indices); the tracking walk vs plain on the phase-B rays.
+     Each kernel's bound (bytes over 3.35 TB/s or float32 operations
+     over 67 TFLOP/s, whichever is larger) is computed from these calls.
 
 Every check that fails exits non-zero before the last line. The last two
 lines are the kernels' JSON record and
@@ -66,6 +82,7 @@ KNOT = {   # the large-mesh scenes, by the kernel their route runs
     "scene": "scenes/knot_port/scene.json",       # 100,012 prims: K4 flat
     "forest": "scenes/knot_port/forest.json",     # 1,000,012: K4 instanced
 }
+SMOKE = "scenes/smoke_port/scene.json"   # VPT: smoke grid + fog, 25 prims
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "dense": ("gpu_pathtracer_tpu_torch/csrc/dense.cu",
               "gpu_pathtracer_tpu/geom/dense_tpu.py:29"),
@@ -75,7 +92,15 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                 "gpu_pathtracer_tpu/geom/dense_tpu.py:316"),
     "bvh8_walk": ("gpu_pathtracer_tpu_torch/csrc/bvh8_walk.cu",
                   "gpu_pathtracer_tpu/geom/packet_tpu.py:126"),
+    "track": ("gpu_pathtracer_tpu_torch/csrc/track.cu",
+              "gpu_pathtracer_tpu/ops/small_gather.py:30"),
 }
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM: device memory rate
+F32_FLOPS = 67e12           # and float32 peak outside the tensor cores
+RAY_IO = 40       # bytes per ray of a hit query: ro rd tmin tmax, t prim
+TRI_FLOPS = 40    # float operations of one ray-triangle test
+SLAB_FLOPS = 24   # of one ray-box slab test
+N_RAYS = 1 << 20  # rays of the kernel-vs-plain checks and timings
 SEED = 2024
 _FLAT = {}   # scene path -> (DeviceScene, StaticConfig, host seconds)
 
@@ -143,15 +168,27 @@ def all_stats() -> dict:
         blocked_cuda, dense_cuda, packet_cuda,
     )
     from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    from gpu_pathtracer_tpu_torch.shade import media_cuda
     return {"dense_hit": dense_cuda.STATS, "pt_fused": pt_fused.STATS,
-            "blocked": blocked_cuda.STATS, "bvh8_walk": packet_cuda.STATS}
+            "blocked": blocked_cuda.STATS, "bvh8_walk": packet_cuda.STATS,
+            "track": media_cuda.STATS}
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the float32 operations over the peak rate."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations"}
 
 
 def flat(key: str, dev):
-    """The knot scene `key` flattened on `dev` (once per run)."""
+    """The knot scene `key`, or the scene at repo path `key`, flattened on
+    `dev` (once per run)."""
     from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
     from gpu_pathtracer_tpu_torch.scene.parse import load_scene
-    path = os.path.join(REPO, KNOT[key])
+    path = os.path.join(REPO, KNOT.get(key, key))
     if path not in _FLAT:
         t0 = time.perf_counter()
         scene, static = flatten_scene(load_scene(path), dev)
@@ -285,6 +322,7 @@ def phase_b(dev, rng, records):
         check(any_frac >= 0.9999, f"K1 {name}: any-hit equal on {any_frac}")
     records["dense_hit"]["max_abs_err"] = max_err
     phase_b_large(dev, rng, records)
+    phase_b_media(dev, rng, records)
 
 
 def k3_pair(scene, static):
@@ -477,6 +515,7 @@ def phase_c(dev, rng, records):
         check(bool(torch.isfinite(li_k).all()), f"{key}: non-finite li")
         check(counts[kname] > 0 and sum(counts.values()) == counts[kname],
               f"wavefront {key}: launches {counts}")
+    phase_c_media(dev, records)
 
 
 def phase_d(dev, card, records):
@@ -547,6 +586,7 @@ def phase_d(dev, card, records):
                             ("forest", "bvh8_walk", 2),
                             ("blocked", "blocked", 2)):
         knot_main_path(key, kname, spp, card, records)
+    vpt_main_path(card, records)
 
 
 def knot_main_path(key, kname, spp, card, records):
@@ -645,10 +685,24 @@ def phase_e(dev, rng, card, records):
           f"{span(t2['kernel'])}), plain {mean(t2['plain']):.4f} ms "
           f"({span(t2['plain'])}); camera (plain PyTorch, both routes) "
           f"{mean(t2['camera']):.4f} ms ({span(t2['camera'])}) ({card})")
+    # bounds (RAY_IO: 32 B of ray in, 8 B of hit out; TRI_FLOPS per
+    # ray-prim test): K1 tests every row; K2 every row per ray it traced
+    n_rows = table.shape[0]
+    b_k1 = bound(n * RAY_IO + table.numel() * 4, n * n_rows * TRI_FLOPS)
+    _, k2_rays = pt_fused.fused_call(scene, static, SEED, 1, lanes32, p_ro,
+                                     p_rd)
+    k2_rays = int(k2_rays.sum())
+    b_k2 = bound(n * 44 + table.numel() * 4 + scene.prim_attrs.numel() * 4,
+                 k2_rays * n_rows * TRI_FLOPS)
+    print(f"[E] bounds: K1 {b_k1['bound_ms']:.4f} ms by {b_k1['bound_by']};"
+          f" K2 {b_k2['bound_ms']:.4f} ms by {b_k2['bound_by']} ({k2_rays} "
+          f"rays x {n_rows} rows)")
     records["dense_hit"].update(ms=mean(t1["kernel"]),
-                                plain_ms=mean(t1["plain"]))
+                                plain_ms=mean(t1["plain"]), **b_k1,
+                                library_ms=None)
     records["pt_fused"].update(ms=mean(t2["kernel"]),
-                               plain_ms=mean(t2["plain"]))
+                               plain_ms=mean(t2["plain"]), **b_k2,
+                               library_ms=None)
 
     # K3 / K4 closest hit on each scene's 1M primary and bounce rays
     for key, kname, pair, rec in (
@@ -671,13 +725,317 @@ def phase_e(dev, rng, card, records):
                 line += (f", plain {mean(t['plain']):.4f} ms "
                          f"({span(t['plain'])})")
                 if key != "forest" and set_name == "primary":
+                    t_best = (plain(ro, rd, t_lo, t_hi, False)[0]
+                              if rec == "blocked" else None)
+                    b = hit_bound(rec, scene, ro, rd, t_lo, t_best)
+                    line += (f"; bound {b['bound_ms']:.4f} ms by "
+                             f"{b['bound_by']}")
                     records[rec].update(ms=mean(t["kernel"]),
-                                        plain_ms=mean(t["plain"]))
+                                        plain_ms=mean(t["plain"]), **b,
+                                        library_ms=None)
                 if key == "forest" and set_name == "primary":
                     records[rec].update(
                         ms_instanced=mean(t["kernel"]),
                         plain_ms_instanced=mean(t["plain"]))
             print(line + f" ({card})")
+    phase_e_media(dev, rng, card, records)
+
+
+def hit_bound(rec, scene, ro, rd, t_lo, t_best) -> dict:
+    """The bound of K3 ("blocked") or K4 ("bvh8_walk") on these rays. K3:
+    a slab test of every block box, and 64 prim tests in each block the
+    ray enters before its closest hit `t_best` (the plain version's t,
+    tmax on a miss; blocks behind it need no test), counted here. K4,
+    whose walk length is not counted: a lower bound of one 8-wide node
+    and one 8-record leaf per ray."""
+    n = ro.shape[0]
+    if rec == "bvh8_walk":
+        return bound(n * RAY_IO + scene.bvh8_table.numel() * 4,
+                     n * (8 * SLAB_FLOPS + 8 * TRI_FLOPS))
+    bb = scene.block_bbox
+    inv = 1.0 / torch.where(rd.abs() > 1e-20, rd, 1e-20)
+    entered = 0
+    for b0 in range(0, bb.shape[0], 16):
+        lo = (bb[None, b0:b0 + 16, 0:3] - ro[:, None]) * inv[:, None]
+        hi = (bb[None, b0:b0 + 16, 3:6] - ro[:, None]) * inv[:, None]
+        tn = torch.minimum(lo, hi).amax(-1).clamp_min(t_lo[:, None])
+        tf = torch.minimum(torch.maximum(lo, hi).amin(-1), t_best[:, None])
+        entered += int((tn <= tf).sum())
+    return bound(n * RAY_IO + scene.dense_prims.numel() * 4 + bb.numel() * 4,
+                 n * bb.shape[0] * SLAB_FLOPS + entered * 64 * TRI_FLOPS)
+
+
+SMOKE_RAYS = {}   # the phase-B media rays, reused in phase E
+
+
+def smoke_rays(scene, rng, n, dev):
+    """n rays from outside the smoke box, aimed at points inside it; a
+    quarter end inside the box, the rest reach past it. 90% of the lanes
+    are in the smoke, 5% in the fog, 5% in vacuum (-1).
+    -> (ro, rd, tmax, med_idx)."""
+    if n in SMOKE_RAYS:
+        return SMOKE_RAYS[n]
+    p0 = scene.med_p0[0].cpu().numpy().astype(np.float64)
+    p1 = scene.med_p1[0].cpu().numpy().astype(np.float64)
+    target = rng.uniform(p0 + 0.02 * (p1 - p0), p1 - 0.02 * (p1 - p0), (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = 1.5 + np.where(rng.random(n) < 0.25, rng.uniform(0.0, 0.3, n),
+                          rng.uniform(0.5, 3.0, n))
+    idx = rng.choice(np.array([0, 1, -1], np.int32), n, p=[0.9, 0.05, 0.05])
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=dev).contiguous()
+    SMOKE_RAYS[n] = (f(target - 1.5 * d), f(d), f(tmax),
+                     torch.as_tensor(idx, device=dev))
+    return SMOKE_RAYS[n]
+
+
+def walk_modes(scene):
+    """The tracking walk's four cases: (label, mode, scene with that ett)."""
+    from gpu_pathtracer_tpu_torch.scene.flatten import replace_media
+    from gpu_pathtracer_tpu_torch.shade import media
+    out = []
+    for mode, ett in ((media.MODE_SAMPLE, 1), (media.MODE_TR, 0),
+                      (media.MODE_TR, 1), (media.MODE_TR, 2)):
+        sc = replace_media(scene, med_eval_tr_type=torch.full_like(
+            scene.med_eval_tr_type, ett))
+        label = "sample" if mode == media.MODE_SAMPLE else f"tr ett {ett}"
+        out.append((label, mode, sc))
+    return out
+
+
+def phase_b_media(dev, rng, records):
+    """The tracking kernel vs its plain versions on 1,048,576 rays through
+    scenes/smoke_port's smoke box: segment_majorants (K5's function) bit
+    for bit, the walk in sample mode and in tr mode for ett 0, 1 and 2,
+    and rays that miss the box."""
+    from gpu_pathtracer_tpu_torch.core.rng import TRACK_SURFACE, track_tag
+    from gpu_pathtracer_tpu_torch.shade import media, media_cuda
+    scene, static = flat(SMOKE, dev)
+    n = N_RAYS
+    ro, rd, tmax, idx = smoke_rays(scene, rng, n, dev)
+    med = media.gather_medium(scene, idx)
+    t0, ln = media._box_clip(med, ro, rd, tmax)
+    ro_h = (ro + rd * t0[:, None]).contiguous()
+    idx0 = torch.clamp_min(idx, 0)
+    for label, (o, t) in (("clipped to the box", (ro_h, ln)),
+                          ("raw tmax", (ro, tmax))):
+        mk = media_cuda.segment_majorants_cuda(scene, o, rd, t, idx0)
+        mp = media._segment_majorants(scene, med, o, rd, t)
+        torch.cuda.synchronize()
+        glob = (mp == (1.0 / torch.clamp_min(med["inv_max_density"], 1e-30))
+                [:, None]).all(1).float().mean().item()
+        equal = torch.equal(mk, mp)
+        print(f"[B] segment_majorants (K5's function) {label}: {n} rays x "
+              f"{media.NSEG} segments, bit-equal {equal}, lanes on the "
+              f"global-majorant fallback {glob:.4f}")
+        check(equal, f"segment_majorants {label}: not bit-equal")
+
+    key = media.TrackKey(SEED, 1, torch.arange(n, device=dev),
+                         track_tag(0, TRACK_SURFACE))
+    err = 0.0
+    for label, mode, sc in walk_modes(scene):
+        ok, ck = media_cuda.track_cuda(sc, mode, idx, ro, rd, tmax, key,
+                                       static.med_iter_max)
+        op, cp = media._track_torch(sc, mode, idx, ro, rd, tmax, key,
+                                    static.med_iter_max)
+        torch.cuda.synchronize()
+        same = (ok == op) | (torch.isnan(ok) & torch.isnan(op))
+        frac = same.float().mean().item()
+        cand_same = (ck == cp).float().mean().item()
+        fin = torch.isfinite(ok) & torch.isfinite(op)
+        if fin.any():
+            err = max(err, (ok - op).abs()[fin].max().item())
+        stat = (torch.isfinite(ok).float().mean().item()
+                if mode == media.MODE_SAMPLE else ok.double().mean().item())
+        print(f"[B] track {label}: {n} rays, bit-equal {frac:.6f}, "
+              f"candidates {int(ck.sum())} vs {int(cp.sum())} (per lane "
+              f"equal {cand_same:.6f}, {ck.float().mean().item():.3f} per "
+              f"ray), {'collided' if mode == media.MODE_SAMPLE else 'mean'}"
+              f" {stat:.6f}")
+        check(frac >= 0.9999, f"track {label}: bit-equal on {frac}")
+        check(int(ck.sum()) == int(cp.sum()) and cand_same >= 0.9999,
+              f"track {label}: candidates differ")
+        check(bool((ck[idx != 0] == 0).all()), f"track {label}: candidates "
+              "on a lane outside the smoke")
+
+    # rays that miss the box: Tr exactly 1, no candidate drawn
+    miss_o = torch.tensor([0.5, 1.0, 0.5], device=dev).expand(n, 3)
+    up = torch.tensor([0.0, 1.0, 0.0], device=dev).expand(n, 3)
+    for label, mode, sc in walk_modes(scene)[1:]:
+        out, cand = media_cuda.track_cuda(
+            sc, mode, torch.zeros(n, dtype=torch.int32, device=dev), miss_o,
+            up, torch.full((n,), 5.0, device=dev), key, static.med_iter_max)
+        check(bool((out == 1.0).all()) and int(cand.sum()) == 0,
+              f"track {label}: a ray that misses the box drew candidates")
+    print(f"[B] track on {n} rays that miss the box: Tr exactly 1, no "
+          "candidate, for ett 0, 1 and 2")
+    records["track"]["max_abs_err"] = err
+
+
+def phase_c_media(dev, records, n_lanes=65536):
+    """The VPT wavefront over K1 + track vs the all-plain VPT on
+    scenes/smoke_port, 65,536 lanes."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt
+    scene, static = flat(SMOKE, dev)
+    n_pix = static.width * static.height
+    ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
+                       dtype=torch.int32)[:n_lanes]
+    px, py = ids % static.width, ids // static.width
+    stats = all_stats()
+    reset_counts(*stats.values())
+    li_k, r_k = vpt.render_lanes(scene, static, SEED, 1, px, py, True)
+    torch.cuda.synchronize()
+    counts = {k: st.launches for k, st in stats.items()}
+    li_p, r_p = vpt.render_lanes(scene, static, SEED, 1, px, py, True,
+                                 plain=True)
+    frac = close_frac(li_k, li_p)
+    ratio = li_k.double().mean().item() / li_p.double().mean().item()
+    print(f"[C] VPT over K1 + track, smoke_port: {ids.numel()} lanes, agree "
+          f"{frac:.6f}, bit-equal "
+          f"{(li_k == li_p).all(1).float().mean().item():.6f}, mean ratio "
+          f"{ratio:.7f}, rays {int(r_k)} vs {int(r_p)}, launches {counts}")
+    check(frac >= 0.99, f"VPT wavefront: agree on {frac}")
+    check(abs(ratio - 1.0) <= 1e-3, f"VPT wavefront: ratio {ratio}")
+    check(int(r_k) == int(r_p), "VPT wavefront: ray counts differ")
+    check(bool(torch.isfinite(li_k).all()), "VPT: non-finite li")
+    check(counts["dense_hit"] > 0 and counts["track"] > 0
+          and counts["dense_hit"] + counts["track"] == sum(counts.values()),
+          f"VPT wavefront: launches {counts}")
+    records["track"]["max_abs_err"] = max(
+        records["track"].get("max_abs_err", 0.0),
+        (li_k - li_p).abs().max().item())
+
+
+def vpt_main_path(card, records):
+    """The VPT main path through the CLI: scenes/smoke_port at 1024^2,
+    depth 5; one warm-up spp held against the plain VPT on every lane,
+    then 2 timed spp whose launches must be K1's and track's."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt
+    from gpu_pathtracer_tpu_torch.run import cli
+    path = os.path.join(REPO, SMOKE)
+    stats = all_stats()
+
+    def render(n, name):
+        return cli.main([path, "--integrator", "vpt", "--size", "1024",
+                         "--depth", "5", "--spp", str(n), "--seed",
+                         str(SEED), "--out", os.path.join(OUT, name)])
+
+    warm = render(1, "smoke_port_1spp.png")
+    r = warm["renderer"]
+    li_p = vpt.render_lanes(r.device_scene, r.static, SEED, 1, r._px, r._py,
+                            plain=True)
+    li_k = r.acc
+    frac = close_frac(li_k, li_p)
+    ratio = li_k.double().mean().item() / li_p.double().mean().item()
+    err = (li_k - li_p).abs().max().item()
+    print(f"[D] {SMOKE} warm-up spp vs plain VPT: {li_k.shape[0]} lanes, "
+          f"agree {frac:.6f} (bit-equal "
+          f"{(li_k == li_p).all(1).float().mean().item():.6f}), max abs err "
+          f"{err:.3e}, mean ratio {ratio:.7f}")
+    check(frac >= 0.99, f"VPT main path: agree on {frac}")
+    check(abs(ratio - 1.0) <= 1e-3, f"VPT main path: mean ratio {ratio}")
+    del warm, r, li_p, li_k
+
+    reset_counts(*stats.values())
+    res = render(2, "smoke_port.png")
+    counts = {k: st.launches for k, st in stats.items()}
+    plain = sum(st.plain_cuda for st in stats.values())
+    img = res["renderer"].image()
+    check(img.shape == (1024, 1024, 3) and bool(np.isfinite(img).all()),
+          f"smoke_port: image {img.shape}, finite {np.isfinite(img).all()}")
+    print(f"[D] {SMOKE} VPT through K1 + track: 2 spp of 1024x1024 depth "
+          f"{res['renderer'].static.max_depth} in {res['seconds']:.6f} s: "
+          f"{res['spp_per_s']:.3f} spp/s, {res['mrays_per_s']:.1f} Mrays/s, "
+          f"host build {res['build_seconds']:.2f} s ({card}); launches "
+          f"{counts}, plain-version calls on CUDA {plain}")
+    check(counts["track"] > 0 and counts["dense_hit"] > 0,
+          f"VPT main path launches {counts}")
+    check(counts["pt_fused"] == 0 and counts["blocked"] == 0
+          and counts["bvh8_walk"] == 0, f"VPT main path launches {counts}")
+    check(plain == 0, f"VPT main path: {plain} plain-version calls on CUDA")
+    records["track"]["launches"] = counts["track"]
+    records["dense_hit"]["launches"] = counts["dense_hit"]
+
+
+def phase_e_media(dev, rng, card, records):
+    """segment_majorants (K5's function) vs its plain version vs the one
+    PyTorch call of K5's lookup (med_sv_max[idx] on the same [1M, 42]
+    indices); the tracking walk vs its plain version on the phase-B rays."""
+    from gpu_pathtracer_tpu_torch.core.rng import TRACK_SURFACE, track_tag
+    from gpu_pathtracer_tpu_torch.scene.flatten import sv_res
+    from gpu_pathtracer_tpu_torch.shade import media, media_cuda
+    scene, static = flat(SMOKE, dev)
+    n = N_RAYS
+    ro, rd, tmax, idx = smoke_rays(scene, rng, n, dev)
+    med = media.gather_medium(scene, idx)
+    t0, ln = media._box_clip(med, ro, rd, tmax)
+    ro_h = (ro + rd * t0[:, None]).contiguous()
+    idx0 = torch.clamp_min(idx, 0)
+    # the [1M, 42] table indices of K5's lookup, as _segment_majorants
+    # makes them
+    s1 = sv_res(scene.med_type.shape[0]) + 1
+    seg = media._seg_len(ln)
+    ts = torch.arange(media.NSEG + 1, dtype=torch.float32,
+                      device=dev)[None, :] * seg[:, None]
+    p = ro_h[:, None, :] + rd[:, None, :] * ts[..., None]
+    span = med["p1"] - med["p0"]
+    svc = (p - med["p0"][:, None, :]) / span[:, None, :] * (s1 - 1.0)
+    cell = torch.clamp(torch.floor(torch.minimum(svc[:, :-1], svc[:, 1:]))
+                       .to(torch.int64) + 1, 0, s1 - 1)
+    flat_idx = (idx0[:, None].long() * s1 ** 3 + cell[..., 2] * s1 * s1
+                + cell[..., 1] * s1 + cell[..., 0]).contiguous()
+    sv_max = scene.med_sv_max
+    t = timed_windows({
+        "kernel": lambda: media_cuda.segment_majorants_cuda(
+            scene, ro_h, rd, ln, idx0),
+        "plain": lambda: media._segment_majorants(scene, med, ro_h, rd, ln),
+        "library": lambda: sv_max[flat_idx]})
+    key = media.TrackKey(SEED, 1, torch.arange(n, device=dev),
+                         track_tag(0, TRACK_SURFACE))
+    _, _, sc = walk_modes(scene)[2]   # tr mode, ratio tracking
+    out, cand = media_cuda.track_cuda(sc, media.MODE_TR, idx, ro, rd, tmax,
+                                      key, static.med_iter_max)
+    w = timed_windows({
+        "kernel": lambda: media_cuda.track_cuda(
+            sc, media.MODE_TR, idx, ro, rd, tmax, key, static.med_iter_max),
+        "plain": lambda: media._track_torch(
+            sc, media.MODE_TR, idx, ro, rd, tmax, key,
+            static.med_iter_max)}, min_reps=1)
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    span_ = lambda v: f"{min(v):.4f}-{max(v):.4f}"  # noqa: E731
+    # bounds: entry 1 reads 32 B of ray + the majorant table once and
+    # writes 42 floats per ray; ~43 points x 16 flops + 42 x 10 per ray
+    b1 = bound(n * (32 + 4 * media.NSEG) + sv_max.numel() * 4,
+               n * (43 * 16 + media.NSEG * 10))
+    # the walk: 40 B of ray + 8 B out per ray, a 16-byte density row per
+    # candidate (at most the table once), ~80 flops per candidate and
+    # ~40 per segment majorant on the lanes that walk: a heterogeneous
+    # medium (not the fog, not vacuum, which gather_medium maps to
+    # medium 0) and a non-empty clip
+    n_cand = int(cand.sum())
+    table_b = scene.med_density_oct4.numel() * 4
+    walks = ((idx >= 0) & (med["type"] == media.HETEROGENEOUS) & (ln > 0))
+    b2 = bound(n * 48 + min(n_cand * 16, table_b) + sv_max.numel() * 4,
+               n_cand * 80 + int(walks.sum()) * media.NSEG * 40)
+    print(f"[E] segment_majorants (K5's function), 1M rays x 42 segments: "
+          f"kernel {mean(t['kernel']):.4f} ms (windows {span_(t['kernel'])}),"
+          f" plain {mean(t['plain']):.4f} ms ({span_(t['plain'])}), "
+          f"med_sv_max[idx] on the [1M, 42] indices "
+          f"{mean(t['library']):.4f} ms ({span_(t['library'])}); bound "
+          f"{b1['bound_ms']:.4f} ms by {b1['bound_by']} ({card})")
+    print(f"[E] track, tr mode (ratio), 1M phase-B rays ({n_cand} "
+          f"candidates): kernel {mean(w['kernel']):.4f} ms (windows "
+          f"{span_(w['kernel'])}), plain {mean(w['plain']):.4f} ms "
+          f"({span_(w['plain'])}); bound {b2['bound_ms']:.4f} ms by "
+          f"{b2['bound_by']} ({card})")
+    records["track"].update(
+        ms=mean(t["kernel"]), plain_ms=mean(t["plain"]),
+        library_ms=mean(t["library"]), **b1,
+        walk_ms=mean(w["kernel"]), walk_plain_ms=mean(w["plain"]),
+        walk_bound_ms=b2["bound_ms"], walk_bound_by=b2["bound_by"],
+        walk_candidates=n_cand)
+
 
 
 def main() -> None:
@@ -734,6 +1092,11 @@ def main() -> None:
         print(f"[{phases}] done: a partial run prints no result")
         sys.exit(0)
 
+    need = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    for rec in records.values():
+        missing = [k for k in need if k not in rec]
+        check(not missing, f"kernel record {rec['name']} lacks {missing}")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

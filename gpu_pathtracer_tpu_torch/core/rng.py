@@ -16,6 +16,24 @@ u1 u2 u3, 6 Russian roulette). The lane id is the pixel index, so a
 result does not depend on tiling, and csrc/pt_fused.cu computes the same
 bits from the same formula. The uint32 arithmetic is emulated in int64
 with masks, valid on either device.
+
+In general a counter is (i, block, tag, j): the path tracer's sites
+above are tag = j = 0. The volumetric path tracer (integrators/vpt.py)
+keeps sites 0-3 for the camera and gives step s of its loop the 16
+sites 4 + 16*s + k (VPT_STEP_DIMS), of which it reads 13:
+
+    k = 0        homogeneous distance sample u0      (VPT_MEDIUM)
+    k = 1-3      medium NEE light pick, u, v         (VPT_SCATTER)
+    k = 4-5      phase sample u1, u2
+    k = 6-8      surface NEE light pick, u, v        (VPT_SURFACE)
+    k = 9-11     BSDF u1, u2, u3
+    k = 12       Russian roulette
+
+Its tracking walks (shade/media.py, csrc/track.cu) draw from counters
+(i, 0, tag, j) with tag = track_tag(step, call site, walk segment) >=
+256, so they never meet a site above; j counts the walk's draws, and
+each draw reads word 0 (the exponential step), word 1 (the acceptance)
+and word 2 (the Russian roulette of ratio tracking).
 """
 
 from __future__ import annotations
@@ -24,6 +42,17 @@ import torch
 
 PSS_CAM_DIMS = 4
 PSS_BOUNCE_DIMS = 8
+
+VPT_STEP_DIMS = 16   # sites per VPT step (13 read)
+VPT_MEDIUM = 0       # step-site offsets of the three scopes of a VPT step
+VPT_SCATTER = 1
+VPT_SURFACE = 6
+
+# call sites of the tracking walk, field 2 of track_tag
+TRACK_SAMPLE = 0     # distance sampling (media.medium_sample)
+TRACK_SCATTER = 1    # Tr walk of the medium NEE shadow ray
+TRACK_SURFACE = 2    # Tr walk of the surface NEE shadow ray
+TRACK_EMITTER = 3    # Tr of the segment to an emitter hit
 
 MASK32 = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53
@@ -55,6 +84,20 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
         hi1, lo1 = _mulhilo(PHILOX_M1, c2)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
     return c0, c1, c2, c3
+
+
+def track_tag(step: int, site: int, segment: int = 0) -> int:
+    """The tag of a tracking walk's counters: (step + 1, call site, walk
+    segment) in bits 8+, 4-7 and 0-3; never 0, the path tracer's tag."""
+    return ((step + 1) << 8) | (site << 4) | segment
+
+
+def track_words(seed: int, iteration: int, lanes, tag: int, j):
+    """Words 0-2 of draw j of the tracking walk of lanes `lanes` (int64
+    tensors of uint32 values; j broadcasts against lanes)."""
+    z = torch.zeros_like(lanes)
+    w = philox4x32_10(lanes, z, z + tag, z + j, seed, iteration)
+    return w[0], w[1], w[2]
 
 
 def bits_to_uniform(w):

@@ -1,7 +1,8 @@
 """Sampling warps: uniform-random squares -> useful distributions.
 
 The port of the warps of gpu_pathtracer_tpu/core/sampling.py that the
-path tracer uses (the reference's wrap.h). Directions use the
+path tracers use (the reference's wrap.h), and the Henyey-Greenstein
+phase function of the media (medium.h:197-234). Directions use the
 reference's local convention where the surface normal is +Y
 (components (x=sin*cos, y=cos, z=sin*sin)).
 """
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from gpu_pathtracer_tpu_torch.core.vecmath import INV_PI, TWO_PI
+from gpu_pathtracer_tpu_torch.core.vecmath import INV_FOUR_PI, INV_PI, TWO_PI
 
 
 def sincos_2pi(u):
@@ -24,6 +25,14 @@ def sincos_2pi(u):
 def _dir_from_u2(costheta, sintheta, u2):
     cphi, sphi = sincos_2pi(u2)
     return torch.stack([sintheta * cphi, costheta, sintheta * sphi], -1)
+
+
+def uniform_sphere(u1, u2):
+    """wrap.h:26-36. Returns (dir[..., 3], pdf = 1/(4 pi))."""
+    costheta = 1.0 - 2.0 * u1
+    sintheta = torch.sqrt(torch.clamp_min(1.0 - costheta * costheta, 0.0))
+    return (_dir_from_u2(costheta, sintheta, u2),
+            torch.full_like(u1, INV_FOUR_PI))
 
 
 def cosine_hemisphere(u1, u2):
@@ -44,6 +53,31 @@ def uniform_triangle(u1, u2):
     """wrap.h:110-115. Returns barycentric (u, v) each [...]."""
     su1 = torch.sqrt(torch.clamp_min(u1, 0.0))
     return 1.0 - su1, u2 * su1
+
+
+def hg_sample(u1, u2, g):
+    """Henyey-Greenstein phase sample (sampling.py:148-169, medium.h:
+    197-220): (dir_local[..., 3] about +Y, phase[...]) with pdf == phase;
+    g is per lane, and g == 0 takes the uniform-sphere branch."""
+    iso_dir, _ = uniform_sphere(u1, u2)
+    small = torch.abs(g) < 1e-3
+    g_safe = torch.where(small, 1.0, g)
+    sqrt_term = (1.0 - g * g) / (1.0 - g + 2.0 * g * u1)
+    cos_hg = (1.0 + g * g - sqrt_term * sqrt_term) / (2.0 * g_safe)
+    costheta = torch.where(small, 1.0 - 2.0 * u1, cos_hg)
+    sintheta = torch.sqrt(torch.clamp_min(1.0 - costheta * costheta, 0.0))
+    d = _dir_from_u2(costheta, sintheta, u2)
+    is_iso = g == 0.0
+    return (torch.where(is_iso[..., None], iso_dir, d),
+            hg_phase(costheta, g))
+
+
+def hg_phase(cos_theta, g):
+    """HG phase function value == pdf (sampling.py:172-177)."""
+    cubic = 1.0 + g * g - 2.0 * g * cos_theta
+    ph = INV_FOUR_PI * (1.0 - g * g) / torch.sqrt(
+        torch.clamp_min(cubic * cubic * cubic, 1e-30))
+    return torch.where(g == 0.0, INV_FOUR_PI, ph)
 
 
 def power_heuristic(f_pdf, g_pdf):

@@ -1,0 +1,171 @@
+// Heterogeneous-medium device functions of the tracking kernel
+// (csrc/track.cu): the packed medium record, the density-box clip, the
+// supervoxel majorant of one ray segment and the trilinear density of the
+// bf16-pair oct table. Each is written in the operation order of its plain
+// PyTorch version in shade/media.py (built with -fmad=false, no fast math),
+// so the kernel and the plain version agree bit for bit.
+#pragma once
+
+#include "vec.cuh"
+
+namespace media {
+
+constexpr int kNseg = 42;       // shade/media.py NSEG
+constexpr int kMedCols = 24;    // scene/flatten.py MED_COLS
+constexpr int kHeterogeneous = 1;
+constexpr float kLn2Eps = 1e-30f;
+
+// Philox4x32-10 of a full counter (core/rng.py::philox4x32_10).
+__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
+                                        uint32_t c3, uint32_t k0,
+                                        uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+__device__ __forceinline__ float bits_to_uniform(uint32_t w) {
+  return (float)(w >> 8) * (1.0f / 16777216.0f);
+}
+
+// One row of the scene's med_table (scene/flatten.py::media_table).
+struct Medium {
+  int type, ett;
+  float imd, sigma;   // 1 / max density, luminance of sigma_t
+  V3 p0, p1, n;
+};
+
+__device__ __forceinline__ Medium load_medium(const float* table, int k) {
+  const float* r = table + (size_t)k * kMedCols;
+  Medium m;
+  m.type = (int)__ldg(r + 0);
+  m.imd = __ldg(r + 11);
+  m.ett = (int)__ldg(r + 12);
+  m.p0 = mk(__ldg(r + 13), __ldg(r + 14), __ldg(r + 15));
+  m.p1 = mk(__ldg(r + 16), __ldg(r + 17), __ldg(r + 18));
+  m.n = mk(__ldg(r + 19), __ldg(r + 20), __ldg(r + 21));
+  m.sigma = __ldg(r + 22);
+  return m;
+}
+
+// _box_clip: the ray's overlap [t0, t0 + ln] with the density box in
+// [0, tmax_].
+__device__ __forceinline__ float slab_inv(float d) {
+  const float eps = 1e-20f;
+  return 1.f / (fabsf(d) > eps ? d : (d >= 0.f ? eps : -eps));
+}
+__device__ __forceinline__ void box_clip(const Medium& m, V3 ro, V3 rd,
+                                         float tmax_, float* t0, float* ln) {
+  const V3 inv = mk(slab_inv(rd.x), slab_inv(rd.y), slab_inv(rd.z));
+  const V3 t1 = mul(sub(m.p0, ro), inv);
+  const V3 t2 = mul(sub(m.p1, ro), inv);
+  const float tn = tmax(tmax(tmin(t1.x, t2.x), tmin(t1.y, t2.y)),
+                        tmin(t1.z, t2.z));
+  const float tf = tmin(tmin(tmax(t1.x, t2.x), tmax(t1.y, t2.y)),
+                        tmax(t1.z, t2.z));
+  const float a = tmin(tmax(tn, 0.f), tmax_);
+  const float b = tmin(tmax(tf, 0.f), tmax_);
+  *t0 = a;
+  *ln = tmax(b - a, 0.f);
+}
+
+// The supervoxel coordinates of the ray's k-th segment point (k = 0..42).
+struct SegFrame {
+  V3 ro, rd, p0, span;
+  float seg, scale;   // segment length, S1 - 1
+};
+
+__device__ __forceinline__ V3 sv_coord(const SegFrame& f, int k) {
+  const float tk = (float)k * f.seg;
+  const V3 p = add(f.ro, scl(f.rd, tk));
+  const V3 q = mk((p.x - f.p0.x) / f.span.x, (p.y - f.p0.y) / f.span.y,
+                  (p.z - f.p0.z) / f.span.z);
+  return scl(q, f.scale);
+}
+
+__device__ __forceinline__ int sv_cell(float lo, int s1) {
+  const int c = (int)floorf(lo) + 1;
+  return c < 0 ? 0 : (c > s1 - 1 ? s1 - 1 : c);
+}
+
+// _segment_majorants for segment s: the max of the 2x2x2 supervoxel block
+// at the segment's low corner (the JAX package's K5 lookup), or the global
+// majorant `maxd` when a segment spans more than one supervoxel
+// (`local_ok` false, decided from segment 0 as the plain version does).
+__device__ __forceinline__ float segment_majorant(
+    const SegFrame& f, int s, int k, int s1, const float* __restrict__ sv_max,
+    bool local_ok, float maxd) {
+  const V3 a = sv_coord(f, s);
+  const V3 b = sv_coord(f, s + 1);
+  const int cx = sv_cell(tmin(a.x, b.x), s1);
+  const int cy = sv_cell(tmin(a.y, b.y), s1);
+  const int cz = sv_cell(tmin(a.z, b.z), s1);
+  const int flat = k * (s1 * s1 * s1) + cz * (s1 * s1) + cy * s1 + cx;
+  const float maj = __ldg(sv_max + flat);
+  return local_ok ? maj : maxd;
+}
+
+__device__ __forceinline__ bool segments_local(const SegFrame& f) {
+  const V3 a = sv_coord(f, 0);
+  const V3 b = sv_coord(f, 1);
+  return fabsf(b.x - a.x) <= 1.f && fabsf(b.y - a.y) <= 1.f &&
+         fabsf(b.z - a.z) <= 1.f;
+}
+
+__device__ __forceinline__ SegFrame seg_frame(const Medium& m, V3 ro, V3 rd,
+                                              float ln, int s1) {
+  SegFrame f;
+  f.ro = ro;
+  f.rd = rd;
+  f.p0 = m.p0;
+  f.span = sub(m.p1, m.p0);
+  f.seg = ln / (float)kNseg;
+  f.scale = (float)s1 - 1.f;
+  return f;
+}
+
+__device__ __forceinline__ float global_majorant(const Medium& m) {
+  return 1.f / tmax(m.imd, kLn2Eps);
+}
+
+// _density_oct: trilinear density at pos_norm in [0, 1]^3 of the grid box,
+// from ONE 16-byte row of 8 bf16 corners (zero border).
+__device__ __forceinline__ float density_oct(const uint4* __restrict__ oct4,
+                                             int k, V3 n, int dz1, int dy1,
+                                             int dx1, V3 pos_norm) {
+  const V3 ps = mul(pos_norm, n);
+  const V3 psi = mk(floorf(ps.x), floorf(ps.y), floorf(ps.z));
+  const V3 f = sub(ps, psi);
+  int xi = (int)psi.x + 1, yi = (int)psi.y + 1, zi = (int)psi.z + 1;
+  xi = xi < 0 ? 0 : (xi > dx1 - 1 ? dx1 - 1 : xi);
+  yi = yi < 0 ? 0 : (yi > dy1 - 1 ? dy1 - 1 : yi);
+  zi = zi < 0 ? 0 : (zi > dz1 - 1 ? dz1 - 1 : zi);
+  const int flat = k * (dz1 * dy1 * dx1) + zi * (dy1 * dx1) + yi * dx1 + xi;
+  const uint4 v = __ldg(oct4 + flat);
+  const uint32_t hm = 0xFFFF0000u;
+  const float d00 = __uint_as_float(v.x & hm) * (1.f - f.x) +
+                    __uint_as_float(v.x << 16) * f.x;
+  const float d10 = __uint_as_float(v.y & hm) * (1.f - f.x) +
+                    __uint_as_float(v.y << 16) * f.x;
+  const float d01 = __uint_as_float(v.z & hm) * (1.f - f.x) +
+                    __uint_as_float(v.z << 16) * f.x;
+  const float d11 = __uint_as_float(v.w & hm) * (1.f - f.x) +
+                    __uint_as_float(v.w << 16) * f.x;
+  const float d0 = d00 * (1.f - f.y) + d10 * f.y;
+  const float d1 = d01 * (1.f - f.y) + d11 * f.y;
+  return d0 * (1.f - f.z) + d1 * f.z;
+}
+
+}  // namespace media

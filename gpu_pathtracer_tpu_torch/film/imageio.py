@@ -5,7 +5,9 @@ The port's counterpart of gpu_pathtracer_tpu/film/imageio.py without PIL:
   package's `save_png` (imageio.py:33-39; the reference's SavePng,
   imageio.cpp:100-120), then encodes an RGB PNG with zlib;
 - `save_exr` is a copy of the JAX package's scanline HALF/ZIP writer
-  (imageio.py:168-227).
+  (imageio.py:168-227);
+- `read_density_file` reads a heterogeneous medium's text density grid
+  (imageio.py:229-243).
 Texture and EXR loading are not ported yet (ROADMAP.md, still to port:
 item 3).
 """
@@ -119,3 +121,14 @@ def save_exr(path: str, image: np.ndarray) -> None:
         for y0, comp in blocks:
             f.write(struct.pack("<iI", y0, len(comp)))
             f.write(comp)
+
+
+def read_density_file(path: str, nx: int, ny: int, nz: int) -> np.ndarray:
+    """Text density grid, one float per line (reference medium.h:237-245)
+    -> [nz, ny, nx] float32, index order d[z*ny*nx + y*nx + x]
+    (medium.h:174-177)."""
+    data = np.loadtxt(path, dtype=np.float32).reshape(-1)
+    if data.size != nx * ny * nz:
+        raise ValueError(f"{path}: expected {nx * ny * nz} density "
+                         f"samples, got {data.size}")
+    return data.reshape(nz, ny, nx)

@@ -43,6 +43,8 @@ class Hit:
     mat_idx: torch.Tensor    # [N] i32 (-1 on a miss)
     light_idx: torch.Tensor  # [N] i32
     prim_idx: torch.Tensor   # [N] i32
+    medium_inside: torch.Tensor   # [N] i32 (-1 on a miss or no medium)
+    medium_outside: torch.Tensor  # [N] i32
 
 
 def _tri_intersect(ro, rd, va, e1, e2, tmin, tmax):
@@ -199,7 +201,10 @@ def _hit_attributes(scene, static, ro, rd, t, prim, found) -> Hit:
         valid=found, t=t, pos=pos, nor=nor, uv=uv, dpdu=dpdu,
         mat_idx=torch.where(found, attrs[:, 30].to(torch.int32), neg1),
         light_idx=torch.where(found, attrs[:, 31].to(torch.int32), neg1),
-        prim_idx=torch.where(found, p.to(torch.int32), neg1))
+        prim_idx=torch.where(found, p.to(torch.int32), neg1),
+        medium_inside=torch.where(found, attrs[:, 33].to(torch.int32), neg1),
+        medium_outside=torch.where(found, attrs[:, 34].to(torch.int32),
+                                   neg1))
 
 
 def brute_force_closest(scene, static, ro, rd, tmin, tmax) -> Hit:

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels (csrc/*.cu) and count their launches.
 
 Each kernel source (csrc/<name>.cu: dense, pt_fused, blocked,
-bvh8_walk) is compiled by `nvcc` into its own shared library with a
+bvh8_walk, track) is compiled by `nvcc` into its own shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build
 takes seconds). The build runs at first use, into `build/` at the root
 of the checkout, keyed by a hash of the csrc/ sources and the flags, so

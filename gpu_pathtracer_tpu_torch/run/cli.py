@@ -1,7 +1,8 @@
 """Command-line renderer:
 `python -m gpu_pathtracer_tpu_torch.run.cli scene.json --spp 8 --out r.png`.
 
-The port of gpu_pathtracer_tpu/run/cli.py for path tracing. Renders N
+The port of gpu_pathtracer_tpu/run/cli.py for path tracing and
+volumetric path tracing (`--integrator vpt`). Renders N
 progressive samples per pixel on `--device` (default cuda: the command
 fails when no CUDA device is present) and writes a PNG, optionally an
 EXR of the radiance. Options of the JAX CLI whose machinery is not
@@ -49,7 +50,7 @@ def main(argv=None):
     ap.add_argument("--integrator", default=None,
                     choices=["ao", "pt", "vpt", "lt", "bdpt", "sppm", "ir",
                              "mlt"],
-                    help="override the scene's integrator (pt only)")
+                    help="override the scene's integrator (pt, vpt)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     for name in ("checkpoint", "profile"):
@@ -64,9 +65,9 @@ def main(argv=None):
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             ap.error(f"--{name.replace('_', '-')}: {what}")
-    if args.integrator not in (None, "pt"):
-        ap.error(f"--integrator {args.integrator}: only pt is ported yet "
-                 f"(ROADMAP.md, still to port: item 4)")
+    if args.integrator not in (None, "pt", "vpt"):
+        ap.error(f"--integrator {args.integrator}: only pt and vpt are "
+                 f"ported yet (ROADMAP.md, still to port: item 4)")
     device = resolve_device(args.device)
 
     t0 = time.time()
@@ -74,8 +75,12 @@ def main(argv=None):
     scene = load_scene(args.scene)
     if args.size is not None:
         scene.width = scene.height = args.size
+    integrator = None
+    if args.integrator is not None:
+        from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+        integrator = IntegratorType[args.integrator.upper()]
     r = Renderer(scene, tile_size=args.tile, seed=args.seed,
-                 max_depth=args.depth, device=device)
+                 integrator=integrator, max_depth=args.depth, device=device)
     build_s = time.time() - t0
     print(f"[scene] {r.static.n_primitives} prims, {r.width}x{r.height}, "
           f"integrator={r.static.integrator.name}, depth "

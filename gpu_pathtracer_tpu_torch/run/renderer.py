@@ -1,10 +1,10 @@
 """Progressive renderer: one `render_iteration` adds one sample per pixel.
 
 The port of gpu_pathtracer_tpu/run/renderer.py for the "pixel" kind
-(path tracing). Pixels are processed in tiles of `tile_size` lanes; the
-film accumulates in a [W*H, 3] tensor on `device`. Every random site is
-keyed by (seed, iteration, pixel index), so the image does not depend on
-the tile size.
+(path tracing and volumetric path tracing). Pixels are processed in
+tiles of `tile_size` lanes; the film accumulates in a [W*H, 3] tensor on
+`device`. Every random site is keyed by (seed, iteration, pixel index),
+so the image does not depend on the tile size.
 """
 
 from __future__ import annotations
@@ -20,11 +20,13 @@ DEFAULT_TILE = 1 << 20
 
 
 def lane_program(integrator: IntegratorType):
-    """Integrator dispatch: the per-pixel lane program. Only path tracing
-    is ported."""
-    from gpu_pathtracer_tpu_torch.integrators import pt
+    """Integrator dispatch: the per-pixel lane program. Path tracing and
+    volumetric path tracing are ported."""
+    from gpu_pathtracer_tpu_torch.integrators import pt, vpt
     if integrator == IntegratorType.PT:
         return pt.render_lanes
+    if integrator == IntegratorType.VPT:
+        return vpt.render_lanes
     raise NotImplementedError(
         f"integrator {integrator.name} is not ported yet (ROADMAP.md, "
         f"still to port: item 4)")

@@ -5,11 +5,16 @@ the fields the path-tracing slice reads: geometry, the BVH node arrays,
 materials, area lights and their pick CDF, the camera, the world sphere
 and the packed tables the kernels take (`dense_prims`, `block_bbox`,
 the unified BVH8 table `bvh8_table` with its instance table `bvh8_aux`,
-`fused_attrs`, `mat_attrs`, `light_attrs`, plus `prim_attrs`). The
-numpy table code is the JAX package's, so both packages compute on the
-same values. Textures, environment lights, media and BSSRDFs are not
-ported yet: a scene that needs them raises NotImplementedError naming
-its ROADMAP item.
+`fused_attrs`, `mat_attrs`, `light_attrs`, plus `prim_attrs`) and the
+participating media (flatten.py:617-660, 848-864: the medium records,
+also packed one row per medium in `med_table`, the bf16-pair oct-packed density grid and the supervoxel majorant table
+that the tracking walk reads). The numpy table code is the JAX
+package's, so both packages compute on the same values. Textures,
+environment lights and BSSRDFs are not ported yet: a scene that needs
+them raises NotImplementedError naming its ROADMAP item. Not ported,
+because nothing on the port's path reads them: the u8 density table
+`med_density_oct2` (a knob measured negative on the TPU) and the x-pair
+grid `med_density_pairs` (read only by the JAX package's `_density`).
 
 Instancing (geom/tlas.py): with `instancing`, repeated meshes become
 instances of one BLAS, the prims are laid out (instance, blas-local),
@@ -27,16 +32,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from gpu_pathtracer_tpu_torch.core.vecmath import LUMA
 from gpu_pathtracer_tpu_torch.geom import bvh8 as bvh8_mod
 from gpu_pathtracer_tpu_torch.geom import tlas as tlas_mod
 from gpu_pathtracer_tpu_torch.geom.blocked_cuda import BLOCK
 from gpu_pathtracer_tpu_torch.geom.bvh import FlatBVH, build_bvh
 from gpu_pathtracer_tpu_torch.geom.dense_cuda import DENSE_MAX
 from gpu_pathtracer_tpu_torch.scene.model import (
-    GeometryType, HostScene, IntegratorType,
+    GeometryType, HostScene, IntegratorType, MediumType,
 )
 from gpu_pathtracer_tpu_torch.scene.parse import (
-    ROADMAP_MEDIA, ROADMAP_TEXTURES,
+    ROADMAP_BSSRDF, ROADMAP_TEXTURES,
 )
 
 LUMA64 = np.array([0.212671, 0.715160, 0.072169])
@@ -135,6 +141,26 @@ class DeviceScene:
     # [L, 24]: v0 v1 v2 | n0 n1 n2 | radiance | medium | area | pick pdf
     light_attrs: torch.Tensor
 
+    # participating media, K = max(#media, 1) records
+    med_type: torch.Tensor           # [K] i32 (MediumType)
+    med_g: torch.Tensor              # [K] HG asymmetry
+    med_sigma_a: torch.Tensor        # [K, 3]
+    med_sigma_s: torch.Tensor        # [K, 3]
+    med_sigma_t: torch.Tensor        # [K, 3]
+    # [K, Dz+1, Dy+1, Dx+1, 4]: the 8 trilinear corners of every cell
+    # (zero border), bf16-truncated, two to a float32 carrier
+    med_density_oct4: torch.Tensor
+    # [K * S1^3] supervoxel majorants (S1 = sv_res(K) + 1, zero border)
+    med_sv_max: torch.Tensor
+    med_n: torch.Tensor              # [K, 3] i32 grid size (nx, ny, nz)
+    med_p0: torch.Tensor             # [K, 3] grid box
+    med_p1: torch.Tensor             # [K, 3]
+    med_inv_max_density: torch.Tensor  # [K]
+    med_eval_tr_type: torch.Tensor   # [K] i32: 0 delta, 1 ratio, 2 residual
+    # [K, MED_COLS]: the fields above packed one row per medium
+    # (`media_table`); derived, so change media with `replace_media`
+    med_table: torch.Tensor
+
     camera: DeviceCamera
     epsilon: float                   # ray offset (pathtracer.cu:38)
 
@@ -161,6 +187,10 @@ class StaticConfig:
     bvh8_tlas_rows: int    # TLAS node rows at its front (0 when flat)
     bvh8_n_inst: int       # instances (0 = flat scene)
     bvh8_stack: int        # stack entries a walk needs (bvh8.stack_bound)
+    has_media: bool
+    has_hetero: bool
+    camera_medium: int     # the medium the camera sits in (-1: vacuum)
+    med_iter_max: int      # the tracking walk's draw cap (iterMax)
 
 
 def _tri_dpdv(pos: np.ndarray, uv: np.ndarray) -> np.ndarray:
@@ -221,6 +251,117 @@ def _prim_bboxes(scene: HostScene, fields: np.ndarray):
     return bmin, bmax
 
 
+def _oct_pack(med_density: np.ndarray) -> np.ndarray:
+    """[K,Dz,Dy,Dx] -> [K,Dz+1,Dy+1,Dx+1,8]: the 8 trilinear corner values
+    of every cell, with a zero border so edge taps read 0
+    (flatten.py:279-293)."""
+    K, Dz, Dy, Dx = med_density.shape
+    P = np.zeros((K, Dz + 2, Dy + 2, Dx + 2), np.float32)
+    P[:, 1:-1, 1:-1, 1:-1] = med_density
+    oct_ = np.empty((K, Dz + 1, Dy + 1, Dx + 1, 8), np.float32)
+    c = 0
+    for oz in (0, 1):
+        for oy in (0, 1):
+            for ox in (0, 1):
+                oct_[..., c] = P[:, oz:oz + Dz + 1, oy:oy + Dy + 1,
+                                 ox:ox + Dx + 1]
+                c += 1
+    return oct_
+
+
+def _pack_bf16_pairs(oct_: np.ndarray) -> np.ndarray:
+    """[..., 8] f32 -> [..., 4] f32 carriers (flatten.py:324-334): value 2c
+    truncated to bf16 in the high 16 bits of carrier c, value 2c+1 in the
+    low 16. Truncation rounds the non-negative densities toward zero, so
+    a decoded value never exceeds the supervoxel majorant of its f32."""
+    u = np.ascontiguousarray(oct_, np.float32).view(np.uint32)
+    hi = u[..., 0::2] & np.uint32(0xFFFF0000)
+    lo = u[..., 1::2] >> np.uint32(16)
+    return (hi | lo).view(np.float32)
+
+
+SV = 24   # supervoxel grid resolution per axis (flatten.py:337)
+
+
+def sv_res(n_media: int) -> int:
+    """Supervoxel resolution for `n_media` media (flatten.py:343-352): the
+    JAX package caps the majorant table at 32,768 entries, its lookup
+    kernel's size; the port keeps the cap so the tables are equal."""
+    sv = SV
+    while n_media * (sv + 1) ** 3 > 256 * 128 and sv > 2:
+        sv -= 1
+    return sv
+
+
+def _sv_majorants(med_density: np.ndarray, med_n: np.ndarray) -> np.ndarray:
+    """[K,Dz,Dy,Dx] -> [K,SV,SV,SV] local majorants: the max density over
+    each supervoxel's region dilated by one fine cell (flatten.py:355-378)."""
+    K = med_density.shape[0]
+    sv = sv_res(K)
+    out = np.zeros((K, sv, sv, sv), np.float32)
+    for k in range(K):
+        nx, ny, nz = (int(v) for v in med_n[k])
+        if nx * ny * nz <= 1:
+            continue
+        d = med_density[k, :nz, :ny, :nx]
+        zs = np.linspace(0, nz, sv + 1)
+        ys = np.linspace(0, ny, sv + 1)
+        xs = np.linspace(0, nx, sv + 1)
+        for iz in range(sv):
+            z0, z1 = int(zs[iz]) - 1, int(np.ceil(zs[iz + 1])) + 1
+            for iy in range(sv):
+                y0, y1 = int(ys[iy]) - 1, int(np.ceil(ys[iy + 1])) + 1
+                for ix in range(sv):
+                    x0 = int(xs[ix]) - 1
+                    x1 = int(np.ceil(xs[ix + 1])) + 1
+                    r = d[max(z0, 0):z1, max(y0, 0):y1, max(x0, 0):x1]
+                    out[k, iz, iy, ix] = r.max() if r.size else 0.0
+    return out
+
+
+def _media_arrays(scene: HostScene) -> tuple[dict, int]:
+    """The media block (flatten.py:617-660, 848-864) -> (arrays, iterMax
+    of the walk)."""
+    K = max(len(scene.mediums), 1)
+    med_type = np.zeros(K, np.int32)
+    med_g = np.zeros(K, np.float32)
+    med_sa = np.zeros((K, 3), np.float32)
+    med_ss = np.zeros((K, 3), np.float32)
+    med_n = np.ones((K, 3), np.int32)
+    med_p0 = np.zeros((K, 3), np.float32)
+    med_p1 = np.ones((K, 3), np.float32)
+    med_imd = np.ones(K, np.float32)
+    med_ett = np.ones(K, np.int32)
+    dz = dy = dx = 1
+    for m in scene.mediums:
+        if m.type == MediumType.HETEROGENEOUS:
+            dz, dy, dx = max(dz, m.nz), max(dy, m.ny), max(dx, m.nx)
+    med_density = np.zeros((K, dz, dy, dx), np.float32)
+    iter_max = 1000
+    for i, m in enumerate(scene.mediums):
+        med_type[i] = int(m.type)
+        med_g[i] = m.g
+        med_sa[i] = m.sigmaA
+        med_ss[i] = m.sigmaS
+        med_ett[i] = m.evalTransmittanceType
+        iter_max = max(iter_max, m.iterMax)
+        if m.type == MediumType.HETEROGENEOUS:
+            med_n[i] = (m.nx, m.ny, m.nz)
+            med_p0[i] = m.p0
+            med_p1[i] = m.p1
+            med_imd[i] = m.inv_max_density
+            med_density[i, :m.nz, :m.ny, :m.nx] = m.density
+    arrays = dict(
+        med_type=med_type, med_g=med_g, med_sigma_a=med_sa,
+        med_sigma_s=med_ss, med_sigma_t=med_sa + med_ss,
+        med_density_oct4=_pack_bf16_pairs(_oct_pack(med_density)),
+        med_sv_max=_oct_pack(_sv_majorants(med_density, med_n))
+        .max(axis=-1).reshape(-1),
+        med_n=med_n, med_p0=med_p0, med_p1=med_p1,
+        med_inv_max_density=med_imd, med_eval_tr_type=med_ett)
+    return arrays, iter_max
+
+
 def _check_supported(scene: HostScene) -> None:
     if scene.textures:
         raise NotImplementedError(
@@ -228,12 +369,9 @@ def _check_supported(scene: HostScene) -> None:
     if scene.infinite is not None:
         raise NotImplementedError(
             "environment lights are not ported yet " + ROADMAP_TEXTURES)
-    if scene.mediums:
-        raise NotImplementedError(
-            "participating media are not ported yet " + ROADMAP_MEDIA)
     if scene.bssrdfs:
         raise NotImplementedError(
-            "BSSRDF materials are not ported yet " + ROADMAP_MEDIA)
+            "BSSRDF materials are not ported yet " + ROADMAP_BSSRDF)
 
 
 def flatten_numpy(scene: HostScene, instancing: bool = False
@@ -471,6 +609,7 @@ def flatten_numpy(scene: HostScene, instancing: bool = False
         np.cross(l_v1 - l_v0, l_v2 - l_v0), axis=-1)
     light_attrs[:, 23] = (cdf[1:L + 1] - cdf[0:L]).astype(np.float32)
 
+    med_arrays, iter_max = _media_arrays(scene)
     arrays = dict(
         node_bbox_min=bvh.bbox_min, node_bbox_max=bvh.bbox_max,
         node_second_child=bvh.second_child, node_start=bvh.start,
@@ -491,7 +630,7 @@ def flatten_numpy(scene: HostScene, instancing: bool = False
         bvh8_table=bvh8_table, bvh8_aux=bvh8_aux,
         prim_attrs=prim_attrs, fused_attrs=fused_attrs,
         mat_attrs=mat_attrs, light_attrs=light_attrs,
-        camera=camera, epsilon=np.float32(scene.epsilon))
+        camera=camera, epsilon=np.float32(scene.epsilon), **med_arrays)
     static = dict(
         width=scene.width, height=scene.height,
         integrator=scene.integrator.type,
@@ -507,8 +646,43 @@ def flatten_numpy(scene: HostScene, instancing: bool = False
         material_types=tuple(sorted({int(m.type)
                                      for m in scene.materials})),
         bvh8_n8=bvh8_n8, bvh8_rows=int(bvh8_table.shape[0]),
-        bvh8_tlas_rows=bvh8_tlas_rows, bvh8_n_inst=bvh8_n_inst)
+        bvh8_tlas_rows=bvh8_tlas_rows, bvh8_n_inst=bvh8_n_inst,
+        has_media=bool(scene.mediums),
+        has_hetero=any(m.type == MediumType.HETEROGENEOUS
+                       for m in scene.mediums),
+        camera_medium=scene.camera.medium, med_iter_max=iter_max)
     return arrays, static
+
+
+MED_COLS = 24   # media_table: type g | sigma_a | sigma_s | sigma_t |
+                # 1/max d | ett | p0 | p1 | n | luma sigma_t | pad
+
+
+def _luma_sigma(sigma_t):
+    """The luminance of sigma_t, the rate of distance sampling (>= 1e-12;
+    media.py:361)."""
+    return torch.clamp_min(sigma_t[..., 0] * LUMA[0] + sigma_t[..., 1]
+                           * LUMA[1] + sigma_t[..., 2] * LUMA[2], 1e-12)
+
+
+def media_table(f: dict) -> torch.Tensor:
+    """[K, MED_COLS] float32 from the med_* tensors of `f` (field name ->
+    tensor): one packed row per medium, the layout that shade/media.py::
+    gather_medium and csrc/track.cu read."""
+    k = f["med_type"].shape[0]
+    return torch.cat([
+        f["med_type"][:, None].float(), f["med_g"][:, None],
+        f["med_sigma_a"], f["med_sigma_s"], f["med_sigma_t"],
+        f["med_inv_max_density"][:, None],
+        f["med_eval_tr_type"][:, None].float(), f["med_p0"], f["med_p1"],
+        f["med_n"].float(), _luma_sigma(f["med_sigma_t"])[:, None],
+        torch.zeros((k, 1), device=f["med_g"].device)], 1).contiguous()
+
+
+def replace_media(scene: DeviceScene, **changes) -> DeviceScene:
+    """`scene` with some med_* fields replaced and `med_table` rebuilt."""
+    s = dataclasses.replace(scene, **changes)
+    return dataclasses.replace(s, med_table=media_table(vars(s)))
 
 
 def device_scene_from_numpy(arrays: dict, static: dict, device
@@ -538,8 +712,9 @@ def device_scene_from_numpy(arrays: dict, static: dict, device
             fields[f.name] = cam
         elif f.name in ("world_radius", "epsilon"):
             fields[f.name] = float(np.float32(arrays[f.name]))
-        else:
+        elif f.name != "med_table":
             fields[f.name] = tensor(arrays[f.name])
+    fields["med_table"] = media_table(fields)
     st = {f.name: static[f.name] for f in dataclasses.fields(StaticConfig)
           if f.name != "bvh8_stack"}
     st["bvh8_stack"] = bvh8_mod.stack_bound(

@@ -4,8 +4,8 @@ A numpy copy of gpu_pathtracer_tpu/scene/parse.py, which mirrors the
 reference's parsescene.cpp:45-591 section by section (medium ->
 global/camera -> integrator -> material -> scene -> light), including
 every default value. Sections whose loaders are not ported yet
-(textures, environment maps, density grids, diffuse-converted BSSRDFs)
-raise NotImplementedError naming the ROADMAP item.
+(textures, environment maps, diffuse-converted BSSRDFs) raise
+NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 
+from gpu_pathtracer_tpu_torch.film.imageio import read_density_file
 from gpu_pathtracer_tpu_torch.scene import objloader
 from gpu_pathtracer_tpu_torch.scene.model import (
     AreaLight, Bssrdf, CameraConfig, GeometryType, HostScene,
@@ -24,7 +25,7 @@ from gpu_pathtracer_tpu_torch.scene.model import (
 
 # where each missing feature stands in ROADMAP.md ("Still to port")
 ROADMAP_TEXTURES = "(ROADMAP.md, still to port: item 3)"
-ROADMAP_MEDIA = "(ROADMAP.md, still to port: item 4)"
+ROADMAP_BSSRDF = "(ROADMAP.md, still to port: item 4)"
 
 _MAT_MAP = {
     "lambertian": MaterialType.LAMBERTIAN,
@@ -96,8 +97,8 @@ def load_scene(path: str) -> HostScene:
             med.p0 = _f3(m["p0"])
             med.p1 = _f3(m["p1"])
             med.evalTransmittanceType = int(m.get("evalTransmittanceType", 1))
-            raise NotImplementedError(
-                "heterogeneous media are not ported yet " + ROADMAP_MEDIA)
+            med.density = read_density_file(
+                os.path.join(base, m["density"]), med.nx, med.ny, med.nz)
         scene.mediums.append(med)
         medium_names.append(m["name"])
 
@@ -154,7 +155,7 @@ def load_scene(path: str) -> HostScene:
             )
             if "kd" in m:
                 raise NotImplementedError(
-                    "BSSRDFs are not ported yet " + ROADMAP_MEDIA)
+                    "BSSRDFs are not ported yet " + ROADMAP_BSSRDF)
             scene.bssrdfs.append(b)
             bssrdf_names.append(m["name"])
             continue

@@ -20,12 +20,14 @@ from gpu_pathtracer_tpu_torch.scene.parse import load_scene
 
 
 @pytest.fixture(params=["cornell", "materials", "many_lights",
-                        "sphere_line"])
+                        "sphere_line", "smoke"])
 def scene_path(request, tmp_path):
     if request.param == "sphere_line":
         return tp.write_sphere_line_scene(tmp_path)
     if request.param == "many_lights":
         return tp.MANY_LIGHTS
+    if request.param == "smoke":
+        return tp.SMOKE_SCENE
     return tp.PORT_SCENES[request.param]
 
 
@@ -50,6 +52,8 @@ def _assert_fields_equal(port, jax_arrays):
             for c, cv in v.items():
                 np.testing.assert_array_equal(cv, jax_arrays["camera"][c],
                                               err_msg=f"camera.{c}")
+            continue
+        if name == "med_table":   # the port's packing of the med_* fields
             continue
         ref = np.asarray(jax_arrays[name])
         assert v.shape == ref.shape, name
@@ -89,7 +93,7 @@ def test_scenes_fit_the_megakernel():
         assert static.n_lights == (72 if path == tp.MANY_LIGHTS else 2)
 
 
-@pytest.mark.parametrize("feature", ["environment", "medium"])
+@pytest.mark.parametrize("feature", ["environment", "bssrdf"])
 def test_unported_features_raise(tmp_path, feature):
     scene = json.loads(tp.PORT_SCENES["cornell"].read_text())
     base = tp.PORT_SCENES["cornell"].parent
@@ -98,9 +102,10 @@ def test_unported_features_raise(tmp_path, feature):
     if feature == "environment":
         scene["light"].append({"infinite": "sky.exr"})
     else:
-        scene["medium"] = [{"name": "fog", "type": "homogeneous",
-                            "sigmaA": [0.1, 0.1, 0.1],
-                            "sigmaS": [0.1, 0.1, 0.1]}]
+        scene["material"].append({"name": "Skin", "bssrdf": True,
+                                  "sigmaA": [0.1, 0.1, 0.1],
+                                  "sigmaSP": [1.0, 1.0, 1.0]})
+        scene["scene"][-1]["material"] = "Skin"
     path = tmp_path / "scene.json"
     path.write_text(json.dumps(scene))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

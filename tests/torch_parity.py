@@ -26,6 +26,8 @@ PORT_SCENES = {   # the two scenes inside the megakernel's scope
 # 72 area lights: outside the megakernel, it takes the wavefront
 MANY_LIGHTS = REPO / "scenes" / "cornell_port" / "many_lights.json"
 KNOT_SCENE = REPO / "scenes" / "knot_port" / "scene.json"
+# heterogeneous smoke + homogeneous fog: volumetric path tracing
+SMOKE_SCENE = REPO / "scenes" / "smoke_port" / "scene.json"
 
 
 def write_sphere_line_scene(dirpath) -> pathlib.Path:
@@ -164,7 +166,8 @@ def jax_fields(jd, js):
     from gpu_pathtracer_tpu_torch.scene import flatten as tf
     arrays = {f.name: np.asarray(getattr(jd, f.name))
               for f in dataclasses.fields(tf.DeviceScene)
-              if f.name not in ("device", "camera")}
+              if f.name not in ("device", "camera", "med_table")}
+    # (the port derives med_table from the med_* fields)
     arrays["camera"] = {f.name: np.asarray(getattr(jd.camera, f.name))
                         for f in dataclasses.fields(tf.DeviceCamera)}
     static = {f.name: getattr(js, f.name)

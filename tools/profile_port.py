@@ -4,9 +4,11 @@
 
 Renders each scene (default: scenes/cornell_port/scene.json, which takes
 the megakernel; many_lights.json, whose 72 lights send it through the
-wavefront over the dense-hit kernel; and the large-mesh scenes of
+wavefront over the dense-hit kernel; the large-mesh scenes of
 scenes/knot_port, through the wavefront over the block-culled kernel or
-the BVH8 walk) at its own resolution and depth under torch.profiler
+the BVH8 walk; and scenes/smoke_port, whose volumetric path tracer runs
+over the dense-hit and media tracking kernels) at its own resolution
+and depth under torch.profiler
 after one warm-up spp, and prints per scene: wall time per spp, device
 time per spp summed over kernels, the device's idle share of the window,
 and the kernels that take the most device time. Needs a CUDA device;
@@ -61,7 +63,8 @@ def main() -> None:
                              ("cornell_port", "many_lights.json"),
                              ("knot_port", "scene.json"),
                              ("knot_port", "forest.json"),
-                             ("knot_port", "blocked.json"))])
+                             ("knot_port", "blocked.json"),
+                             ("smoke_port", "scene.json"))])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -72,12 +75,15 @@ def main() -> None:
     from gpu_pathtracer_tpu_torch.geom import traverse
     from gpu_pathtracer_tpu_torch.integrators import pt_fused
     from gpu_pathtracer_tpu_torch.run.renderer import Renderer
+    from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
     for path in args.scenes:
         r = Renderer(path, device="cuda")
         wall, rows = profile(r, args.spp)
         dev_us = sum(us for _, us, _ in rows)
-        regime = ("megakernel" if pt_fused.supports(r.static)
-                  else f"wavefront, {traverse.regime(r.static)} regime")
+        vpt = r.static.integrator == IntegratorType.VPT
+        regime = ("megakernel" if pt_fused.supports(r.static) and not vpt
+                  else f"{'VPT ' if vpt else ''}wavefront, "
+                  f"{traverse.regime(r.static)} regime")
         print(f"[{os.path.basename(path)}, {regime}] {r.width}x{r.height} "
               f"depth {r.static.max_depth}: "
               f"wall {1e3 * wall / args.spp:.3f} ms/spp, device "
