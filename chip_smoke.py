@@ -6,14 +6,15 @@
 
 Builds the port's five CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
-path-traced Cornell box and large-mesh scenes, and its volumetric path
-tracer on the smoke scene, at 1024x1024, depth 5) and times the kernels
-against their plain versions. Phases:
+path-traced Cornell box, environment-lit and textured scenes and
+large-mesh scenes, and its volumetric path tracer on the smoke scene, at
+1024x1024, depth 5) and times the kernels against their plain versions.
+Phases:
 
   A  build the dense-hit kernel (K1), the path-trace megakernel (K2), the
      block-culled hit kernel (K3), the BVH8 walk (K4) and the media
      tracking kernel (track.cu, K5's counterpart), one nvcc each, all at
-     once
+     once, and the native BVH builder (g++)
   B  K1 vs plain: 1,048,576 rays, closest and any hit, two prim tables;
      K3 (scenes/knot_port/blocked.json), K4 flat (scene.json) and K4
      instanced (forest.json) vs plain on 1,048,576 random, primary and
@@ -25,28 +26,41 @@ against their plain versions. Phases:
      mode and in tr mode for ett 0, 1 and 2 (bit-equal on >= 99.99% of
      lanes, equal candidate counts), and rays that miss the box (Tr
      exactly 1, no candidate)
-  C  K2 vs plain: 65,536 lanes at depth 5 on both bundled scenes, from a
-     primary-sample matrix and from in-kernel Philox; the wavefront over
+  C  K2 vs plain: 65,536 lanes at depth 5 on both bundled scenes and on
+     its environment, textured and mixed variants' scenes
+     (scenes/env_port/scene.json, scenes/cornell_port/textured.json,
+     scenes/env_port/mixed.json), from a primary-sample matrix and from
+     in-kernel Philox; the wavefront over
      K1 vs the same plain version, on those and on many_lights.json (72
      lights, which pt.render_lanes routes to the wavefront: K1's launches
      there are recorded as `launches_wavefront_route`); the wavefront over
      K3, K4 flat and K4 instanced vs the plain wavefront on the knot
-     scenes, 65,536 lanes; the VPT wavefront over K1 + track vs the
-     all-plain VPT on smoke_port, 65,536 lanes, and its rays traced
+     scenes and on knot_port/sky.json (textures, the sky), 65,536 lanes,
+     from Philox and from a primary-sample matrix; the VPT wavefront over
+     K1 + track vs the all-plain VPT on smoke_port and on
+     smoke_port/sky.json, 65,536 lanes, and its rays traced (from Philox:
+     VPT takes no primary-sample matrix, as in the JAX package)
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after: scenes/cornell_port at 1024^2
      through the megakernel (spp/s, Mrays/s, the radiance against the
      plain version's lane by lane), then over about one second of spp;
+     env_port/scene.json and cornell_port/textured.json through K2's
+     environment and textured variants (one warm-up spp held against the
+     plain version on all lanes, then 8 timed spp);
      scenes/knot_port/scene.json at 1024^2 through K4 (one warm-up spp
      held against the plain wavefront on all 1,048,576 lanes, then 8
      timed spp: spp/s, Mrays/s, host build seconds); forest.json (K4
-     instanced) and blocked.json (K3) the same with 2 timed spp;
+     instanced) and blocked.json (K3) the same with 2 timed spp, and
+     knot_port/sky.json (K4 with textures and the sky) with its host build
+     timed cold (an emptied BVH cache) and on a cache hit, beside the
+     numpy BVH builder's time on the same prims;
      scenes/smoke_port with --integrator vpt (one warm-up spp held
      against the plain VPT on all lanes, then 2 timed spp; track and K1
      must launch, K2 must not)
   E  times, in windows of about one second, kernel and plain in turns:
      K1 vs plain at 1M rays; K2 alone vs plain from the same primary
-     rays at 1024^2 depth 5, and the camera that makes those rays; K3 on
+     rays at 1024^2 depth 5, and the camera that makes those rays; K2's
+     environment and textured variants the same on their scenes; K3 on
      blocked.json, K4 flat on scene.json, K4 instanced on forest.json
      vs plain on the 1M primary and first-bounce rays; K4 flat on
      blocked.json's table beside K3; segment_majorants vs plain vs the
@@ -58,8 +72,8 @@ against their plain versions. Phases:
 Every check that fails exits non-zero before the last line. The last two
 lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Outputs (PNGs, compiler reports) go to build/chip_smoke/ unless --out
-names another directory.
+Outputs (PNGs, compiler reports, the BVH cache) go to build/chip_smoke/
+unless --out names another directory.
 """
 
 from __future__ import annotations
@@ -77,12 +91,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "build", "chip_smoke")   # set by --out
 SCENES = ("scenes/cornell_port/scene.json", "scenes/cornell_port/materials.json")
 MANY_LIGHTS = "scenes/cornell_port/many_lights.json"   # 72 lights: wavefront
+K2_VARIANTS = {   # K2's variants: the scene each one's main path renders
+    "env": "scenes/env_port/scene.json",            # the sky alone
+    "textured": "scenes/cornell_port/textured.json",  # graph-paper floor
+    "mixed": "scenes/env_port/mixed.json",   # texture, area light and sky
+}
 KNOT = {   # the large-mesh scenes, by the kernel their route runs
     "blocked": "scenes/knot_port/blocked.json",   # 16,012 prims: K3
     "scene": "scenes/knot_port/scene.json",       # 100,012 prims: K4 flat
     "forest": "scenes/knot_port/forest.json",     # 1,000,012: K4 instanced
+    "sky": "scenes/knot_port/sky.json",   # 100,004, textured, sky: K4 flat
 }
 SMOKE = "scenes/smoke_port/scene.json"   # VPT: smoke grid + fog, 25 prims
+SMOKE_SKY = "scenes/smoke_port/sky.json"   # the same under the sky
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "dense": ("gpu_pathtracer_tpu_torch/csrc/dense.cu",
               "gpu_pathtracer_tpu/geom/dense_tpu.py:29"),
@@ -113,6 +134,25 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def ptxas_summary(report: str) -> str:
+    """nvcc's -Xptxas -v report, one "registers, spills" entry per kernel
+    entry point; K2's variants are named by their template flags."""
+    import re
+    out, label = [], "?"
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            f = re.search(r"ILb(\d)ELb(\d)E", m.group(1))
+            label = (f"env {f.group(1)} tex {f.group(2)}" if f
+                     else re.sub(r"^_Z\w*?\d+(?=[a-z])", "", m.group(1))[:24])
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{label}: {regs} registers, {spill}")
+    return " | ".join(out)
 
 
 def card_line() -> str:
@@ -433,7 +473,7 @@ def phase_c(dev, rng, records):
     from gpu_pathtracer_tpu_torch.scene.parse import load_scene
 
     max_err = 0.0
-    for path in (*SCENES, MANY_LIGHTS):
+    for path in (*SCENES, *K2_VARIANTS.values(), MANY_LIGHTS):
         scene, static = flatten_scene(load_scene(os.path.join(REPO, path)),
                                       dev)
         fused = path != MANY_LIGHTS
@@ -488,34 +528,45 @@ def phase_c(dev, rng, records):
             records["dense_hit"]["launches_wavefront_route"] = k1_n
     records["pt_fused"]["max_abs_err"] = max_err
 
-    # the wavefront over K3 / K4 against the plain wavefront
+    # the wavefront over K3 / K4 against the plain wavefront, from Philox
+    # (lanes sorted for coherence) and from a primary-sample matrix
+    # (unsorted); knot_port/sky.json adds textures and the sky
     stats = all_stats()
     for key, kname in (("blocked", "blocked"), ("scene", "bvh8_walk"),
-                       ("forest", "bvh8_walk")):
+                       ("forest", "bvh8_walk"), ("sky", "bvh8_walk")):
         scene, static = flat(key, dev)
         n_pix = static.width * static.height
         ids = torch.arange(0, n_pix, n_pix // 65536, device=dev,
                            dtype=torch.int32)[:65536]
         px, py = ids % static.width, ids // static.width
-        reset_counts(*stats.values())
-        li_k, r_k = pt.render_lanes(scene, static, SEED, 1, px, py, True)
-        torch.cuda.synchronize()
-        counts = {k: st.launches for k, st in stats.items()}
-        li_p, r_p = pt.wavefront(scene, static, SEED, 1, px, py, True,
-                                 plain=True)
-        frac = close_frac(li_k, li_p)
-        ratio = li_k.double().mean().item() / li_p.double().mean().item()
-        print(f"[C] wavefront over {kname} {os.path.basename(KNOT[key])}: "
-              f"{ids.numel()} lanes, agree {frac:.6f}, bit-equal "
-              f"{(li_k == li_p).all(1).float().mean().item():.6f}, mean "
-              f"ratio {ratio:.7f}, rays {int(r_k)} vs {int(r_p)}, launches "
-              f"{counts}")
-        check(frac >= 0.99, f"wavefront {key}: agree on {frac}")
-        check(abs(ratio - 1.0) <= 1e-3, f"wavefront {key}: ratio {ratio}")
-        check(bool(torch.isfinite(li_k).all()), f"{key}: non-finite li")
-        check(counts[kname] > 0 and sum(counts.values()) == counts[kname],
-              f"wavefront {key}: launches {counts}")
-    phase_c_media(dev, records)
+        d = PSS_CAM_DIMS + static.max_depth * PSS_BOUNCE_DIMS
+        for mode in ("philox", "psample"):
+            ps = None if mode == "philox" else torch.as_tensor(
+                rng.random((d, ids.numel()), dtype=np.float32), device=dev)
+            reset_counts(*stats.values())
+            li_k, r_k = pt.render_lanes(scene, static, SEED, 1, px, py, True,
+                                        ps)
+            torch.cuda.synchronize()
+            counts = {k: st.launches for k, st in stats.items()}
+            li_p, r_p = pt.wavefront(scene, static, SEED, 1, px, py, True,
+                                     ps, plain=True)
+            frac = close_frac(li_k, li_p)
+            ratio = li_k.double().mean().item() / li_p.double().mean().item()
+            print(f"[C] wavefront over {kname} {os.path.basename(KNOT[key])}"
+                  f" {mode}: {ids.numel()} lanes, agree {frac:.6f}, "
+                  f"bit-equal "
+                  f"{(li_k == li_p).all(1).float().mean().item():.6f}, mean "
+                  f"ratio {ratio:.7f}, rays {int(r_k)} vs {int(r_p)}, "
+                  f"launches {counts}")
+            check(frac >= 0.99, f"wavefront {key} {mode}: agree on {frac}")
+            check(abs(ratio - 1.0) <= 1e-3,
+                  f"wavefront {key} {mode}: ratio {ratio}")
+            check(bool(torch.isfinite(li_k).all()), f"{key}: non-finite li")
+            check(counts[kname] > 0
+                  and sum(counts.values()) == counts[kname],
+                  f"wavefront {key} {mode}: launches {counts}")
+    phase_c_media(dev, records, SMOKE)
+    phase_c_media(dev, records, SMOKE_SKY)
 
 
 def phase_d(dev, card, records):
@@ -582,27 +633,70 @@ def phase_d(dev, card, records):
           f"{res_l['seconds']:.6f} s: {res_l['spp_per_s']:.3f} spp/s, "
           f"{res_l['mrays_per_s']:.1f} Mrays/s ({card})")
 
-    for key, kname, spp in (("scene", "bvh8_walk", 8),
+    for key, kname, spp in (("env", "pt_fused", 8),
+                            ("textured", "pt_fused", 8),
+                            ("scene", "bvh8_walk", 8),
                             ("forest", "bvh8_walk", 2),
                             ("blocked", "blocked", 2)):
-        knot_main_path(key, kname, spp, card, records)
+        main_path(key, kname, spp, card, records)
+    knot_sky_main_path(card, records)
     vpt_main_path(card, records)
 
 
-def knot_main_path(key, kname, spp, card, records):
-    """A large-mesh main path through the CLI: one warm-up spp, held
-    against the plain wavefront on every lane, then `spp` timed spp
-    whose launches must all be kernel `kname`'s."""
+def knot_sky_main_path(card, records):
+    """knot_port/sky.json through K4: its main path with the host build
+    timed cold (the warm-up run, on an emptied BVH cache) and on a cache
+    hit (the timed run), and both BVH builders alone on its prims."""
+    import shutil
+    from gpu_pathtracer_tpu_torch.geom import bvh, bvh_native
+    from gpu_pathtracer_tpu_torch.scene import flatten
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+    shutil.rmtree(bvh.cache_dir())
+    stamps = []   # the cache's files after the cold and the cached run
+    builds = main_path("sky", "bvh8_walk", 2, card, records,
+                       after_build=lambda: stamps.append(sorted(
+                           (f, os.path.getmtime(os.path.join(bvh.cache_dir(),
+                                                             f)))
+                           for f in os.listdir(bvh.cache_dir()))))
+    host = load_scene(os.path.join(REPO, KNOT["sky"]))
+    bmin, bmax = flatten._prim_bboxes(host, flatten._prim_fields(host))
+    t0 = time.perf_counter()
+    nb = bvh_native.build_bvh_native(bmin, bmax)
+    t1 = time.perf_counter()
+    pb = bvh.build_bvh_numpy(bmin, bmax)
+    t2 = time.perf_counter()
+    print(f"[D] {KNOT['sky']} host build: cold {builds[0]:.3f} s, BVH cache "
+          f"hit {builds[1]:.3f} s; on its {bmin.shape[0]} prims the native "
+          f"BVH builder takes {t1 - t0:.3f} s ({nb.n_nodes} nodes), the "
+          f"numpy builder {t2 - t1:.3f} s ({pb.n_nodes} nodes)")
+    check(len(stamps[0]) == 1 and stamps[1] == stamps[0],
+          f"{KNOT['sky']}: the cold run should write one cached BVH and the "
+          f"second read it: {stamps}")
+    records["bvh8_walk"].update(
+        sky_build_cold_s=builds[0], sky_build_cached_s=builds[1],
+        sky_bvh_native_s=t1 - t0, sky_bvh_numpy_s=t2 - t1)
+
+
+def main_path(key, kname, spp, card, records, after_build=None):
+    """A main path through the CLI (a knot scene of KNOT or a K2 variant's
+    scene of K2_VARIANTS): one warm-up spp, held against the plain
+    wavefront on every lane, then `spp` timed spp whose launches must
+    all be kernel `kname`'s. Returns the host build seconds of the two
+    runs; `after_build()` is called after each."""
     from gpu_pathtracer_tpu_torch.integrators import pt
     from gpu_pathtracer_tpu_torch.run import cli
-    path = os.path.join(REPO, KNOT[key])
+    label = KNOT.get(key) or K2_VARIANTS[key]
+    path = os.path.join(REPO, label)
     stats = all_stats()
 
     def render(n, name):
         return cli.main([path, "--spp", str(n), "--seed", str(SEED),
                          "--out", os.path.join(OUT, name)])
 
-    warm = render(1, f"knot_{key}_1spp.png")
+    name = f"knot_{key}" if key in KNOT else key
+    warm = render(1, f"{name}_1spp.png")
+    if after_build:
+        after_build()
     r = warm["renderer"]
     li_p = pt.wavefront(r.device_scene, r.static, SEED, 1, r._px, r._py,
                         plain=True)
@@ -610,22 +704,25 @@ def knot_main_path(key, kname, spp, card, records):
     frac = close_frac(li_k, li_p)
     ratio = li_k.double().mean().item() / li_p.double().mean().item()
     err = (li_k - li_p).abs().max().item()
-    print(f"[D] {KNOT[key]} warm-up spp vs plain wavefront: {li_k.shape[0]} "
+    print(f"[D] {label} warm-up spp vs plain wavefront: {li_k.shape[0]} "
           f"lanes, agree {frac:.6f} (bit-equal "
           f"{(li_k == li_p).all(1).float().mean().item():.6f}), max abs err "
           f"{err:.3e}, mean ratio {ratio:.7f}")
     check(frac >= 0.99, f"{key} main path: agree on {frac}")
     check(abs(ratio - 1.0) <= 1e-3, f"{key} main path: mean ratio {ratio}")
+    build_warm = warm["build_seconds"]
     del warm, r, li_p, li_k
 
     reset_counts(*stats.values())
-    res = render(spp, f"knot_{key}.png")
+    res = render(spp, f"{name}.png")
     counts = {k: st.launches for k, st in stats.items()}
+    if after_build:
+        after_build()
     plain = sum(st.plain_cuda for st in stats.values())
     img = res["renderer"].image()
     check(img.shape == (1024, 1024, 3) and bool(np.isfinite(img).all()),
           f"{key}: image {img.shape}, finite {np.isfinite(img).all()}")
-    print(f"[D] {KNOT[key]} through {kname}: {spp} spp of 1024x1024 depth "
+    print(f"[D] {label} through {kname}: {spp} spp of 1024x1024 depth "
           f"{res['renderer'].static.max_depth} in {res['seconds']:.6f} s: "
           f"{res['spp_per_s']:.3f} spp/s, {res['mrays_per_s']:.1f} Mrays/s, "
           f"host build {res['build_seconds']:.2f} s ({card}); launches "
@@ -634,8 +731,10 @@ def knot_main_path(key, kname, spp, card, records):
     check(sum(counts.values()) == counts[kname],
           f"{key}: main path launched {counts}")
     check(plain == 0, f"{key}: {plain} plain-version calls on CUDA")
-    field = "launches_instanced" if key == "forest" else "launches"
+    field = ("launches" if key in ("scene", "blocked") else
+             "launches_instanced" if key == "forest" else f"launches_{key}")
     records[kname][field] = counts[kname]
+    return build_warm, res["build_seconds"]
 
 
 def phase_e(dev, rng, card, records):
@@ -703,6 +802,41 @@ def phase_e(dev, rng, card, records):
     records["pt_fused"].update(ms=mean(t2["kernel"]),
                                plain_ms=mean(t2["plain"]), **b_k2,
                                library_ms=None)
+
+    # K2's environment and textured variants alone, each on its scene's
+    # primary rays; their bounds add the sky map's or the texture
+    # atlas's bytes, read once
+    for key in ("env", "textured"):
+        sc, st = flatten_scene(
+            load_scene(os.path.join(REPO, K2_VARIANTS[key])), dev)
+        v_ro, v_rd = primary_rays(
+            sc, st, lane_stream(SEED, 1, lanes, None, 0, PSS_CAM_DIMS), px,
+            py)
+        tv = timed_windows({
+            "kernel": lambda: pt_fused.fused_call(sc, st, SEED, 1, lanes32,
+                                                  v_ro, v_rd),
+            "plain": lambda: pt.trace_paths(sc, st, SEED, 1, lanes, v_ro,
+                                            v_rd, plain=True)})
+        _, v_rays = pt_fused.fused_call(sc, st, SEED, 1, lanes32, v_ro, v_rd)
+        v_rays = int(v_rays.sum())
+        extra = (sc.env_data.numel() * 4 if key == "env"
+                 else sc.tex_data.numel())
+        rows = sc.dense_prims.shape[0]
+        bv = bound(n * 44 + sc.dense_prims.numel() * 4
+                   + sc.prim_attrs.numel() * 4 + extra,
+                   v_rays * rows * TRI_FLOPS)
+        print(f"[E] K2 {key} variant alone, one spp of {K2_VARIANTS[key]} "
+              f"at 1024x1024 depth 5 from given primary rays: kernel "
+              f"{mean(tv['kernel']):.4f} ms (windows {span(tv['kernel'])}), "
+              f"plain {mean(tv['plain']):.4f} ms ({span(tv['plain'])}); "
+              f"bound {bv['bound_ms']:.4f} ms by {bv['bound_by']} ({v_rays} "
+              f"rays x {rows} rows, {extra} bytes of "
+              f"{'sky' if key == 'env' else 'texels'}) ({card})")
+        records["pt_fused"].update({
+            f"ms_{key}": mean(tv["kernel"]),
+            f"plain_ms_{key}": mean(tv["plain"]),
+            f"bound_ms_{key}": bv["bound_ms"],
+            f"bound_by_{key}": bv["bound_by"]})
 
     # K3 / K4 closest hit on each scene's 1M primary and bounce rays
     for key, kname, pair, rec in (
@@ -873,11 +1007,11 @@ def phase_b_media(dev, rng, records):
     records["track"]["max_abs_err"] = err
 
 
-def phase_c_media(dev, records, n_lanes=65536):
-    """The VPT wavefront over K1 + track vs the all-plain VPT on
-    scenes/smoke_port, 65,536 lanes."""
+def phase_c_media(dev, records, path, n_lanes=65536):
+    """The VPT wavefront over K1 + track vs the all-plain VPT on the
+    smoke scene at `path`, 65,536 lanes."""
     from gpu_pathtracer_tpu_torch.integrators import vpt
-    scene, static = flat(SMOKE, dev)
+    scene, static = flat(path, dev)
     n_pix = static.width * static.height
     ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
                        dtype=torch.int32)[:n_lanes]
@@ -891,7 +1025,7 @@ def phase_c_media(dev, records, n_lanes=65536):
                                  plain=True)
     frac = close_frac(li_k, li_p)
     ratio = li_k.double().mean().item() / li_p.double().mean().item()
-    print(f"[C] VPT over K1 + track, smoke_port: {ids.numel()} lanes, agree "
+    print(f"[C] VPT over K1 + track, {path}: {ids.numel()} lanes, agree "
           f"{frac:.6f}, bit-equal "
           f"{(li_k == li_p).all(1).float().mean().item():.6f}, mean ratio "
           f"{ratio:.7f}, rays {int(r_k)} vs {int(r_p)}, launches {counts}")
@@ -1059,6 +1193,8 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port's package is not beside this script: {e}")
     os.makedirs(OUT, exist_ok=True)
+    # the BVH disk cache of this run, under --out (phase D empties it)
+    os.environ["GPT_TORCH_CACHE_DIR"] = os.path.join(OUT, "bvh_cache")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
@@ -1072,12 +1208,14 @@ def main() -> None:
     kernels.build(list(KERNELS))
     for name in KERNELS:
         b = kernels.BUILDS[name]
-        report = [ln for ln in b.ptxas.splitlines()
-                  if "registers" in ln or "spill" in ln]
         print(f"[A] built {name} in {b.seconds:.2f} s: "
-              f"{' | '.join(s.strip() for s in report) or 'cached'}")
+              f"{ptxas_summary(b.ptxas) or 'cached'}")
         with open(os.path.join(OUT, f"ptxas_{name}.txt"), "w") as f:
             f.write(b.ptxas)
+    from gpu_pathtracer_tpu_torch.geom import bvh_native
+    bvh_native.load()
+    b = bvh_native.BUILD_INFO
+    print(f"[A] built bvh_builder (g++) in {b.seconds:.2f} s: {b.path}")
     print(f"[A] builds done in {time.time() - t0:.2f} s")
 
     if "B" in phases:

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel gpu_pathtracer_tpu/integrators/pt_fused.py::
 // _kernel (pallas_call at pt_fused.py:1272), which keeps a 4096-path tile
-// in VMEM and walks it through SEG-bounce segments.
+// in VMEM and walks it through SEG-bounce segments, with its environment
+// and textured variants.
 //
 // What bounds it on an H100: instruction throughput and latency of a long,
 // divergent per-thread program. Per bounce a path tests up to 512 prims twice
@@ -22,6 +23,17 @@
 // the same operations in the same order, the same random sites (Philox
 // below, or rows of an explicit primary-sample matrix), and the same
 // table reads, so the two agree lane by lane. Speed is later work.
+//
+// Variants (template flags, one instantiation each): kEnv, the scene has
+// an environment light; kTex, it has textures. Neither carries over the
+// TPU kernel's workarounds (an escape record the XLA side finishes, a
+// mean-texel diffuse folded back per bounce). A thread fetches texels
+// itself: on a miss it adds beta * Le(rd) of the sky with the
+// wavefront's MIS weight, its NEE picks the sky's slot of the light CDF
+// and samples it by uniform sphere, and a textured hit reads the four
+// wrapped and clamped texels of the uint8 atlas (12 MB for a 2048^2
+// texture: it stays in the 50 MB L2) and blends them as the Lambertian
+// or substrate diffuse (shade/texture.py, shade/lights.py).
 #include "intersect.cuh"
 
 namespace {
@@ -34,6 +46,8 @@ namespace {
 constexpr float kPi = (float)PI_D;
 constexpr float kTwoPi = (float)(2.0 * PI_D);
 constexpr float kInvPi = (float)(1.0 / PI_D);
+constexpr float kInvTwoPi = (float)(1.0 / (2.0 * PI_D));
+constexpr float kInvFourPi = (float)(1.0 / (4.0 * PI_D));
 constexpr float kSubstrateK = (float)(28.0 / (23.0 * PI_D));
 constexpr float kLuma0 = 0.212671f, kLuma1 = 0.715160f, kLuma2 = 0.072169f;
 
@@ -45,7 +59,7 @@ enum { LAMBERTIAN = 0, MIRROR = 1, DIELECTRIC = 2, ROUGHDIELECTRIC = 3,
 constexpr int kPrimAttrs = 40;   // v0 v1 v2 | n0 n1 n2 | uv | dpdv | r0 r1 |
                                  // type mat light ...
 constexpr int kMatAttrs = 24;    // type aU aV iIOR oIOR | k | eta | diffuse |
-                                 // specular | ...
+                                 // specular | tex_idx | ...
 constexpr int kLightAttrs = 24;  // v0 v1 v2 | n0 n1 n2 | radiance | ...
 constexpr int kCamDims = 4;      // core/rng.py PSS_CAM_DIMS
 constexpr int kBounceDims = 8;   // core/rng.py PSS_BOUNCE_DIMS
@@ -160,6 +174,13 @@ __device__ __forceinline__ V3 cosine_hemisphere(float u1, float u2,
   float cphi, sphi;
   sincos_2pi(u2, &cphi, &sphi);
   *pdf = ct * kInvPi;
+  return mk(st * cphi, ct, st * sphi);
+}
+__device__ __forceinline__ V3 uniform_sphere(float u1, float u2) {
+  const float ct = 1.f - 2.f * u1;
+  const float st = sqrtf(tmax(1.f - ct * ct, 0.f));
+  float cphi, sphi;
+  sincos_2pi(u2, &cphi, &sphi);
   return mk(st * cphi, ct, st * sphi);
 }
 __device__ __forceinline__ float power_heuristic(float f, float g) {
@@ -487,9 +508,11 @@ __device__ void sample_bsdf(const Mat& m, V3 wi, V3 nor, V3 dpdu, float u1,
 // ---------------------------------------------------------------------------
 struct Hit {
   V3 pos, nor, dpdu;
+  float u, v;  // surface uv (computed when kUV)
   int mat, light;
 };
 
+template <bool kUV>
 __device__ Hit hit_attributes(const float* prim_attrs, int prim, V3 ro, V3 rd,
                               float t) {
   const float* a = prim_attrs + (size_t)prim * kPrimAttrs;
@@ -499,6 +522,7 @@ __device__ Hit hit_attributes(const float* prim_attrs, int prim, V3 ro, V3 rd,
   h.pos = add(ro, scl(rd, t));
   h.nor = mk(0.f, 0.f, 0.f);
   h.dpdu = h.nor;
+  h.u = h.v = 0.f;
   if (type == 0) {  // triangle: barycentrics recomputed at t
     const V3 e1 = sub(ldg3(a + 3), v0);
     const V3 e2 = sub(ldg3(a + 6), v0);
@@ -513,14 +537,34 @@ __device__ Hit hit_attributes(const float* prim_attrs, int prim, V3 ro, V3 rd,
     h.nor = normalize(add(add(scl(ldg3(a + 9), w0), scl(ldg3(a + 12), b1)),
                           scl(ldg3(a + 15), b2)));
     h.dpdu = normalize(cross(h.nor, ldg3(a + 24)));
+    if (kUV) {
+      h.u = __ldg(a + 18) * w0 + __ldg(a + 20) * b1 + __ldg(a + 22) * b2;
+      h.v = __ldg(a + 19) * w0 + __ldg(a + 21) * b1 + __ldg(a + 23) * b2;
+    }
   } else if (type == 2) {  // sphere
     h.nor = normalize(sub(h.pos, v0));
     h.dpdu = normalize(mk((float)(-2.0 * PI_D) * h.pos.y, kTwoPi * h.pos.x,
                           0.f));
+    if (kUV) {  // sphere.h:72-91
+      const float phi = acosf(tclamp(h.nor.x, -1.f, 1.f));
+      h.u = (h.nor.z > 0.f ? kTwoPi - phi : phi) * kInvTwoPi;
+      h.v = acosf(tclamp(h.nor.y, -1.f, 1.f)) * kInvPi;
+    }
   } else if (type == 1) {  // line: camera-facing normal
     h.nor = neg(rd);
     V3 w;
     h.dpdu = make_coordinate(h.nor, &w);
+    if (kUV) {  // line.h:74-84: uv = (s, distance to the axis / width)
+      const V3 v1 = ldg3(a + 3);
+      const float r0 = __ldg(a + 27), r1 = __ldg(a + 28);
+      float tl, s;
+      line_hit(ro, rd, v0, v1, r0, r1, 0.f, __int_as_float(0x7f800000), &tl,
+               &s);
+      const V3 prl = sub(h.pos, add(v0, scl(sub(v1, v0), s)));
+      h.u = s;
+      h.v = sqrtf(tmax(dot(prl, prl), 0.f)) /
+            tmax(r0 * (1.f - s) + r1 * s, 1e-30f);
+    }
   }
   h.mat = (int)__ldg(a + 30);
   h.light = (int)__ldg(a + 31);
@@ -528,16 +572,76 @@ __device__ Hit hit_attributes(const float* prim_attrs, int prim, V3 ro, V3 rd,
 }
 
 // ---------------------------------------------------------------------------
-// shade/lights.py (area lights)
+// shade/texture.py: bilinear fetch, floor-modulo wrap then clamp
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ int wrap_texel(int i, int n) {
+  int r = i % n;  // C truncates: make it a floor modulo
+  if (r < 0) r += n;
+  return r < 0 ? 0 : (r > n - 1 ? n - 1 : r);
+}
+
+// (1 - dy) ((1 - dx) c00 + dx c10) + dy ((1 - dx) c01 + dx c11) of the
+// four texels around (xx, yy) of a w x h image; fetch(x, y) reads one
+template <typename Fetch>
+__device__ __forceinline__ V3 bilinear(float xx, float yy, int w, int h,
+                                       Fetch fetch) {
+  const int x = (int)floorf(xx), y = (int)floorf(yy);
+  const float dx = fabsf(xx - (float)x), dy = fabsf(yy - (float)y);
+  const int x0 = wrap_texel(x, w), x1 = wrap_texel(x + 1, w);
+  const int y0 = wrap_texel(y, h), y1 = wrap_texel(y + 1, h);
+  const float ex = 1.f - dx, ey = 1.f - dy;
+  const V3 a = add(scl(fetch(x0, y0), ex), scl(fetch(x1, y0), dx));
+  const V3 b = add(scl(fetch(x0, y1), ex), scl(fetch(x1, y1), dx));
+  return add(scl(a, ey), scl(b, dy));
+}
+
+// the diffuse texel of texture `ti` at (u, v): uint8 texels / 255
+__device__ __forceinline__ V3 texel(const uint8_t* tex, const int32_t* offs,
+                                    const int32_t* ws, const int32_t* hs,
+                                    int ti, float u, float v) {
+  const int w = __ldg(ws + ti), h = __ldg(hs + ti);
+  const uint8_t* base = tex + 3 * (size_t)__ldg(offs + ti);
+  return bilinear((float)w * u, (float)h * v, w, h, [&](int x, int y) {
+    const uint8_t* c = base + 3 * (size_t)(y * w + x);
+    return mk((float)__ldg(c) / 255.f, (float)__ldg(c + 1) / 255.f,
+              (float)__ldg(c + 2) / 255.f);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// shade/lights.py (area lights and the environment light)
+// ---------------------------------------------------------------------------
+struct Env {
+  const float* data;  // [h, w, 3]
+  int w, h;
+  const float *u, *v, *wa;  // the light's frame, [3] each
+};
+
+// Infinite::Le (infinite.h:47-59): the sky along d
+__device__ __forceinline__ V3 env_le(const Env& e, V3 d) {
+  const V3 eu = ldg3(e.u), ev = ldg3(e.v), ew = ldg3(e.wa);
+  const float costheta = dot(d, ev);
+  const float theta = acosf(tclamp(costheta, -1.f, 1.f));
+  const V3 flat = normalize(sub(d, scl(ev, costheta)));
+  const float phi0 = acosf(tclamp(dot(flat, eu), -1.f, 1.f));
+  const float phi = dot(flat, ew) > 0.f ? kTwoPi - phi0 : phi0;
+  const float u = 1.f - phi * kInvTwoPi;
+  const float v = theta * kInvPi;
+  return bilinear((float)e.w * u, (float)e.h * v, e.w, e.h,
+                  [&](int x, int y) {
+                    return ldg3(e.data + 3 * (size_t)(y * e.w + x));
+                  });
+}
+
 __device__ __forceinline__ float tri_area(V3 v0, V3 v1, V3 v2) {
   return 0.5f * length(cross(sub(v1, v0), sub(v2, v0)));
 }
 
-// light_choice_pdf: cdf[i + 1] - cdf[i], i clamped to [0, L]
+// light_choice_pdf: cdf[i + 1] - cdf[i], i clamped to [0, L] (L light
+// rows: the area lights, or 1 when there are none)
 __device__ __forceinline__ float light_choice_pdf(const float* cdf, int idx,
-                                                  int n_lights) {
-  const int i = idx < 0 ? 0 : (idx > n_lights ? n_lights : idx);
+                                                  int n_rows) {
+  const int i = idx < 0 ? 0 : (idx > n_rows ? n_rows : idx);
   return __ldg(cdf + i + 1) - __ldg(cdf + i);
 }
 
@@ -556,8 +660,15 @@ struct Params {
   const float* prim_attrs;
   const float* mats;
   const float* lights;
-  int n_lights;
+  int n_lights;  // area lights; the environment's CDF slot is n_lights
+  int n_rows;    // light_attrs rows: max(n_lights, 1)
   const float* cdf;
+  Env env;
+  float env_tmax;  // shadow ray length toward the sky: 2 r_world - eps
+  const uint8_t* tex;
+  const int32_t* tex_offset;
+  const int32_t* tex_w;
+  const int32_t* tex_h;
   int max_depth;
   float eps;
   bool aniso;
@@ -582,7 +693,7 @@ __device__ __forceinline__ bool arrival_credit(const Params& p, const Hit& h,
     if (!full) {
       const float pdf_area =
           1.f / tmax(tri_area(ldg3(la), ldg3(la + 3), ldg3(la + 6)), 1e-30f);
-      const float lchoice = light_choice_pdf(p.cdf, lidx, p.n_lights);
+      const float lchoice = light_choice_pdf(p.cdf, lidx, p.n_rows);
       const V3 seg = sub(h.pos, ro);
       const float len2 = dot(seg, seg);
       const float cos_l = fabsf(dot(h.nor, rd));
@@ -594,6 +705,19 @@ __device__ __forceinline__ bool arrival_credit(const Params& p, const Hit& h,
   return !full;  // bounce-0 / specular emitter hits end the path
 }
 
+// The sky seen by a ray that missed, MIS weighted against prev_pdf
+// unless `full` (pt.py::_arrival_credit, env_credit_weight).
+__device__ __forceinline__ void env_credit(const Params& p, V3 rd, V3 beta,
+                                           bool full, float prev_pdf, V3* li) {
+  const float w =
+      full ? 1.f
+           : power_heuristic(prev_pdf,
+                             kInvFourPi * light_choice_pdf(p.cdf, p.n_lights,
+                                                           p.n_rows));
+  *li = add(*li, scl(mul(beta, env_le(p.env, rd)), w));
+}
+
+template <bool kEnv, bool kTex>
 __global__ void __launch_bounds__(128)
     pt_fused_kernel(Params p) {
   extern __shared__ float4 table[];
@@ -621,48 +745,64 @@ __global__ void __launch_bounds__(128)
     float t;
     const int prim = closest_loop(table, p.n_prims, ro, rd, p.eps, inf, &t);
     if (prim < 0) {
+      if (kEnv) env_credit(p, rd, beta, specular || b == 0, prev_pdf, &li);
       alive = false;
       break;
     }
-    const Hit h = hit_attributes(p.prim_attrs, prim, ro, rd, t);
+    const Hit h = hit_attributes<kTex>(p.prim_attrs, prim, ro, rd, t);
     if (!arrival_credit(p, h, ro, rd, beta, specular || b == 0, prev_pdf,
                         &li)) {
       alive = false;
       break;
     }
 
-    const Mat m = gather_material(p.mats, h.mat);
+    Mat m = gather_material(p.mats, h.mat);
+    if (kTex) {  // shade/bsdf.py::gather_materials: the texel as diffuse
+      const int ti = (int)__ldg(p.mats + (size_t)(h.mat < 0 ? 0 : h.mat) *
+                                             kMatAttrs + 17);
+      if (ti >= 0)
+        m.diffuse = texel(p.tex, p.tex_offset, p.tex_w, p.tex_h, ti, h.u, h.v);
+    }
     const V3 wi = neg(rd);
 
-    // NEE: light pick, area sample, shadow ray, BSDF eval, MIS
+    // NEE: light pick, area or sky sample, shadow ray, BSDF eval, MIS
     if (!is_delta(m.type)) {
       int cnt = 0;
-      for (int l = 0; l < p.n_lights + 2; ++l) cnt += __ldg(p.cdf + l) <= u.u[0];
+      for (int l = 0; l < p.n_rows + 2; ++l) cnt += __ldg(p.cdf + l) <= u.u[0];
       int idx = cnt - 1;
-      idx = idx < 0 ? 0 : (idx > p.n_lights ? p.n_lights : idx);
-      const float choice_pdf = light_choice_pdf(p.cdf, idx, p.n_lights);
-      const float* la =
-          p.lights + (size_t)(idx < p.n_lights ? idx : p.n_lights - 1) *
-                         kLightAttrs;
-      const V3 v0 = ldg3(la), v1 = ldg3(la + 3), v2 = ldg3(la + 6);
-      const float su1 = sqrtf(tmax(u.u[1], 0.f));
-      const float bu = 1.f - su1;
-      const float bv = u.u[2] * su1;
-      const float bw = 1.f - bu - bv;
-      const V3 lp = add(add(scl(v0, bu), scl(v1, bv)), scl(v2, bw));
-      const V3 lnor = normalize(add(add(scl(ldg3(la + 9), bu),
-                                        scl(ldg3(la + 12), bv)),
-                                    scl(ldg3(la + 15), bw)));
-      const V3 d = sub(lp, h.pos);
-      const float dist2 = dot(d, d);
-      const V3 nd = normalize(d);
-      const float cos_l = fabsf(dot(lnor, nd));
-      float light_pdf = dist2 / tmax(tri_area(v0, v1, v2) * cos_l, 1e-30f);
-      if (dot(lnor, d) >= 0.f) light_pdf = 0.f;
-      const V3 rad = light_pdf != 0.f ? ldg3(la + 18) : mk(0.f, 0.f, 0.f);
+      idx = idx < 0 ? 0 : (idx > p.n_rows ? p.n_rows : idx);
+      const float choice_pdf = light_choice_pdf(p.cdf, idx, p.n_rows);
+      V3 rad, nd;
+      float light_pdf, st;
+      if (kEnv && idx == p.n_lights) {  // the sky: a uniform-sphere direction
+        nd = uniform_sphere(u.u[1], u.u[2]);
+        rad = env_le(p.env, nd);
+        light_pdf = kInvFourPi;
+        st = p.env_tmax;
+      } else {
+        const float* la =
+            p.lights + (size_t)(idx < p.n_lights ? idx : p.n_lights - 1) *
+                           kLightAttrs;
+        const V3 v0 = ldg3(la), v1 = ldg3(la + 3), v2 = ldg3(la + 6);
+        const float su1 = sqrtf(tmax(u.u[1], 0.f));
+        const float bu = 1.f - su1;
+        const float bv = u.u[2] * su1;
+        const float bw = 1.f - bu - bv;
+        const V3 lp = add(add(scl(v0, bu), scl(v1, bv)), scl(v2, bw));
+        const V3 lnor = normalize(add(add(scl(ldg3(la + 9), bu),
+                                          scl(ldg3(la + 12), bv)),
+                                      scl(ldg3(la + 15), bw)));
+        const V3 d = sub(lp, h.pos);
+        const float dist2 = dot(d, d);
+        nd = normalize(d);
+        const float cos_l = fabsf(dot(lnor, nd));
+        light_pdf = dist2 / tmax(tri_area(v0, v1, v2) * cos_l, 1e-30f);
+        if (dot(lnor, d) >= 0.f) light_pdf = 0.f;
+        rad = light_pdf != 0.f ? ldg3(la + 18) : mk(0.f, 0.f, 0.f);
+        st = sqrtf(tmax(dist2 - p.eps, 0.f));
+      }
       if (!is_black(rad) && light_pdf > 0.f) {
         ++rays;
-        const float st = sqrtf(tmax(dist2 - p.eps, 0.f));
         if (!any_loop(table, p.n_prims, h.pos, nd, p.eps, st)) {
           V3 fr;
           float sample_pdf;
@@ -713,8 +853,10 @@ __global__ void __launch_bounds__(128)
     float t;
     const int prim = closest_loop(table, p.n_prims, ro, rd, p.eps, inf, &t);
     if (prim >= 0) {
-      const Hit h = hit_attributes(p.prim_attrs, prim, ro, rd, t);
+      const Hit h = hit_attributes<false>(p.prim_attrs, prim, ro, rd, t);
       arrival_credit(p, h, ro, rd, beta, specular, prev_pdf, &li);
+    } else if (kEnv) {
+      env_credit(p, rd, beta, specular, prev_pdf, &li);
     }
   }
 
@@ -727,6 +869,7 @@ __global__ void __launch_bounds__(128)
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
+// env_data NULL: no environment light; tex_data NULL: no textures.
 extern "C" int pt_fused(const float* ro, const float* rd,
                         const int32_t* lanes, int n, uint32_t seed,
                         uint32_t iteration, const float* psample,
@@ -734,8 +877,12 @@ extern "C" int pt_fused(const float* ro, const float* rd,
                         int n_prims, const float* prim_attrs,
                         const float* mat_attrs, const float* light_attrs,
                         int n_lights, const float* light_cdf, int max_depth,
-                        float eps, int aniso, float* li_out,
-                        int32_t* rays_out, void* stream) {
+                        float eps, int aniso, const float* env_data, int env_w,
+                        int env_h, const float* env_u, const float* env_v,
+                        const float* env_w_axis, float env_tmax,
+                        const uint8_t* tex_data, const int32_t* tex_offset,
+                        const int32_t* tex_w, const int32_t* tex_h,
+                        float* li_out, int32_t* rays_out, void* stream) {
   Params p;
   p.ro = ro;
   p.rd = rd;
@@ -750,7 +897,19 @@ extern "C" int pt_fused(const float* ro, const float* rd,
   p.mats = mat_attrs;
   p.lights = light_attrs;
   p.n_lights = n_lights;
+  p.n_rows = n_lights > 1 ? n_lights : 1;
   p.cdf = light_cdf;
+  p.env.data = env_data;
+  p.env.w = env_w;
+  p.env.h = env_h;
+  p.env.u = env_u;
+  p.env.v = env_v;
+  p.env.wa = env_w_axis;
+  p.env_tmax = env_tmax;
+  p.tex = tex_data;
+  p.tex_offset = tex_offset;
+  p.tex_w = tex_w;
+  p.tex_h = tex_h;
   p.max_depth = max_depth;
   p.eps = eps;
   p.aniso = aniso != 0;
@@ -759,6 +918,14 @@ extern "C" int pt_fused(const float* ro, const float* rd,
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   const size_t smem = sizeof(float4) * 4 * (size_t)n_prims;
-  pt_fused_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (env_data && tex_data)
+    pt_fused_kernel<true, true><<<blocks, threads, smem, s>>>(p);
+  else if (env_data)
+    pt_fused_kernel<true, false><<<blocks, threads, smem, s>>>(p);
+  else if (tex_data)
+    pt_fused_kernel<false, true><<<blocks, threads, smem, s>>>(p);
+  else
+    pt_fused_kernel<false, false><<<blocks, threads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,8 @@ primitive not in a repeated mesh, with the identity map. The global prim
 order is (instance, blas-local), so a hit's global id is the instance's
 slot base plus the BLAS-local id.
 
-Differences from the JAX package: no BVH disk cache (the `cache`
-argument; ROADMAP.md), and no cap on the table's rows. The JAX package
+The BLAS trees go through the BVH disk cache (`cache`), as in the JAX
+package. Difference from it: no cap on the table's rows. The JAX package
 refuses to instance a scene whose tables exceed what the TPU walk keeps
 resident in VMEM (packet_tpu.RESIDENT_MAX_ROWS); the GPU walk reads one
 table from global memory at any size.
@@ -25,7 +25,9 @@ import dataclasses
 import numpy as np
 
 from gpu_pathtracer_tpu_torch.geom import bvh8 as bvh8_mod
-from gpu_pathtracer_tpu_torch.geom.bvh import FlatBVH, build_bvh
+from gpu_pathtracer_tpu_torch.geom.bvh import (
+    FlatBVH, build_bvh, load_or_build_bvh,
+)
 
 # Kept equal to the JAX package's so the tables compare array for array.
 # INST_STRIDE is the TPU walk's stack-entry encoding (row * INST_STRIDE +
@@ -55,10 +57,11 @@ class InstancePlan:
         return len(self.mesh_of)
 
 
-def plan_instances(scene, bmin: np.ndarray, bmax: np.ndarray
-                   ) -> InstancePlan | None:
+def plan_instances(scene, bmin: np.ndarray, bmax: np.ndarray,
+                   cache: bool = True) -> InstancePlan | None:
     """Group repeated scene[] meshes into instances; None when the scene
-    has no repeated mesh worth instancing (the flat table serves it)."""
+    has no repeated mesh worth instancing (the flat table serves it).
+    `cache`: the BLAS trees go through the BVH disk cache."""
     units = getattr(scene, "units", None)
     if not units:
         return None
@@ -90,14 +93,15 @@ def plan_instances(scene, bmin: np.ndarray, bmax: np.ndarray
     count = [static_ids.size]
     blas: list[FlatBVH] = []
 
-    sb = build_bvh(bmin[static_ids], bmax[static_ids])
+    sb = load_or_build_bvh(bmin[static_ids], bmax[static_ids], cache)
     blas.append(sb)
     order.append(static_ids[sb.prim_order])
 
     for uis in groups:
         first = units[uis[0]]
         mesh_id = len(blas)
-        fb = build_bvh(bmin[first.prim_ids], bmax[first.prim_ids])
+        fb = load_or_build_bvh(bmin[first.prim_ids], bmax[first.prim_ids],
+                               cache)
         blas.append(fb)
         m_first = np.asarray(first.trs, np.float64)
         for ui in uis:

@@ -10,9 +10,14 @@ by lane.
 
 Primary rays come from the shared plain camera code
 (integrators/common.primary_rays), as in the JAX package. Scope
-(`supports`): <= DENSE_MAX prims, 1-32 area lights, the six material
-models; environment lights, textures and BSSRDFs raise in flatten.py
-and are still to port (ROADMAP.md).
+(`supports`): <= DENSE_MAX prims, up to 32 area lights and at least one
+light (an area light or the environment), the six material models and
+three prim types, with or without textures. The kernel has a variant
+per scene kind (environment light or not, textures or not), chosen at
+launch from the StaticConfig; each follows the wavefront's estimator,
+not the JAX kernel's TPU workarounds (its escape record and mean-texel
+fold): the sky is credited on a miss with the wavefront's MIS weight
+and sampled by NEE through its slot of the full light CDF.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from gpu_pathtracer_tpu_torch.integrators.common import primary_rays
 from gpu_pathtracer_tpu_torch.kernels import (
     KernelStats, check_cuda_f32, check_launch, load_library,
 )
+from gpu_pathtracer_tpu_torch.shade.lights import n_light_rows
 
 STATS = KernelStats()
 MAX_LIGHTS = 32
@@ -41,11 +47,13 @@ _F = ctypes.c_float
 
 
 def supports(static) -> bool:
-    """Scenes the megakernel covers; the rest run the wavefront. (All six
-    material models are compiled in; scenes with textures, environment
-    lights or BSSRDFs do not reach here: flatten.py refuses them.)"""
+    """Scenes the megakernel covers; the rest run the wavefront (JAX
+    pt_fused.py:101-106). All six material models and all three prim
+    types are compiled in, textured or not; BSSRDF scenes do not reach
+    here (flatten.py refuses them)."""
     return (static.n_primitives <= DENSE_MAX
-            and 1 <= static.n_lights <= MAX_LIGHTS)
+            and static.n_lights <= MAX_LIGHTS
+            and (static.n_lights >= 1 or static.has_infinite))
 
 
 def _lib():
@@ -58,6 +66,8 @@ def _lib():
             _P, _I, _P, _P, _P, _I,  # dense_prims, Pp, prim_attrs,
                                      # mats, lights, L
             _P, _I, _F, _I,        # light_cdf, max_depth, eps, aniso
+            _P, _I, _I, _P, _P, _P, _F,  # env data, w, h, frame, tmax
+            _P, _P, _P, _P,        # tex data, offsets, widths, heights
             _P, _P, _P]            # li out, rays out, stream
     return lib
 
@@ -103,12 +113,32 @@ def fused_call(scene, static, seed, iteration, lanes, ro, rd, psample=None):
         raise ValueError(f"dense_prims has {dp.shape[0]} > {DENSE_MAX} rows")
     check_cuda_f32("prim_attrs", scene.prim_attrs, (None, 40), dev)
     check_cuda_f32("mat_attrs", scene.mat_attrs, (None, 24), dev)
-    check_cuda_f32("light_attrs", scene.light_attrs,
-                   (static.n_lights, 24), dev)
-    check_cuda_f32("light_cdf", scene.light_cdf, (static.n_lights + 2,), dev)
-    if not 1 <= static.n_lights <= MAX_LIGHTS:
-        raise ValueError(f"{static.n_lights} lights: the kernel takes "
-                         f"1..{MAX_LIGHTS}")
+    rows = n_light_rows(static)
+    check_cuda_f32("light_attrs", scene.light_attrs, (rows, 24), dev)
+    check_cuda_f32("light_cdf", scene.light_cdf, (rows + 2,), dev)
+    if not supports(static):
+        raise ValueError(f"{static.n_lights} area lights, environment "
+                         f"{static.has_infinite}: the kernel takes 0.."
+                         f"{MAX_LIGHTS} area lights and at least one light")
+    env = (None, 0, 0, None, None, None, 0.0)
+    if static.has_infinite:
+        check_cuda_f32("env_data", scene.env_data, (None, None, 3), dev)
+        for name in ("env_u", "env_v", "env_w"):
+            check_cuda_f32(name, getattr(scene, name), (3,), dev)
+        env = (scene.env_data.data_ptr(), scene.env_data.shape[1],
+               scene.env_data.shape[0], scene.env_u.data_ptr(),
+               scene.env_v.data_ptr(), scene.env_w.data_ptr(),
+               2.0 * scene.world_radius - scene.epsilon)
+    tex = (None,) * 4
+    if static.has_textures:
+        check_cuda_f32("tex_data", scene.tex_data, (None, 3), dev,
+                       torch.uint8)
+        n_tex = scene.tex_offset.shape[0]
+        for name in ("tex_offset", "tex_w", "tex_h"):
+            check_cuda_f32(name, getattr(scene, name), (n_tex,), dev,
+                           torch.int32)
+        tex = tuple(t.data_ptr() for t in (scene.tex_data, scene.tex_offset,
+                                           scene.tex_w, scene.tex_h))
 
     li = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rays = torch.empty(n, dtype=torch.int32, device=dev)
@@ -121,8 +151,9 @@ def fused_call(scene, static, seed, iteration, lanes, ro, rd, psample=None):
         dp.data_ptr(), dp.shape[0], scene.prim_attrs.data_ptr(),
         scene.mat_attrs.data_ptr(), scene.light_attrs.data_ptr(),
         static.n_lights, scene.light_cdf.data_ptr(), static.max_depth,
-        float(scene.epsilon), int(static.has_aniso), li.data_ptr(),
-        rays.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        float(scene.epsilon), int(static.has_aniso), *env, *tex,
+        li.data_ptr(), rays.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "pt_fused")
     STATS.launches += 1
     return li, rays

@@ -16,6 +16,10 @@ media.
   test, and the next medium follows the crossing side
   (pathtracer.cu:1224-1226).
 - The camera may start inside a medium (pathtracer.cu:1043).
+- A ray that misses sees the environment light on primary and specular
+  bounces, and MIS weighted after a surface's BSDF sample; NEE picks
+  the sky's slot of the light CDF like an area light's (vpt.py:49-76,
+  137-149).
 
 Estimator (as the JAX package's): the continuation BSDF sample is also
 the MIS sample, credited on arrival at the next intersection, attenuated
@@ -48,8 +52,12 @@ from gpu_pathtracer_tpu_torch.core.rng import (
 from gpu_pathtracer_tpu_torch.core.sampling import power_heuristic
 from gpu_pathtracer_tpu_torch.core.vecmath import dot, is_black, luminance
 from gpu_pathtracer_tpu_torch.geom import traverse
-from gpu_pathtracer_tpu_torch.integrators.common import primary_rays
-from gpu_pathtracer_tpu_torch.integrators.pt import lane_ids_of
+from gpu_pathtracer_tpu_torch.integrators.common import (
+    primary_rays, sample_light,
+)
+from gpu_pathtracer_tpu_torch.integrators.pt import (
+    env_credit_weight, lane_ids_of,
+)
 from gpu_pathtracer_tpu_torch.shade import bsdf as bsdf_mod
 from gpu_pathtracer_tpu_torch.shade import lights as lights_mod
 from gpu_pathtracer_tpu_torch.shade import media as media_mod
@@ -59,16 +67,13 @@ INTERFACE_BUDGET = 8   # extra steps for interface crossings
 
 
 def _sample_light_toward(scene, static, rng, pos):
-    """Light pick + area-light sample toward `pos` (vpt.py:49-76).
-    Returns (radiance, dir, tmax, light_pdf, choice_pdf)."""
+    """Light pick + area or environment light sample toward `pos`
+    (vpt.py:49-76). Returns (radiance, dir, tmax, light_pdf,
+    choice_pdf)."""
     u_pick = rng.uniform()
     idx, choice_pdf = lights_mod.pick_light(scene, u_pick)
     u1, u2 = rng.uniform2()
-    if static.n_lights == 0:
-        z = torch.zeros_like(u1)
-        return torch.zeros_like(pos), pos, z, z, choice_pdf
-    rad, _, sd, st, _, pdf = lights_mod.sample_area_light(
-        scene, idx, pos, u1, u2, scene.epsilon)
+    rad, sd, st, pdf = sample_light(scene, static, pos, pos, idx, u1, u2)
     return rad, sd, st, pdf, choice_pdf
 
 
@@ -136,7 +141,16 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
         hit = traverse.intersect_closest(
             scene, static, ro, rd, eps, torch.where(alive, torch.inf, eps),
             plain)
-        alive = alive & hit.valid   # no environment light in the port yet
+        # a miss sees the sky on primary / specular rays and, MIS
+        # weighted, after a surface's BSDF sample (pathtracer.cu:1051-1055)
+        if static.has_infinite:
+            full = (depth == 0) | specular
+            take_env = alive & ~hit.valid & (full | from_surf)
+            w_env = env_credit_weight(scene, static, full, prev_pdf)
+            env = lights_mod.infinite_le(scene, rd)
+            li = li + torch.where(take_env[:, None],
+                                  beta * env * w_env[:, None], 0.0)
+        alive = alive & hit.valid
 
         # medium distance sampling over [0, hit.t] (pathtracer.cu:1062-1070)
         if static.has_media:
@@ -225,7 +239,7 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
         on_surface = on_surface & ~interface
 
         # real surface: NEE + BSDF sample (pathtracer.cu:1126-1228)
-        mat = bsdf_mod.gather_materials(scene, static, hit.mat_idx)
+        mat = bsdf_mod.gather_materials(scene, static, hit.mat_idx, hit.uv)
         wi = -rd
         not_delta = ~bsdf_mod.is_delta(mat.type)
         surf_rng = stream(it, VPT_SURFACE, 7)

@@ -125,15 +125,15 @@ def check_launch(rc: int, kernel: str) -> None:
 
 
 def check_cuda_f32(name: str, t: torch.Tensor, shape: tuple,
-                   device: torch.device) -> None:
-    """Raise unless `t` is a contiguous float32 tensor of `shape` (None
-    entries are free) on the CUDA `device`."""
+                   device: torch.device, dtype=torch.float32) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` (float32 unless
+    given) and `shape` (None entries are free) on the CUDA `device`."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != len(shape) or any(
             s is not None and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{name} must have shape {shape}, got "

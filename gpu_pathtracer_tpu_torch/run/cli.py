@@ -53,6 +53,8 @@ def main(argv=None):
                     help="override the scene's integrator (pt, vpt)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="build the BVH anew, bypassing its disk cache")
     for name in ("checkpoint", "profile"):
         ap.add_argument(f"--{name}", default=None, help="not ported yet")
     ap.add_argument("--shard", action="store_true", help="not ported yet")
@@ -80,7 +82,8 @@ def main(argv=None):
         from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
         integrator = IntegratorType[args.integrator.upper()]
     r = Renderer(scene, tile_size=args.tile, seed=args.seed,
-                 integrator=integrator, max_depth=args.depth, device=device)
+                 integrator=integrator, max_depth=args.depth, device=device,
+                 cache=not args.no_cache)
     build_s = time.time() - t0
     print(f"[scene] {r.static.n_primitives} prims, {r.width}x{r.height}, "
           f"integrator={r.static.integrator.name}, depth "

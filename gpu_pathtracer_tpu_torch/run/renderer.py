@@ -44,12 +44,14 @@ def resolve_device(device) -> torch.device:
 class Renderer:
     def __init__(self, scene: HostScene | str, tile_size: int = DEFAULT_TILE,
                  seed: int = 0, integrator: IntegratorType | None = None,
-                 max_depth: int | None = None, device="cuda"):
+                 max_depth: int | None = None, device="cuda",
+                 cache: bool = True):
         if isinstance(scene, str):
             scene = load_scene(scene)
         self.device = resolve_device(device)
         self.host = scene
-        self.device_scene, self.static = flatten_scene(scene, self.device)
+        self.device_scene, self.static = flatten_scene(scene, self.device,
+                                                       cache=cache)
         import dataclasses
         repl = {}
         if integrator is not None:

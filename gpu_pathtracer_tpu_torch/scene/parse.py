@@ -3,9 +3,10 @@
 A numpy copy of gpu_pathtracer_tpu/scene/parse.py, which mirrors the
 reference's parsescene.cpp:45-591 section by section (medium ->
 global/camera -> integrator -> material -> scene -> light), including
-every default value. Sections whose loaders are not ported yet
-(textures, environment maps, diffuse-converted BSSRDFs) raise
-NotImplementedError naming the ROADMAP item.
+every default value: textures (linear RGB quantised to uint8, one
+record per file) and the `infinite` environment light with its `rotate`
+or `matrix` frame. Diffuse-converted BSSRDFs (the `kd` form) are not
+ported yet and raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -15,16 +16,17 @@ import os
 
 import numpy as np
 
-from gpu_pathtracer_tpu_torch.film.imageio import read_density_file
+from gpu_pathtracer_tpu_torch.film.imageio import (
+    load_exr, load_texture, read_density_file,
+)
 from gpu_pathtracer_tpu_torch.scene import objloader
 from gpu_pathtracer_tpu_torch.scene.model import (
-    AreaLight, Bssrdf, CameraConfig, GeometryType, HostScene,
+    AreaLight, Bssrdf, CameraConfig, GeometryType, HostScene, InfiniteLight,
     InstanceUnit, IntegratorConfig, IntegratorType, Material, MaterialType,
-    Medium, MediumType, Primitive,
+    Medium, MediumType, Primitive, Texture,
 )
 
-# where each missing feature stands in ROADMAP.md ("Still to port")
-ROADMAP_TEXTURES = "(ROADMAP.md, still to port: item 3)"
+# where a missing feature stands in ROADMAP.md ("Still to port")
 ROADMAP_BSSRDF = "(ROADMAP.md, still to port: item 4)"
 
 _MAT_MAP = {
@@ -144,6 +146,7 @@ def load_scene(path: str) -> HostScene:
     # ---- material[] (parsescene.cpp:228-330) ---------------------------
     mat_names: list[str] = []
     bssrdf_names: list[str] = []
+    tex_map: dict[str, int] = {}   # texture file -> index, each read once
     for m in doc.get("material", []):
         if "bssrdf" in m:
             scale = float(m.get("scale", 1.0))
@@ -180,8 +183,14 @@ def load_scene(path: str) -> HostScene:
         )
         if "diffuse" in m:
             if isinstance(m["diffuse"], str):
-                raise NotImplementedError(
-                    "textures are not ported yet " + ROADMAP_TEXTURES)
+                file = m["diffuse"]
+                if file not in tex_map:
+                    img = load_texture(os.path.join(base, file), gamma=True)
+                    data = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+                    scene.textures.append(Texture(
+                        data=data, width=data.shape[1], height=data.shape[0]))
+                    tex_map[file] = len(scene.textures) - 1
+                mat.textureIdx = tex_map[file]
             else:
                 mat.diffuse = _f3(m["diffuse"])
         scene.materials.append(mat)
@@ -283,8 +292,18 @@ def load_scene(path: str) -> HostScene:
                 scene.lights.append(AreaLight(
                     radiance=radiance, tri_index=int(t), medium=lt_medium))
         elif "infinite" in unit:
-            raise NotImplementedError(
-                "environment lights are not ported yet " + ROADMAP_TEXTURES)
+            inf = InfiniteLight(data=load_exr(os.path.join(base,
+                                                           unit["infinite"])))
+            if "rotate" in unit:
+                rs = objloader.trs_matrix([0, 0, 0], unit["rotate"], [1, 1, 1])
+                inf.u, inf.v, inf.w = (rs[:3, k].astype(np.float32)
+                                       for k in range(3))
+            if "matrix" in unit:
+                rs = np.linalg.inv(
+                    np.asarray(unit["matrix"], np.float64).reshape(4, 4).T)
+                inf.u, inf.v, inf.w = (rs[:3, k].astype(np.float32)
+                                       for k in range(3))
+            scene.infinite = inf
         else:
             raise ValueError("Only support area and infinite light")
 

@@ -27,6 +27,7 @@ from gpu_pathtracer_tpu_torch.core.vecmath import (
     refract, same_hemisphere, to_world,
 )
 from gpu_pathtracer_tpu_torch.scene.model import MaterialType
+from gpu_pathtracer_tpu_torch.shade.texture import get_texel
 
 LAMBERTIAN = int(MaterialType.LAMBERTIAN)
 MIRROR = int(MaterialType.MIRROR)
@@ -53,13 +54,19 @@ class MatParams:
     aniso: bool = True
 
 
-def gather_materials(scene, static, mat_idx) -> MatParams:
-    """One row of mat_attrs [M, 24] per lane (-1 clamps to material 0)."""
-    a = scene.mat_attrs[torch.clamp_min(mat_idx, 0).long()]
+def gather_materials(scene, static, mat_idx, uv) -> MatParams:
+    """One row of mat_attrs [M, 24] per lane (-1 clamps to material 0),
+    the diffuse colour resolved at the hit's uv [N, 2] when the scene
+    has textures (bsdf.py:53-78)."""
+    m = torch.clamp_min(mat_idx, 0)
+    a = scene.mat_attrs[m.long()]
+    diffuse = a[:, 11:14]
+    if static.has_textures:
+        diffuse = get_texel(scene, m, uv)
     return MatParams(
         type=a[:, 0].to(torch.int32), alpha_u=a[:, 1], alpha_v=a[:, 2],
         inside_ior=a[:, 3], outside_ior=a[:, 4], k=a[:, 5:8],
-        eta=a[:, 8:11], diffuse=a[:, 11:14], specular=a[:, 14:17],
+        eta=a[:, 8:11], diffuse=diffuse, specular=a[:, 14:17],
         aniso=static.has_aniso)
 
 

@@ -57,7 +57,7 @@ def test_build_bvh8_matches_jax():
     c = rng.uniform(-1, 1, (3000, 3)).astype(np.float32)
     bmin, bmax = c - 0.02, c + 0.02
     jb = jbvh._build_bvh_numpy(bmin, bmax)
-    tb = tbvh.build_bvh(bmin, bmax)
+    tb = tbvh.build_bvh_numpy(bmin, bmax)
     _assert_fields_equal(jb, tb)
     recs = rng.normal(size=(3000, 16)).astype(np.float32)
     jt, jn8 = jbvh8.build_bvh8(jb, recs)

@@ -35,9 +35,9 @@ def scenes():
     mp = pytest.MonkeyPatch()
     try:
         jd, js = tp.jax_flatten(tp.SMOKE_SCENE, mp)
+        td, ts_ = flatten_scene(load_scene(str(tp.SMOKE_SCENE)), "cpu")
     finally:
         mp.undo()
-    td, ts_ = flatten_scene(load_scene(str(tp.SMOKE_SCENE)), "cpu")
     return td, ts_, jd, js
 
 

@@ -19,8 +19,18 @@ from gpu_pathtracer_tpu_torch.scene import flatten as tf
 from gpu_pathtracer_tpu_torch.scene.parse import load_scene
 
 
+SCENES = tp.REPO / "scenes"
+# the scenes with textures and environment lights
+SKY_SCENES = {
+    "env": SCENES / "env_port" / "scene.json",
+    "textured": SCENES / "cornell_port" / "textured.json",
+    "mixed": SCENES / "env_port" / "mixed.json",
+    "smoke_sky": SCENES / "smoke_port" / "sky.json",
+}
+
+
 @pytest.fixture(params=["cornell", "materials", "many_lights",
-                        "sphere_line", "smoke"])
+                        "sphere_line", "smoke", *SKY_SCENES])
 def scene_path(request, tmp_path):
     if request.param == "sphere_line":
         return tp.write_sphere_line_scene(tmp_path)
@@ -28,6 +38,8 @@ def scene_path(request, tmp_path):
         return tp.MANY_LIGHTS
     if request.param == "smoke":
         return tp.SMOKE_SCENE
+    if request.param in SKY_SCENES:
+        return SKY_SCENES[request.param]
     return tp.PORT_SCENES[request.param]
 
 
@@ -93,20 +105,40 @@ def test_scenes_fit_the_megakernel():
         assert static.n_lights == (72 if path == tp.MANY_LIGHTS else 2)
 
 
-@pytest.mark.parametrize("feature", ["environment", "bssrdf"])
+def test_sky_scenes_route():
+    """The megakernel takes the scenes with a sky or a texture of <= 512
+    prims, with or without area lights; the others take the wavefront."""
+    from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    for name, path in SKY_SCENES.items():
+        _, static = tf.flatten_scene(load_scene(str(path)), "cpu")
+        assert static.has_infinite == (name != "textured")
+        assert static.has_textures == (name in ("textured", "mixed"))
+        assert static.textured_types == ((0,) if static.has_textures
+                                         else ())
+        assert pt_fused.supports(static)   # (VPT never takes K2)
+        assert static.n_lights == {"env": 0, "textured": 2, "mixed": 2,
+                                   "smoke_sky": 2}[name]
+    # too many prims for it, and no light at all
+    st = dataclasses.replace(static, n_primitives=513)
+    assert not pt_fused.supports(st)
+    st = dataclasses.replace(static, n_primitives=25, n_lights=0,
+                             has_infinite=False)
+    assert not pt_fused.supports(st)
+
+
+@pytest.mark.parametrize("feature", ["bssrdf", "diffuse_bssrdf"])
 def test_unported_features_raise(tmp_path, feature):
     scene = json.loads(tp.PORT_SCENES["cornell"].read_text())
     base = tp.PORT_SCENES["cornell"].parent
     for unit in scene["scene"] + scene["light"]:
         unit["mesh"] = str(base / unit["mesh"])
-    if feature == "environment":
-        scene["light"].append({"infinite": "sky.exr"})
-    else:
-        scene["material"].append({"name": "Skin", "bssrdf": True,
-                                  "sigmaA": [0.1, 0.1, 0.1],
-                                  "sigmaSP": [1.0, 1.0, 1.0]})
-        scene["scene"][-1]["material"] = "Skin"
+    skin = {"name": "Skin", "bssrdf": True, "sigmaA": [0.1, 0.1, 0.1],
+            "sigmaSP": [1.0, 1.0, 1.0]}
+    if feature == "diffuse_bssrdf":   # the `kd` form raises while parsing
+        skin["kd"] = [0.5, 0.5, 0.5]
+    scene["material"].append(skin)
+    scene["scene"][-1]["material"] = "Skin"
     path = tmp_path / "scene.json"
     path.write_text(json.dumps(scene))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         tf.flatten_scene(load_scene(str(path)), "cpu")

@@ -1,22 +1,30 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
 
 Both packages are given the same inputs, made with numpy from fixed
-seeds. The port is held to the JAX package's numpy BVH builder: the JAX
-package prefers its native C++ builder when the shared library loads,
-and that builder may pick other (equally valid) splits, so `jax_flatten`
-routes the JAX package to its numpy builder for the comparison.
+seeds. The port is held to the JAX package's numpy BVH builder: both
+packages prefer their native C++ builders, which may pick other
+(equally valid) splits, so `numpy_bvh_builder` (and `jax_flatten`,
+which calls it) routes both packages to their numpy builders for the
+comparison. The JAX package then never compiles its own native library.
+
+The port's BVH disk cache of the test run lives in a temporary
+directory (GPT_TORCH_CACHE_DIR, inherited by the CLI subprocesses).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
+import tempfile
 
 import numpy as np
 import torch
 
 torch.set_num_threads(2)   # tier-1 runs the suite with 6 workers
+os.environ.setdefault("GPT_TORCH_CACHE_DIR", os.path.join(
+    tempfile.gettempdir(), "gpt_torch_test_bvh_cache"))
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_SCENES = {   # the two scenes inside the megakernel's scope
@@ -140,13 +148,15 @@ def instanced_scene(model, objloader):
 
 
 def numpy_bvh_builder(monkeypatch):
-    """Make the JAX package build its BVH with the numpy builder."""
+    """Make both packages build their BVHs with their numpy builders."""
     from gpu_pathtracer_tpu.geom import bvh_native
+    from gpu_pathtracer_tpu_torch.geom import bvh as tbvh
 
     def refuse(*args, **kwargs):
         raise RuntimeError("parity tests use the numpy BVH builder")
 
     monkeypatch.setattr(bvh_native, "build_bvh_native", refuse)
+    monkeypatch.setattr(tbvh, "NATIVE", False)
 
 
 def jax_flatten(path, monkeypatch, size=None):

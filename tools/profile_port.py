@@ -3,11 +3,13 @@
     python3 tools/profile_port.py [--spp 4] [scene.json ...]
 
 Renders each scene (default: scenes/cornell_port/scene.json, which takes
-the megakernel; many_lights.json, whose 72 lights send it through the
-wavefront over the dense-hit kernel; the large-mesh scenes of
-scenes/knot_port, through the wavefront over the block-culled kernel or
-the BVH8 walk; and scenes/smoke_port, whose volumetric path tracer runs
-over the dense-hit and media tracking kernels) at its own resolution
+the megakernel; scenes/env_port/scene.json, its environment variant;
+many_lights.json, whose 72 lights send it through the wavefront over the
+dense-hit kernel; the large-mesh scenes of scenes/knot_port, through the
+wavefront over the block-culled kernel or the BVH8 walk, sky.json with
+textures and the sky; and scenes/smoke_port, whose volumetric path
+tracer runs over the dense-hit and media tracking kernels) at its own
+resolution
 and depth under torch.profiler
 after one warm-up spp, and prints per scene: wall time per spp, device
 time per spp summed over kernels, the device's idle share of the window,
@@ -60,8 +62,10 @@ def main() -> None:
     ap.add_argument("scenes", nargs="*", default=[
         os.path.join(REPO, "scenes", folder, name)
         for folder, name in (("cornell_port", "scene.json"),
+                             ("env_port", "scene.json"),
                              ("cornell_port", "many_lights.json"),
                              ("knot_port", "scene.json"),
+                             ("knot_port", "sky.json"),
                              ("knot_port", "forest.json"),
                              ("knot_port", "blocked.json"),
                              ("smoke_port", "scene.json"))])
