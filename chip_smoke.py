@@ -29,8 +29,9 @@ Phases:
   C  K2 vs plain: 65,536 lanes at depth 5 on both bundled scenes and on
      its environment, textured and mixed variants' scenes
      (scenes/env_port/scene.json, scenes/cornell_port/textured.json,
-     scenes/env_port/mixed.json), from a primary-sample matrix and from
-     in-kernel Philox; the wavefront over
+     scenes/env_port/mixed.json) and on a sky alone of zero power (its
+     texel [0, 0] black, written to --out), from a primary-sample
+     matrix and from in-kernel Philox; the wavefront over
      K1 vs the same plain version, on those and on many_lights.json (72
      lights, which pt.render_lanes routes to the wavefront: K1's launches
      there are recorded as `launches_wavefront_route`); the wavefront over
@@ -50,7 +51,8 @@ Phases:
      scenes/knot_port/scene.json at 1024^2 through K4 (one warm-up spp
      held against the plain wavefront on all 1,048,576 lanes, then 8
      timed spp: spp/s, Mrays/s, host build seconds); forest.json (K4
-     instanced) and blocked.json (K3) the same with 2 timed spp, and
+     instanced, its host build timed cold on an emptied BVH cache and on
+     a cache hit) and blocked.json (K3) the same with 2 timed spp, and
      knot_port/sky.json (K4 with textures and the sky) with its host build
      timed cold (an emptied BVH cache) and on a cache hit, beside the
      numpy BVH builder's time on the same prims;
@@ -120,6 +122,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM: device memory rate
 F32_FLOPS = 67e12           # and float32 peak outside the tensor cores
 RAY_IO = 40       # bytes per ray of a hit query: ro rd tmin tmax, t prim
 TRI_FLOPS = 40    # float operations of one ray-triangle test
+SPHERE_FLOPS = 20  # of one ray-sphere test (csrc/intersect.cuh sphere_hit)
+LINE_FLOPS = 67   # of one ray-segment test (line_hit)
 SLAB_FLOPS = 24   # of one ray-box slab test
 N_RAYS = 1 << 20  # rays of the kernel-vs-plain checks and timings
 SEED = 2024
@@ -221,6 +225,42 @@ def bound(n_bytes: float, flops: float) -> dict:
     tf = flops / F32_FLOPS * 1e3
     return {"bound_ms": max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+def row_flops(table) -> int:
+    """Float operations of one ray against every prim of a dense_prims
+    table, each row by its type (column 9); pad rows (type -1) can never
+    be hit and count none."""
+    ty = table[:, 9]
+    return int(((ty == 0) * TRI_FLOPS + (ty == 1) * LINE_FLOPS
+                + (ty == 2) * SPHERE_FLOPS).sum())
+
+
+def zero_power_sky_scene() -> str:
+    """A grey sphere at 256x256 under a sky alone whose texel [0, 0] is
+    black (black poles), written to OUT: the sky has zero power, so the
+    light CDF is [0, 0, 1] and every NEE pick lands on light_attrs' dummy
+    row, which must give no light sample. Returns the scene's path."""
+    from gpu_pathtracer_tpu_torch.film.imageio import save_exr
+    d = os.path.join(OUT, "zero_power_sky")
+    os.makedirs(d, exist_ok=True)
+    sky = np.ones((64, 128, 3), np.float32)
+    sky[0] = sky[-1] = 0.0
+    save_exr(os.path.join(d, "sky.exr"), sky)
+    doc = {
+        "screen_width": 256, "screen_height": 256, "integrator": "pt",
+        "maxDepth": 5, "camera": {"position": [0, 0, 4], "lookat": [0, 0, 0],
+                                  "fov": 40, "filmicTonemap": False},
+        "material": [{"name": "Grey", "bsdf": "lambertian",
+                      "diffuse": [0.5, 0.5, 0.5]}],
+        "scene": [{"sphere": True, "center": [0, 0, 0], "radius": 0.8,
+                   "material": "Grey"}],
+        "light": [{"infinite": "sky.exr", "rotate": [10, 30, 0]}],
+    }
+    path = os.path.join(d, "zero_power_sky.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
 
 
 def flat(key: str, dev):
@@ -473,12 +513,17 @@ def phase_c(dev, rng, records):
     from gpu_pathtracer_tpu_torch.scene.parse import load_scene
 
     max_err = 0.0
-    for path in (*SCENES, *K2_VARIANTS.values(), MANY_LIGHTS):
+    dark = zero_power_sky_scene()
+    for path in (*SCENES, *K2_VARIANTS.values(), dark, MANY_LIGHTS):
         scene, static = flatten_scene(load_scene(os.path.join(REPO, path)),
                                       dev)
         fused = path != MANY_LIGHTS
         check(pt_fused.supports(static) == fused, f"{path}: routing")
         check(static.max_depth == 5, f"{path}: depth {static.max_depth}")
+        if path == dark:
+            check(static.n_lights == 0 and scene.light_cdf.tolist()
+                  == [0.0, 0.0, 1.0], f"{path}: light CDF "
+                  f"{scene.light_cdf.tolist()}, {static.n_lights} lights")
         n_pix = static.width * static.height
         ids = torch.arange(0, n_pix, n_pix // 65536, device=dev,
                            dtype=torch.int32)[:65536]
@@ -633,12 +678,21 @@ def phase_d(dev, card, records):
           f"{res_l['seconds']:.6f} s: {res_l['spp_per_s']:.3f} spp/s, "
           f"{res_l['mrays_per_s']:.1f} Mrays/s ({card})")
 
+    import shutil
+    from gpu_pathtracer_tpu_torch.geom import bvh
     for key, kname, spp in (("env", "pt_fused", 8),
                             ("textured", "pt_fused", 8),
                             ("scene", "bvh8_walk", 8),
                             ("forest", "bvh8_walk", 2),
                             ("blocked", "blocked", 2)):
-        main_path(key, kname, spp, card, records)
+        if key == "forest":   # its host build on an emptied cache (the
+            shutil.rmtree(bvh.cache_dir())   # BLAS are cached, the TLAS not)
+        builds = main_path(key, kname, spp, card, records)
+        if key == "forest":
+            print(f"[D] {KNOT[key]} host build: cold {builds[0]:.3f} s, "
+                  f"BVH cache hit {builds[1]:.3f} s")
+            records["bvh8_walk"].update(forest_build_cold_s=builds[0],
+                                        forest_build_cached_s=builds[1])
     knot_sky_main_path(card, records)
     vpt_main_path(card, records)
 
@@ -784,18 +838,19 @@ def phase_e(dev, rng, card, records):
           f"{span(t2['kernel'])}), plain {mean(t2['plain']):.4f} ms "
           f"({span(t2['plain'])}); camera (plain PyTorch, both routes) "
           f"{mean(t2['camera']):.4f} ms ({span(t2['camera'])}) ({card})")
-    # bounds (RAY_IO: 32 B of ray in, 8 B of hit out; TRI_FLOPS per
-    # ray-prim test): K1 tests every row; K2 every row per ray it traced
-    n_rows = table.shape[0]
-    b_k1 = bound(n * RAY_IO + table.numel() * 4, n * n_rows * TRI_FLOPS)
+    # bounds (RAY_IO: 32 B of ray in, 8 B of hit out; row_flops per ray:
+    # one test of each prim by its type): K1 tests every prim; K2 every
+    # prim per ray it traced
+    fl = row_flops(table)
+    b_k1 = bound(n * RAY_IO + table.numel() * 4, n * fl)
     _, k2_rays = pt_fused.fused_call(scene, static, SEED, 1, lanes32, p_ro,
                                      p_rd)
     k2_rays = int(k2_rays.sum())
     b_k2 = bound(n * 44 + table.numel() * 4 + scene.prim_attrs.numel() * 4,
-                 k2_rays * n_rows * TRI_FLOPS)
+                 k2_rays * fl)
     print(f"[E] bounds: K1 {b_k1['bound_ms']:.4f} ms by {b_k1['bound_by']};"
           f" K2 {b_k2['bound_ms']:.4f} ms by {b_k2['bound_by']} ({k2_rays} "
-          f"rays x {n_rows} rows)")
+          f"rays x {fl} flops over {static.n_primitives} prims)")
     records["dense_hit"].update(ms=mean(t1["kernel"]),
                                 plain_ms=mean(t1["plain"]), **b_k1,
                                 library_ms=None)
@@ -821,16 +876,16 @@ def phase_e(dev, rng, card, records):
         v_rays = int(v_rays.sum())
         extra = (sc.env_data.numel() * 4 if key == "env"
                  else sc.tex_data.numel())
-        rows = sc.dense_prims.shape[0]
+        fv = row_flops(sc.dense_prims)
         bv = bound(n * 44 + sc.dense_prims.numel() * 4
-                   + sc.prim_attrs.numel() * 4 + extra,
-                   v_rays * rows * TRI_FLOPS)
+                   + sc.prim_attrs.numel() * 4 + extra, v_rays * fv)
         print(f"[E] K2 {key} variant alone, one spp of {K2_VARIANTS[key]} "
               f"at 1024x1024 depth 5 from given primary rays: kernel "
               f"{mean(tv['kernel']):.4f} ms (windows {span(tv['kernel'])}), "
               f"plain {mean(tv['plain']):.4f} ms ({span(tv['plain'])}); "
               f"bound {bv['bound_ms']:.4f} ms by {bv['bound_by']} ({v_rays} "
-              f"rays x {rows} rows, {extra} bytes of "
+              f"rays x {fv} flops over {st.n_primitives} prims, {extra} "
+              f"bytes of "
               f"{'sky' if key == 'env' else 'texels'}) ({card})")
         records["pt_fused"].update({
             f"ms_{key}": mean(tv["kernel"]),

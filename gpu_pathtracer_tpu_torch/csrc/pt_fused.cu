@@ -779,6 +779,12 @@ __global__ void __launch_bounds__(128)
         rad = env_le(p.env, nd);
         light_pdf = kInvFourPi;
         st = p.env_tmax;
+      } else if (p.n_lights == 0) {
+        // the sky alone, of zero power (its texel [0, 0] black): the CDF
+        // never picks its slot, and common.sample_light gives no sample
+        rad = mk(0.f, 0.f, 0.f);
+        nd = h.nor;
+        light_pdf = st = 0.f;
       } else {
         const float* la =
             p.lights + (size_t)(idx < p.n_lights ? idx : p.n_lights - 1) *

@@ -6,7 +6,8 @@ BVH valid, not against the numpy builder's: every prim in exactly one
 leaf, leaves of at most LEAF_SIZE prims, every box containing its
 children's (and a leaf's, its prims'), and the same closest hits as the
 brute-force oracle on a torus knot. The cache must hand back the tree it
-stored and be bypassed by `cache=False` and the CLI's `--no-cache`.
+stored, miss once the builder changes, and be bypassed by `cache=False`
+and the CLI's `--no-cache`.
 """
 
 import subprocess
@@ -113,6 +114,31 @@ def test_cache_reads_back_what_it_stored(cache_dir, monkeypatch):
         bvh.load_or_build_bvh(c - 0.01, c + 0.01, cache=False)
     # the numpy builder's trees are cached apart from the native one's
     monkeypatch.setattr(bvh, "NATIVE", False)
+    with pytest.raises(AssertionError, match="built again"):
+        bvh.load_or_build_bvh(c - 0.01, c + 0.01)
+
+
+@pytest.mark.parametrize("change", ["native_source", "leaf_size", "buckets"])
+def test_changed_builder_misses_the_cache(cache_dir, tmp_path, monkeypatch,
+                                          change):
+    """A tree cached by one builder is not read back once the builder
+    changes: the key holds the native source's hash (through the
+    library's name), LEAF_SIZE and N_BUCKETS."""
+    c = np.random.default_rng(34).uniform(-1, 1, (300, 3)).astype(np.float32)
+    bvh.load_or_build_bvh(c - 0.01, c + 0.01)
+    if change == "native_source":
+        src = tmp_path / "bvh_builder.cpp"
+        src.write_text(bvh_native.SRC.read_text() + "// changed\n")
+        monkeypatch.setattr(bvh_native, "SRC", src)
+    elif change == "leaf_size":
+        monkeypatch.setattr(bvh, "LEAF_SIZE", bvh.LEAF_SIZE + 1)
+    else:
+        monkeypatch.setattr(bvh, "N_BUCKETS", bvh.N_BUCKETS + 1)
+
+    def refuse(*args):
+        raise AssertionError("built again")
+
+    monkeypatch.setattr(bvh, "build_bvh", refuse)
     with pytest.raises(AssertionError, match="built again"):
         bvh.load_or_build_bvh(c - 0.01, c + 0.01)
 
