@@ -22,10 +22,14 @@ Phases:
      blocked.json's rays; K4's stack-overflow flag; on 1,048,576 rays
      through scenes/smoke_port's smoke box: track's segment_majorants
      (K5's function) bit-equal to the plain version, with and without
-     the global-majorant fallback, its walk vs the plain walk in sample
-     mode and in tr mode for ett 0, 1 and 2 (bit-equal on >= 99.99% of
-     lanes, equal candidate counts), and rays that miss the box (Tr
-     exactly 1, no candidate)
+     the global-majorant fallback and at an N that is not a multiple of
+     its block, its walk vs the plain walk in sample mode and in tr mode
+     for ett 0, 1 and 2 (bit-equal on >= 99.99% of lanes, equal
+     candidate counts) on the phase-B lanes, on a sparse set (three
+     quarters of 1M lanes in vacuum or the fog, at random), on a set
+     where no lane walks (an empty queue) and at an N that is not a
+     multiple of the block size, and rays that miss the box (Tr exactly
+     1, no candidate); the walk's launch shapes (occupancy API)
   C  K2 vs plain: 65,536 lanes at depth 5 on both bundled scenes and on
      its environment, textured and mixed variants' scenes
      (scenes/env_port/scene.json, scenes/cornell_port/textured.json,
@@ -57,8 +61,9 @@ Phases:
      timed cold (an emptied BVH cache) and on a cache hit, beside the
      numpy BVH builder's time on the same prims;
      scenes/smoke_port with --integrator vpt (one warm-up spp held
-     against the plain VPT on all lanes, then 2 timed spp; track and K1
-     must launch, K2 must not)
+     against the plain VPT on all lanes, whose first Tr walk of step 1
+     is captured for phase E, then 2 timed spp; track and K1 must
+     launch, K2 must not)
   E  times, in windows of about one second, kernel and plain in turns:
      K1 vs plain at 1M rays; K2 alone vs plain from the same primary
      rays at 1024^2 depth 5, and the camera that makes those rays; K2's
@@ -67,7 +72,8 @@ Phases:
      vs plain on the 1M primary and first-bounce rays; K4 flat on
      blocked.json's table beside K3; segment_majorants vs plain vs the
      one PyTorch call of K5's lookup (med_sv_max[idx] on the same
-     [1M, 42] indices); the tracking walk vs plain on the phase-B rays.
+     [1M, 42] indices); the tracking walk vs plain on the phase-B rays
+     and on the main path's captured call.
      Each kernel's bound (bytes over 3.35 TB/s or float32 operations
      over 67 TFLOP/s, whichever is larger) is computed from these calls.
 
@@ -140,6 +146,18 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def kernel_name(mangled: str) -> str:
+    """The length-prefixed "..._kernel" identifier in a mangled name (the
+    prefix may follow other digits, as in an anonymous namespace's hash)."""
+    import re
+    for d in re.finditer(r"\d+", mangled):
+        for j in range(len(d.group())):
+            name = mangled[d.end():d.end() + int(d.group()[j:])]
+            if name.endswith("_kernel"):
+                return name
+    return mangled[:24]
+
+
 def ptxas_summary(report: str) -> str:
     """nvcc's -Xptxas -v report, one "registers, spills" entry per kernel
     entry point; K2's variants are named by their template flags."""
@@ -150,7 +168,7 @@ def ptxas_summary(report: str) -> str:
         if m:
             f = re.search(r"ILb(\d)ELb(\d)E", m.group(1))
             label = (f"env {f.group(1)} tex {f.group(2)}" if f
-                     else re.sub(r"^_Z\w*?\d+(?=[a-z])", "", m.group(1))[:24])
+                     else kernel_name(m.group(1)))
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln:
@@ -993,60 +1011,102 @@ def walk_modes(scene):
     return out
 
 
+def walk_check(label, sc, mode, idx, ro, rd, tmax, key, iter_max) -> float:
+    """The walk (track.cu's classify pass and persistent walk) vs the plain
+    lock-step walk on one lane set: bit-equal on >= 99.99% of lanes,
+    equal candidate counts, none outside the smoke. Returns the largest
+    |kernel - plain| over lanes where both are finite."""
+    from gpu_pathtracer_tpu_torch.shade import media, media_cuda
+    ok, ck = media_cuda.track_cuda(sc, mode, idx, ro, rd, tmax, key,
+                                   iter_max)
+    op, cp = media._track_torch(sc, mode, idx, ro, rd, tmax, key, iter_max)
+    torch.cuda.synchronize()
+    same = (ok == op) | (torch.isnan(ok) & torch.isnan(op))
+    frac = same.float().mean().item()
+    cand_same = (ck == cp).float().mean().item()
+    fin = torch.isfinite(ok) & torch.isfinite(op)
+    err = (ok - op).abs()[fin].max().item() if fin.any() else 0.0
+    stat = (torch.isfinite(ok).float().mean().item()
+            if mode == media.MODE_SAMPLE else ok.double().mean().item())
+    print(f"[B] track {label}: {idx.numel()} lanes ({int((idx == 0).sum())} "
+          f"in the smoke), bit-equal {frac:.6f}, candidates "
+          f"{int(ck.sum())} vs {int(cp.sum())} (per lane equal "
+          f"{cand_same:.6f}, {ck.float().mean().item():.3f} per lane), "
+          f"{'collided' if mode == media.MODE_SAMPLE else 'mean'} {stat:.6f}")
+    check(frac >= 0.9999, f"track {label}: bit-equal on {frac}")
+    check(int(ck.sum()) == int(cp.sum()) and cand_same >= 0.9999,
+          f"track {label}: candidates differ")
+    check(bool((ck[idx != 0] == 0).all()), f"track {label}: candidates "
+          "on a lane outside the smoke")
+    check(int(ck.max()) <= iter_max, f"track {label}: {int(ck.max())} "
+          f"candidates on a lane past the cap {iter_max}")
+    return err
+
+
 def phase_b_media(dev, rng, records):
     """The tracking kernel vs its plain versions on 1,048,576 rays through
     scenes/smoke_port's smoke box: segment_majorants (K5's function) bit
-    for bit, the walk in sample mode and in tr mode for ett 0, 1 and 2,
-    and rays that miss the box."""
+    for bit, also at an N that is not a multiple of its block; the walk in
+    sample mode and in tr mode for ett 0, 1 and 2 on the phase-B lanes
+    (90% in the smoke), on a sparse set (about three quarters of the
+    lanes in vacuum or the fog, interleaved at random), on a set where no
+    lane walks (an empty queue), on the phase-B lanes under a candidate
+    cap (med_iter_max) of 1 and of 3, and at an N that is not a multiple
+    of the block size; and rays that miss the box."""
     from gpu_pathtracer_tpu_torch.core.rng import TRACK_SURFACE, track_tag
     from gpu_pathtracer_tpu_torch.shade import media, media_cuda
     scene, static = flat(SMOKE, dev)
     n = N_RAYS
+    n_odd = n - 37   # neither a multiple of 128, 256 nor 1024
     ro, rd, tmax, idx = smoke_rays(scene, rng, n, dev)
     med = media.gather_medium(scene, idx)
     t0, ln = media._box_clip(med, ro, rd, tmax)
     ro_h = (ro + rd * t0[:, None]).contiguous()
     idx0 = torch.clamp_min(idx, 0)
-    for label, (o, t) in (("clipped to the box", (ro_h, ln)),
-                          ("raw tmax", (ro, tmax))):
-        mk = media_cuda.segment_majorants_cuda(scene, o, rd, t, idx0)
-        mp = media._segment_majorants(scene, med, o, rd, t)
+    for label, (o, t), m in (("clipped to the box", (ro_h, ln), n),
+                             ("raw tmax", (ro, tmax), n),
+                             (f"clipped, N = {n_odd}", (ro_h, ln), n_odd)):
+        mk = media_cuda.segment_majorants_cuda(scene, o[:m], rd[:m], t[:m],
+                                               idx0[:m])
+        mp = media._segment_majorants(
+            scene, {k: v[:m] for k, v in med.items()}, o[:m], rd[:m], t[:m])
         torch.cuda.synchronize()
-        glob = (mp == (1.0 / torch.clamp_min(med["inv_max_density"], 1e-30))
-                [:, None]).all(1).float().mean().item()
+        glob = (mp == (1.0 / torch.clamp_min(med["inv_max_density"][:m],
+                                             1e-30))[:, None]) \
+            .all(1).float().mean().item()
         equal = torch.equal(mk, mp)
-        print(f"[B] segment_majorants (K5's function) {label}: {n} rays x "
+        print(f"[B] segment_majorants (K5's function) {label}: {m} rays x "
               f"{media.NSEG} segments, bit-equal {equal}, lanes on the "
               f"global-majorant fallback {glob:.4f}")
         check(equal, f"segment_majorants {label}: not bit-equal")
 
     key = media.TrackKey(SEED, 1, torch.arange(n, device=dev),
                          track_tag(0, TRACK_SURFACE))
+    # the lane sets: phase-B lanes; sparse (three quarters in vacuum or
+    # the fog); none in the smoke (the queue stays empty)
+    other = torch.as_tensor(rng.choice(np.array([-1, 1], np.int32), n),
+                            device=dev)
+    keep = torch.as_tensor(rng.random(n) < 0.25, device=dev)
+    sets = {"": idx, "sparse, ": torch.where(keep, idx, other),
+            "empty queue, ": other}
     err = 0.0
     for label, mode, sc in walk_modes(scene):
-        ok, ck = media_cuda.track_cuda(sc, mode, idx, ro, rd, tmax, key,
-                                       static.med_iter_max)
-        op, cp = media._track_torch(sc, mode, idx, ro, rd, tmax, key,
-                                    static.med_iter_max)
-        torch.cuda.synchronize()
-        same = (ok == op) | (torch.isnan(ok) & torch.isnan(op))
-        frac = same.float().mean().item()
-        cand_same = (ck == cp).float().mean().item()
-        fin = torch.isfinite(ok) & torch.isfinite(op)
-        if fin.any():
-            err = max(err, (ok - op).abs()[fin].max().item())
-        stat = (torch.isfinite(ok).float().mean().item()
-                if mode == media.MODE_SAMPLE else ok.double().mean().item())
-        print(f"[B] track {label}: {n} rays, bit-equal {frac:.6f}, "
-              f"candidates {int(ck.sum())} vs {int(cp.sum())} (per lane "
-              f"equal {cand_same:.6f}, {ck.float().mean().item():.3f} per "
-              f"ray), {'collided' if mode == media.MODE_SAMPLE else 'mean'}"
-              f" {stat:.6f}")
-        check(frac >= 0.9999, f"track {label}: bit-equal on {frac}")
-        check(int(ck.sum()) == int(cp.sum()) and cand_same >= 0.9999,
-              f"track {label}: candidates differ")
-        check(bool((ck[idx != 0] == 0).all()), f"track {label}: candidates "
-              "on a lane outside the smoke")
+        for set_name, ids in sets.items():
+            err = max(err, walk_check(set_name + label, sc, mode, ids, ro, rd,
+                                      tmax, key, static.med_iter_max))
+        # the candidate cap reached: med_iter_max 1 and 3
+        for cap in (1, 3):
+            err = max(err, walk_check(f"med_iter_max {cap}, {label}", sc,
+                                      mode, idx, ro, rd, tmax, key, cap))
+        k_odd = key._replace(lanes=key.lanes[:n_odd])
+        err = max(err, walk_check(f"N = {n_odd}, {label}", sc, mode,
+                                  idx[:n_odd], ro[:n_odd], rd[:n_odd],
+                                  tmax[:n_odd], k_odd, static.med_iter_max))
+        out, cand = media_cuda.track_cuda(sc, mode, other, ro, rd, tmax, key,
+                                          static.med_iter_max)
+        check(int(cand.sum()) == 0 and bool(
+            (out == (torch.inf if mode == media.MODE_SAMPLE else 1.0)).all()),
+              f"track empty queue, {label}: a lane outside the smoke walked")
 
     # rays that miss the box: Tr exactly 1, no candidate drawn
     miss_o = torch.tensor([0.5, 1.0, 0.5], device=dev).expand(n, 3)
@@ -1059,6 +1119,9 @@ def phase_b_media(dev, rng, records):
               f"track {label}: a ray that misses the box drew candidates")
     print(f"[B] track on {n} rays that miss the box: Tr exactly 1, no "
           "candidate, for ett 0, 1 and 2")
+    occ = media_cuda.occupancy(scene)
+    print(f"[B] track.cu launch shapes on this card, {SMOKE}: {occ}")
+    records["track"].update(occupancy=occ)
     records["track"]["max_abs_err"] = err
 
 
@@ -1096,10 +1159,42 @@ def phase_c_media(dev, records, path, n_lanes=65536):
         (li_k - li_p).abs().max().item())
 
 
+MAIN_WALK = {}   # the track call captured on the VPT main path (phase D)
+
+
+def capture_main_walk():
+    """Wrap media_cuda.track_cuda so that the first Tr walk of step 1 of
+    the VPT (its tag's step bits: track_tag(1, site) >> 8 == 2) keeps a
+    copy of its arguments in MAIN_WALK. Returns the function that takes
+    the wrapper away."""
+    from gpu_pathtracer_tpu_torch.shade import media, media_cuda
+    orig = media_cuda.track_cuda
+
+    def wrapper(scene, mode, med_idx, ro, rd, tmax, key, iter_max):
+        if not MAIN_WALK and mode == media.MODE_TR and key.tag >> 8 == 2:
+            MAIN_WALK["args"] = (
+                scene, mode, med_idx.clone(), ro.clone(), rd.clone(),
+                tmax.clone(), key._replace(lanes=key.lanes.clone()), iter_max)
+        return orig(scene, mode, med_idx, ro, rd, tmax, key, iter_max)
+
+    media_cuda.track_cuda = wrapper
+    return lambda: setattr(media_cuda, "track_cuda", orig)
+
+
+def walking_lanes(scene, med_idx, ro, rd, tmax):
+    """Lanes that walk: in a heterogeneous medium, with a non-empty clip
+    (gather_medium maps -1 to medium 0, so the index is checked too)."""
+    from gpu_pathtracer_tpu_torch.shade import media
+    med = media.gather_medium(scene, med_idx)
+    _, ln = media._box_clip(med, ro, rd, tmax)
+    return (med_idx >= 0) & (med["type"] == media.HETEROGENEOUS) & (ln > 0)
+
+
 def vpt_main_path(card, records):
     """The VPT main path through the CLI: scenes/smoke_port at 1024^2,
-    depth 5; one warm-up spp held against the plain VPT on every lane,
-    then 2 timed spp whose launches must be K1's and track's."""
+    depth 5; one warm-up spp held against the plain VPT on every lane
+    (the first Tr walk of its step 1 captured for phase E), then 2 timed
+    spp whose launches must be K1's and track's."""
     from gpu_pathtracer_tpu_torch.integrators import vpt
     from gpu_pathtracer_tpu_torch.run import cli
     path = os.path.join(REPO, SMOKE)
@@ -1110,7 +1205,17 @@ def vpt_main_path(card, records):
                          "--depth", "5", "--spp", str(n), "--seed",
                          str(SEED), "--out", os.path.join(OUT, name)])
 
-    warm = render(1, "smoke_port_1spp.png")
+    release = capture_main_walk()
+    try:
+        warm = render(1, "smoke_port_1spp.png")
+    finally:
+        release()
+    check("args" in MAIN_WALK, "no Tr walk of step 1 on the VPT main path")
+    sc, mode, med_idx, ro, rd, tmax, key, _ = MAIN_WALK["args"]
+    walks = walking_lanes(sc, med_idx, ro, rd, tmax)
+    print(f"[D] captured the first Tr walk of step 1 (tag {key.tag:#x}): "
+          f"{med_idx.numel()} lanes, {int((med_idx >= 0).sum())} in a "
+          f"medium, {int(walks.sum())} walk")
     r = warm["renderer"]
     li_p = vpt.render_lanes(r.device_scene, r.static, SEED, 1, r._px, r._py,
                             plain=True)
@@ -1194,19 +1299,12 @@ def phase_e_media(dev, rng, card, records):
     mean = lambda v: sum(v) / len(v)  # noqa: E731
     span_ = lambda v: f"{min(v):.4f}-{max(v):.4f}"  # noqa: E731
     # bounds: entry 1 reads 32 B of ray + the majorant table once and
-    # writes 42 floats per ray; ~43 points x 16 flops + 42 x 10 per ray
+    # writes 42 floats per ray; 43 points x 16 flops + 42 x 10 per ray
     b1 = bound(n * (32 + 4 * media.NSEG) + sv_max.numel() * 4,
                n * (43 * 16 + media.NSEG * 10))
-    # the walk: 40 B of ray + 8 B out per ray, a 16-byte density row per
-    # candidate (at most the table once), ~80 flops per candidate and
-    # ~40 per segment majorant on the lanes that walk: a heterogeneous
-    # medium (not the fog, not vacuum, which gather_medium maps to
-    # medium 0) and a non-empty clip
     n_cand = int(cand.sum())
-    table_b = scene.med_density_oct4.numel() * 4
-    walks = ((idx >= 0) & (med["type"] == media.HETEROGENEOUS) & (ln > 0))
-    b2 = bound(n * 48 + min(n_cand * 16, table_b) + sv_max.numel() * 4,
-               n_cand * 80 + int(walks.sum()) * media.NSEG * 40)
+    walks = walking_lanes(scene, idx, ro, rd, tmax)
+    b2 = walk_bound(scene, idx, ro, rd, tmax, n_cand)
     print(f"[E] segment_majorants (K5's function), 1M rays x 42 segments: "
           f"kernel {mean(t['kernel']):.4f} ms (windows {span_(t['kernel'])}),"
           f" plain {mean(t['plain']):.4f} ms ({span_(t['plain'])}), "
@@ -1214,10 +1312,10 @@ def phase_e_media(dev, rng, card, records):
           f"{mean(t['library']):.4f} ms ({span_(t['library'])}); bound "
           f"{b1['bound_ms']:.4f} ms by {b1['bound_by']} ({card})")
     print(f"[E] track, tr mode (ratio), 1M phase-B rays ({n_cand} "
-          f"candidates): kernel {mean(w['kernel']):.4f} ms (windows "
-          f"{span_(w['kernel'])}), plain {mean(w['plain']):.4f} ms "
-          f"({span_(w['plain'])}); bound {b2['bound_ms']:.4f} ms by "
-          f"{b2['bound_by']} ({card})")
+          f"candidates, {int(walks.sum())} lanes walk): kernel "
+          f"{mean(w['kernel']):.4f} ms (windows {span_(w['kernel'])}), plain "
+          f"{mean(w['plain']):.4f} ms ({span_(w['plain'])}); bound "
+          f"{b2['bound_ms']:.4f} ms by {b2['bound_by']} ({card})")
     records["track"].update(
         ms=mean(t["kernel"]), plain_ms=mean(t["plain"]),
         library_ms=mean(t["library"]), **b1,
@@ -1225,6 +1323,53 @@ def phase_e_media(dev, rng, card, records):
         walk_bound_ms=b2["bound_ms"], walk_bound_by=b2["bound_by"],
         walk_candidates=n_cand)
 
+    # the walk on the main path's own call (captured in phase D)
+    if "args" in MAIN_WALK:
+        sc, mode, m_idx, m_ro, m_rd, m_tmax, m_key, it_max = MAIN_WALK["args"]
+        _, m_cand = media_cuda.track_cuda(sc, mode, m_idx, m_ro, m_rd, m_tmax,
+                                          m_key, it_max)
+        wm = timed_windows({
+            "kernel": lambda: media_cuda.track_cuda(
+                sc, mode, m_idx, m_ro, m_rd, m_tmax, m_key, it_max),
+            "plain": lambda: media._track_torch(
+                sc, mode, m_idx, m_ro, m_rd, m_tmax, m_key, it_max)},
+            min_reps=1)
+        m_walks = int(walking_lanes(sc, m_idx, m_ro, m_rd, m_tmax).sum())
+        bm = walk_bound(sc, m_idx, m_ro, m_rd, m_tmax, int(m_cand.sum()))
+        print(f"[E] track on the VPT main path's first Tr walk of step 1 "
+              f"({m_idx.numel()} lanes, {m_walks} walk, "
+              f"{int(m_cand.sum())} candidates): kernel "
+              f"{mean(wm['kernel']):.4f} ms (windows {span_(wm['kernel'])}),"
+              f" plain {mean(wm['plain']):.4f} ms ({span_(wm['plain'])}); "
+              f"bound {bm['bound_ms']:.4f} ms by {bm['bound_by']} ({card})")
+        records["track"].update(
+            walk_main_ms=mean(wm["kernel"]),
+            walk_main_plain_ms=mean(wm["plain"]),
+            walk_main_bound_ms=bm["bound_ms"],
+            walk_main_bound_by=bm["bound_by"], walk_main_lanes=m_walks)
+
+
+def walk_bound(scene, med_idx, ro, rd, tmax, n_cand) -> dict:
+    """The walk's bound on these lanes, bytes counted by lane class: every
+    lane reads its 4 B medium index and writes 8 B (out, candidates); a
+    lane in a heterogeneous medium also reads its 28 B of ray (ro, rd,
+    tmax) to clip it to the box; a lane that walks also reads its 8 B
+    int64 lane id. Plus a 16-byte density row per candidate (at most the
+    table once), the medium records and the majorant table once. ~80
+    flops per candidate and, on the lanes that walk, 20 per segment (one
+    segment point of three divisions and ~12 other operations, the floor
+    and the optical depth: the other end of the segment is the last
+    one's), counted for all 42 segments. The Philox draws (integer work)
+    are not counted."""
+    from gpu_pathtracer_tpu_torch.shade import media
+    med = media.gather_medium(scene, med_idx)
+    het = int(((med_idx >= 0) & (med["type"] == media.HETEROGENEOUS)).sum())
+    n_walk = int(walking_lanes(scene, med_idx, ro, rd, tmax).sum())
+    table_b = scene.med_density_oct4.numel() * 4
+    return bound(med_idx.numel() * 12 + het * 28 + n_walk * 8
+                 + min(n_cand * 16, table_b) + scene.med_table.numel() * 4
+                 + scene.med_sv_max.numel() * 4,
+                 n_cand * 80 + n_walk * media.NSEG * 20)
 
 
 def main() -> None:

@@ -1,9 +1,18 @@
-// Heterogeneous-medium device functions of the tracking kernel
-// (csrc/track.cu): the packed medium record, the density-box clip, the
-// supervoxel majorant of one ray segment and the trilinear density of the
-// bf16-pair oct table. Each is written in the operation order of its plain
-// PyTorch version in shade/media.py (built with -fmad=false, no fast math),
-// so the kernel and the plain version agree bit for bit.
+// Heterogeneous-medium device functions of the tracking kernels
+// (csrc/track.cu, the counterpart of the TPU kernel
+// gpu_pathtracer_tpu/ops/small_gather.py::_kernel; what bounds its two
+// entry points on the H100 and what their design does about it is in
+// its header): the packed medium record, the density-box clip, the
+// supervoxel frame of a ray's segments and the per-segment majorant step,
+// and the trilinear density of the bf16-pair oct table. Each is written
+// in the operation order of its plain PyTorch version in shade/media.py
+// (built with -fmad=false, no fast math), so the kernel and the plain
+// version agree bit for bit.
+//
+// Segment s of a ray spans the segment points s and s + 1. Both entry
+// points of track.cu walk the points in order and carry point s + 1 into
+// the next segment as its point s: 43 points per ray, each computed once,
+// where a segment that computed both of its ends would compute 84.
 #pragma once
 
 #include "vec.cuh"
@@ -40,23 +49,23 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t w) {
   return (float)(w >> 8) * (1.0f / 16777216.0f);
 }
 
-// One row of the scene's med_table (scene/flatten.py::media_table).
+// One row of the scene's med_table (scene/flatten.py::media_table), read
+// from device or shared memory.
 struct Medium {
   int type, ett;
   float imd, sigma;   // 1 / max density, luminance of sigma_t
   V3 p0, p1, n;
 };
 
-__device__ __forceinline__ Medium load_medium(const float* table, int k) {
-  const float* r = table + (size_t)k * kMedCols;
+__device__ __forceinline__ Medium load_medium(const float* r) {
   Medium m;
-  m.type = (int)__ldg(r + 0);
-  m.imd = __ldg(r + 11);
-  m.ett = (int)__ldg(r + 12);
-  m.p0 = mk(__ldg(r + 13), __ldg(r + 14), __ldg(r + 15));
-  m.p1 = mk(__ldg(r + 16), __ldg(r + 17), __ldg(r + 18));
-  m.n = mk(__ldg(r + 19), __ldg(r + 20), __ldg(r + 21));
-  m.sigma = __ldg(r + 22);
+  m.type = (int)r[0];
+  m.imd = r[11];
+  m.ett = (int)r[12];
+  m.p0 = mk(r[13], r[14], r[15]);
+  m.p1 = mk(r[16], r[17], r[18]);
+  m.n = mk(r[19], r[20], r[21]);
+  m.sigma = r[22];
   return m;
 }
 
@@ -87,6 +96,18 @@ struct SegFrame {
   float seg, scale;   // segment length, S1 - 1
 };
 
+__device__ __forceinline__ SegFrame seg_frame(const Medium& m, V3 ro, V3 rd,
+                                              float ln, int s1) {
+  SegFrame f;
+  f.ro = ro;
+  f.rd = rd;
+  f.p0 = m.p0;
+  f.span = sub(m.p1, m.p0);
+  f.seg = ln / (float)kNseg;
+  f.scale = (float)s1 - 1.f;
+  return f;
+}
+
 __device__ __forceinline__ V3 sv_coord(const SegFrame& f, int k) {
   const float tk = (float)k * f.seg;
   const V3 p = add(f.ro, scl(f.rd, tk));
@@ -100,40 +121,30 @@ __device__ __forceinline__ int sv_cell(float lo, int s1) {
   return c < 0 ? 0 : (c > s1 - 1 ? s1 - 1 : c);
 }
 
-// _segment_majorants for segment s: the max of the 2x2x2 supervoxel block
-// at the segment's low corner (the JAX package's K5 lookup), or the global
-// majorant `maxd` when a segment spans more than one supervoxel
-// (`local_ok` false, decided from segment 0 as the plain version does).
-__device__ __forceinline__ float segment_majorant(
-    const SegFrame& f, int s, int k, int s1, const float* __restrict__ sv_max,
-    bool local_ok, float maxd) {
-  const V3 a = sv_coord(f, s);
-  const V3 b = sv_coord(f, s + 1);
-  const int cx = sv_cell(tmin(a.x, b.x), s1);
-  const int cy = sv_cell(tmin(a.y, b.y), s1);
-  const int cz = sv_cell(tmin(a.z, b.z), s1);
-  const int flat = k * (s1 * s1 * s1) + cz * (s1 * s1) + cy * s1 + cx;
-  const float maj = __ldg(sv_max + flat);
-  return local_ok ? maj : maxd;
+// min(a, b), NaN where either is NaN: the floor of tmin(a, b) without
+// its branches (sv_cell maps every NaN to the same cell).
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
 }
 
-__device__ __forceinline__ bool segments_local(const SegFrame& f) {
-  const V3 a = sv_coord(f, 0);
-  const V3 b = sv_coord(f, 1);
+// The local majorants hold when segment 0 (points a = 0, b = 1) spans at
+// most one supervoxel on every axis; otherwise every segment of the ray
+// takes the global majorant (the plain version decides the same way).
+__device__ __forceinline__ bool segments_local(V3 a, V3 b) {
   return fabsf(b.x - a.x) <= 1.f && fabsf(b.y - a.y) <= 1.f &&
          fabsf(b.z - a.z) <= 1.f;
 }
 
-__device__ __forceinline__ SegFrame seg_frame(const Medium& m, V3 ro, V3 rd,
-                                              float ln, int s1) {
-  SegFrame f;
-  f.ro = ro;
-  f.rd = rd;
-  f.p0 = m.p0;
-  f.span = sub(m.p1, m.p0);
-  f.seg = ln / (float)kNseg;
-  f.scale = (float)s1 - 1.f;
-  return f;
+// The per-segment step of _segment_majorants (the JAX package's K5
+// lookup): the max of the 2x2x2 supervoxel block at the low corner of the
+// segment between points a and b, read from medium k's slice of the
+// majorant table (a shared-memory copy in both entry points).
+__device__ __forceinline__ float segment_majorant(V3 a, V3 b, int k, int s1,
+                                                  const float* sv_max) {
+  const int cx = sv_cell(nan_min(a.x, b.x), s1);
+  const int cy = sv_cell(nan_min(a.y, b.y), s1);
+  const int cz = sv_cell(nan_min(a.z, b.z), s1);
+  return sv_max[k * (s1 * s1 * s1) + cz * (s1 * s1) + cy * s1 + cx];
 }
 
 __device__ __forceinline__ float global_majorant(const Medium& m) {
@@ -166,6 +177,13 @@ __device__ __forceinline__ float density_oct(const uint4* __restrict__ oct4,
   const float d0 = d00 * (1.f - f.y) + d10 * f.y;
   const float d1 = d01 * (1.f - f.y) + d11 * f.y;
   return d0 * (1.f - f.z) + d1 * f.z;
+}
+
+// What the walk returns in tr mode: the product of the candidates' factors
+// tr, times the residual-ratio control exp(-ln * ce * sigma) at ett 2.
+__device__ __forceinline__ float tr_out(bool residual, float tr, float ln,
+                                        float ce, float sigma) {
+  return residual ? tr * expf(-ln * ce * sigma) : tr;
 }
 
 }  // namespace media

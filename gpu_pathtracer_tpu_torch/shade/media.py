@@ -16,14 +16,24 @@ kernel (pathtracer.cu:298-322).
 Heterogeneous tracking runs through `track`: one medium segment per ray,
 clipped to the density box, cut into NSEG equal segments, each with the
 local majorant of the supervoxel grid (`_segment_majorants`, the JAX
-package's K5 lookup). Candidates are a Poisson process at rate
-sigma * majorant: exponential steps, restarted at each segment boundary
-with that segment's rate; a candidate reads the trilinear density of the
-bf16-pair oct table (`_density_oct`). On CUDA tensors `track` launches
-csrc/track.cu (shade/media_cuda.py); on CPU tensors, or with `plain`, it
+package's K5 lookup). Candidates are a Poisson process at the piecewise
+constant rate sigma * majorant: one exponential optical depth
+tau = -log(1 - u) per candidate, carried across segment boundaries
+(each segment crossed takes rate * its remaining length from it), the
+candidate where tau runs out; a candidate reads the trilinear density of
+the bf16-pair oct table (`_density_oct`). So a walk draws one Philox
+word per candidate, plus at most one whose tau outlasts the last
+segment: draw 0 at the start, draw j right after candidate j - 1. On
+CUDA tensors `track` launches csrc/track.cu (shade/media_cuda.py), the
+counterpart of the TPU kernel ops/small_gather.py::_kernel (K5): a
+classify pass, then a persistent walk over a device queue of the lanes
+that walk, bound by the latency of its dependent segment and candidate
+steps; its `segment_majorants` entry, bound by the bytes it writes,
+computes `_segment_majorants`. On CPU tensors, or with `plain`, `track`
 runs `_track_torch`, the same walk over all lanes in lock step. Both
-draw the same Philox words (core/rng.py: counter (lane, 0, tag, j)) in
-the same order, so they agree bit for bit.
+draw the same Philox words (core/rng.py: counter (lane, 0, tag, j), j
+counting the lane's draws) in the same order, so they agree bit for
+bit.
 
 The walk matches the JAX estimator in distribution, not in bits: the JAX
 package draws each segment's Poisson count at once and evaluates the
@@ -31,14 +41,16 @@ candidates in chunks. Deviations: no SEG_COUNT_CAP truncation of a
 segment's count; ratio and residual-ratio Tr keep medium.h's Russian
 roulette below 0.1 after every candidate (the JAX CPU route does it per
 chunk of 32, media.py:932-937); the walk stops after `med_iter_max`
-draws, the reference's iterMax.
+draws, which count candidates (plus the last draw), as the reference's
+iterMax does.
 
-Not ported, as the GPU gathers per lane: the TPU's lane compaction and
-slicing (`FORCE_COMPACT`, `_compact_*`, `_track_slices`,
-`_prefix_slices`, `_cumsum_lanes`), its flat candidate queue
-(`FLAT_QUEUE`, `_flat_candidate_loop`), `_select_by_segment`, the u16 /
-bf16 row packing of majorants and counts, `_bf16_up`, and the unused
-`_density` of the x-pair grid.
+Not ported, as the GPU gathers per lane and the CUDA walk keeps its own
+queue of the lanes that walk: the TPU's lane compaction and slicing
+(`FORCE_COMPACT`, `_compact_*`, `_track_slices`, `_prefix_slices`,
+`_cumsum_lanes`), its flat candidate queue (`FLAT_QUEUE`,
+`_flat_candidate_loop`), `_select_by_segment`, the u16 / bf16 row
+packing of majorants and counts, `_bf16_up`, and the unused `_density`
+of the x-pair grid.
 """
 
 from __future__ import annotations
@@ -175,9 +187,12 @@ def track(scene, static, mode: int, med_idx, ro, rd, tmax, key: TrackKey,
 
 def _track_torch(scene, mode, med_idx, ro, rd, tmax, key, iter_max):
     """The plain version of `track`: every lane walks its segments and
-    candidates in lock step, with per-lane counters (segment s, draw j);
-    each loop pass works on the lanes still walking. csrc/track.cu does
-    the same walk one thread per lane."""
+    candidates in lock step, with per-lane state (segment s, draws j,
+    position t, optical depth tau left of the last draw); each loop pass
+    either crosses a segment or takes a candidate on each lane still
+    walking. Draw 0 comes first, draw j right after candidate j - 1
+    unless the walk ends there. csrc/track.cu does the same walk one
+    thread per lane."""
     if ro.is_cuda:
         from gpu_pathtracer_tpu_torch.shade import media_cuda
         media_cuda.STATS.plain_cuda += 1
@@ -195,6 +210,13 @@ def _track_torch(scene, mode, med_idx, ro, rd, tmax, key, iter_max):
     span = torch.clamp_min(med["p1"] - med["p0"], 1e-30)
     lanes = key.lanes.to(torch.int64) & 0xFFFFFFFF
 
+    def draw(i, j_i):
+        """(tau, acceptance uniform, roulette uniform) of draw j_i."""
+        w0, w1, w2 = track_words(key.seed, key.iteration, lanes[i], key.tag,
+                                 j_i)
+        return (-torch.log(1.0 - bits_to_uniform(w0)), bits_to_uniform(w1),
+                bits_to_uniform(w2))
+
     t = torch.zeros(n, device=dev)
     s = torch.zeros(n, dtype=torch.int64, device=dev)
     j = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -202,6 +224,11 @@ def _track_torch(scene, mode, med_idx, ro, rd, tmax, key, iter_max):
     found = torch.full((n,), torch.inf, device=dev)
     cand = torch.zeros(n, dtype=torch.int32, device=dev)
     live = torch.nonzero(het & (ln > 0.0))[:, 0]
+    tau = torch.zeros(n, device=dev)      # optical depth left of the draw
+    u_acc = torch.zeros(n, device=dev)    # its acceptance uniform
+    u_rr = torch.zeros(n, device=dev)     # and its roulette uniform
+    tau[live], u_acc[live], u_rr[live] = draw(live, 0)
+    j[live] = 1
     while live.numel():
         i = live
         m = maj[i, s[i]]
@@ -211,23 +238,23 @@ def _track_torch(scene, mode, med_idx, ro, rd, tmax, key, iter_max):
             rate = torch.where(e == 2, rate, m)
         lam = sigma[i] * rate
         s_end = (s[i] + 1).float() * seg_len[i]
-        draw = lam > 0.0
-        w0, w1, w2 = track_words(key.seed, key.iteration, lanes[i], key.tag,
-                                 j[i])
-        u_step, u_acc = bits_to_uniform(w0), bits_to_uniform(w1)
-        t_new = t[i] + -torch.log(1.0 - u_step) / lam
-        is_cand = draw & (t_new < s_end)
-        ti = torch.where(is_cand, t_new, s_end)
+        t_i, tau_i = t[i], tau[i]
+        # tau outlasts the segment: cross it; else the candidate
+        depth = lam * (s_end - t_i)
+        cross = ~(tau_i < depth)
+        is_cand = ~cross
+        tau_i = torch.where(cross, tau_i - depth, tau_i)
+        ti = torch.where(cross, s_end,
+                         torch.minimum(t_i + tau[i] / lam, s_end))
         t[i] = ti
-        s[i] = s[i] + (~is_cand).long()
-        j[i] = j[i] + draw.long()
+        s[i] = s[i] + cross.long()
         cand[i] = cand[i] + is_cand.int()
 
         p = ro_h[i] + rd[i] * ti[:, None]
         pos_norm = (p - med["p0"][i]) / span[i]
         dens = _density_oct(scene, torch.where(is_cand, med_idx[i], 0)
                             .to(torch.int32), med["n"][i], pos_norm)
-        hit = is_cand & (dens > u_acc * m)
+        hit = is_cand & (dens > u_acc[i] * m)
         if mode == MODE_SAMPLE:
             found[i] = torch.where(hit, t_box[i] + ti, found[i])
             stop = hit
@@ -241,11 +268,19 @@ def _track_torch(scene, mode, med_idx, ro, rd, tmax, key, iter_max):
             tr_new = torch.where(is_cand, tr_new, tr_i)
             # Russian roulette below 0.1 (medium.h:95-104, 117-127)
             rr = is_cand & (e != 0) & (tr_new < 0.1) & (tr_new >= 0.0)
-            kill = rr & (bits_to_uniform(w2) < 1.0 - tr_new)
+            kill = rr & (u_rr[i] < 1.0 - tr_new)
             tr_new = torch.where(kill, 0.0, torch.where(rr, 1.0, tr_new))
             tr[i] = tr_new
             stop = is_cand & (tr_new == 0.0)
-        go = ~stop & (s[i] < NSEG) & (j[i] < iter_max)
+        # the next draw, after a candidate that does not end the walk
+        after = is_cand & ~stop
+        redraw = after & (j[i] < iter_max)
+        d_tau, d_acc, d_rr = draw(i, j[i])
+        tau[i] = torch.where(redraw, d_tau, tau_i)
+        u_acc[i] = torch.where(redraw, d_acc, u_acc[i])
+        u_rr[i] = torch.where(redraw, d_rr, u_rr[i])
+        j[i] = j[i] + redraw.long()
+        go = ~stop & (redraw | ~after) & (s[i] < NSEG)
         live = i[go]
     if mode == MODE_SAMPLE:
         return found, cand

@@ -11,6 +11,8 @@ lock-step plain walk is held bit for bit to a per-lane loop of the walk
 as csrc/track.cu runs it.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -328,14 +330,15 @@ def test_missed_box_is_free(scenes):
 
 
 def _scalar_walk(td, iter_max, mode, k, ro, rd, tmax, key, lane):
-    """One lane's walk as csrc/track.cu runs it: segment by segment, one
-    draw at a time, every operation on float32 scalars. Returns (out,
-    candidates)."""
+    """One lane's walk as csrc/track.cu runs it, every operation on
+    float32 scalars: one exponential optical depth per candidate (draw 0
+    at the start, draw j right after candidate j - 1), carried across
+    segment boundaries. Returns (out, candidates, draws)."""
     f = lambda x: torch.tensor([x], dtype=torch.float32)  # noqa: E731
     med = tm.gather_medium(td, torch.tensor([k]))
     inf_or_one = torch.inf if mode == tm.MODE_SAMPLE else 1.0
     if k < 0 or int(med["type"]) != tm.HETEROGENEOUS:
-        return inf_or_one, 0
+        return inf_or_one, 0, 0
     ro, rd = ro[None], rd[None]
     t0, ln = tm._box_clip(med, ro, rd, tmax[None])
     ro_h = ro + rd * t0[:, None]
@@ -346,60 +349,72 @@ def _scalar_walk(td, iter_max, mode, k, ro, rd, tmax, key, lane):
     span = torch.clamp_min(med["p1"] - med["p0"], 1e-30)
     residual = mode == tm.MODE_TR and ett == 2
     seg_len = tm._seg_len(ln)
-    out, tr, nc = inf_or_one, f(1.0), 0
+    out, tr, nc, j = inf_or_one, f(1.0), 0, 0
+
+    def draw(j):
+        w = trng.track_words(key.seed, key.iteration, torch.tensor([lane]),
+                             key.tag, j)
+        return (-torch.log(1.0 - trng.bits_to_uniform(w[0])),
+                trng.bits_to_uniform(w[1]), trng.bits_to_uniform(w[2]))
+
     if ln.item() > 0.0:
-        t, s, j = f(0.0), 0, 0
-        while s < tm.NSEG and j < iter_max:
+        t, s = f(0.0), 0
+        (tau, u_acc, u_rr), j = draw(0), 1
+        while True:
             m = maj[s:s + 1]
             rate = torch.maximum(m, ce) if residual else m
             lam = sigma * rate
             s_end = f(float(s + 1)) * seg_len
-            t_new = f(torch.inf)
-            if lam.item() > 0.0:
-                w = trng.track_words(key.seed, key.iteration,
-                                     torch.tensor([lane]), key.tag, j)
-                j += 1
-                t_new = t + -torch.log(1.0 - trng.bits_to_uniform(w[0])) \
-                    / lam
-            if not t_new.item() < s_end.item():
-                t, s = s_end, s + 1
+            depth = lam * (s_end - t)
+            if not tau.item() < depth.item():
+                tau, t, s = tau - depth, s_end, s + 1
+                if s == tm.NSEG:
+                    break
                 continue
-            t = t_new
+            t = torch.minimum(t + tau / lam, s_end)
             nc += 1
             pos_norm = (ro_h + rd * t[:, None] - med["p0"]) / span
             dens = tm._density_oct(td, torch.tensor([k], dtype=torch.int32),
                                    med["n"], pos_norm)
-            hit = (dens > trng.bits_to_uniform(w[1]) * m).item()
+            hit = (dens > u_acc * m).item()
             if mode == tm.MODE_SAMPLE:
                 if hit:
                     out = (t0 + t).item()
                     break
-                continue
-            if ett == 0:
-                tr = f(0.0) if hit else tr
-            elif ett == 1:
-                tr = tr * (1.0 - dens / torch.clamp_min(m, 1e-30))
             else:
-                tr = tr * (1.0 - (dens - ce) / torch.clamp_min(rate, 1e-30))
-            if ett != 0 and 0.0 <= tr.item() < f(0.1).item():
-                u = trng.bits_to_uniform(w[2])
-                tr = f(0.0) if (u < 1.0 - tr).item() else f(1.0)
-            if tr.item() == 0.0:
+                if ett == 0:
+                    tr = f(0.0) if hit else tr
+                elif ett == 1:
+                    tr = tr * (1.0 - dens / torch.clamp_min(m, 1e-30))
+                else:
+                    tr = tr * (1.0 - (dens - ce)
+                               / torch.clamp_min(rate, 1e-30))
+                if ett != 0 and 0.0 <= tr.item() < f(0.1).item():
+                    tr = f(0.0) if (u_rr < 1.0 - tr).item() else f(1.0)
+                if tr.item() == 0.0:
+                    break
+            if j >= iter_max:
                 break
+            (tau, u_acc, u_rr), j = draw(j), j + 1
     if mode == tm.MODE_TR:
         out = (tr * torch.exp(-ln * ce * sigma)).item() if residual \
             else tr.item()
-    return out, nc
+    return out, nc, j
 
 
+@pytest.mark.parametrize("cap", [None, 1, 3])
 @pytest.mark.parametrize("mode, ett", [(tm.MODE_SAMPLE, 1), (tm.MODE_TR, 0),
                                        (tm.MODE_TR, 1), (tm.MODE_TR, 2)])
-def test_lockstep_walk_equals_scalar_walk(scenes, mode, ett):
+def test_lockstep_walk_equals_scalar_walk(scenes, mode, ett, cap):
     """The plain lock-step walk equals the per-lane scalar walk (the one
     csrc/track.cu mirrors) bit for bit on 64 lanes: rays through the
-    plume, rays that miss the box, lanes in the fog, vacuum lanes."""
+    plume, rays that miss the box, lanes in the fog, vacuum lanes; under
+    the scene's candidate cap (med_iter_max) and under caps of 1 and 3,
+    which no lane passes."""
     td, tst, _, _ = scenes
     td = _with_ett(td, ett, False)
+    if cap is not None:
+        tst = dataclasses.replace(tst, med_iter_max=cap)
     rng = np.random.default_rng(40 + ett)
     n = 64
     ro, rd, tmax = _box_rays(td, rng, n)
@@ -413,12 +428,93 @@ def test_lockstep_walk_equals_scalar_walk(scenes, mode, ett):
                          torch.as_tensor(ro), torch.as_tensor(rd),
                          torch.as_tensor(tmax), key)
     for i in range(n):
-        ref, nc = _scalar_walk(td, tst.med_iter_max, mode, int(idx[i]),
-                               torch.as_tensor(ro[i]), torch.as_tensor(rd[i]),
-                               torch.as_tensor(tmax[i]), key, 100 + i)
+        ref, nc, nj = _scalar_walk(td, tst.med_iter_max, mode, int(idx[i]),
+                                   torch.as_tensor(ro[i]),
+                                   torch.as_tensor(rd[i]),
+                                   torch.as_tensor(tmax[i]), key, 100 + i)
         assert out[i].item() == ref or (np.isnan(ref) and
                                         np.isnan(out[i].item())), (i, ref)
         assert cand[i].item() == nc, (i, nc)
+        # one draw per candidate, plus at most the one that outlasts the
+        # last segment
+        assert nc <= nj <= nc + 1, (i, nc, nj)
+    assert int(cand.max()) <= tst.med_iter_max
+    if cap is not None:   # the cap is reached
+        assert int(cand.max()) == cap
     assert (cand[24:] > 0).float().mean() > 0.5
     if mode == tm.MODE_SAMPLE:
         assert torch.isfinite(out).any()
+
+
+def _constant_smoke(td, ett, dens, maj=0.25, imd=8.0):
+    """smoke_port's media at a constant density `dens` under a constant
+    supervoxel majorant `maj` (both exact in bf16), global majorant
+    1 / imd (the residual-ratio control ce = 0.5 / imd), estimator
+    `ett`."""
+    bits = int(np.float32(dens).view(np.uint32)) >> 16
+    carrier = float(np.uint32((bits << 16) | bits).view(np.float32))
+    return replace_media(
+        td, med_density_oct4=torch.full_like(td.med_density_oct4, carrier),
+        med_sv_max=torch.full_like(td.med_sv_max, maj),
+        med_inv_max_density=torch.full_like(td.med_inv_max_density, imd),
+        med_eval_tr_type=torch.full_like(td.med_eval_tr_type, ett))
+
+
+@pytest.mark.parametrize("mode, ett", [(tm.MODE_SAMPLE, 1), (tm.MODE_TR, 0),
+                                       (tm.MODE_TR, 1), (tm.MODE_TR, 2)])
+def test_carried_depth_walk_matches_closed_forms(scenes, mode, ett):
+    """The walk's Poisson process (one exponential per candidate, carried
+    across the 42 segment boundaries) against closed forms, on 8,192 rays
+    through the smoke box at constant density d = 1/32 under majorant
+    1/4, sigma 15, chords L up to 2.3:
+    - Tr of delta, ratio and residual-ratio tracking: Beer-Lambert
+      exp(-sigma d L);
+    - candidates of ratio and residual ratio (no early stop: their
+      factors stay >= 0.875^n, roulette below 0.1 takes n >= 18 at a mean
+      of at most 8.6): sigma rate L, rate the majorant (residual ratio:
+      max(majorant, ce));
+    - delta and sample mode, which stop at the first real collision:
+      candidates (rate / d)(1 - exp(-sigma d L)), and in sample mode the
+      free path min(x, L) from the box entry (1 - exp(-sigma d L)) /
+      (sigma d).
+    Tolerance: the mean over lanes of (lane value - its lane's closed
+    form) within 5 standard errors of 0."""
+    td, tst, _, _ = scenes
+    d = 1.0 / 32.0
+    sc = _constant_smoke(td, ett, d)
+    rng = np.random.default_rng(50 + 4 * mode + ett)
+    n = 8192
+    ro, rd, tmax = _box_rays(td, rng, n)
+    idx = torch.full((n,), SMOKE, dtype=torch.int32)
+    ro, rd, tmax = (torch.as_tensor(a) for a in (ro, rd, tmax))
+    key = tm.TrackKey(7, 3, torch.arange(n),
+                      trng.track_tag(1, trng.TRACK_SURFACE))
+    out, cand = tm.track(sc, tst, mode, idx, ro, rd, tmax, key)
+    med = tm.gather_medium(sc, idx)
+    t0, ln = tm._box_clip(med, ro, rd, tmax)
+    maj = tm._segment_majorants(sc, med, ro + rd * t0[:, None], rd, ln)
+    assert (maj == maj[:, :1]).all()   # one majorant per lane
+    rate = maj[:, 0]
+    if mode == tm.MODE_TR and ett == 2:
+        rate = torch.maximum(rate, 0.5 / med["inv_max_density"])
+    f64 = lambda x: x.numpy().astype(np.float64)  # noqa: E731
+    sigma, L, rate = f64(med["sigma"]), f64(ln), f64(rate)
+    beer = np.exp(-sigma * d * L)
+    assert (L > 0).mean() > 0.99 and 0.3 < beer.mean() < 0.9
+
+    def close(x, ref, what):
+        m, se = _mean_se(np.asarray(x, np.float64) - ref)
+        assert abs(m) <= 5 * se, (what, m, se)
+
+    cand = f64(cand)
+    if mode == tm.MODE_TR:
+        close(f64(out), beer, "Tr")
+    if mode == tm.MODE_TR and ett != 0:
+        close(cand, sigma * rate * L, "candidates")
+    else:
+        close(cand, rate / d * (1.0 - beer), "candidates")
+    if mode == tm.MODE_SAMPLE:
+        out = f64(out)
+        free = np.where(np.isfinite(out), out - f64(t0), L)
+        close(free, (1.0 - beer) / (sigma * d), "free path")
+        assert 0.1 < np.isfinite(out).mean() < 0.7

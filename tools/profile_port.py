@@ -13,14 +13,18 @@ resolution
 and depth under torch.profiler
 after one warm-up spp, and prints per scene: wall time per spp, device
 time per spp summed over kernels, the device's idle share of the window,
-and the kernels that take the most device time. Needs a CUDA device;
+the kernels that take the most device time, and then every kernel of
+the port's own CUDA sources (the __global__ functions of
+gpu_pathtracer_tpu_torch/csrc/*.cu) with its share. Needs a CUDA device;
 prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
+import re
 import subprocess
 import sys
 import time
@@ -36,6 +40,24 @@ def _device_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+def port_kernels() -> list[str]:
+    """Names of the __global__ functions in the port's csrc/*.cu."""
+    names = set()
+    for path in glob.glob(os.path.join(REPO, "gpu_pathtracer_tpu_torch",
+                                       "csrc", "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)", f.read()))
+    return sorted(names)
+
+
+def _row(us, count, dev_us, spp, key) -> str:
+    return (f"    {us / 1e3 / spp:9.3f} ms/spp  "
+            f"{100 * us / max(dev_us, 1e-9):5.1f}%  x{count // spp}/spp  "
+            f"{key[:90]}")
 
 
 def profile(renderer, spp: int):
@@ -80,6 +102,7 @@ def main() -> None:
     from gpu_pathtracer_tpu_torch.integrators import pt_fused
     from gpu_pathtracer_tpu_torch.run.renderer import Renderer
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+    kernels = port_kernels()
     for path in args.scenes:
         r = Renderer(path, device="cuda")
         wall, rows = profile(r, args.spp)
@@ -94,9 +117,12 @@ def main() -> None:
               f"{dev_us / 1e3 / args.spp:.3f} ms/spp, idle share "
               f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
         for key, us, count in rows[:8]:
-            print(f"    {us / 1e3 / args.spp:9.3f} ms/spp  "
-                  f"{100 * us / max(dev_us, 1e-9):5.1f}%  x{count // args.spp}"
-                  f"/spp  {key[:90]}")
+            print(_row(us, count, dev_us, args.spp, key))
+        for name in kernels:
+            for key, us, count in rows:
+                if re.search(rf"\b{name}\b", key):
+                    print("  port kernel" + _row(us, count, dev_us,
+                                                 args.spp, key)[3:])
 
 
 if __name__ == "__main__":
