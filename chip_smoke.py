@@ -15,10 +15,20 @@ Phases:
      block-culled hit kernel (K3), the BVH8 walk (K4) and the media
      tracking kernel (track.cu, K5's counterpart), one nvcc each, all at
      once, and the native BVH builder (g++)
-  B  K1 vs plain: 1,048,576 rays, closest and any hit, two prim tables;
-     K3 (scenes/knot_port/blocked.json), K4 flat (scene.json) and K4
-     instanced (forest.json) vs plain on 1,048,576 random, primary and
-     first-bounce rays each, closest and any hit; K3 vs K4 on
+  B  K1 vs plain: 1,048,576 rays, closest and any hit, its triangles-only
+     and all-kinds variants on cornell_port's table, the all-kinds one on
+     a 512-row synthetic table of all three kinds, a table of exact twins
+     (cornell_port's twice: every tie lane must take the plain version's
+     row), 30% of the lanes with empty intervals (each must miss), and
+     N = 1M - 37; K3 (scenes/knot_port/blocked.json), K4 flat
+     (scene.json) and K4 instanced (forest.json) vs plain on 1,048,576
+     random, primary and first-bounce rays each, closest and any hit; K3
+     also in its all-kinds variant, on blocked.json's table twice over
+     (exact ties across blocks), with 30% empty intervals, at N = 1M - 37,
+     on cornell_port's table twice over and on the synthetic table cut
+     into blocks, and the blocks a ray enters (in row order, before its
+     hit, along the whole ray; mean, p99) with how far a warp's lanes
+     share them; K3 vs K4 on
      blocked.json's rays; K4's stack-overflow flag; on 1,048,576 rays
      through scenes/smoke_port's smoke box: track's segment_majorants
      (K5's function) bit-equal to the plain version, with and without
@@ -56,20 +66,24 @@ Phases:
      held against the plain wavefront on all 1,048,576 lanes, then 8
      timed spp: spp/s, Mrays/s, host build seconds); forest.json (K4
      instanced, its host build timed cold on an emptied BVH cache and on
-     a cache hit) and blocked.json (K3) the same with 2 timed spp, and
+     a cache hit) and blocked.json (K3; bounce 1's closest-hit call of its
+     warm-up spp captured for phase E) the same with 2 timed spp, and
      knot_port/sky.json (K4 with textures and the sky) with its host build
      timed cold (an emptied BVH cache) and on a cache hit, beside the
      numpy BVH builder's time on the same prims;
      scenes/smoke_port with --integrator vpt (one warm-up spp held
      against the plain VPT on all lanes, whose first Tr walk of step 1
-     is captured for phase E, then 2 timed spp; track and K1 must
-     launch, K2 must not)
+     is captured for phase E and whose K1 calls report, per step, the
+     lanes alive and K1's warps wholly empty, then 2 timed spp; track and
+     K1 must launch, K2 must not)
   E  times, in windows of about one second, kernel and plain in turns:
      K1 vs plain at 1M rays; K2 alone vs plain from the same primary
      rays at 1024^2 depth 5, and the camera that makes those rays; K2's
      environment and textured variants the same on their scenes; K3 on
      blocked.json, K4 flat on scene.json, K4 instanced on forest.json
-     vs plain on the 1M primary and first-bounce rays; K4 flat on
+     vs plain on the 1M primary and first-bounce rays, each with its
+     bound; K3 on the call captured from blocked.json's main path, with
+     its bound and blocks entered; K4 flat on
      blocked.json's table beside K3; segment_majorants vs plain vs the
      one PyTorch call of K5's lookup (med_sv_max[idx] on the same
      [1M, 42] indices); the tracking walk vs plain on the phase-B rays
@@ -294,10 +308,14 @@ def flat(key: str, dev):
     return _FLAT[path][:2]
 
 
-def hit_check(label, closest_k, closest_p, any_k, any_p) -> float:
+def hit_check(label, closest_k, closest_p, any_k, any_p, canon=None,
+              empty=None) -> float:
     """Kernel vs plain hits on one ray set: prim equal and any-hit equal
     on >= 99.99% of lanes, t within 1e-4 relative where the prim agrees.
-    Returns the largest |t_kernel - t_plain| there."""
+    With `canon` (a prim id per table row, equal for exact twins): on
+    every lane where both hit twins of one prim (a tie), the same row.
+    With `empty` (lanes whose interval is empty): a miss on every one.
+    Returns the largest |t_kernel - t_plain| where the prim agrees."""
     (t_k, p_k), (t_p, p_p) = closest_k, closest_p
     same = p_k == p_p
     both = same & (p_k >= 0)
@@ -306,14 +324,74 @@ def hit_check(label, closest_k, closest_p, any_k, any_p) -> float:
     same_frac = same.float().mean().item()
     any_frac = (any_k == any_p).float().mean().item()
     rel_max = rel.max().item() if rel.numel() else 0.0
+    extra = ""
+    if canon is not None:
+        hit2 = (p_k >= 0) & (p_p >= 0)
+        twin = hit2 & (canon[p_k.clamp_min(0).long()]
+                       == canon[p_p.clamp_min(0).long()])
+        n_tie, n_bad = int(twin.sum()), int((twin & ~same).sum())
+        extra += f", tie lanes {n_tie} (other row on {n_bad})"
+        check(n_tie > 0 and n_bad == 0,
+              f"{label}: {n_bad} of {n_tie} tie lanes take another row")
+    if empty is not None:
+        bad = int((empty & ((p_k >= 0) | any_k | (t_k != t_p))).sum())
+        extra += f", empty lanes {int(empty.sum())} (not a miss on {bad})"
+        check(bad == 0, f"{label}: {bad} empty lanes are not a miss")
     print(f"[B] {label}: {p_k.numel()} rays, hit "
           f"{(p_k >= 0).float().mean():.4f}, prim equal {same_frac:.6f}, "
           f"t max rel err {rel_max:.3e}, any-hit equal {any_frac:.6f} "
-          f"(any-hit hit {any_k.float().mean():.4f})")
+          f"(any-hit hit {any_k.float().mean():.4f}){extra}")
     check(same_frac >= 0.9999, f"{label}: prim equal on {same_frac}")
     check(rel_max <= 1e-4, f"{label}: t rel err {rel_max}")
     check(any_frac >= 0.9999, f"{label}: any-hit equal on {any_frac}")
     return err.max().item() if err.numel() else 0.0
+
+
+def with_empty(rng, tmax, share=0.3):
+    """tmax with `share` of the lanes given an empty interval (tmax 0 or
+    -1, below every tmin here) -> (tmax, empty mask)."""
+    n = tmax.shape[0]
+    empty = torch.as_tensor(rng.random(n) < share, device=tmax.device)
+    dead = torch.as_tensor(rng.choice(np.float32([0.0, -1.0]), n),
+                           device=tmax.device)
+    return torch.where(empty, dead, tmax).contiguous(), empty
+
+
+def blocked_table(rows):
+    """A K3 table from dense_prims rows of any kinds: the rows padded to
+    whole 64-row blocks (type -1 pad rows) and each block's box, widened
+    by 1e-5 -> (table [nb * 64, 16], block_bbox [nb, 8])."""
+    from gpu_pathtracer_tpu_torch.geom.blocked import BLOCK
+    n = rows.shape[0]
+    pad = (-n) % BLOCK
+    table = torch.cat([rows, torch.zeros((pad, 16), device=rows.device)])
+    table[n:, 9] = -1.0
+    ty, v0 = table[:, 9], table[:, 0:3]
+    a, b = table[:, 3:6], table[:, 6:9]
+    r = table[:, 10:12].amax(1, keepdim=True)
+    tri = (ty == 0)[:, None]
+    sph = (ty == 2)[:, None]
+    lo = torch.where(tri, torch.minimum(v0, torch.minimum(v0 + a, v0 + b)),
+                     torch.where(sph, v0 - r, torch.minimum(v0, a) - r))
+    hi = torch.where(tri, torch.maximum(v0, torch.maximum(v0 + a, v0 + b)),
+                     torch.where(sph, v0 + r, torch.maximum(v0, a) + r))
+    pad_row = (ty < 0)[:, None]
+    lo = torch.where(pad_row, torch.inf, lo - 1e-5)
+    hi = torch.where(pad_row, -torch.inf, hi + 1e-5)
+    bbox = torch.zeros((table.shape[0] // BLOCK, 8), device=rows.device)
+    bbox[:, 0:3] = lo.view(-1, BLOCK, 3).amin(1)
+    bbox[:, 3:6] = hi.view(-1, BLOCK, 3).amax(1)
+    return table.contiguous(), bbox
+
+
+def doubled(table, bbox):
+    """A K3 table twice over, the copy's blocks in reverse order after the
+    original's: every prim has an exact twin in another block, at a
+    larger row, with the same box (tests/test_torch_walk.py::doubled)."""
+    from gpu_pathtracer_tpu_torch.geom.blocked import BLOCK
+    rows = table.view(bbox.shape[0], BLOCK, 16)
+    return (torch.cat([rows, rows.flip(0)]).reshape(-1, 16).contiguous(),
+            torch.cat([bbox, bbox.flip(0)]).contiguous())
 
 
 def ray_sets(scene, static, rng, dev) -> dict:
@@ -387,37 +465,49 @@ def random_rays(rng, n, dev):
 
 
 def phase_b(dev, rng, records):
-    """K1 vs its plain version at 1,048,576 rays, closest and any hit."""
+    """K1 vs its plain version at 1,048,576 rays, closest and any hit:
+    both variants on cornell_port's table, the all-kinds one on the
+    512-row synthetic table, a table of exact twins (the cornell table
+    twice), lanes with empty intervals, an N that is not a multiple of
+    the kernel's 256 rays a block."""
     from gpu_pathtracer_tpu_torch.geom import dense, dense_cuda
     from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
     from gpu_pathtracer_tpu_torch.scene.parse import load_scene
     scene, _ = flatten_scene(load_scene(os.path.join(REPO, SCENES[0])), dev)
-    tables = {"cornell_port": scene.dense_prims,
-              "synthetic512": torch.as_tensor(synthetic_table(rng),
-                                              device=dev)}
-    n = 1 << 20
+    cornell = scene.dense_prims
+    synth = torch.as_tensor(synthetic_table(rng), device=dev)
+    tri, every = (True, False, False), (True, True, True)
+    n = N_RAYS
     ro, rd, tmin, tmax = random_rays(rng, n, dev)
+    tmax_e, empty = with_empty(rng, tmax)
+    n_odd = n - 37
+    twins = torch.cat([cornell, cornell]).contiguous()
+    cases = (   # label, table, kinds, rays, tie canon, empty mask
+        ("cornell_port, triangles only", cornell, tri, (ro, rd, tmin, tmax),
+         None, None),
+        ("cornell_port, all kinds", cornell, every, (ro, rd, tmin, tmax),
+         None, None),
+        ("synthetic512, all kinds", synth, every, (ro, rd, tmin, tmax), None,
+         None),
+        ("cornell_port twice (exact ties), triangles only", twins, tri,
+         (ro, rd, tmin, tmax), twins[:, 12], None),
+        ("cornell_port, 30% empty intervals, triangles only", cornell, tri,
+         (ro, rd, tmin, tmax_e), None, empty),
+        ("synthetic512, 30% empty intervals, all kinds", synth, every,
+         (ro, rd, tmin, tmax_e), None, empty),
+        (f"cornell_port, N = {n_odd}, triangles only", cornell, tri,
+         tuple(x[:n_odd] for x in (ro, rd, tmin, tmax)), None, None),
+        (f"synthetic512, N = {n_odd}, all kinds", synth, every,
+         tuple(x[:n_odd] for x in (ro, rd, tmin, tmax)), None, None))
     max_err = 0.0
-    for name, table in tables.items():
-        t_k, p_k = dense_cuda.dense_hit_cuda(table, ro, rd, tmin, tmax, False)
-        f_k = dense_cuda.dense_hit_cuda(table, ro, rd, tmin, tmax, True)
-        t_p, p_p = dense.dense_closest_torch(table, ro, rd, tmin, tmax)
-        f_p = dense.dense_any_torch(table, ro, rd, tmin, tmax)
+    for label, table, kinds, (o, d, t0, t1), canon, emp in cases:
+        ck = dense_cuda.dense_hit_cuda(table, o, d, t0, t1, False, kinds)
+        ak = dense_cuda.dense_hit_cuda(table, o, d, t0, t1, True, kinds)
+        cp = dense.dense_closest_torch(table, o, d, t0, t1, kinds)
+        ap = dense.dense_any_torch(table, o, d, t0, t1, kinds)
         torch.cuda.synchronize()
-        same = p_k == p_p
-        both = same & (p_k >= 0)
-        rel = ((t_k - t_p).abs() / t_p.abs().clamp_min(1e-30))[both]
-        err = (t_k - t_p).abs()[both]
-        same_frac = same.float().mean().item()
-        any_frac = (f_k == f_p).float().mean().item()
-        rel_max = rel.max().item() if rel.numel() else 0.0
-        max_err = max(max_err, err.max().item() if err.numel() else 0.0)
-        print(f"[B] K1 {name}: {n} rays, hit {(p_k >= 0).float().mean():.4f}"
-              f", prim equal {same_frac:.6f}, t max rel err {rel_max:.3e}, "
-              f"any-hit equal {any_frac:.6f}")
-        check(same_frac >= 0.9999, f"K1 {name}: prim equal on {same_frac}")
-        check(rel_max <= 1e-4, f"K1 {name}: t rel err {rel_max}")
-        check(any_frac >= 0.9999, f"K1 {name}: any-hit equal on {any_frac}")
+        max_err = max(max_err, hit_check(f"K1 {label}", ck, cp, ak, ap,
+                                         canon, emp))
     records["dense_hit"]["max_abs_err"] = max_err
     phase_b_large(dev, rng, records)
     phase_b_media(dev, rng, records)
@@ -429,7 +519,7 @@ def k3_pair(scene, static):
     from gpu_pathtracer_tpu_torch.geom import blocked, blocked_cuda, dense
     kinds = dense.kinds_of(static)
     return (lambda *a: blocked_cuda.blocked_hit_cuda(
-                scene.dense_prims, scene.block_bbox, *a),
+                scene.dense_prims, scene.block_bbox, *a, kinds),
             lambda *a: blocked.blocked_hit_torch(
                 scene.dense_prims, scene.block_bbox, *a, kinds))
 
@@ -483,6 +573,7 @@ def phase_b_large(dev, rng, records):
             torch.cuda.synchronize()
             errs[rec] = max(errs[rec], hit_check(
                 f"{kname} {key} {set_name}", ck, cp, ak, ap))
+    errs["blocked"] = max(errs["blocked"], phase_b_k3(dev, rng, records))
     for rec, e in errs.items():
         records[rec]["max_abs_err"] = e
 
@@ -494,14 +585,17 @@ def phase_b_large(dev, rng, records):
                                                    rng).items():
         (t3, p3), (t4, p4) = k3(ro, rd, t0, t1, False), k4(ro, rd, t0, t1,
                                                            False)
-        both = (p3 >= 0) & (p4 >= 0)
+        # K3 is held to the plain version within the hit limits, not bit
+        # for bit: t is compared where the two take the same prim
+        both = (p3 == p4) & (p4 >= 0)
         rel = ((t3 - t4).abs() / t4.abs().clamp_min(1e-30))[both]
         found = ((p3 >= 0) == (p4 >= 0)).float().mean().item()
+        same = (p3 == p4).float().mean().item()
         rel_max = rel.max().item() if rel.numel() else 0.0
         print(f"[B] K3 vs K4 blocked {set_name}: found equal {found:.6f}, "
-              f"prim equal {(p3 == p4).float().mean().item():.6f}, t max "
-              f"rel err {rel_max:.3e}")
+              f"prim equal {same:.6f}, t max rel err {rel_max:.3e}")
         check(found >= 0.9999, f"K3 vs K4 {set_name}: found equal {found}")
+        check(same >= 0.9999, f"K3 vs K4 {set_name}: prim equal {same}")
         check(rel_max <= 1e-4, f"K3 vs K4 {set_name}: t rel err {rel_max}")
 
     # a stack too small for the tree must raise, never drop a ray
@@ -515,6 +609,170 @@ def phase_b_large(dev, rng, records):
         print(f"[B] K4 with a 2-entry stack raises: {e}")
     else:
         fail("K4 with a 2-entry stack did not report an overflow")
+
+
+def phase_b_k3(dev, rng, records) -> float:
+    """K3's cases beyond the three ray sets, each vs the plain version:
+    the all-kinds variant on blocked.json, its table twice over (every
+    hit an exact tie across blocks), 30% empty intervals, an N that is
+    not a multiple of the kernel's 128 rays a block, cornell_port's table
+    twice over and the 512-row synthetic table of all kinds cut into
+    blocks; then the blocks a ray enters on the primary and bounce sets.
+    Returns the largest |t| error."""
+    from gpu_pathtracer_tpu_torch.geom import blocked, blocked_cuda
+    scene, _ = flat("blocked", dev)
+    sets = knot_rays("blocked", dev, rng)
+    tri, every = (True, False, False), (True, True, True)
+    table, bbox = scene.dense_prims, scene.block_bbox
+    t2, b2 = doubled(table, bbox)
+    n_odd = N_RAYS - 37
+    prim, bounce = sets["primary"][:4], sets["bounce"][:4]
+    ro, rd, t0, t1, _ = sets["random"]
+    tmax_e, empty = with_empty(rng, t1)
+    room = random_rays(rng, N_RAYS, dev)
+    c2, cb2 = doubled(*blocked_table(flat(SCENES[0], dev)[0].dense_prims))
+    s8, sb8 = blocked_table(torch.as_tensor(synthetic_table(rng),
+                                            device=dev))
+    cases = (   # label, table, bbox, kinds, rays, tie canon, empty mask
+        ("primary, all kinds", table, bbox, every, prim, None, None),
+        ("twice (exact ties), primary", t2, b2, tri, prim, t2[:, 12], None),
+        ("twice (exact ties), bounce", t2, b2, tri, bounce, t2[:, 12], None),
+        ("random, 30% empty intervals", table, bbox, tri,
+         (ro, rd, t0, tmax_e), None, empty),
+        (f"primary, N = {n_odd}", table, bbox, tri,
+         tuple(x[:n_odd] for x in prim), None, None),
+        ("cornell_port's table twice as 2 x 1 blocks (exact ties)", c2, cb2,
+         tri, room, c2[:, 12], None),
+        ("synthetic512 as 8 blocks, all kinds", s8, sb8, every, room, None,
+         None))
+    err = 0.0
+    for label, tab, bb, kinds, (o, d, lo, hi), canon, emp in cases:
+        ck = blocked_cuda.blocked_hit_cuda(tab, bb, o, d, lo, hi, False, kinds)
+        ak = blocked_cuda.blocked_hit_cuda(tab, bb, o, d, lo, hi, True, kinds)
+        cp = blocked.blocked_hit_torch(tab, bb, o, d, lo, hi, False, kinds)
+        ap = blocked.blocked_hit_torch(tab, bb, o, d, lo, hi, True, kinds)
+        torch.cuda.synchronize()
+        err = max(err, hit_check(f"K3 blocked.json {label}"
+                                 if tab is table or tab is t2 else
+                                 f"K3 {label}", ck, cp, ak, ap, canon, emp))
+    for set_name in ("primary", "bounce"):
+        o, d, lo, hi = sets[set_name][:4]
+        ent = k3_entries(scene, o, d, lo, hi, tri)
+        coh = warp_coherence(bbox, o, d, lo, ent["t"])
+        print(f"[B] K3 blocks entered per ray, blocked.json 1M {set_name} "
+              f"rays: {entry_line(ent)}; {coherence_line(coh)}")
+        records["blocked"][f"entered_{set_name}"] = entry_summary(ent)
+        records["blocked"][f"warps_{set_name}"] = coh
+    return err
+
+
+def coherence_line(coh) -> str:
+    return (f"a warp's visit step, nearest first: "
+            f"{coh['distinct_blocks']:.3f} distinct blocks, all lanes in one "
+            f"block {coh['one_block_share']:.4f} ({coh['warp_steps']} "
+            f"warp steps)")
+
+
+def k3_entries(scene, ro, rd, t_lo, t_hi, kinds) -> dict:
+    """Blocks of scene.block_bbox a ray enters: "row order", in the
+    plain version's loop (the parent kernel's order), with its running
+    best t; "before the hit", the boxes that overlap [t_lo, the closest
+    hit's t] (what a nearest-first visit needs); "whole ray", those that
+    overlap [t_lo, t_hi]. {name: [N] counts}, plus the closest hit's
+    t under "t"."""
+    from gpu_pathtracer_tpu_torch.geom import blocked
+    from gpu_pathtracer_tpu_torch.geom.dense import chunk_hits
+    prims, bb = scene.dense_prims, scene.block_bbox
+    n = ro.shape[0]
+    best_t = t_hi.clone()
+    count = torch.zeros(n, dtype=torch.int32, device=ro.device)
+    inv = blocked.safe_inv(rd)
+    for b in range(bb.shape[0]):   # blocked_hit_torch's loop, counted
+        hit, _ = blocked.slab(bb[b, 0:3], bb[b, 3:6], ro, inv, best_t)
+        count += hit.to(torch.int32)
+        lanes = hit.nonzero().squeeze(1)
+        if lanes.numel() == 0:
+            continue
+        rows = prims[b * blocked.BLOCK:(b + 1) * blocked.BLOCK]
+        o, d = ro[lanes], rd[lanes]
+        ok, t = chunk_hits(rows, tuple(o[:, k:k + 1] for k in range(3)),
+                           tuple(d[:, k:k + 1] for k in range(3)),
+                           t_lo[lanes, None], best_t[lanes, None], kinds)
+        got, t_new, _ = blocked.last_min(ok, t)
+        best_t[lanes] = torch.where(got, t_new, best_t[lanes])
+    return {"row order": count,
+            "before the hit": block_entries(bb, ro, rd, t_lo, best_t),
+            "whole ray": block_entries(bb, ro, rd, t_lo, t_hi),
+            "t": best_t}
+
+
+def block_entries(bb, ro, rd, t_lo, t_best):
+    """Per ray, the boxes of bb (not the empty boxes of whole pad blocks)
+    whose slab interval overlaps [t_lo, t_best]."""
+    from gpu_pathtracer_tpu_torch.geom.blocked import safe_inv
+    inv = safe_inv(rd)
+    entered = torch.zeros(ro.shape[0], dtype=torch.int32, device=ro.device)
+    for b0 in range(0, bb.shape[0], 16):
+        box = bb[b0:b0 + 16]
+        lo = (box[None, :, 0:3] - ro[:, None]) * inv[:, None]
+        hi = (box[None, :, 3:6] - ro[:, None]) * inv[:, None]
+        tn = torch.minimum(lo, hi).amax(-1).clamp_min(t_lo[:, None])
+        tf = torch.minimum(torch.maximum(lo, hi).amin(-1), t_best[:, None])
+        real = (box[:, 0:3] <= box[:, 3:6]).all(-1)
+        entered += ((tn <= tf) & real).sum(1, dtype=torch.int32)
+    return entered
+
+
+def warp_coherence(bb, ro, rd, t_lo, t_best, k_max=16) -> dict:
+    """How far the lanes of a 32-lane warp share blocks when each visits
+    the blocks it enters before its hit nearest first (its first k_max):
+    over the (warp, visit step) pairs with a lane visiting, the mean count
+    of distinct blocks and the share where all visiting lanes are in one
+    block."""
+    from gpu_pathtracer_tpu_torch.geom.blocked import safe_inv
+    n = ro.shape[0] // 32 * 32
+    real = (bb[:, 0:3] <= bb[:, 3:6]).all(-1)
+    distinct, steps = 0.0, 0
+    one = 0
+    for c0 in range(0, n, 1 << 16):
+        o, d = ro[c0:c0 + (1 << 16)], rd[c0:c0 + (1 << 16)]
+        lo_t, hi_t = t_lo[c0:c0 + (1 << 16)], t_best[c0:c0 + (1 << 16)]
+        inv = safe_inv(d)
+        lo = (bb[None, :, 0:3] - o[:, None]) * inv[:, None]
+        hi = (bb[None, :, 3:6] - o[:, None]) * inv[:, None]
+        tn = torch.minimum(lo, hi).amax(-1).clamp_min(lo_t[:, None])
+        tf = torch.minimum(torch.maximum(lo, hi).amin(-1), hi_t[:, None])
+        key = torch.where((tn <= tf) & real, tn, torch.inf)
+        tn_s, order = torch.sort(key, dim=1)
+        k = min(k_max, bb.shape[0])
+        blk = torch.where(torch.isfinite(tn_s[:, :k]), order[:, :k], -1)
+        s_, _ = blk.view(-1, 32, k).sort(dim=1)
+        new = (s_ >= 0) & torch.cat(
+            [torch.ones_like(s_[:, :1], dtype=torch.bool),
+             s_[:, 1:] != s_[:, :-1]], 1)
+        cnt = new.sum(1)   # [warps, k] distinct blocks per visit step
+        act = cnt > 0
+        distinct += float(cnt[act].sum())
+        steps += int(act.sum())
+        one += int((cnt == 1).sum())
+    return {"distinct_blocks": distinct / max(steps, 1),
+            "one_block_share": one / max(steps, 1), "warp_steps": steps}
+
+
+def entry_summary(ent) -> dict:
+    """{name: [mean, p99, max]} of k3_entries' counts."""
+    out = {}
+    for k, v in ent.items():
+        if k != "t":
+            f = v.float()
+            out[k] = [f.mean().item(), f.quantile(0.99).item(),
+                      int(v.max())]
+    return out
+
+
+def entry_line(ent) -> str:
+    return "; ".join(f"{k} mean {m:.3f}, p99 {q:.0f}, max {x}"
+                     for k, (m, q, x) in entry_summary(ent).items())
 
 
 def phase_c(dev, rng, records):
@@ -580,11 +838,15 @@ def phase_c(dev, rng, records):
         k1_n, k2_n = dense_cuda.STATS.launches, pt_fused.STATS.launches
         li_p = pt_fused.render_lanes_torch(scene, static, SEED, 1, px, py)
         frac = close_frac(li_w, li_p)
+        ratio = li_w.double().mean().item() / li_p.double().mean().item()
         print(f"[C] wavefront over K1 {os.path.basename(path)} philox: "
               f"agree {frac:.6f}, bit-equal "
-              f"{(li_w == li_p).all(1).float().mean().item():.6f}, "
-              f"K1 launches {k1_n}")
+              f"{(li_w == li_p).all(1).float().mean().item():.6f}, mean "
+              f"ratio {ratio:.7f}, K1 launches {k1_n}")
+        # K1 is held to its plain version within the hit limits, so the
+        # wavefront over it within the radiance limits, not bit for bit
         check(frac >= 0.99, f"wavefront {path}: agree on {frac}")
+        check(abs(ratio - 1.0) <= 1e-3, f"wavefront {path}: ratio {ratio}")
         check(k1_n > 0 and k2_n == 0, f"wavefront {path}: launches K1 "
               f"{k1_n}, K2 {k2_n}")
         if not fused:
@@ -705,7 +967,9 @@ def phase_d(dev, card, records):
                             ("blocked", "blocked", 2)):
         if key == "forest":   # its host build on an emptied cache (the
             shutil.rmtree(bvh.cache_dir())   # BLAS are cached, the TLAS not)
-        builds = main_path(key, kname, spp, card, records)
+        builds = main_path(key, kname, spp, card, records,
+                           capture=capture_main_k3 if key == "blocked"
+                           else None)
         if key == "forest":
             print(f"[D] {KNOT[key]} host build: cold {builds[0]:.3f} s, "
                   f"BVH cache hit {builds[1]:.3f} s")
@@ -749,12 +1013,14 @@ def knot_sky_main_path(card, records):
         sky_bvh_native_s=t1 - t0, sky_bvh_numpy_s=t2 - t1)
 
 
-def main_path(key, kname, spp, card, records, after_build=None):
+def main_path(key, kname, spp, card, records, after_build=None,
+              capture=None):
     """A main path through the CLI (a knot scene of KNOT or a K2 variant's
     scene of K2_VARIANTS): one warm-up spp, held against the plain
     wavefront on every lane, then `spp` timed spp whose launches must
     all be kernel `kname`'s. Returns the host build seconds of the two
-    runs; `after_build()` is called after each."""
+    runs; `after_build()` is called after each, `capture()` wraps the
+    warm-up spp (it returns the function that ends the capture)."""
     from gpu_pathtracer_tpu_torch.integrators import pt
     from gpu_pathtracer_tpu_torch.run import cli
     label = KNOT.get(key) or K2_VARIANTS[key]
@@ -766,7 +1032,11 @@ def main_path(key, kname, spp, card, records, after_build=None):
                          "--out", os.path.join(OUT, name)])
 
     name = f"knot_{key}" if key in KNOT else key
-    warm = render(1, f"{name}_1spp.png")
+    release = capture() if capture else (lambda: None)
+    try:
+        warm = render(1, f"{name}_1spp.png")
+    finally:
+        release()
     if after_build:
         after_build()
     r = warm["renderer"]
@@ -823,11 +1093,12 @@ def phase_e(dev, rng, card, records):
     n = 1 << 20
     ro, rd, tmin, tmax = random_rays(rng, n, dev)
     table = scene.dense_prims
+    kinds = dense.kinds_of(static)   # triangles only: the main path's variant
     t1 = timed_windows({
         "kernel": lambda: dense_cuda.dense_hit_cuda(table, ro, rd, tmin,
-                                                    tmax, False),
+                                                    tmax, False, kinds),
         "plain": lambda: dense.dense_closest_torch(table, ro, rd, tmin,
-                                                   tmax)})
+                                                   tmax, kinds)})
     # K2 alone on the main path's primary rays (one spp of 1024^2), its
     # plain version from the same rays, and the camera that makes them
     ids = torch.arange(n, device=dev, dtype=torch.int32)
@@ -931,45 +1202,82 @@ def phase_e(dev, rng, card, records):
             if rec is not None:
                 line += (f", plain {mean(t['plain']):.4f} ms "
                          f"({span(t['plain'])})")
-                if key != "forest" and set_name == "primary":
+                if key != "forest":
                     t_best = (plain(ro, rd, t_lo, t_hi, False)[0]
                               if rec == "blocked" else None)
-                    b = hit_bound(rec, scene, ro, rd, t_lo, t_best)
+                    b = hit_bound(rec, scene, ro, rd, t_lo, t_hi, t_best)
                     line += (f"; bound {b['bound_ms']:.4f} ms by "
                              f"{b['bound_by']}")
-                    records[rec].update(ms=mean(t["kernel"]),
-                                        plain_ms=mean(t["plain"]), **b,
-                                        library_ms=None)
-                if key == "forest" and set_name == "primary":
-                    records[rec].update(
-                        ms_instanced=mean(t["kernel"]),
-                        plain_ms_instanced=mean(t["plain"]))
+                    sfx = "" if set_name == "primary" else "_bounce"
+                    records[rec].update({
+                        f"ms{sfx}": mean(t["kernel"]),
+                        f"plain_ms{sfx}": mean(t["plain"]),
+                        f"bound_ms{sfx}": b["bound_ms"],
+                        f"bound_by{sfx}": b["bound_by"]})
+                    records[rec]["library_ms"] = None
+                if key == "forest":
+                    sfx = "" if set_name == "primary" else "_bounce"
+                    records[rec].update({
+                        f"ms_instanced{sfx}": mean(t["kernel"]),
+                        f"plain_ms_instanced{sfx}": mean(t["plain"])})
             print(line + f" ({card})")
+    phase_e_k3_main(dev, card, records)
     phase_e_media(dev, rng, card, records)
 
 
-def hit_bound(rec, scene, ro, rd, t_lo, t_best) -> dict:
+def phase_e_k3_main(dev, card, records):
+    """K3 on the call captured from blocked.json's main path in phase D
+    (bounce 1's closest hit, lanes sorted, finished lanes empty): kernel
+    vs plain, its bound and the blocks its rays enter."""
+    from gpu_pathtracer_tpu_torch.geom import blocked, blocked_cuda
+    if "args" not in MAIN_K3:
+        return
+    tab, bb, ro, rd, t_lo, t_hi, kinds = MAIN_K3["args"]
+    t = timed_windows({
+        "kernel": lambda: blocked_cuda.blocked_hit_cuda(
+            tab, bb, ro, rd, t_lo, t_hi, False, kinds),
+        "plain": lambda: blocked.blocked_hit_torch(
+            tab, bb, ro, rd, t_lo, t_hi, False, kinds)}, min_reps=1)
+    from types import SimpleNamespace
+    scene = SimpleNamespace(dense_prims=tab, block_bbox=bb)
+    ent = k3_entries(scene, ro, rd, t_lo, t_hi, kinds)
+    b = hit_bound("blocked", scene, ro, rd, t_lo, t_hi, ent["t"])
+    live = int((t_hi >= t_lo).sum())
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    print(f"[E] K3 closest hit on blocked.json's main-path call (bounce 1, "
+          f"{ro.shape[0]} sorted lanes, {live} live): kernel "
+          f"{mean(t['kernel']):.4f} ms (windows {min(t['kernel']):.4f}-"
+          f"{max(t['kernel']):.4f}), plain {mean(t['plain']):.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({card})")
+    coh = warp_coherence(bb, ro, rd, t_lo, ent["t"])
+    print(f"[E] K3 blocks entered per ray on that call: {entry_line(ent)}; "
+          f"{coherence_line(coh)}")
+    records["blocked"].update(
+        ms_main=mean(t["kernel"]), plain_ms_main=mean(t["plain"]),
+        bound_ms_main=b["bound_ms"], bound_by_main=b["bound_by"],
+        main_lanes=ro.shape[0], main_live=live,
+        entered_main=entry_summary(ent), warps_main=coh)
+
+
+def hit_bound(rec, scene, ro, rd, t_lo, t_hi, t_best) -> dict:
     """The bound of K3 ("blocked") or K4 ("bvh8_walk") on these rays. K3:
-    a slab test of every block box, and 64 prim tests in each block the
-    ray enters before its closest hit `t_best` (the plain version's t,
-    tmax on a miss; blocks behind it need no test), counted here. K4,
-    whose walk length is not counted: a lower bound of one 8-wide node
-    and one 8-record leaf per ray."""
+    a live ray (t_lo <= t_hi) reads its 32 B and writes 8 B, slab-tests
+    every block box and runs 64 prim tests in each block it enters before
+    its closest hit `t_best` (the plain version's t, t_hi on a miss;
+    blocks behind it need no test), counted here; a ray with an empty
+    interval reads its 8 B of interval and writes 8 B. K4, whose walk
+    length is not counted: a lower bound of one 8-wide node and one
+    8-record leaf per ray."""
     n = ro.shape[0]
     if rec == "bvh8_walk":
         return bound(n * RAY_IO + scene.bvh8_table.numel() * 4,
                      n * (8 * SLAB_FLOPS + 8 * TRI_FLOPS))
     bb = scene.block_bbox
-    inv = 1.0 / torch.where(rd.abs() > 1e-20, rd, 1e-20)
-    entered = 0
-    for b0 in range(0, bb.shape[0], 16):
-        lo = (bb[None, b0:b0 + 16, 0:3] - ro[:, None]) * inv[:, None]
-        hi = (bb[None, b0:b0 + 16, 3:6] - ro[:, None]) * inv[:, None]
-        tn = torch.minimum(lo, hi).amax(-1).clamp_min(t_lo[:, None])
-        tf = torch.minimum(torch.maximum(lo, hi).amin(-1), t_best[:, None])
-        entered += int((tn <= tf).sum())
-    return bound(n * RAY_IO + scene.dense_prims.numel() * 4 + bb.numel() * 4,
-                 n * bb.shape[0] * SLAB_FLOPS + entered * 64 * TRI_FLOPS)
+    live = int((t_hi >= t_lo).sum())
+    entered = int(block_entries(bb, ro, rd, t_lo, t_best).sum())
+    return bound(live * RAY_IO + (n - live) * 16
+                 + scene.dense_prims.numel() * 4 + bb.numel() * 4,
+                 live * bb.shape[0] * SLAB_FLOPS + entered * 64 * TRI_FLOPS)
 
 
 SMOKE_RAYS = {}   # the phase-B media rays, reused in phase E
@@ -1159,6 +1467,85 @@ def phase_c_media(dev, records, path, n_lanes=65536):
         (li_k - li_p).abs().max().item())
 
 
+MAIN_K3 = {}   # the K3 call captured on blocked.json's main path (phase D)
+
+
+def capture_main_k3():
+    """Wrap blocked_cuda.blocked_hit_cuda so that the wavefront's second
+    closest-hit call (bounce 1: the primary rays are bounce 0's) keeps a
+    copy of its arguments in MAIN_K3. Returns the function that takes the
+    wrapper away."""
+    from gpu_pathtracer_tpu_torch.geom import blocked_cuda
+    orig = blocked_cuda.blocked_hit_cuda
+    closest = []
+
+    def wrapper(prims, bbox, ro, rd, tmin, tmax, any_hit,
+                kinds=(True, True, True)):
+        if not any_hit and "args" not in MAIN_K3:
+            closest.append(1)
+            if len(closest) == 2:
+                MAIN_K3["args"] = (prims, bbox, ro.clone(), rd.clone(),
+                                   tmin.clone(), tmax.clone(), kinds)
+        return orig(prims, bbox, ro, rd, tmin, tmax, any_hit, kinds)
+
+    blocked_cuda.blocked_hit_cuda = wrapper
+    return lambda: setattr(blocked_cuda, "blocked_hit_cuda", orig)
+
+
+K1_CALLS = []   # (lanes, live lanes, wholly empty warps, warps) per call
+
+
+def capture_k1_live():
+    """Wrap dense_cuda.dense_hit_cuda so that every call records its
+    lanes, the lanes whose interval is not empty (the kernel's rule,
+    intersect.cuh::empty_interval) and the warps (64 lanes: 32 threads of
+    two rays) that hold none, in K1_CALLS. Returns the function that takes
+    the wrapper away."""
+    from gpu_pathtracer_tpu_torch.geom import dense_cuda
+    orig = dense_cuda.dense_hit_cuda
+
+    def wrapper(prims, ro, rd, tmin, tmax, any_hit, kinds=(True, True, True)):
+        live = tmax >= tmin
+        if tuple(map(bool, kinds)) != (True, False, False):
+            live = live | (tmax > 0.0)
+        warps = torch.cat([live, live.new_zeros((-live.numel()) % 64)]) \
+            .view(-1, 64).any(1)
+        K1_CALLS.append((live.numel(), int(live.sum()),
+                         int((~warps).sum()), warps.numel()))
+        return orig(prims, ro, rd, tmin, tmax, any_hit, kinds)
+
+    dense_cuda.dense_hit_cuda = wrapper
+    return lambda: setattr(dense_cuda, "dense_hit_cuda", orig)
+
+
+def k1_live_report(records, n_steps):
+    """Per VPT step: the share of lanes alive at its closest hit and the
+    share of K1's warps wholly empty, there and in the step's Tr-walk
+    segment calls."""
+    per = len(K1_CALLS) // n_steps
+    check(per * n_steps == len(K1_CALLS), f"{len(K1_CALLS)} K1 calls in "
+          f"{n_steps} VPT steps")
+    rows = []
+    for s in range(n_steps):
+        calls = K1_CALLS[s * per:(s + 1) * per]
+        n, live, dead, warps = calls[0]
+        tr = calls[1:]
+        tr_live = sum(c[1] for c in tr) / max(sum(c[0] for c in tr), 1)
+        tr_dead = sum(c[2] for c in tr) / max(sum(c[3] for c in tr), 1)
+        rows.append(f"step {s}: alive {live / n:.4f}, empty warps "
+                    f"{dead / warps:.4f}; its {len(tr)} Tr calls: live "
+                    f"{tr_live:.4f}, empty warps {tr_dead:.4f}")
+    dead_all = sum(c[2] for c in K1_CALLS) / sum(c[3] for c in K1_CALLS)
+    live_all = sum(c[1] for c in K1_CALLS) / sum(c[0] for c in K1_CALLS)
+    print(f"[D] K1 over the VPT warm-up spp, {len(K1_CALLS)} calls ({per} a "
+          f"step): lanes live {live_all:.4f}, warps wholly empty "
+          f"{dead_all:.4f}")
+    for r in rows:
+        print(f"[D]   {r}")
+    records["dense_hit"].update(vpt_live_share=live_all,
+                                vpt_empty_warp_share=dead_all)
+
+
 MAIN_WALK = {}   # the track call captured on the VPT main path (phase D)
 
 
@@ -1206,11 +1593,15 @@ def vpt_main_path(card, records):
                          str(SEED), "--out", os.path.join(OUT, name)])
 
     release = capture_main_walk()
+    release_k1 = capture_k1_live()
     try:
         warm = render(1, "smoke_port_1spp.png")
     finally:
+        release_k1()
         release()
     check("args" in MAIN_WALK, "no Tr walk of step 1 on the VPT main path")
+    k1_live_report(records, warm["renderer"].static.max_depth
+                   + vpt.INTERFACE_BUDGET + 1)
     sc, mode, med_idx, ro, rd, tmax, key, _ = MAIN_WALK["args"]
     walks = walking_lanes(sc, med_idx, ro, rd, tmax)
     print(f"[D] captured the first Tr walk of step 1 (tag {key.tag:#x}): "

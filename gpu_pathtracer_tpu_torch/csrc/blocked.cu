@@ -8,90 +8,329 @@
 // in VMEM and lets an 8192-ray tile enter a block when any of its rays
 // hits the block's box.
 //
-// What bounds it on an H100: the loop over blocks. Every ray slab-tests
-// every block box (P / 64 boxes, ~20 flops and 32 bytes each) and runs
-// the 64 prim tests of each block it enters; at 16k prims that is 250
-// box tests and a few hundred prim tests per ray. The tables are read
-// from global memory through the read-only path (__ldg): 4 MB of records
-// do not fit shared memory, but they do fit the 50 MB L2, and the 8 KB
-// to 32 KB of block boxes every ray reads stay in L1. Rays of a warp
-// enter different blocks (divergence), which the ray sort of
-// integrators/pt.py reduces.
+// What bounds it on an H100: the box tests and the prim tests of the
+// blocks a ray enters (~24 flops a box, ~40 a triangle), and the spread
+// of a warp: its lanes enter different blocks. Visited in row order, a
+// ray would enter every block its box test passes until an early row
+// gives its closest hit, and a warp would run the 64 prim tests of every
+// block any of its lanes entered.
 //
-// Design: one thread per ray, 128-thread blocks; no VMEM residency and
-// no tile-wide block decision: each ray culls for itself, with the
-// running best t, so culling never changes an answer. Inside a block the
-// prims are tested in row order and a hit with t <= best t is taken (the
-// last of equal hits wins, as in the TPU kernel), the order of the plain
-// version geom/blocked.py::blocked_hit_torch, so the two agree bit for
-// bit. Any-hit leaves at the first hit.
+// Design:
+// - every 128-thread block stages block_bbox in shared memory (at most
+//   1,024 boxes, 32 KB; all lanes read the same box at once, a
+//   broadcast) and builds a coarse level there: one box per 16 blocks.
+//   A ray tests the coarse boxes and the fine boxes of the coarse ones
+//   it enters (a child box inside its coarse box cannot pass a slab test
+//   the coarse one fails: rounding is monotone);
+// - a pass over the boxes keeps, per ray, the kList nearest entered
+//   blocks in registers as sorted keys (entry distance, block); the ray
+//   then visits them nearest first and stops at the first block that it
+//   enters beyond its best t, so the blocks behind its hit are never
+//   tested. When the list ran out of room, another pass collects the
+//   blocks past the last one visited. The visits of a warp run in step:
+//   each lane tests its own block (a per-lane __ldg of each row; the
+//   table, 1 MB at 16k prims, stays in L2);
+// - inside a block, a ray tests only the rows of the sub-boxes it enters
+//   (one box per 8 rows, made from the table by sub_boxes_kernel at the
+//   start of every launch, into the wrapper's scratch): lanes of a warp
+//   sit in different blocks, so each walks the set bits of its own 8-bit
+//   mask, and the warp runs the most sub-boxes any lane enters, not 8;
+// - the tie rule does not depend on the order of visits: a hit is taken
+//   when t < best t, or t == best t and its row is larger, which gives
+//   the in-order rule of the plain version geom/blocked.py::
+//   blocked_hit_torch (among equal t the last row wins). Any hit leaves a
+//   ray at its first hit;
+// - two variants, chosen by the wrapper from the scene's prim kinds:
+//   triangles only (no type branch) or all kinds. The triangle test
+//   (intersect.cuh::tri_cross) does not divide: the best hit is kept as
+//   a fraction tnum / |det| and compared by cross products, and the
+//   winning triangle's t is computed once at the end with the plain
+//   version's arithmetic (tri_hit), so t equals the plain version's
+//   wherever the two pick the same row;
+// - a ray with an empty interval (intersect.cuh::empty_interval) is a
+//   miss at once, and a block whose rays are all empty stages nothing.
+// The row choice is held to the plain version within the hit limits
+// (PERF.md section 2), not bit for bit.
 #include "intersect.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;   // prims per culling block (blocked_cuda.BLOCK)
+constexpr int kThreads = 128;
+constexpr int kBlock = 64;        // prims per culling block (blocked_cuda.BLOCK)
+constexpr int kGroup = 16;        // fine boxes per coarse box
+constexpr int kMaxBlocks = 1024;  // blocked_cuda.MAX_BLOCKS: a key's 10 bits
+constexpr int kList = 8;          // nearest entered blocks kept per pass
+constexpr int kSub = 8;           // rows per sub-box (8 a block)
+constexpr unsigned kNone = 0xFFFFFFFFu;
 
-__global__ void blocked_kernel(const float* __restrict__ prims, int n_prims,
-                               const float* __restrict__ bbox, int n_blocks,
-                               const float* __restrict__ ro,
-                               const float* __restrict__ rd,
-                               const float* __restrict__ tmin_,
-                               const float* __restrict__ tmax_,
-                               float* __restrict__ t_out,
-                               int32_t* __restrict__ prim_out,
-                               uint8_t* __restrict__ found_out, int n,
-                               int any_hit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const V3 o = load3(ro + 3 * i);
-  const V3 d = load3(rd + 3 * i);
-  const V3 inv = mk(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-  const float t0 = tmin_[i];
-  const float4* boxes = reinterpret_cast<const float4*>(bbox);
+// A block entered at distance tn: tn's float bits (tn clamped at 0, so
+// the bits order like tn) with the low 10 bits replaced by the block.
+// key_t(key) <= tn, since cutting mantissa bits rounds toward 0.
+__device__ __forceinline__ unsigned make_key(float tn, int b) {
+  return (__float_as_uint(fmaxf(tn, 0.f)) & ~(unsigned)(kMaxBlocks - 1)) |
+         (unsigned)b;
+}
+__device__ __forceinline__ float key_t(unsigned key) {
+  return __uint_as_float(key & ~(unsigned)(kMaxBlocks - 1));
+}
+
+// Insert `key` into the ascending list l (the largest falls off).
+__device__ __forceinline__ void insert(unsigned (&l)[kList], unsigned key) {
+#pragma unroll
+  for (int i = 0; i < kList; ++i) {
+    const unsigned lo = min(l[i], key);
+    key = max(l[i], key);
+    l[i] = lo;
+  }
+}
+
+__device__ __forceinline__ bool box_hit(const float4* box, V3 o, V3 inv,
+                                        float tmax_, float* tn) {
+  const float4 a = box[0], b = box[1];   // min xyz, max x | max yz, pad
+  return slab_hit(mk(a.x, a.y, a.z), mk(a.w, b.x, b.y), o, inv, tmax_, tn);
+}
+
+// The sub-boxes of the table: one box per kSub rows (row order), over
+// what each row's test can hit (a triangle's three corners, a sphere's
+// centre +- r, a segment's ends +- its larger width), widened by 1e-6
+// relative so that no hit the row test takes falls outside; NaN, which
+// no slab test enters, for a run of pad rows only.
+__global__ void sub_boxes_kernel(const float* __restrict__ prims,
+                                 int n_prims, int n_sub,
+                                 float4* __restrict__ sub) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_sub) return;
   const float4* recs = reinterpret_cast<const float4*>(prims);
-  float best_t = tmax_[i];
-  int best = -1;
-  for (int b = 0; b < n_blocks && !(any_hit && best >= 0); ++b) {
-    const float4 lo = __ldg(boxes + 2 * b);       // min xyz, max x
-    const float4 hi = __ldg(boxes + 2 * b + 1);   // max yz, pad
-    float tn;
-    if (!slab_hit(mk(lo.x, lo.y, lo.z), mk(lo.w, hi.x, hi.y), o, inv, best_t,
-                  &tn)) {
-      continue;
+  V3 lo = mk(INFINITY, INFINITY, INFINITY);
+  V3 hi = mk(-INFINITY, -INFINITY, -INFINITY);
+  for (int p = j * kSub; p < min(j * kSub + kSub, n_prims); ++p) {
+    const float4 q0 = recs[4 * p], q1 = recs[4 * p + 1], q2 = recs[4 * p + 2];
+    const V3 v0 = mk(q0.x, q0.y, q0.z);
+    const V3 a = mk(q0.w, q1.x, q1.y);
+    V3 l, h;
+    if (q2.y == PRIM_TRIANGLE) {
+      const V3 v1 = add(v0, a), v2 = add(v0, mk(q1.z, q1.w, q2.x));
+      l = mk(fminf(v0.x, fminf(v1.x, v2.x)), fminf(v0.y, fminf(v1.y, v2.y)),
+             fminf(v0.z, fminf(v1.z, v2.z)));
+      h = mk(fmaxf(v0.x, fmaxf(v1.x, v2.x)), fmaxf(v0.y, fmaxf(v1.y, v2.y)),
+             fmaxf(v0.z, fmaxf(v1.z, v2.z)));
+    } else if (q2.y == PRIM_SPHERE) {
+      const float r = fabsf(q2.z);
+      l = mk(v0.x - r, v0.y - r, v0.z - r);
+      h = mk(v0.x + r, v0.y + r, v0.z + r);
+    } else if (q2.y == PRIM_LINE) {
+      const float r = fmaxf(fabsf(q2.z), fabsf(q2.w));
+      l = mk(fminf(v0.x, a.x) - r, fminf(v0.y, a.y) - r, fminf(v0.z, a.z) - r);
+      h = mk(fmaxf(v0.x, a.x) + r, fmaxf(v0.y, a.y) + r, fmaxf(v0.z, a.z) + r);
+    } else {
+      continue;   // pad row
     }
-    const int p1 = min(b * kBlock + kBlock, n_prims);
-    for (int p = b * kBlock; p < p1; ++p) {
-      float4 row[4];
-      for (int k = 0; k < 4; ++k) row[k] = __ldg(recs + 4 * p + k);
-      float tp;
-      if (prim_hit(row, o, d, t0, best_t, &tp)) {
-        best_t = tp;
-        best = p;
-        if (any_hit) break;
+    lo = mk(fminf(lo.x, l.x), fminf(lo.y, l.y), fminf(lo.z, l.z));
+    hi = mk(fmaxf(hi.x, h.x), fmaxf(hi.y, h.y), fmaxf(hi.z, h.z));
+  }
+  if (!(lo.x <= hi.x)) {   // no row: a box no ray enters
+    sub[2 * j] = make_float4(NAN, NAN, NAN, NAN);
+    sub[2 * j + 1] = make_float4(NAN, NAN, NAN, NAN);
+    return;
+  }
+  const float w = 1e-6f * (1.f + fmaxf(fmaxf(fabsf(lo.x), fabsf(hi.x)),
+                                       fmaxf(fmaxf(fabsf(lo.y), fabsf(hi.y)),
+                                             fmaxf(fabsf(lo.z), fabsf(hi.z)))));
+  sub[2 * j] = make_float4(lo.x - w, lo.y - w, lo.z - w, hi.x + w);
+  sub[2 * j + 1] = make_float4(hi.y + w, hi.z + w, 0.f, 0.f);
+}
+
+template <bool kAll>
+__global__ void __launch_bounds__(kThreads)
+    blocked_kernel(const float* __restrict__ prims, int n_prims,
+                   const float* __restrict__ bbox, int n_blocks,
+                   const float4* __restrict__ sub,
+                   const float* __restrict__ ro,
+                   const float* __restrict__ rd,
+                   const float* __restrict__ tmin_,
+                   const float* __restrict__ tmax_,
+                   float* __restrict__ t_out, int32_t* __restrict__ prim_out,
+                   uint8_t* __restrict__ found_out, int n, int any_hit) {
+  extern __shared__ float4 boxes[];   // fine boxes, then the coarse ones
+  const int n_coarse = (n_blocks + kGroup - 1) / kGroup;
+  float4* coarse = boxes + 2 * n_blocks;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float t0 = 0.f, best_t = 0.f;
+  bool live = false;
+  if (i < n) {
+    t0 = tmin_[i];
+    best_t = tmax_[i];
+    live = !empty_interval<kAll>(t0, best_t);
+  }
+  int best = -1;
+  if (__syncthreads_or(live)) {
+    const float4* src = reinterpret_cast<const float4*>(bbox);
+    for (int j = threadIdx.x; j < 2 * n_blocks; j += blockDim.x) {
+      boxes[j] = src[j];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < n_coarse; c += blockDim.x) {
+      V3 lo = mk(INFINITY, INFINITY, INFINITY);
+      V3 hi = mk(-INFINITY, -INFINITY, -INFINITY);
+      for (int b = c * kGroup; b < min(c * kGroup + kGroup, n_blocks); ++b) {
+        const float4 a = boxes[2 * b], q = boxes[2 * b + 1];
+        lo = mk(fminf(lo.x, a.x), fminf(lo.y, a.y), fminf(lo.z, a.z));
+        hi = mk(fmaxf(hi.x, a.w), fmaxf(hi.y, q.x), fmaxf(hi.z, q.y));
+      }
+      coarse[2 * c] = make_float4(lo.x, lo.y, lo.z, hi.x);
+      coarse[2 * c + 1] = make_float4(hi.y, hi.z, 0.f, 0.f);
+    }
+    __syncthreads();
+  }
+  float t = best_t;   // the answer's t: tmax on a miss
+  if (live) {
+    const V3 o = load3(ro + 3 * i);
+    const V3 d = load3(rd + 3 * i);
+    const V3 inv = mk(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
+    const float4* recs = reinterpret_cast<const float4*>(prims);
+    // the best hit so far is tb / ab (tmax / 1 before any); boxes and
+    // blocks are culled against cull_t, its t widened by 1e-6 relative,
+    // so no block that could hold a hit at t <= best t is skipped
+    float tb = best_t, ab = 1.f, cull_t = best_t;
+    unsigned floor_key = 0;   // keys below it are visited
+    bool more = true;
+    while (more) {
+      unsigned l[kList];
+#pragma unroll
+      for (int j = 0; j < kList; ++j) l[j] = kNone;
+      int entered = 0;
+      for (int c = 0; c < n_coarse; ++c) {
+        float tn;
+        if (!box_hit(coarse + 2 * c, o, inv, cull_t, &tn)) continue;
+        const int b1 = min(c * kGroup + kGroup, n_blocks);
+        for (int b = c * kGroup; b < b1; ++b) {
+          if (!box_hit(boxes + 2 * b, o, inv, cull_t, &tn)) continue;
+          const unsigned key = make_key(tn, b);
+          if (key < floor_key) continue;
+          ++entered;
+          if (key < l[kList - 1]) insert(l, key);
+        }
+      }
+      more = entered > kList;   // blocks past the list: another pass
+      while (l[0] != kNone) {
+        const unsigned key = l[0];
+        if (key_t(key) > cull_t) {   // every block left lies beyond the hit
+          more = false;
+          break;
+        }
+        const int b = (int)(key & (kMaxBlocks - 1));
+        // the block's sub-boxes this ray enters, then their rows, each
+        // lane its own: a warp runs the most any of its lanes enters
+        unsigned mask = 0;
+#pragma unroll
+        for (int j = 0; j < kBlock / kSub; ++j) {
+          float tn;
+          const float4* sb = sub + 2 * (b * (kBlock / kSub) + j);
+          const float4 a = __ldg(sb), q = __ldg(sb + 1);
+          if (slab_hit(mk(a.x, a.y, a.z), mk(a.w, q.x, q.y), o, inv, cull_t,
+                       &tn)) {
+            mask |= 1u << j;
+          }
+        }
+        bool stop = false;
+        while (mask && !stop) {
+          const int j = __ffs(mask) - 1;
+          mask &= mask - 1;
+          const int p0 = b * kBlock + j * kSub;
+          const int p1 = min(p0 + kSub, n_prims);
+#pragma unroll 4
+          for (int p = p0; p < p1; ++p) {
+            const float4 q0 = __ldg(recs + 4 * p);
+            const float4 q1 = __ldg(recs + 4 * p + 1);
+            const float4 q2 = __ldg(recs + 4 * p + 2);
+            const V3 v0 = mk(q0.x, q0.y, q0.z);
+            const V3 a = mk(q0.w, q1.x, q1.y);
+            float tn = 0.f, ad = 1.f;
+            bool h;
+            if (kAll && q2.y != PRIM_TRIANGLE) {
+              float s;
+              const float bt = tb / ab;
+              h = q2.y == PRIM_SPHERE
+                  ? sphere_hit(o, d, v0, q2.z, t0, bt, &tn)
+                  : q2.y == PRIM_LINE &&
+                    line_hit(o, d, v0, a, q2.z, q2.w, t0, bt, &tn, &s);
+              ad = 1.f;
+            } else {
+              h = tri_cross(o, d, v0, a, mk(q1.z, q1.w, q2.x), &tn, &ad) &&
+                  q2.y == PRIM_TRIANGLE && tn >= t0 * ad;
+            }
+            // nearer, or as near and a larger row (the plain version's
+            // in-order rule, whatever the order of visits)
+            const float lhs = tn * ab, rhs = tb * ad;
+            if (h && (lhs < rhs || (lhs == rhs && p > best))) {
+              tb = tn;
+              ab = ad;
+              best = p;
+              if (any_hit) {
+                stop = true;
+                break;
+              }
+            }
+          }
+        }
+        if (any_hit && best >= 0) {
+          more = false;
+          break;
+        }
+        if (best >= 0) cull_t = widen_hi(tb / ab);
+        floor_key = key + 1;
+#pragma unroll
+        for (int j = 0; j + 1 < kList; ++j) l[j] = l[j + 1];
+        l[kList - 1] = kNone;
+      }
+    }
+    if (!any_hit && best >= 0) {
+      const float4* r = recs + 4 * best;
+      const float4 q0 = __ldg(r), q1 = __ldg(r + 1), q2 = __ldg(r + 2);
+      t = tb;   // a sphere's or a line's t as its test gave it
+      if (q2.y == PRIM_TRIANGLE) {   // the plain version's t of this row
+        tri_hit(o, d, mk(q0.x, q0.y, q0.z), mk(q0.w, q1.x, q1.y),
+                mk(q1.z, q1.w, q2.x), -INFINITY, INFINITY, &t);
       }
     }
   }
-  if (any_hit) {
-    found_out[i] = best >= 0;
-  } else {
-    t_out[i] = best_t;
-    prim_out[i] = best;
+  if (i < n) {
+    if (any_hit) {
+      found_out[i] = best >= 0;
+    } else {
+      t_out[i] = t;
+      prim_out[i] = best;
+    }
   }
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
+// all_kinds = 0 takes the triangles-only variant (the scene has no
+// sphere and no line). n_blocks <= 1,024 (the wrapper checks).
 extern "C" int blocked_hit(const float* prims, int n_prims, const float* bbox,
-                           int n_blocks, const float* ro, const float* rd,
+                           int n_blocks, float* sub, const float* ro,
+                           const float* rd,
                            const float* tmin_, const float* tmax_,
                            float* t_out, int32_t* prim_out,
                            uint8_t* found_out, int n, int any_hit,
-                           void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  blocked_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      prims, n_prims, bbox, n_blocks, ro, rd, tmin_, tmax_, t_out, prim_out,
-      found_out, n, any_hit);
+                           int all_kinds, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const int n_coarse = (n_blocks + kGroup - 1) / kGroup;
+  const size_t smem = sizeof(float4) * 2 * (size_t)(n_blocks + n_coarse);
+  const int n_sub = n_blocks * (kBlock / kSub);
+  float4* sub4 = reinterpret_cast<float4*>(sub);
+  sub_boxes_kernel<<<(n_sub + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      prims, n_prims, n_sub, sub4);
+  if (all_kinds) {
+    blocked_kernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+        prims, n_prims, bbox, n_blocks, sub4, ro, rd, tmin_, tmax_, t_out,
+        prim_out, found_out, n, any_hit);
+  } else {
+    blocked_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+        prims, n_prims, bbox, n_blocks, sub4, ro, rd, tmin_, tmax_, t_out,
+        prim_out, found_out, n, any_hit);
+  }
   return (int)cudaGetLastError();
 }

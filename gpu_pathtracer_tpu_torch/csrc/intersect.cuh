@@ -164,3 +164,82 @@ __device__ __forceinline__ void stage_prims(float4* dst, const float* src,
   for (int i = threadIdx.x; i < 4 * n_prims; i += blockDim.x) dst[i] = s4[i];
   __syncthreads();
 }
+
+// ---------------------------------------------------------------------
+// Routines of the two redesigned hit kernels only (dense.cu K1 and
+// blocked.cu K3). They pick rows as the plain versions do within the hit
+// limits, not bit for bit:
+// - the triangle test compares the barycentric numerators and t's
+//   numerator against |det| (signs flipped by det's sign) and does not
+//   divide: the kernels keep their best hit as a fraction tnum / |det|
+//   and compare fractions by cross products, where the plain version
+//   multiplies by 1 / det; equal rows give equal products, so the tie
+//   rules hold exactly; the winning triangle's t is then computed with
+//   tri_hit, the plain version's arithmetic;
+// - its dot and cross products are fused multiply-adds (fdot, fcross,
+//   written out: every source is built with -fmad=false, so nothing else
+//   fuses and the sphere, line and box tests stay those of the plain
+//   versions);
+// - K1 takes det and t's numerator from the triangle's normal
+//   n = e1 x e2 (staged once per row): det = -d.n, tnum = (o - v0).n,
+//   the barycentrics from q = (o - v0) x d.
+
+__device__ __forceinline__ float fdot(V3 a, V3 b) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, a.z * b.z));
+}
+__device__ __forceinline__ V3 fcross(V3 a, V3 b) {
+  return mk(fmaf(a.y, b.z, -(a.z * b.y)), fmaf(a.z, b.x, -(a.x * b.z)),
+            fmaf(a.x, b.y, -(a.y * b.x)));
+}
+
+// x with its sign flipped where `sb` holds a sign bit
+__device__ __forceinline__ float flip(float x, unsigned sb) {
+  return __uint_as_float(__float_as_uint(x) ^ sb);
+}
+
+// Whether the ray's line crosses triangle (v0, e1, e2) (Moller-Trumbore on
+// numerators, |det| >= 1e-8 as in tri_hit); writes t's sign-adjusted
+// numerator and |det|.
+__device__ __forceinline__ bool tri_cross(V3 o, V3 d, V3 v0, V3 e1, V3 e2,
+                                          float* tnum, float* adet) {
+  const V3 s1 = fcross(d, e2);
+  const float det = fdot(s1, e1);
+  const unsigned sb = __float_as_uint(det) & 0x80000000u;
+  const V3 s = sub(o, v0);
+  const V3 s2 = fcross(s, e1);
+  const float u = flip(fdot(s, s1), sb);
+  const float v = flip(fdot(d, s2), sb);
+  *tnum = flip(fdot(e2, s2), sb);
+  *adet = fabsf(det);
+  return *adet >= 1e-8f && u >= 0.f && v >= 0.f && u + v <= *adet;
+}
+
+// tri_cross from the staged normal n = e1 x e2 (n = 0 never crosses).
+__device__ __forceinline__ bool tri_cross_n(V3 o, V3 d, V3 v0, V3 e1, V3 e2,
+                                            V3 n, float* tnum,
+                                            float* adet) {
+  const V3 s = sub(o, v0);
+  const float dn = fdot(d, n);                  // det = -dn
+  const unsigned sb = (__float_as_uint(dn) & 0x80000000u) ^ 0x80000000u;
+  const V3 q = fcross(s, d);
+  const float u = flip(fdot(e2, q), sb);
+  const float v = flip(-fdot(e1, q), sb);
+  *tnum = flip(fdot(s, n), sb);
+  *adet = fabsf(dn);
+  return *adet >= 1e-8f && u >= 0.f && v >= 0.f && u + v <= *adet;
+}
+
+// t widened by 1e-6 relative (infinities stay): a culling bound that is
+// never below the exact t of a fraction tnum / |det|.
+__device__ __forceinline__ float widen_hi(float t) {
+  return t + fabsf(t) * 1e-6f;
+}
+
+// Whether the interval [tmin, tmax] can hold no hit: tmax < tmin (no
+// triangle or line then), and for a table with spheres also tmax <= 0
+// (sphere_hit takes its far root when the near one is at or below tmin,
+// which needs only t > 0 and t <= tmax). A NaN tmax holds no hit either.
+template <bool kSpheres>
+__device__ __forceinline__ bool empty_interval(float tmin, float tmax_) {
+  return !(tmax_ >= tmin) && (!kSpheres || !(tmax_ > 0.f));
+}

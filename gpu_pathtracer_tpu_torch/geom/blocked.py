@@ -10,13 +10,16 @@ equal hits the last row wins (the TPU kernel's rule).
 
 On a CUDA tensor `blocked_closest` / `blocked_any` launch the
 hand-written kernel (csrc/blocked.cu through geom/blocked_cuda.py); on a
-CPU tensor they run `blocked_hit_torch`, the same loop in plain
-PyTorch: per block, the lanes that enter the box test its rows at once
-with geom/dense.py's per-prim math, and the smallest t wins with the
-last row among equals, which is what the kernel's in-order loop yields.
-The TPU kernel lets a whole ray tile enter a block when any of its rays
-hits the box; per-ray culling gives the same hits, since a prim lies
-inside its block's box.
+CPU tensor they run `blocked_hit_torch`, that loop in plain PyTorch: per
+block, the lanes that enter the box test its rows at once with
+geom/dense.py's per-prim math, and the smallest t wins with the last row
+among equals. The kernel visits a ray's entered blocks nearest first
+and stops behind its hit; its tie rule (t < best, or t == best and a
+larger row) gives the same row whatever the order, and it is held to
+this version within the hit limits (PERF.md section 2). The TPU kernel
+lets a whole ray tile enter a block when any of its rays hits the box;
+per-ray culling gives the same hits, since a prim lies inside its
+block's box.
 """
 
 from __future__ import annotations
@@ -103,7 +106,7 @@ def blocked_closest(scene, static, ro, rd, tmin, tmax, plain: bool = False):
         t, prim = blocked_cuda.blocked_hit_cuda(
             scene.dense_prims, scene.block_bbox, ro.contiguous(),
             rd.contiguous(), f32n(tmin, n, ro.device),
-            f32n(tmax, n, ro.device), False)
+            f32n(tmax, n, ro.device), False, kinds_of(static))
     else:
         t, prim = blocked_hit_torch(scene.dense_prims, scene.block_bbox, ro,
                                     rd, tmin, tmax, False, kinds_of(static))
@@ -117,6 +120,6 @@ def blocked_any(scene, static, ro, rd, tmin, tmax, plain: bool = False):
         return blocked_cuda.blocked_hit_cuda(
             scene.dense_prims, scene.block_bbox, ro.contiguous(),
             rd.contiguous(), f32n(tmin, n, ro.device),
-            f32n(tmax, n, ro.device), True)
+            f32n(tmax, n, ro.device), True, kinds_of(static))
     return blocked_hit_torch(scene.dense_prims, scene.block_bbox, ro, rd,
                              tmin, tmax, True, kinds_of(static))

@@ -4,7 +4,9 @@
 the kernel on the current stream and counts the launch in `STATS`. It
 takes CUDA tensors only; the plain PyTorch version is geom/blocked.py::
 blocked_hit_torch, which counts its calls on CUDA tensors in
-`STATS.plain_cuda`.
+`STATS.plain_cuda`. `kinds` = (has_tri, has_sph, has_lin) picks the
+kernel's variant: triangles only for (True, False, False), else all
+kinds.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from gpu_pathtracer_tpu_torch.kernels import (
 )
 
 BLOCK = 64   # prims per culling block (block_bbox row), as the kernel's
+MAX_BLOCKS = 1024   # boxes the kernel stages (BLOCKED_MAX / BLOCK)
+SUB = 8   # rows per sub-box of a block (the kernel's kSub)
 STATS = KernelStats()
 
 _P = ctypes.c_void_p
@@ -29,12 +33,12 @@ def _lib():
     if lib.blocked_hit.argtypes is None:
         lib.blocked_hit.restype = ctypes.c_int
         lib.blocked_hit.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _P]
+                                    _P, _P, _I, _I, _I, _P]
     return lib
 
 
 def blocked_hit_cuda(dense_prims, block_bbox, ro, rd, tmin, tmax,
-                     any_hit: bool):
+                     any_hit: bool, kinds=(True, True, True)):
     """Closest hit -> (t [N] f32, prim [N] i32, -1 = miss; t = tmax on a
     miss), or with `any_hit` -> found [N] bool."""
     device = ro.device
@@ -45,6 +49,9 @@ def blocked_hit_cuda(dense_prims, block_bbox, ro, rd, tmin, tmax,
     if dense_prims.shape[0] > n_blocks * BLOCK:
         raise ValueError(f"{dense_prims.shape[0]} prim rows but only "
                          f"{n_blocks} blocks of {BLOCK}")
+    if n_blocks > MAX_BLOCKS:
+        raise ValueError(f"{n_blocks} blocks, the kernel takes at most "
+                         f"{MAX_BLOCKS}")
     check_cuda_f32("ro", ro, (n, 3), device)
     check_cuda_f32("rd", rd, (n, 3), device)
     check_cuda_f32("tmin", tmin, (n,), device)
@@ -58,12 +65,18 @@ def blocked_hit_cuda(dense_prims, block_bbox, ro, rd, tmin, tmax,
         found = None
     if n == 0:
         return found if any_hit else (t, prim)
+    # scratch: the kernel's sub-boxes, one per SUB rows, made by the
+    # launch itself from the table
+    sub = torch.empty((n_blocks * (BLOCK // SUB), 8), dtype=torch.float32,
+                      device=device)
     rc = _lib().blocked_hit(
         dense_prims.data_ptr(), dense_prims.shape[0], block_bbox.data_ptr(),
-        n_blocks, ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(),
-        tmax.data_ptr(), t.data_ptr() if t is not None else None,
+        n_blocks, sub.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+        tmin.data_ptr(), tmax.data_ptr(),
+        t.data_ptr() if t is not None else None,
         prim.data_ptr() if prim is not None else None,
         found.data_ptr() if found is not None else None, n, int(any_hit),
+        int(tuple(map(bool, kinds)) != (True, False, False)),
         torch.cuda.current_stream(device).cuda_stream)
     check_launch(rc, "blocked_hit")
     STATS.launches += 1

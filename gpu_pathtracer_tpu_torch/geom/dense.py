@@ -5,8 +5,9 @@ against every row of the `dense_prims` table [Pp, 16] (v0 | e1 or p1 |
 e2 | type | r0 r1 | ...; type -1 marks pad rows). On a CUDA tensor
 `dense_closest` / `dense_any` launch the hand-written kernel
 (csrc/dense.cu through geom/dense_cuda.py); on a CPU tensor they run the
-plain PyTorch versions below, which compute the same arithmetic, operation
-for operation, over chunks of prims.
+plain PyTorch versions below, over chunks of prims. The kernel reorders
+the triangle test's arithmetic (FMA, one division for a row that passes)
+and is held to them within the hit limits (PERF.md section 2).
 
 Closest-hit ties keep the FIRST row with the smallest t, like the JAX
 package's dense_closest (argmin over a chunk, strict `<` across chunks);
@@ -190,7 +191,8 @@ def dense_closest(scene, static, ro, rd, tmin, tmax, plain: bool = False):
         n = ro.shape[0]
         t, prim = dense_cuda.dense_hit_cuda(
             scene.dense_prims, ro.contiguous(), rd.contiguous(),
-            f32n(tmin, n, ro.device), f32n(tmax, n, ro.device), False)
+            f32n(tmin, n, ro.device), f32n(tmax, n, ro.device), False,
+            kinds_of(static))
     else:
         t, prim = dense_closest_torch(scene.dense_prims, ro, rd, tmin, tmax,
                                       kinds_of(static))
@@ -203,6 +205,7 @@ def dense_any(scene, static, ro, rd, tmin, tmax, plain: bool = False):
         n = ro.shape[0]
         return dense_cuda.dense_hit_cuda(
             scene.dense_prims, ro.contiguous(), rd.contiguous(),
-            f32n(tmin, n, ro.device), f32n(tmax, n, ro.device), True)
+            f32n(tmin, n, ro.device), f32n(tmax, n, ro.device), True,
+            kinds_of(static))
     return dense_any_torch(scene.dense_prims, ro, rd, tmin, tmax,
                            kinds_of(static))

@@ -4,7 +4,9 @@
 kernel on the current stream and counts the launch in `STATS`. It takes
 CUDA tensors only; the plain PyTorch versions are geom/dense.py::
 dense_closest_torch and dense_any_torch, which count their calls on CUDA
-tensors in `STATS.plain_cuda`.
+tensors in `STATS.plain_cuda`. `kinds` = (has_tri, has_sph, has_lin)
+picks the kernel's variant: triangles only for (True, False, False),
+else all kinds.
 """
 
 from __future__ import annotations
@@ -29,11 +31,12 @@ def _lib():
     if lib.dense_hit.argtypes is None:
         lib.dense_hit.restype = ctypes.c_int
         lib.dense_hit.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _P]
+                                  _I, _P]
     return lib
 
 
-def dense_hit_cuda(dense_prims, ro, rd, tmin, tmax, any_hit: bool):
+def dense_hit_cuda(dense_prims, ro, rd, tmin, tmax, any_hit: bool,
+                   kinds=(True, True, True)):
     """Closest hit -> (t [N] f32, prim [N] i32, -1 = miss; t = tmax on a
     miss), or with `any_hit` -> found [N] bool."""
     device = ro.device
@@ -62,6 +65,7 @@ def dense_hit_cuda(dense_prims, ro, rd, tmin, tmax, any_hit: bool):
         t.data_ptr() if t is not None else None,
         prim.data_ptr() if prim is not None else None,
         found.data_ptr() if found is not None else None, n, int(any_hit),
+        int(tuple(map(bool, kinds)) != (True, False, False)),
         torch.cuda.current_stream(device).cuda_stream)
     check_launch(rc, "dense_hit")
     STATS.launches += 1

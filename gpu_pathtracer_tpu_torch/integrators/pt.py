@@ -166,8 +166,10 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
         rng = lane_stream(seed, iteration, lanes, psample,
                           PSS_CAM_DIMS + b * PSS_BOUNCE_DIMS, PSS_BOUNCE_DIMS)
         rays = rays + alive.sum()
+        # finished lanes get an empty interval (tmax 0 < eps): the hit
+        # kernels leave them at once; nothing reads their miss
         hit = traverse.intersect_closest(
-            scene, static, ro, rd, eps, torch.where(alive, torch.inf, eps),
+            scene, static, ro, rd, eps, torch.where(alive, torch.inf, 0.0),
             plain)
         li, alive = _arrival_credit(scene, static, hit, ro, rd, li, beta,
                                     specular, prev_pdf, alive, b == 0)
@@ -218,7 +220,7 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
     # epilogue: the last continuation ray's emitter credit
     rays = rays + alive.sum()
     hit = traverse.intersect_closest(
-        scene, static, ro, rd, eps, torch.where(alive, torch.inf, eps), plain)
+        scene, static, ro, rd, eps, torch.where(alive, torch.inf, 0.0), plain)
     li, _ = _arrival_credit(scene, static, hit, ro, rd, li, beta, specular,
                             prev_pdf, alive, False)
     if sort:   # back to the caller's lane order

@@ -138,8 +138,10 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
         if gate and not bool(alive.any()):
             break
         rays = rays + alive.sum()
+        # finished lanes get an empty interval (tmax 0 < eps): the hit
+        # kernels leave them at once; every read of their hit is masked
         hit = traverse.intersect_closest(
-            scene, static, ro, rd, eps, torch.where(alive, torch.inf, eps),
+            scene, static, ro, rd, eps, torch.where(alive, torch.inf, 0.0),
             plain)
         # a miss sees the sky on primary / specular rays and, MIS
         # weighted, after a surface's BSDF sample (pathtracer.cu:1051-1055)

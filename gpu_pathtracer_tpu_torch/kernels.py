@@ -12,8 +12,12 @@ fallback: a missing `nvcc`, a failed build or a failed load raises.
 `-fmad=false` keeps nvcc from contracting a*b+c into one fused
 multiply-add: the kernels then round every operation like the plain
 PyTorch versions beside them, which is what lets them be held to those
-versions lane by lane. No fast-math flag is given, so division and sqrt
-are IEEE-rounded.
+versions lane by lane (K2 in pt_fused.cu, K4 in bvh8_walk.cu, track.cu).
+The two hit kernels dense.cu (K1) and blocked.cu (K3) write their fused
+multiply-adds out (fmaf, in csrc/intersect.cuh's tri_cross routines
+only) and are held to their plain versions within the hit limits
+(PERF.md section 2); their sphere, line and box tests stay unfused. No
+fast-math flag is given, so division and sqrt are IEEE-rounded.
 """
 
 from __future__ import annotations

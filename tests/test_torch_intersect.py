@@ -117,3 +117,22 @@ def test_plain_flag_and_size_limit(scenes):
     assert (a.prim_idx == c.prim_idx).float().mean() >= 0.999
     assert torch.equal(traverse.intersect_any(td, big, *args),
                        traverse.intersect_any(td, ts, *args))
+
+
+def test_empty_intervals_miss(scenes):
+    """dense_closest / dense_any give a miss (prim -1, t = tmax, not
+    found) on every lane whose interval is empty (tmax < tmin and <= 0,
+    empty for spheres too), mixed with live lanes."""
+    _, _, td, ts, ro, rd, tmax = scenes
+    eps = float(td.epsilon)
+    rng = np.random.default_rng(6)
+    empty = torch.as_tensor(rng.random(N) < 0.4)
+    dead = torch.as_tensor(rng.choice(np.float32([0.0, -1.0, -np.inf]), N))
+    tm = torch.where(empty, dead, torch.as_tensor(tmax))
+    args = (torch.as_tensor(ro), torch.as_tensor(rd), eps, tm)
+    t, p, f = dense.dense_closest(td, ts, *args)
+    assert bool((p[empty] == -1).all()) and not bool(f[empty].any())
+    assert torch.equal(t[empty], tm[empty])
+    assert f[~empty].float().mean() > 0.2
+    found = dense.dense_any(td, ts, *args)
+    assert not bool(found[empty].any()) and torch.equal(found, f)

@@ -9,6 +9,10 @@ plain versions are held to it and to the port's brute force on 2,048
 rays. Limits: the same rays hit, t within rtol 2e-5, prim ids equal on
 > 99.5% (a ray through a shared edge may take either triangle), any-hit
 equal. The instanced walk is tests/test_torch_tlas.py's.
+
+The CUDA kernel of K3 visits a ray's entered blocks nearest first and
+uses a tie rule that does not depend on that order; `nearest_first`
+below is a plain model of it, held to blocked_hit_torch lane for lane.
 """
 
 import jax.numpy as jnp
@@ -80,3 +84,102 @@ def test_cpu_tensors_take_the_plain_version(knot):
     with pytest.raises(ValueError, match="CUDA tensor"):
         packet_cuda.bvh8_walk_cuda(td.bvh8_table, td.bvh8_aux, 0, ro, rd,
                                    tmin, tmax, False, ts.bvh8_stack)
+
+
+def nearest_first(prims, bbox, ro, rd, tmin, tmax, any_hit, kinds):
+    """Plain model of csrc/blocked.cu's visiting order: each ray visits
+    the blocks whose box it enters (slab test against tmax) in order of
+    entry distance (clamped at 0; the lower block first among equals),
+    stops at the first one it enters beyond its best t, and takes a hit
+    when t < best t, or t == best t and the row is larger; any hit stops
+    at the first hit. Returns (t, prim), or found with `any_hit`."""
+    n, nb = ro.shape[0], bbox.shape[0]
+    assert prims.shape[0] == nb * blocked.BLOCK
+    rows_of = prims.view(nb, blocked.BLOCK, 16)
+    inv = blocked.safe_inv(rd)
+    ent, tn = blocked.slab(bbox[None, :, 0:3], bbox[None, :, 3:6],
+                           ro[:, None], inv[:, None], tmax[:, None])
+    tn = torch.where(ent, tn.clamp_min(0.0), torch.inf)
+    tn_s, order = torch.sort(tn, dim=1, stable=True)
+    n_ent = ent.sum(1)
+    best_t = tmax.clone()
+    best = torch.full((n,), -1, dtype=torch.int32)
+    done = torch.zeros(n, dtype=torch.bool)
+    for k in range(int(n_ent.max())):
+        lanes = ((k < n_ent) & ~done & (tn_s[:, k] <= best_t)) \
+            .nonzero().squeeze(1)
+        if lanes.numel() == 0:
+            continue
+        b = order[lanes, k]
+        rows = rows_of[b]
+        col = [rows[:, :, c] for c in range(12)]
+        o, d = ro[lanes], rd[lanes]
+        ok, t = dense.rec_hits(col, tuple(o[:, j:j + 1] for j in range(3)),
+                               tuple(d[:, j:j + 1] for j in range(3)),
+                               tmin[lanes, None], best_t[lanes, None], kinds)
+        got, t_new, j = blocked.last_min(ok, t)
+        row = (b * blocked.BLOCK + j).to(torch.int32)
+        take = got & ((t_new < best_t[lanes])
+                      | ((t_new == best_t[lanes]) & (row > best[lanes])))
+        best_t[lanes] = torch.where(take, t_new, best_t[lanes])
+        best[lanes] = torch.where(take, row, best[lanes])
+        if any_hit:
+            done[lanes] = got
+    return best >= 0 if any_hit else (best_t, best)
+
+
+def doubled(prims, bbox):
+    """The table twice over, the copy's blocks in reverse order after the
+    original's: every prim has an exact twin in another block, at a
+    larger row, with the same box."""
+    nb = bbox.shape[0]
+    rows = prims.view(nb, blocked.BLOCK, 16)
+    return (torch.cat([rows, rows.flip(0)]).reshape(-1, 16).contiguous(),
+            torch.cat([bbox, bbox.flip(0)]).contiguous())
+
+
+@pytest.mark.parametrize("table", ["knot", "knot doubled"])
+def test_nearest_first_model_matches_plain(table, knot):
+    """The kernel's order (the model above) gives blocked_hit_torch's
+    answer on every lane, closest and any hit; on the doubled table every
+    hit is an exact tie across blocks, and both take the twin's larger
+    row."""
+    _, _, td, ts, ro, rd, t_any = knot
+    prims, bbox = td.dense_prims, td.block_bbox
+    if table == "knot doubled":
+        prims, bbox = doubled(prims, bbox)
+    kinds = dense.kinds_of(ts)
+    ro, rd = torch.as_tensor(ro), torch.as_tensor(rd)
+    tmin = torch.full((N,), 1e-3)
+    for tmax in (torch.full((N,), torch.inf), torch.as_tensor(t_any)):
+        t_m, p_m = nearest_first(prims, bbox, ro, rd, tmin, tmax, False,
+                                 kinds)
+        t_p, p_p = blocked.blocked_hit_torch(prims, bbox, ro, rd, tmin, tmax,
+                                             False, kinds)
+        assert torch.equal(p_m, p_p) and torch.equal(t_m, t_p)
+        assert (p_p >= 0).float().mean() > 0.3
+        if table == "knot doubled":
+            assert bool((p_p[p_p >= 0] >= td.dense_prims.shape[0]).all())
+    f_m = nearest_first(prims, bbox, ro, rd, tmin, torch.as_tensor(t_any),
+                        True, kinds)
+    f_p = blocked.blocked_hit_torch(prims, bbox, ro, rd, tmin,
+                                    torch.as_tensor(t_any), True, kinds)
+    assert torch.equal(f_m, f_p) and 0.05 < f_p.float().mean() < 0.95
+
+
+def test_empty_intervals_miss(knot):
+    """blocked_closest / blocked_any give a miss (prim -1, t = tmax, not
+    found) on every lane whose interval is empty (tmax < tmin, here
+    tmax <= 0 or tmax = tmin / 2), mixed with live lanes that hit."""
+    _, _, td, ts, ro, rd, _ = knot
+    rng = np.random.default_rng(5)
+    ro, rd = torch.as_tensor(ro), torch.as_tensor(rd)
+    empty = torch.as_tensor(rng.random(N) < 0.4)
+    dead = torch.as_tensor(rng.choice(np.float32([0.0, -1.0, 5e-4]), N))
+    tmax = torch.where(empty, dead, torch.inf)
+    t, p, f = blocked.blocked_closest(td, ts, ro, rd, 1e-3, tmax)
+    assert bool((p[empty] == -1).all()) and not bool(f[empty].any())
+    assert torch.equal(t[empty], tmax[empty])
+    assert f[~empty].float().mean() > 0.3
+    found = blocked.blocked_any(td, ts, ro, rd, 1e-3, tmax)
+    assert not bool(found[empty].any()) and torch.equal(found, f)
