@@ -3,6 +3,7 @@
     python3 chip_smoke.py               # all phases
     python3 chip_smoke.py --phases ABC  # build and kernel checks only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
+    python3 chip_smoke.py --baseline DIR  # also time DIR's K1 and K3
 
 Builds the port's five CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
@@ -83,13 +84,19 @@ Phases:
      blocked.json, K4 flat on scene.json, K4 instanced on forest.json
      vs plain on the 1M primary and first-bounce rays, each with its
      bound; K3 on the call captured from blocked.json's main path, with
-     its bound and blocks entered; K4 flat on
+     its bound and blocks entered (K3's bound counts the least work of
+     its culling levels, `k3_work`); K4 flat on
      blocked.json's table beside K3; segment_majorants vs plain vs the
      one PyTorch call of K5's lookup (med_sv_max[idx] on the same
      [1M, 42] indices); the tracking walk vs plain on the phase-B rays
      and on the main path's captured call.
      Each kernel's bound (bytes over 3.35 TB/s or float32 operations
      over 67 TFLOP/s, whichever is larger) is computed from these calls.
+     With --baseline DIR (another checkout, e.g. `git archive` of the
+     parent commit unpacked under build/), K1 and K3 of DIR and of this
+     checkout are then timed on the same saved calls (K1's 1M phase-E
+     rays and two calls of the VPT warm-up spp, K3's primary, bounce and
+     main-path calls), each checkout in its own process, in turns.
 
 Every check that fails exits non-zero before the last line. The last two
 lines are the kernels' JSON record and
@@ -148,6 +155,10 @@ SLAB_FLOPS = 24   # of one ray-box slab test
 N_RAYS = 1 << 20  # rays of the kernel-vs-plain checks and timings
 SEED = 2024
 _FLAT = {}   # scene path -> (DeviceScene, StaticConfig, host seconds)
+BASELINE = None   # --baseline: another checkout whose K1 and K3 phase E times
+# the calls phase E times K1 and K3 on, for --baseline: {label: (kernel,
+# scene path, dense_prims, ro, rd, tmin, tmax)}
+HIT_INPUTS = {}
 
 
 def fail(msg: str) -> None:
@@ -259,13 +270,18 @@ def bound(n_bytes: float, flops: float) -> dict:
             "bound_by": "bytes" if tb >= tf else "operations"}
 
 
+def type_flops(ty):
+    """Float operations of one ray against a prim of each type code of
+    `ty` (dense_prims column 9); pad rows (type -1) can never be hit and
+    count none."""
+    return ((ty == 0) * TRI_FLOPS + (ty == 1) * LINE_FLOPS
+            + (ty == 2) * SPHERE_FLOPS).to(torch.int64)
+
+
 def row_flops(table) -> int:
     """Float operations of one ray against every prim of a dense_prims
-    table, each row by its type (column 9); pad rows (type -1) can never
-    be hit and count none."""
-    ty = table[:, 9]
-    return int(((ty == 0) * TRI_FLOPS + (ty == 1) * LINE_FLOPS
-                + (ty == 2) * SPHERE_FLOPS).sum())
+    table, each row by its type."""
+    return int(type_flops(table[:, 9]).sum())
 
 
 def zero_power_sky_scene() -> str:
@@ -519,7 +535,8 @@ def k3_pair(scene, static):
     from gpu_pathtracer_tpu_torch.geom import blocked, blocked_cuda, dense
     kinds = dense.kinds_of(static)
     return (lambda *a: blocked_cuda.blocked_hit_cuda(
-                scene.dense_prims, scene.block_bbox, *a, kinds),
+                scene.dense_prims, scene.block_bbox, scene.block_sub, *a,
+                kinds),
             lambda *a: blocked.blocked_hit_torch(
                 scene.dense_prims, scene.block_bbox, *a, kinds))
 
@@ -647,8 +664,11 @@ def phase_b_k3(dev, rng, records) -> float:
          None))
     err = 0.0
     for label, tab, bb, kinds, (o, d, lo, hi), canon, emp in cases:
-        ck = blocked_cuda.blocked_hit_cuda(tab, bb, o, d, lo, hi, False, kinds)
-        ak = blocked_cuda.blocked_hit_cuda(tab, bb, o, d, lo, hi, True, kinds)
+        sub = blocked_cuda.sub_boxes(tab, bb.shape[0])
+        ck = blocked_cuda.blocked_hit_cuda(tab, bb, sub, o, d, lo, hi, False,
+                                           kinds)
+        ak = blocked_cuda.blocked_hit_cuda(tab, bb, sub, o, d, lo, hi, True,
+                                           kinds)
         cp = blocked.blocked_hit_torch(tab, bb, o, d, lo, hi, False, kinds)
         ap = blocked.blocked_hit_torch(tab, bb, o, d, lo, hi, True, kinds)
         torch.cuda.synchronize()
@@ -706,21 +726,70 @@ def k3_entries(scene, ro, rd, t_lo, t_hi, kinds) -> dict:
             "t": best_t}
 
 
+CHUNK = 8192   # rays per step of the box counts below
+
+
+def box_overlap(box, o, inv, t_lo, t_hi):
+    """[rays, boxes]: whether the slab interval of each box of `box`
+    ([m, >= 6]: min(3) max(3)) overlaps the ray's [t_lo, t_hi]; an empty
+    box (min > max: a whole pad block's, or NaN) never does."""
+    lo = (box[None, :, 0:3] - o[:, None]) * inv[:, None]
+    hi = (box[None, :, 3:6] - o[:, None]) * inv[:, None]
+    tn = torch.minimum(lo, hi).amax(-1).clamp_min(t_lo[:, None])
+    tf = torch.minimum(torch.maximum(lo, hi).amin(-1), t_hi[:, None])
+    real = (box[:, 0:3] <= box[:, 3:6]).all(-1)
+    return (tn <= tf) & real
+
+
 def block_entries(bb, ro, rd, t_lo, t_best):
     """Per ray, the boxes of bb (not the empty boxes of whole pad blocks)
     whose slab interval overlaps [t_lo, t_best]."""
     from gpu_pathtracer_tpu_torch.geom.blocked import safe_inv
     inv = safe_inv(rd)
-    entered = torch.zeros(ro.shape[0], dtype=torch.int32, device=ro.device)
-    for b0 in range(0, bb.shape[0], 16):
-        box = bb[b0:b0 + 16]
-        lo = (box[None, :, 0:3] - ro[:, None]) * inv[:, None]
-        hi = (box[None, :, 3:6] - ro[:, None]) * inv[:, None]
-        tn = torch.minimum(lo, hi).amax(-1).clamp_min(t_lo[:, None])
-        tf = torch.minimum(torch.maximum(lo, hi).amin(-1), t_best[:, None])
-        real = (box[:, 0:3] <= box[:, 3:6]).all(-1)
-        entered += ((tn <= tf) & real).sum(1, dtype=torch.int32)
-    return entered
+    return torch.cat([
+        box_overlap(bb, ro[c:c + CHUNK], inv[c:c + CHUNK],
+                    t_lo[c:c + CHUNK], t_best[c:c + CHUNK])
+        .sum(1, dtype=torch.int32) for c in range(0, ro.shape[0], CHUNK)])
+
+
+def k3_work(scene, ro, rd, t_lo, t_best) -> dict:
+    """The least work of K3's design (csrc/blocked.cu) on these rays,
+    given each one's closest hit t_best (t_hi on a miss): the slab tests
+    of every coarse box (one per blocked_cuda.GROUP blocks), of the
+    blocks of each coarse box whose box overlaps [t_lo, t_best], of the
+    sub-boxes (scene.block_sub) of each such block, and one test of each
+    prim row of each such sub-box that overlaps it, by the row's type.
+    Totals over the rays: {"coarse", "fine", "sub", "rows", "row_flops"}."""
+    from gpu_pathtracer_tpu_torch.geom.blocked import safe_inv
+    from gpu_pathtracer_tpu_torch.geom.blocked_cuda import BLOCK, GROUP, SUB
+    bb, sub, prims = scene.block_bbox, scene.block_sub, scene.dense_prims
+    nb, per, dev = bb.shape[0], BLOCK // SUB, bb.device
+    pad = torch.full(((-nb) % GROUP, 3), torch.inf, device=dev)
+    coarse = torch.cat([torch.cat([bb[:, 0:3], pad]).view(-1, GROUP, 3)
+                        .amin(1),
+                        torch.cat([bb[:, 3:6], -pad]).view(-1, GROUP, 3)
+                        .amax(1)], 1)
+    group_of = torch.arange(nb, device=dev) // GROUP
+    children = torch.bincount(group_of)          # blocks per coarse box
+    ty = torch.cat([prims[:, 9], torch.full(
+        (nb * BLOCK - prims.shape[0],), -1.0, device=dev)])
+    sub_rows = (ty >= 0).view(-1, SUB).sum(1)     # prim rows per sub-box
+    sub_flops = type_flops(ty).view(-1, SUB).sum(1)
+    inv = safe_inv(rd)
+    out = dict.fromkeys(("coarse", "fine", "sub", "rows", "row_flops"), 0)
+    for c in range(0, ro.shape[0], CHUNK):
+        o, iv = ro[c:c + CHUNK], inv[c:c + CHUNK]
+        a, z = t_lo[c:c + CHUNK], t_best[c:c + CHUNK]
+        ent_c = box_overlap(coarse, o, iv, a, z)
+        ent_b = box_overlap(bb, o, iv, a, z) & ent_c[:, group_of]
+        ent_s = box_overlap(sub, o, iv, a, z) \
+            & ent_b.repeat_interleave(per, 1)
+        out["coarse"] += o.shape[0] * coarse.shape[0]
+        out["fine"] += int((ent_c * children).sum())
+        out["sub"] += per * int(ent_b.sum())
+        out["rows"] += int((ent_s * sub_rows).sum())
+        out["row_flops"] += int((ent_s * sub_flops).sum())
+    return out
 
 
 def warp_coherence(bb, ro, rd, t_lo, t_best, k_max=16) -> dict:
@@ -1094,6 +1163,8 @@ def phase_e(dev, rng, card, records):
     ro, rd, tmin, tmax = random_rays(rng, n, dev)
     table = scene.dense_prims
     kinds = dense.kinds_of(static)   # triangles only: the main path's variant
+    HIT_INPUTS["K1 cornell_port 1M random"] = ("K1", SCENES[0], table, ro, rd,
+                                               tmin, tmax)
     t1 = timed_windows({
         "kernel": lambda: dense_cuda.dense_hit_cuda(table, ro, rd, tmin,
                                                     tmax, False, kinds),
@@ -1208,6 +1279,11 @@ def phase_e(dev, rng, card, records):
                     b = hit_bound(rec, scene, ro, rd, t_lo, t_hi, t_best)
                     line += (f"; bound {b['bound_ms']:.4f} ms by "
                              f"{b['bound_by']}")
+                    if rec == "blocked":
+                        line += f" ({b['work']})"
+                        HIT_INPUTS[f"K3 blocked.json 1M {set_name}"] = (
+                            "K3", KNOT[key], scene.dense_prims, ro, rd, t_lo,
+                            t_hi)
                     sfx = "" if set_name == "primary" else "_bounce"
                     records[rec].update({
                         f"ms{sfx}": mean(t["kernel"]),
@@ -1223,6 +1299,66 @@ def phase_e(dev, rng, card, records):
             print(line + f" ({card})")
     phase_e_k3_main(dev, card, records)
     phase_e_media(dev, rng, card, records)
+    if BASELINE:
+        baseline_times(card)
+
+
+def baseline_times(card):
+    """K1 and K3 of the checkout at BASELINE and of this one on the same
+    inputs (HIT_INPUTS, saved under build/), closest hit through the
+    routes (geom/dense.py::dense_closest, geom/blocked.py::
+    blocked_closest, whose signatures do not change), each checkout in a
+    process of its own, in turns: baseline, this, this, baseline."""
+    path = os.path.join(REPO, "build", "hit_inputs.pt")
+    torch.save(HIT_INPUTS, path)
+    torch.cuda.empty_cache()
+    runs = {}
+    for root in (BASELINE, REPO, REPO, BASELINE):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--time-hits", path, root], capture_output=True,
+                           text=True)
+        check(p.returncode == 0, f"timing the hit kernels of {root} failed:\n"
+              f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+        for label, ms in json.loads(p.stdout.splitlines()[-1]).items():
+            runs.setdefault((root, label), []).extend(ms)
+    os.unlink(path)
+    for label, call in HIT_INPUTS.items():
+        live = int((call[6] >= call[5]).sum())
+        old, new = runs[(BASELINE, label)], runs[(REPO, label)]
+        print(f"[E] {label} ({call[3].shape[0]} lanes, {live} live): baseline "
+              f"{BASELINE} {sum(old) / len(old):.4f} ms (windows "
+              f"{min(old):.4f}-{max(old):.4f}), this checkout "
+              f"{sum(new) / len(new):.4f} ms ({min(new):.4f}-{max(new):.4f}) "
+              f"({card})")
+
+
+def time_hits(path, root):
+    """The child of --baseline: time the K1 and K3 routes of the checkout
+    at `root` on the inputs saved at `path`, on scenes that checkout
+    flattens (their dense_prims must equal the saved ones), in windows of
+    about one second; prints {label: [ms per window]} as its last line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import gpu_pathtracer_tpu_torch
+    from gpu_pathtracer_tpu_torch.geom import blocked, dense
+    from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+    pkg = os.path.dirname(os.path.dirname(gpu_pathtracer_tpu_torch.__file__))
+    check(pkg == os.path.abspath(root), f"imported the package of {pkg}")
+    dev = torch.device("cuda", 0)
+    scenes, out = {}, {}
+    for label, (kernel, spath, table, ro, rd, t0, t1) in torch.load(
+            path).items():
+        if spath not in scenes:
+            scenes[spath] = flatten_scene(
+                load_scene(os.path.join(REPO, spath)), dev)
+        sc, st = scenes[spath]
+        check(torch.equal(sc.dense_prims, table), f"{label}: {root} "
+              f"flattens {spath} to another table")
+        route = dense.dense_closest if kernel == "K1" else \
+            blocked.blocked_closest
+        out[label] = timed_windows(
+            {label: lambda: route(sc, st, ro, rd, t0, t1)}, min_reps=3)[label]
+    print(json.dumps(out))
 
 
 def phase_e_k3_main(dev, card, records):
@@ -1232,14 +1368,16 @@ def phase_e_k3_main(dev, card, records):
     from gpu_pathtracer_tpu_torch.geom import blocked, blocked_cuda
     if "args" not in MAIN_K3:
         return
-    tab, bb, ro, rd, t_lo, t_hi, kinds = MAIN_K3["args"]
+    tab, bb, sub, ro, rd, t_lo, t_hi, kinds = MAIN_K3["args"]
+    HIT_INPUTS["K3 blocked.json main-path call"] = (
+        "K3", KNOT["blocked"], tab, ro, rd, t_lo, t_hi)
     t = timed_windows({
         "kernel": lambda: blocked_cuda.blocked_hit_cuda(
-            tab, bb, ro, rd, t_lo, t_hi, False, kinds),
+            tab, bb, sub, ro, rd, t_lo, t_hi, False, kinds),
         "plain": lambda: blocked.blocked_hit_torch(
             tab, bb, ro, rd, t_lo, t_hi, False, kinds)}, min_reps=1)
     from types import SimpleNamespace
-    scene = SimpleNamespace(dense_prims=tab, block_bbox=bb)
+    scene = SimpleNamespace(dense_prims=tab, block_bbox=bb, block_sub=sub)
     ent = k3_entries(scene, ro, rd, t_lo, t_hi, kinds)
     b = hit_bound("blocked", scene, ro, rd, t_lo, t_hi, ent["t"])
     live = int((t_hi >= t_lo).sum())
@@ -1248,7 +1386,7 @@ def phase_e_k3_main(dev, card, records):
           f"{ro.shape[0]} sorted lanes, {live} live): kernel "
           f"{mean(t['kernel']):.4f} ms (windows {min(t['kernel']):.4f}-"
           f"{max(t['kernel']):.4f}), plain {mean(t['plain']):.4f} ms; bound "
-          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({card})")
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}, {b['work']} ({card})")
     coh = warp_coherence(bb, ro, rd, t_lo, ent["t"])
     print(f"[E] K3 blocks entered per ray on that call: {entry_line(ent)}; "
           f"{coherence_line(coh)}")
@@ -1261,23 +1399,31 @@ def phase_e_k3_main(dev, card, records):
 
 def hit_bound(rec, scene, ro, rd, t_lo, t_hi, t_best) -> dict:
     """The bound of K3 ("blocked") or K4 ("bvh8_walk") on these rays. K3:
-    a live ray (t_lo <= t_hi) reads its 32 B and writes 8 B, slab-tests
-    every block box and runs 64 prim tests in each block it enters before
-    its closest hit `t_best` (the plain version's t, t_hi on a miss;
-    blocks behind it need no test), counted here; a ray with an empty
-    interval reads its 8 B of interval and writes 8 B. K4, whose walk
-    length is not counted: a lower bound of one 8-wide node and one
-    8-record leaf per ray."""
+    a live ray (t_lo <= t_hi) reads its 32 B and writes 8 B, a ray with
+    an empty interval reads its 8 B of interval and writes 8 B, and the
+    three tables are read once; its operations are the least work of
+    K3's culling levels (k3_work) given each live ray's closest hit
+    `t_best` (the plain version's t, t_hi on a miss), under "work" per
+    live ray. K4, whose walk length is not counted: a lower bound of one
+    8-wide node and one 8-record leaf per ray."""
     n = ro.shape[0]
     if rec == "bvh8_walk":
         return bound(n * RAY_IO + scene.bvh8_table.numel() * 4,
                      n * (8 * SLAB_FLOPS + 8 * TRI_FLOPS))
-    bb = scene.block_bbox
-    live = int((t_hi >= t_lo).sum())
-    entered = int(block_entries(bb, ro, rd, t_lo, t_best).sum())
-    return bound(live * RAY_IO + (n - live) * 16
-                 + scene.dense_prims.numel() * 4 + bb.numel() * 4,
-                 live * bb.shape[0] * SLAB_FLOPS + entered * 64 * TRI_FLOPS)
+    live = t_hi >= t_lo
+    nl = int(live.sum())
+    w = k3_work(scene, ro[live], rd[live], t_lo[live], t_best[live])
+    tables = (scene.dense_prims.numel() + scene.block_bbox.numel()
+              + scene.block_sub.numel()) * 4
+    b = bound(nl * RAY_IO + (n - nl) * 16 + tables,
+              SLAB_FLOPS * (w["coarse"] + w["fine"] + w["sub"])
+              + w["row_flops"])
+    per = {k: v / max(nl, 1) for k, v in w.items()}
+    b["work"] = (f"a live ray: {per['coarse']:.3f} coarse, {per['fine']:.3f}"
+                 f" block and {per['sub']:.3f} sub-box slab tests, "
+                 f"{per['rows']:.3f} prim tests ({per['row_flops']:.1f} "
+                 f"flops)")
+    return b
 
 
 SMOKE_RAYS = {}   # the phase-B media rays, reused in phase E
@@ -1479,32 +1625,36 @@ def capture_main_k3():
     orig = blocked_cuda.blocked_hit_cuda
     closest = []
 
-    def wrapper(prims, bbox, ro, rd, tmin, tmax, any_hit,
-                kinds=(True, True, True)):
+    def wrapper(prims, bbox, sub, ro, rd, tmin, tmax, any_hit, kinds):
         if not any_hit and "args" not in MAIN_K3:
             closest.append(1)
             if len(closest) == 2:
-                MAIN_K3["args"] = (prims, bbox, ro.clone(), rd.clone(),
+                MAIN_K3["args"] = (prims, bbox, sub, ro.clone(), rd.clone(),
                                    tmin.clone(), tmax.clone(), kinds)
-        return orig(prims, bbox, ro, rd, tmin, tmax, any_hit, kinds)
+        return orig(prims, bbox, sub, ro, rd, tmin, tmax, any_hit, kinds)
 
     blocked_cuda.blocked_hit_cuda = wrapper
     return lambda: setattr(blocked_cuda, "blocked_hit_cuda", orig)
 
 
 K1_CALLS = []   # (lanes, live lanes, wholly empty warps, warps) per call
+K1_ARGS = []    # with --baseline: each call's (table, ro, rd, tmin, tmax)
 
 
 def capture_k1_live():
     """Wrap dense_cuda.dense_hit_cuda so that every call records its
     lanes, the lanes whose interval is not empty (the kernel's rule,
     intersect.cuh::empty_interval) and the warps (64 lanes: 32 threads of
-    two rays) that hold none, in K1_CALLS. Returns the function that takes
-    the wrapper away."""
+    two rays) that hold none, in K1_CALLS, and with --baseline a copy of
+    its arguments in K1_ARGS. Returns the function that takes the wrapper
+    away."""
     from gpu_pathtracer_tpu_torch.geom import dense_cuda
     orig = dense_cuda.dense_hit_cuda
 
-    def wrapper(prims, ro, rd, tmin, tmax, any_hit, kinds=(True, True, True)):
+    def wrapper(prims, ro, rd, tmin, tmax, any_hit, kinds):
+        if BASELINE:
+            K1_ARGS.append((prims, ro.clone(), rd.clone(), tmin.clone(),
+                            tmax.clone()))
         live = tmax >= tmin
         if tuple(map(bool, kinds)) != (True, False, False):
             live = live | (tmax > 0.0)
@@ -1544,6 +1694,12 @@ def k1_live_report(records, n_steps):
         print(f"[D]   {r}")
     records["dense_hit"].update(vpt_live_share=live_all,
                                 vpt_empty_warp_share=dead_all)
+    if K1_ARGS:   # two of these calls for --baseline
+        for label, k in (("step 3 closest hit", 3 * per),
+                         ("step 3 first surface-NEE Tr segment",
+                          3 * per + 1 + (per - 1) // 2)):
+            HIT_INPUTS[f"K1 smoke VPT {label}"] = ("K1", SMOKE, *K1_ARGS[k])
+        K1_ARGS.clear()
 
 
 MAIN_WALK = {}   # the track call captured on the VPT main path (phase D)
@@ -1764,18 +1920,30 @@ def walk_bound(scene, med_idx, ro, rd, tmax, n_cand) -> dict:
 
 
 def main() -> None:
-    global OUT
+    global OUT, BASELINE
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="ABCDE",
                     help="phases to run after the build (default all)")
     ap.add_argument("--out", default=OUT,
                     help="directory for the PNGs and compiler reports")
+    ap.add_argument("--baseline", default=None, metavar="DIR",
+                    help="another checkout of the port (e.g. a git archive "
+                    "of the parent commit): phase E also times its K1 and "
+                    "K3 beside this checkout's on the same inputs")
+    ap.add_argument("--time-hits", nargs=2, metavar=("INPUTS", "ROOT"),
+                    help=argparse.SUPPRESS)   # --baseline's child processes
     args = ap.parse_args()
     phases = args.phases.upper()
     OUT = os.path.abspath(args.out)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a GPU")
+    if args.time_hits:
+        time_hits(*args.time_hits)
+        return
+    if args.baseline:
+        BASELINE = os.path.abspath(args.baseline)
+        check("E" in phases, "--baseline times in phase E")
     card = card_line()
     print(card, flush=True)
     sys.path.insert(0, REPO)

@@ -18,7 +18,8 @@
 // Design:
 // - every 128-thread block stages block_bbox in shared memory (at most
 //   1,024 boxes, 32 KB; all lanes read the same box at once, a
-//   broadcast) and builds a coarse level there: one box per 16 blocks.
+//   broadcast) and builds a coarse level there: one box per `group`
+//   blocks (geom/blocked_cuda.py::GROUP).
 //   A ray tests the coarse boxes and the fine boxes of the coarse ones
 //   it enters (a child box inside its coarse box cannot pass a slab test
 //   the coarse one fails: rounding is monotone);
@@ -31,15 +32,16 @@
 //   each lane tests its own block (a per-lane __ldg of each row; the
 //   table, 1 MB at 16k prims, stays in L2);
 // - inside a block, a ray tests only the rows of the sub-boxes it enters
-//   (one box per 8 rows, made from the table by sub_boxes_kernel at the
-//   start of every launch, into the wrapper's scratch): lanes of a warp
-//   sit in different blocks, so each walks the set bits of its own 8-bit
-//   mask, and the warp runs the most sub-boxes any lane enters, not 8;
+//   (one box per `sub_rows` rows, the scene's block_sub table, made once
+//   by geom/blocked_cuda.py::sub_boxes): lanes of a warp sit in
+//   different blocks, so each walks the set bits of its own mask, and
+//   the warp runs the most sub-boxes any lane enters, not all of them;
 // - the tie rule does not depend on the order of visits: a hit is taken
 //   when t < best t, or t == best t and its row is larger, which gives
 //   the in-order rule of the plain version geom/blocked.py::
-//   blocked_hit_torch (among equal t the last row wins). Any hit leaves a
-//   ray at its first hit;
+//   blocked_hit_torch (among equal t the last row wins). Any hit takes
+//   a hit at t <= tmax, as the plain version does, and leaves a ray at
+//   its first hit;
 // - two variants, chosen by the wrapper from the scene's prim kinds:
 //   triangles only (no type branch) or all kinds. The triangle test
 //   (intersect.cuh::tri_cross) does not divide: the best hit is kept as
@@ -57,10 +59,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kBlock = 64;        // prims per culling block (blocked_cuda.BLOCK)
-constexpr int kGroup = 16;        // fine boxes per coarse box
 constexpr int kMaxBlocks = 1024;  // blocked_cuda.MAX_BLOCKS: a key's 10 bits
 constexpr int kList = 8;          // nearest entered blocks kept per pass
-constexpr int kSub = 8;           // rows per sub-box (8 a block)
 constexpr unsigned kNone = 0xFFFFFFFFu;
 
 // A block entered at distance tn: tn's float bits (tn clamped at 0, so
@@ -90,61 +90,11 @@ __device__ __forceinline__ bool box_hit(const float4* box, V3 o, V3 inv,
   return slab_hit(mk(a.x, a.y, a.z), mk(a.w, b.x, b.y), o, inv, tmax_, tn);
 }
 
-// The sub-boxes of the table: one box per kSub rows (row order), over
-// what each row's test can hit (a triangle's three corners, a sphere's
-// centre +- r, a segment's ends +- its larger width), widened by 1e-6
-// relative so that no hit the row test takes falls outside; NaN, which
-// no slab test enters, for a run of pad rows only.
-__global__ void sub_boxes_kernel(const float* __restrict__ prims,
-                                 int n_prims, int n_sub,
-                                 float4* __restrict__ sub) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_sub) return;
-  const float4* recs = reinterpret_cast<const float4*>(prims);
-  V3 lo = mk(INFINITY, INFINITY, INFINITY);
-  V3 hi = mk(-INFINITY, -INFINITY, -INFINITY);
-  for (int p = j * kSub; p < min(j * kSub + kSub, n_prims); ++p) {
-    const float4 q0 = recs[4 * p], q1 = recs[4 * p + 1], q2 = recs[4 * p + 2];
-    const V3 v0 = mk(q0.x, q0.y, q0.z);
-    const V3 a = mk(q0.w, q1.x, q1.y);
-    V3 l, h;
-    if (q2.y == PRIM_TRIANGLE) {
-      const V3 v1 = add(v0, a), v2 = add(v0, mk(q1.z, q1.w, q2.x));
-      l = mk(fminf(v0.x, fminf(v1.x, v2.x)), fminf(v0.y, fminf(v1.y, v2.y)),
-             fminf(v0.z, fminf(v1.z, v2.z)));
-      h = mk(fmaxf(v0.x, fmaxf(v1.x, v2.x)), fmaxf(v0.y, fmaxf(v1.y, v2.y)),
-             fmaxf(v0.z, fmaxf(v1.z, v2.z)));
-    } else if (q2.y == PRIM_SPHERE) {
-      const float r = fabsf(q2.z);
-      l = mk(v0.x - r, v0.y - r, v0.z - r);
-      h = mk(v0.x + r, v0.y + r, v0.z + r);
-    } else if (q2.y == PRIM_LINE) {
-      const float r = fmaxf(fabsf(q2.z), fabsf(q2.w));
-      l = mk(fminf(v0.x, a.x) - r, fminf(v0.y, a.y) - r, fminf(v0.z, a.z) - r);
-      h = mk(fmaxf(v0.x, a.x) + r, fmaxf(v0.y, a.y) + r, fmaxf(v0.z, a.z) + r);
-    } else {
-      continue;   // pad row
-    }
-    lo = mk(fminf(lo.x, l.x), fminf(lo.y, l.y), fminf(lo.z, l.z));
-    hi = mk(fmaxf(hi.x, h.x), fmaxf(hi.y, h.y), fmaxf(hi.z, h.z));
-  }
-  if (!(lo.x <= hi.x)) {   // no row: a box no ray enters
-    sub[2 * j] = make_float4(NAN, NAN, NAN, NAN);
-    sub[2 * j + 1] = make_float4(NAN, NAN, NAN, NAN);
-    return;
-  }
-  const float w = 1e-6f * (1.f + fmaxf(fmaxf(fabsf(lo.x), fabsf(hi.x)),
-                                       fmaxf(fmaxf(fabsf(lo.y), fabsf(hi.y)),
-                                             fmaxf(fabsf(lo.z), fabsf(hi.z)))));
-  sub[2 * j] = make_float4(lo.x - w, lo.y - w, lo.z - w, hi.x + w);
-  sub[2 * j + 1] = make_float4(hi.y + w, hi.z + w, 0.f, 0.f);
-}
-
 template <bool kAll>
 __global__ void __launch_bounds__(kThreads)
     blocked_kernel(const float* __restrict__ prims, int n_prims,
-                   const float* __restrict__ bbox, int n_blocks,
-                   const float4* __restrict__ sub,
+                   const float* __restrict__ bbox, int n_blocks, int group,
+                   const float4* __restrict__ sub, int sub_rows,
                    const float* __restrict__ ro,
                    const float* __restrict__ rd,
                    const float* __restrict__ tmin_,
@@ -152,7 +102,8 @@ __global__ void __launch_bounds__(kThreads)
                    float* __restrict__ t_out, int32_t* __restrict__ prim_out,
                    uint8_t* __restrict__ found_out, int n, int any_hit) {
   extern __shared__ float4 boxes[];   // fine boxes, then the coarse ones
-  const int n_coarse = (n_blocks + kGroup - 1) / kGroup;
+  const int n_coarse = (n_blocks + group - 1) / group;
+  const int per = kBlock / sub_rows;  // sub-boxes a block (<= 32)
   float4* coarse = boxes + 2 * n_blocks;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float t0 = 0.f, best_t = 0.f;
@@ -172,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = threadIdx.x; c < n_coarse; c += blockDim.x) {
       V3 lo = mk(INFINITY, INFINITY, INFINITY);
       V3 hi = mk(-INFINITY, -INFINITY, -INFINITY);
-      for (int b = c * kGroup; b < min(c * kGroup + kGroup, n_blocks); ++b) {
+      for (int b = c * group; b < min(c * group + group, n_blocks); ++b) {
         const float4 a = boxes[2 * b], q = boxes[2 * b + 1];
         lo = mk(fminf(lo.x, a.x), fminf(lo.y, a.y), fminf(lo.z, a.z));
         hi = mk(fmaxf(hi.x, a.w), fmaxf(hi.y, q.x), fmaxf(hi.z, q.y));
@@ -182,7 +133,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
-  float t = best_t;   // the answer's t: tmax on a miss
+  const float t1 = best_t;   // tmax
+  float t = best_t;          // the answer's t: tmax on a miss
   if (live) {
     const V3 o = load3(ro + 3 * i);
     const V3 d = load3(rd + 3 * i);
@@ -202,8 +154,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < n_coarse; ++c) {
         float tn;
         if (!box_hit(coarse + 2 * c, o, inv, cull_t, &tn)) continue;
-        const int b1 = min(c * kGroup + kGroup, n_blocks);
-        for (int b = c * kGroup; b < b1; ++b) {
+        const int b1 = min(c * group + group, n_blocks);
+        for (int b = c * group; b < b1; ++b) {
           if (!box_hit(boxes + 2 * b, o, inv, cull_t, &tn)) continue;
           const unsigned key = make_key(tn, b);
           if (key < floor_key) continue;
@@ -222,11 +174,11 @@ __global__ void __launch_bounds__(kThreads)
         // the block's sub-boxes this ray enters, then their rows, each
         // lane its own: a warp runs the most any of its lanes enters
         unsigned mask = 0;
-#pragma unroll
-        for (int j = 0; j < kBlock / kSub; ++j) {
+        const float4* sb = sub + 2 * b * per;
+#pragma unroll 8
+        for (int j = 0; j < per; ++j) {
           float tn;
-          const float4* sb = sub + 2 * (b * (kBlock / kSub) + j);
-          const float4 a = __ldg(sb), q = __ldg(sb + 1);
+          const float4 a = __ldg(sb + 2 * j), q = __ldg(sb + 2 * j + 1);
           if (slab_hit(mk(a.x, a.y, a.z), mk(a.w, q.x, q.y), o, inv, cull_t,
                        &tn)) {
             mask |= 1u << j;
@@ -236,8 +188,8 @@ __global__ void __launch_bounds__(kThreads)
         while (mask && !stop) {
           const int j = __ffs(mask) - 1;
           mask &= mask - 1;
-          const int p0 = b * kBlock + j * kSub;
-          const int p1 = min(p0 + kSub, n_prims);
+          const int p0 = b * kBlock + j * sub_rows;
+          const int p1 = min(p0 + sub_rows, n_prims);
 #pragma unroll 4
           for (int p = p0; p < p1; ++p) {
             const float4 q0 = __ldg(recs + 4 * p);
@@ -248,6 +200,7 @@ __global__ void __launch_bounds__(kThreads)
             float tn = 0.f, ad = 1.f;
             bool h;
             if (kAll && q2.y != PRIM_TRIANGLE) {
+              // t in [tmin, best t]: tmax itself for any hit
               float s;
               const float bt = tb / ab;
               h = q2.y == PRIM_SPHERE
@@ -259,17 +212,22 @@ __global__ void __launch_bounds__(kThreads)
               h = tri_cross(o, d, v0, a, mk(q1.z, q1.w, q2.x), &tn, &ad) &&
                   q2.y == PRIM_TRIANGLE && tn >= t0 * ad;
             }
+            if (any_hit) {   // any hit at t <= tmax, like the plain version
+              if (h && tn <= t1 * ad) {
+                best = p;
+                stop = true;
+                break;
+              }
+              continue;
+            }
             // nearer, or as near and a larger row (the plain version's
-            // in-order rule, whatever the order of visits)
+            // in-order rule, whatever the order of visits; best = -1 lets
+            // a hit at tmax itself count)
             const float lhs = tn * ab, rhs = tb * ad;
             if (h && (lhs < rhs || (lhs == rhs && p > best))) {
               tb = tn;
               ab = ad;
               best = p;
-              if (any_hit) {
-                stop = true;
-                break;
-              }
             }
           }
         }
@@ -308,29 +266,28 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 // all_kinds = 0 takes the triangles-only variant (the scene has no
-// sphere and no line). n_blocks <= 1,024 (the wrapper checks).
+// sphere and no line). n_blocks <= 1,024, group >= 1 fine boxes per
+// coarse box, sub = [n_blocks * 64 / sub_rows, 8] sub-boxes with sub_rows
+// dividing 64 and at least 2 (the wrapper checks).
 extern "C" int blocked_hit(const float* prims, int n_prims, const float* bbox,
-                           int n_blocks, float* sub, const float* ro,
-                           const float* rd,
+                           int n_blocks, int group, const float* sub,
+                           int sub_rows, const float* ro, const float* rd,
                            const float* tmin_, const float* tmax_,
                            float* t_out, int32_t* prim_out,
                            uint8_t* found_out, int n, int any_hit,
                            int all_kinds, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  const int n_coarse = (n_blocks + kGroup - 1) / kGroup;
+  const int n_coarse = (n_blocks + group - 1) / group;
   const size_t smem = sizeof(float4) * 2 * (size_t)(n_blocks + n_coarse);
-  const int n_sub = n_blocks * (kBlock / kSub);
-  float4* sub4 = reinterpret_cast<float4*>(sub);
-  sub_boxes_kernel<<<(n_sub + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-      prims, n_prims, n_sub, sub4);
+  const float4* sub4 = reinterpret_cast<const float4*>(sub);
   if (all_kinds) {
     blocked_kernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        prims, n_prims, bbox, n_blocks, sub4, ro, rd, tmin_, tmax_, t_out,
-        prim_out, found_out, n, any_hit);
+        prims, n_prims, bbox, n_blocks, group, sub4, sub_rows, ro, rd, tmin_,
+        tmax_, t_out, prim_out, found_out, n, any_hit);
   } else {
     blocked_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        prims, n_prims, bbox, n_blocks, sub4, ro, rd, tmin_, tmax_, t_out,
-        prim_out, found_out, n, any_hit);
+        prims, n_prims, bbox, n_blocks, group, sub4, sub_rows, ro, rd, tmin_,
+        tmax_, t_out, prim_out, found_out, n, any_hit);
   }
   return (int)cudaGetLastError();
 }

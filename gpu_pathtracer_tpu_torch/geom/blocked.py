@@ -104,8 +104,8 @@ def blocked_closest(scene, static, ro, rd, tmin, tmax, plain: bool = False):
     if ro.is_cuda and not plain:
         n = ro.shape[0]
         t, prim = blocked_cuda.blocked_hit_cuda(
-            scene.dense_prims, scene.block_bbox, ro.contiguous(),
-            rd.contiguous(), f32n(tmin, n, ro.device),
+            scene.dense_prims, scene.block_bbox, scene.block_sub,
+            ro.contiguous(), rd.contiguous(), f32n(tmin, n, ro.device),
             f32n(tmax, n, ro.device), False, kinds_of(static))
     else:
         t, prim = blocked_hit_torch(scene.dense_prims, scene.block_bbox, ro,
@@ -118,8 +118,8 @@ def blocked_any(scene, static, ro, rd, tmin, tmax, plain: bool = False):
     if ro.is_cuda and not plain:
         n = ro.shape[0]
         return blocked_cuda.blocked_hit_cuda(
-            scene.dense_prims, scene.block_bbox, ro.contiguous(),
-            rd.contiguous(), f32n(tmin, n, ro.device),
+            scene.dense_prims, scene.block_bbox, scene.block_sub,
+            ro.contiguous(), rd.contiguous(), f32n(tmin, n, ro.device),
             f32n(tmax, n, ro.device), True, kinds_of(static))
     return blocked_hit_torch(scene.dense_prims, scene.block_bbox, ro, rd,
                              tmin, tmax, True, kinds_of(static))

@@ -35,8 +35,7 @@ def _lib():
     return lib
 
 
-def dense_hit_cuda(dense_prims, ro, rd, tmin, tmax, any_hit: bool,
-                   kinds=(True, True, True)):
+def dense_hit_cuda(dense_prims, ro, rd, tmin, tmax, any_hit: bool, kinds):
     """Closest hit -> (t [N] f32, prim [N] i32, -1 = miss; t = tmax on a
     miss), or with `any_hit` -> found [N] bool."""
     device = ro.device

@@ -44,6 +44,7 @@ import torch
 from gpu_pathtracer_tpu_torch.core.vecmath import LUMA
 from gpu_pathtracer_tpu_torch.geom import bvh8 as bvh8_mod
 from gpu_pathtracer_tpu_torch.geom import tlas as tlas_mod
+from gpu_pathtracer_tpu_torch.geom import blocked_cuda
 from gpu_pathtracer_tpu_torch.geom.blocked_cuda import BLOCK
 from gpu_pathtracer_tpu_torch.geom.bvh import FlatBVH, load_or_build_bvh
 from gpu_pathtracer_tpu_torch.geom.dense_cuda import DENSE_MAX
@@ -150,6 +151,9 @@ class DeviceScene:
     # for triangles, p1/- for lines; type -1 on the pad rows
     dense_prims: torch.Tensor
     block_bbox: torch.Tensor         # [nb, 8]: min(3) max(3) pad(2)
+    # [nb * 8, 8]: the port's sub-boxes, one per 8 rows of dense_prims
+    # (geom/blocked_cuda.py::sub_boxes); derived from dense_prims
+    block_sub: torch.Tensor
     # [rows, 128]: the unified BVH8 table (geom/bvh8.py; TLAS rows first
     # when instanced, geom/tlas.py)
     bvh8_table: torch.Tensor
@@ -778,9 +782,11 @@ def device_scene_from_numpy(arrays: dict, static: dict, device
             fields[f.name] = cam
         elif f.name in ("world_radius", "epsilon"):
             fields[f.name] = float(np.float32(arrays[f.name]))
-        elif f.name != "med_table":
+        elif f.name not in ("med_table", "block_sub"):
             fields[f.name] = tensor(arrays[f.name])
     fields["med_table"] = media_table(fields)
+    fields["block_sub"] = blocked_cuda.sub_boxes(
+        fields["dense_prims"], fields["block_bbox"].shape[0])
     st = {f.name: static[f.name] for f in dataclasses.fields(StaticConfig)
           if f.name != "bvh8_stack"}
     st["bvh8_stack"] = bvh8_mod.stack_bound(

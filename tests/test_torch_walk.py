@@ -79,8 +79,9 @@ def test_cpu_tensors_take_the_plain_version(knot):
     assert torch.equal(t3, t4) and torch.equal(p3, p4)
     tmin = torch.full((N,), 1e-3)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        blocked_cuda.blocked_hit_cuda(td.dense_prims, td.block_bbox, ro, rd,
-                                      tmin, tmax, False)
+        blocked_cuda.blocked_hit_cuda(td.dense_prims, td.block_bbox,
+                                      td.block_sub, ro, rd, tmin, tmax, False,
+                                      dense.kinds_of(ts))
     with pytest.raises(ValueError, match="CUDA tensor"):
         packet_cuda.bvh8_walk_cuda(td.bvh8_table, td.bvh8_aux, 0, ro, rd,
                                    tmin, tmax, False, ts.bvh8_stack)
@@ -90,12 +91,16 @@ def nearest_first(prims, bbox, ro, rd, tmin, tmax, any_hit, kinds):
     """Plain model of csrc/blocked.cu's visiting order: each ray visits
     the blocks whose box it enters (slab test against tmax) in order of
     entry distance (clamped at 0; the lower block first among equals),
-    stops at the first one it enters beyond its best t, and takes a hit
-    when t < best t, or t == best t and the row is larger; any hit stops
-    at the first hit. Returns (t, prim), or found with `any_hit`."""
+    stops at the first one it enters beyond its best t, tests only the
+    rows of the sub-boxes (blocked_cuda.sub_boxes) it enters against its
+    best t, and takes a hit when t < best t, or t == best t and the row
+    is larger; any hit stops at the first hit. Returns (t, prim), or
+    found with `any_hit`."""
     n, nb = ro.shape[0], bbox.shape[0]
     assert prims.shape[0] == nb * blocked.BLOCK
     rows_of = prims.view(nb, blocked.BLOCK, 16)
+    per = blocked.BLOCK // blocked_cuda.SUB
+    sub = blocked_cuda.sub_boxes(prims, nb).view(nb, per, 8)
     inv = blocked.safe_inv(rd)
     ent, tn = blocked.slab(bbox[None, :, 0:3], bbox[None, :, 3:6],
                            ro[:, None], inv[:, None], tmax[:, None])
@@ -117,6 +122,10 @@ def nearest_first(prims, bbox, ro, rd, tmin, tmax, any_hit, kinds):
         ok, t = dense.rec_hits(col, tuple(o[:, j:j + 1] for j in range(3)),
                                tuple(d[:, j:j + 1] for j in range(3)),
                                tmin[lanes, None], best_t[lanes, None], kinds)
+        in_sub, _ = blocked.slab(sub[b, :, 0:3], sub[b, :, 3:6], o[:, None],
+                                 blocked.safe_inv(d)[:, None],
+                                 best_t[lanes, None])
+        ok = ok & in_sub.repeat_interleave(blocked_cuda.SUB, 1)
         got, t_new, j = blocked.last_min(ok, t)
         row = (b * blocked.BLOCK + j).to(torch.int32)
         take = got & ((t_new < best_t[lanes])
@@ -183,3 +192,54 @@ def test_empty_intervals_miss(knot):
     assert f[~empty].float().mean() > 0.3
     found = blocked.blocked_any(td, ts, ro, rd, 1e-3, tmax)
     assert not bool(found[empty].any()) and torch.equal(found, f)
+
+
+def all_kinds_table(rng, n_rows=120):
+    """A dense_prims table of 40 triangles, 40 spheres and 40 segments in
+    the Cornell room, padded to two 64-row blocks (8 pad rows: one
+    sub-box of pad rows only)."""
+    t = np.zeros((2 * blocked.BLOCK, 16), np.float32)
+    t[n_rows:, 9] = -1.0
+    v0 = rng.uniform([-0.9, 0.1, -0.9], [0.9, 1.9, 0.9], (n_rows, 3))
+    t[:n_rows, 0:3] = v0
+    t[:40, 3:9] = rng.normal(0, 0.3, (40, 6))                  # e1 e2
+    t[40:80, 9], t[40:80, 10] = 2, rng.uniform(0.05, 0.2, 40)  # spheres
+    t[80:n_rows, 9] = 1                                        # segments
+    t[80:n_rows, 3:6] = v0[80:] + rng.normal(0, 0.4, (n_rows - 80, 3))
+    t[80:n_rows, 10:12] = rng.uniform(0.01, 0.08, (n_rows - 80, 2))
+    t[:n_rows, 12] = np.arange(n_rows)
+    return torch.as_tensor(t)
+
+
+@pytest.mark.parametrize("table", ["knot", "all kinds"])
+def test_sub_boxes_hold_every_hit(table, knot):
+    """Each plain closest hit lies in the sub-box of its row, within the
+    slab test the kernel makes against the ray's best t, so culling rows
+    by sub-box drops no hit; a run of pad rows only is a NaN box that no
+    ray enters."""
+    _, _, td, ts, ro, rd, _ = knot
+    ro, rd = torch.as_tensor(ro), torch.as_tensor(rd)
+    if table == "knot":
+        prims, nb, kinds = td.dense_prims, td.block_bbox.shape[0], \
+            dense.kinds_of(ts)
+        sub = td.block_sub
+        torch.testing.assert_close(sub, blocked_cuda.sub_boxes(prims, nb),
+                                   rtol=0, atol=0, equal_nan=True)
+    else:
+        prims, nb, kinds = all_kinds_table(np.random.default_rng(8)), 2, \
+            (True, True, True)
+        sub = blocked_cuda.sub_boxes(prims, nb)
+        assert not bool(sub[:-1, 0:6].isnan().any())
+    assert sub.shape == (nb * blocked.BLOCK // blocked_cuda.SUB, 8)
+    assert bool(sub[-1, 0:6].isnan().all())
+    tmax = torch.full((N,), torch.inf)
+    t, p = dense.dense_closest_torch(prims, ro, rd, 1e-3, tmax, kinds)
+    hit = p >= 0
+    assert hit.float().mean() > 0.2
+    box = sub[p[hit].long() // blocked_cuda.SUB]
+    inside, _ = blocked.slab(box[:, 0:3], box[:, 3:6], ro[hit],
+                             blocked.safe_inv(rd[hit]), t[hit])
+    assert bool(inside.all())
+    nan_box, _ = blocked.slab(sub[-1, 0:3], sub[-1, 3:6], ro,
+                              blocked.safe_inv(rd), tmax)
+    assert not bool(nan_box.any())

@@ -176,8 +176,9 @@ def jax_fields(jd, js):
     from gpu_pathtracer_tpu_torch.scene import flatten as tf
     arrays = {f.name: np.asarray(getattr(jd, f.name))
               for f in dataclasses.fields(tf.DeviceScene)
-              if f.name not in ("device", "camera", "med_table")}
-    # (the port derives med_table from the med_* fields)
+              if f.name not in ("device", "camera", "med_table", "block_sub")}
+    # (the port derives med_table from the med_* fields and block_sub,
+    # its own, from dense_prims)
     arrays["camera"] = {f.name: np.asarray(getattr(jd.camera, f.name))
                         for f in dataclasses.fields(tf.DeviceCamera)}
     static = {f.name: getattr(js, f.name)
