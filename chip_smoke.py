@@ -64,8 +64,9 @@ Phases:
      environment and textured variants (one warm-up spp held against the
      plain version on all lanes, then 8 timed spp);
      scenes/knot_port/scene.json at 1024^2 through K4 (one warm-up spp
-     held against the plain wavefront on all 1,048,576 lanes, then 8
-     timed spp: spp/s, Mrays/s, host build seconds); forest.json (K4
+     held against the plain wavefront on all 1,048,576 lanes, whose
+     bounce-1 closest-hit and shadow calls are captured for phase E, then
+     8 timed spp: spp/s, Mrays/s, host build seconds); forest.json (K4
      instanced, its host build timed cold on an emptied BVH cache and on
      a cache hit) and blocked.json (K3; bounce 1's closest-hit call of its
      warm-up spp captured for phase E) the same with 2 timed spp, and
@@ -80,12 +81,16 @@ Phases:
   E  times, in windows of about one second, kernel and plain in turns:
      K1 vs plain at 1M rays; K2 alone vs plain from the same primary
      rays at 1024^2 depth 5, and the camera that makes those rays; K2's
-     environment and textured variants the same on their scenes; K3 on
+     other variants the same on their scenes (env, textured, mixed,
+     materials.json); K3 on
      blocked.json, K4 flat on scene.json, K4 instanced on forest.json
      vs plain on the 1M primary and first-bounce rays, each with its
      bound; K3 on the call captured from blocked.json's main path, with
      its bound and blocks entered (K3's bound counts the least work of
-     its culling levels, `k3_work`); K4 flat on
+     its culling levels, `k3_work`); K4 on the two calls captured from
+     scene.json's main path; K4's bounds count the nodes, leaves and
+     records any walk of its table must test before each ray's hit
+     (`k4_work`), printed per live ray; K4 flat on
      blocked.json's table beside K3; segment_majorants vs plain vs the
      one PyTorch call of K5's lookup (med_sv_max[idx] on the same
      [1M, 42] indices); the tracking walk vs plain on the phase-B rays
@@ -93,10 +98,11 @@ Phases:
      Each kernel's bound (bytes over 3.35 TB/s or float32 operations
      over 67 TFLOP/s, whichever is larger) is computed from these calls.
      With --baseline DIR (another checkout, e.g. `git archive` of the
-     parent commit unpacked under build/), K1 and K3 of DIR and of this
+     parent commit unpacked under build/), K1-K4 of DIR and of this
      checkout are then timed on the same saved calls (K1's 1M phase-E
-     rays and two calls of the VPT warm-up spp, K3's primary, bounce and
-     main-path calls), each checkout in its own process, in turns.
+     rays and two calls of the VPT warm-up spp, K2's primary rays of
+     each variant, K3's and K4's primary, bounce and main-path calls),
+     each checkout in its own process, in turns.
 
 Every check that fails exits non-zero before the last line. The last two
 lines are the kernels' JSON record and
@@ -155,9 +161,8 @@ SLAB_FLOPS = 24   # of one ray-box slab test
 N_RAYS = 1 << 20  # rays of the kernel-vs-plain checks and timings
 SEED = 2024
 _FLAT = {}   # scene path -> (DeviceScene, StaticConfig, host seconds)
-BASELINE = None   # --baseline: another checkout whose K1 and K3 phase E times
-# the calls phase E times K1 and K3 on, for --baseline: {label: (kernel,
-# scene path, dense_prims, ro, rd, tmin, tmax)}
+BASELINE = None   # --baseline: another checkout, timed on phase E's calls
+# the calls phase E times K1-K4 on, for --baseline: {label: hit_call(...)}
 HIT_INPUTS = {}
 
 
@@ -184,21 +189,26 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_summary(report: str) -> str:
-    """nvcc's -Xptxas -v report, one "registers, spills" entry per kernel
-    entry point; K2's variants are named by their template flags."""
+    """nvcc's -Xptxas -v report, one "registers, stack frame, spills"
+    entry per kernel entry point, template variants named by their flags
+    (K2: sky, textures, all prim kinds; K1, K3, K4: all prim kinds)."""
     import re
-    out, label = [], "?"
+    out, label, frame = [], "?", ""
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            f = re.search(r"ILb(\d)ELb(\d)E", m.group(1))
-            label = (f"env {f.group(1)} tex {f.group(2)}" if f
-                     else kernel_name(m.group(1)))
-        elif "spill" in ln:
-            spill = ln.strip()
+            label = kernel_name(m.group(1))
+            flags = re.findall(r"Lb(\d)E", m.group(1))
+            if len(flags) == 3:
+                label += (f" (env {flags[0]}, tex {flags[1]}, all kinds "
+                          f"{flags[2]})")
+            elif flags:
+                label += f" (all kinds {flags[0]})"
+        elif "stack frame" in ln:
+            frame = ln.strip()
         elif "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out.append(f"{label}: {regs} registers, {spill}")
+            out.append(f"{label}: {regs} registers, {frame}")
     return " | ".join(out)
 
 
@@ -325,11 +335,13 @@ def flat(key: str, dev):
 
 
 def hit_check(label, closest_k, closest_p, any_k, any_p, canon=None,
-              empty=None) -> float:
+              empty=None, exact_ties=True) -> float:
     """Kernel vs plain hits on one ray set: prim equal and any-hit equal
     on >= 99.99% of lanes, t within 1e-4 relative where the prim agrees.
     With `canon` (a prim id per table row, equal for exact twins): on
-    every lane where both hit twins of one prim (a tie), the same row.
+    every lane where both hit twins of one prim (a tie), the same row
+    (unless not `exact_ties`: then the tie lanes that take the other
+    twin are counted, and held to the prim limit with the rest).
     With `empty` (lanes whose interval is empty): a miss on every one.
     Returns the largest |t_kernel - t_plain| where the prim agrees."""
     (t_k, p_k), (t_p, p_p) = closest_k, closest_p
@@ -347,7 +359,7 @@ def hit_check(label, closest_k, closest_p, any_k, any_p, canon=None,
                        == canon[p_p.clamp_min(0).long()])
         n_tie, n_bad = int(twin.sum()), int((twin & ~same).sum())
         extra += f", tie lanes {n_tie} (other row on {n_bad})"
-        check(n_tie > 0 and n_bad == 0,
+        check(n_tie > 0 and (n_bad == 0 or not exact_ties),
               f"{label}: {n_bad} of {n_tie} tie lanes take another row")
     if empty is not None:
         bad = int((empty & ((p_k >= 0) | any_k | (t_k != t_p))).sum())
@@ -541,15 +553,99 @@ def k3_pair(scene, static):
                 scene.dense_prims, scene.block_bbox, *a, kinds))
 
 
-def k4_pair(scene, static):
-    """(kernel, plain) of K4 on a flattened scene (flat or instanced)."""
-    from gpu_pathtracer_tpu_torch.geom import dense, packet, packet_cuda
-    kinds = dense.kinds_of(static)
-    args = (scene.bvh8_table, scene.bvh8_aux, static.bvh8_n_inst)
+def k4_pair(scene, static, kinds=None):
+    """(kernel, plain) of K4 on a flattened scene (flat or instanced), the
+    kernel's variant chosen from `kinds` (default: the scene's own)."""
+    from gpu_pathtracer_tpu_torch.geom import dense
+    kinds = dense.kinds_of(static) if kinds is None else kinds
+    return k4_table_pair(scene.bvh8_table, scene.bvh8_aux,
+                         static.bvh8_n_inst, static.bvh8_stack, kinds)
+
+
+def k4_table_pair(table, aux, n_inst, stack, kinds):
+    """(kernel, plain) of K4 on a BVH8 table: f(ro, rd, tmin, tmax,
+    any_hit)."""
+    from gpu_pathtracer_tpu_torch.geom import packet, packet_cuda
+    args = (table, aux, n_inst)
     return (lambda ro, rd, t0, t1, any_hit: packet_cuda.bvh8_walk_cuda(
-                *args, ro, rd, t0, t1, any_hit, static.bvh8_stack),
+                *args, ro, rd, t0, t1, any_hit, stack, kinds),
             lambda ro, rd, t0, t1, any_hit: packet.walk_torch(
-                *args, ro, rd, t0, t1, any_hit, kinds, static.bvh8_stack))
+                *args, ro, rd, t0, t1, any_hit, kinds, stack))
+
+
+def variant_name(static) -> str:
+    """K2's template variant for a scene: sky, textures, all prim kinds."""
+    from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    return (f"(env {int(static.has_infinite)}, tex "
+            f"{int(static.has_textures)}, all kinds "
+            f"{int(pt_fused.all_kinds(static))})")
+
+
+def tree_twice(table):
+    """A flat BVH8 table twice over under a new root row: slot 0 holds the
+    tree, slot 1 its copy (rows shifted, the copy's prim ids + P), both
+    with the tree's box, so every hit is an exact tie across leaves of
+    two subtrees and the plain walk, visiting the copy last, takes the
+    copy's record (tests/test_torch_bvh8_walk.py::tree_twice). Returns
+    (table, prim count P)."""
+    rows = table.shape[0]
+    nodes = table[:, :64].reshape(rows, 8, 8)
+    meta = nodes[..., 6]
+    is_leaf = torch.ones(rows, dtype=torch.bool, device=table.device)
+    frontier = torch.zeros(1, dtype=torch.long, device=table.device)
+    while frontier.numel():   # the node rows, a level at a time from row 0
+        is_leaf[frontier] = False
+        m = meta[frontier]
+        frontier = m[m > 0].long().unique()
+    valid = (table.view(rows, 8, 16)[..., 13] > 0) & is_leaf[:, None]
+    n_prims = int(table.view(rows, 8, 16)[..., 12][valid].max()) + 1
+    root = nodes[0]
+    have = root[:, 6] != 0
+    box = torch.cat([root[have, 0:3].amin(0), root[have, 3:6].amax(0)])
+    out = torch.zeros((1 + 2 * rows, 128), device=table.device)
+    out[0, :64].view(8, 8)[:, 0:3] = torch.inf
+    out[0, :64].view(8, 8)[:, 3:6] = -torch.inf
+    for k, shift in enumerate((1, 1 + rows)):
+        part = table.clone()
+        meta = part[:, :64].view(rows, 8, 8)[..., 6]
+        node_rows = ~is_leaf[:, None]
+        meta.copy_(torch.where(node_rows & (meta > 0), meta + shift,
+                               torch.where(node_rows & (meta < 0),
+                                           meta - shift, meta)))
+        rec = part.view(rows, 8, 16)
+        ids = rec[..., 12]
+        ids.copy_(torch.where(is_leaf[:, None] & (rec[..., 13] > 0),
+                              ids + k * n_prims, ids))
+        out[shift:shift + rows] = part
+        out[0, 8 * k:8 * k + 6] = box
+        out[0, 8 * k + 6] = shift
+    return out.contiguous(), n_prims
+
+
+def bvh8_of_rows(rows):
+    """A flat BVH8 table of dense_prims rows of any kinds through the
+    port's builders (the native SAH BVH, then bvh8.build_bvh8), as
+    flatten builds one: each row's box (a triangle's corners, a sphere's
+    centre +- r, a segment's ends +- its larger width) -> (table, aux,
+    stack bound)."""
+    from gpu_pathtracer_tpu_torch.geom import bvh, bvh8
+    ty, v0 = rows[:, 9:10], rows[:, 0:3]
+    a, b = rows[:, 3:6], rows[:, 6:9]
+    r = rows[:, 10:12].amax(1, keepdim=True)
+    tri, sph = ty == 0, ty == 2
+    lo = torch.where(tri, torch.minimum(v0, torch.minimum(v0 + a, v0 + b)),
+                     torch.where(sph, v0 - r, torch.minimum(v0, a) - r))
+    hi = torch.where(tri, torch.maximum(v0, torch.maximum(v0 + a, v0 + b)),
+                     torch.where(sph, v0 + r, torch.maximum(v0, a) + r))
+    tree = bvh.load_or_build_bvh(lo.cpu().numpy(), hi.cpu().numpy(),
+                                 cache=False)
+    recs = rows.cpu().numpy()[tree.prim_order]
+    table, _ = bvh8.build_bvh8(tree, recs)
+    aux = np.zeros((1, 20), np.float32)
+    dev = rows.device
+    return (torch.as_tensor(table, device=dev), torch.as_tensor(aux,
+                                                                device=dev),
+            bvh8.stack_bound(table, aux, 0))
 
 
 RAYS = {}   # knot scene key -> its ray sets (phases B and E)
@@ -591,6 +687,7 @@ def phase_b_large(dev, rng, records):
             errs[rec] = max(errs[rec], hit_check(
                 f"{kname} {key} {set_name}", ck, cp, ak, ap))
     errs["blocked"] = max(errs["blocked"], phase_b_k3(dev, rng, records))
+    errs["bvh8_walk"] = max(errs["bvh8_walk"], phase_b_k4(dev, rng))
     for rec, e in errs.items():
         records[rec]["max_abs_err"] = e
 
@@ -615,17 +712,21 @@ def phase_b_large(dev, rng, records):
         check(same >= 0.9999, f"K3 vs K4 {set_name}: prim equal {same}")
         check(rel_max <= 1e-4, f"K3 vs K4 {set_name}: t rel err {rel_max}")
 
-    # a stack too small for the tree must raise, never drop a ray
+    # no walk so far overflowed; a stack too small for the tree must
+    # raise at the next check, never drop a ray
+    packet_cuda.check_overflow()
     scene, static = flat("scene", dev)
     ro, rd, t0, t1, _ = knot_rays("scene", dev, rng)["primary"]
+    packet_cuda.bvh8_walk_cuda(scene.bvh8_table, scene.bvh8_aux, 0, ro, rd,
+                               t0, t1, False, 2, (True, False, False))
     try:
-        packet_cuda.bvh8_walk_cuda(scene.bvh8_table, scene.bvh8_aux, 0, ro,
-                                   rd, t0, t1, False, 2)
+        packet_cuda.check_overflow()
     except RuntimeError as e:
-        check("stack" in str(e), f"K4 overflow: {e}")
-        print(f"[B] K4 with a 2-entry stack raises: {e}")
+        check("2 entries" in str(e), f"K4 overflow: {e}")
+        print(f"[B] K4 with a 2-entry stack raises at the check: {e}")
     else:
         fail("K4 with a 2-entry stack did not report an overflow")
+    packet_cuda.check_overflow()   # the check cleared the flag
 
 
 def phase_b_k3(dev, rng, records) -> float:
@@ -683,6 +784,72 @@ def phase_b_k3(dev, rng, records) -> float:
               f"rays: {entry_line(ent)}; {coherence_line(coh)}")
         records["blocked"][f"entered_{set_name}"] = entry_summary(ent)
         records["blocked"][f"warps_{set_name}"] = coh
+    return err
+
+
+def phase_b_k4(dev, rng) -> float:
+    """K4's cases beyond the three ray sets, each vs the plain version:
+    on scene.json's table its all-kinds variant, 30% empty intervals, an N
+    that is not a multiple of the kernel's 128 rays a block, and the tree
+    twice over under a new root (tree_twice: every hit an exact tie
+    across leaves of two subtrees); the forest (instanced) likewise; the
+    512-row synthetic table of all three kinds through the port's BVH and
+    BVH8 builders. Returns the largest |t| error."""
+    tri, every = (True, False, False), (True, True, True)
+    n_odd = N_RAYS - 37
+    room = random_rays(rng, N_RAYS, dev)
+    s_table, s_aux, s_stack = bvh8_of_rows(
+        torch.as_tensor(synthetic_table(rng), device=dev))
+    err = 0.0
+    for key in ("scene", "forest"):
+        scene, static = flat(key, dev)
+        sets = knot_rays(key, dev, rng)
+        prim, bounce = sets["primary"][:4], sets["bounce"][:4]
+        ro, rd, t0, t1, _ = sets["random"]
+        tmax_e, empty = with_empty(rng, t1)
+        args = (scene.bvh8_table, scene.bvh8_aux, static.bvh8_n_inst,
+                static.bvh8_stack)
+        cases = [   # label, table args, kinds, rays, tie canon, empty mask
+            ("primary, all-kinds variant", args, every, prim, None, None),
+            ("random, 30% empty intervals", args, tri,
+             (ro, rd, t0, tmax_e), None, empty),
+            ("random, 30% empty intervals, all-kinds variant", args, every,
+             (ro, rd, t0, tmax_e), None, empty),
+            (f"primary, N = {n_odd}", args, tri,
+             tuple(x[:n_odd] for x in prim), None, None)]
+        if key == "scene":
+            t2, n_prims = tree_twice(scene.bvh8_table)
+            from gpu_pathtracer_tpu_torch.geom import bvh8
+            stack2 = bvh8.stack_bound(t2.cpu().numpy(),
+                                      scene.bvh8_aux.cpu().numpy(), 0)
+            canon = torch.arange(2 * n_prims, device=dev) % n_prims
+            for set_name, rays in (("primary", prim), ("bounce", bounce)):
+                cases.append((f"tree twice (exact ties across leaves), "
+                              f"{set_name}", (t2, scene.bvh8_aux, 0, stack2),
+                              tri, rays, canon, None))
+        for label, (tab, aux, n_inst, stack), kinds, (o, d, lo, hi), \
+                canon, emp in cases:
+            kern, plain = k4_table_pair(tab, aux, n_inst, stack, kinds)
+            ck, ak = kern(o, d, lo, hi, False), kern(o, d, lo, hi, True)
+            cp, ap = plain(o, d, lo, hi, False), plain(o, d, lo, hi, True)
+            torch.cuda.synchronize()
+            # K4 takes a record by its division-free fraction, the plain
+            # walk by t: where the two disagree on which record is nearer
+            # (within an ulp), they cull other rows and may resolve a tie
+            # otherwise, so ties are held to the hit limits
+            err = max(err, hit_check(f"K4 {key} {label}", ck, cp, ak, ap,
+                                     canon, emp, exact_ties=False))
+    kern, plain = k4_table_pair(s_table, s_aux, 0, s_stack, every)
+    ro, rd, t0, t1 = room
+    tmax_e, empty = with_empty(rng, t1)
+    for label, hi, emp in (("", t1, None),
+                           (", 30% empty intervals", tmax_e, empty)):
+        ck, ak = kern(ro, rd, t0, hi, False), kern(ro, rd, t0, hi, True)
+        cp, ap = plain(ro, rd, t0, hi, False), plain(ro, rd, t0, hi, True)
+        torch.cuda.synchronize()
+        err = max(err, hit_check(
+            f"K4 synthetic512 as a BVH8 table ({s_table.shape[0]} rows), "
+            f"all kinds{label}", ck, cp, ak, ap, None, emp))
     return err
 
 
@@ -790,6 +957,165 @@ def k3_work(scene, ro, rd, t_lo, t_best) -> dict:
         out["rows"] += int((ent_s * sub_rows).sum())
         out["row_flops"] += int((ent_s * sub_flops).sum())
     return out
+
+
+XFORM_FLOPS = 39   # mapping a ray into an instance's frame: 3x4 by the
+                   # origin and 3x3 by the direction, 3 inverses
+
+
+def k4_work(table, aux, n_inst, ro, rd, t_lo, t_best) -> dict:
+    """The least work of any correct walk of this BVH8 table on these
+    rays, given each one's closest hit t_best (or the hit an any-hit walk
+    stops at; t_hi on a miss): open every node row whose box the ray
+    enters at tn <= t_best (the root always) and slab-test that row's
+    valid children; test the valid records of every leaf row it enters
+    at tn <= t_best, each by its type. Instanced (n_inst > 0): the
+    instances' world boxes are slab-tested, and each instance entered at
+    tn <= t_best is mapped into its frame and walked the same way from
+    its root row. Totals over the rays: {"inst", "inst_entered", "nodes",
+    "slabs", "leaves", "records", "record_flops"}."""
+    from gpu_pathtracer_tpu_torch.geom.blocked import safe_inv, slab
+    from gpu_pathtracer_tpu_torch.geom.packet import _xform
+    out = dict.fromkeys(("inst", "inst_entered", "nodes", "slabs", "leaves",
+                         "records", "record_flops"), 0)
+    for c in range(0, ro.shape[0], CHUNK):
+        o, d = ro[c:c + CHUNK], rd[c:c + CHUNK]
+        best = t_best[c:c + CHUNK]
+        if n_inst == 0:
+            tree_work(table, o, d, best,
+                      torch.zeros(o.shape[0], dtype=torch.long,
+                                  device=o.device), out)
+            continue
+        box = aux[:n_inst]
+        ent, _ = slab(box[:, 14:17], box[:, 17:20], o[:, None],
+                      safe_inv(d)[:, None], best[:, None])
+        out["inst"] += o.shape[0] * n_inst
+        lanes, k = ent.nonzero(as_tuple=True)
+        out["inst_entered"] += lanes.numel()
+        m = box[k]
+        tree_work(table, _xform(m, o[lanes], True),
+                  _xform(m, d[lanes], False), best[lanes],
+                  m[:, 12].long(), out)
+    return out
+
+
+def tree_work(table, o, d, best, roots, out) -> None:
+    """k4_work's count below node rows `roots`, one root per ray (its ray
+    in the tree's frame), added into `out`: a level at a time, every
+    (ray, node row) pair opened."""
+    from gpu_pathtracer_tpu_torch.geom.blocked import safe_inv, slab
+    inv = safe_inv(d)
+    ray = torch.arange(o.shape[0], device=o.device)
+    row = roots
+    while ray.numel():
+        out["nodes"] += ray.numel()
+        slots = table[row, :64].view(-1, 8, 8)
+        meta = slots[..., 6]
+        valid = meta != 0
+        out["slabs"] += int(valid.sum())
+        ent, _ = slab(slots[..., 0:3], slots[..., 3:6], o[ray, None],
+                      inv[ray, None], best[ray, None])
+        ent = ent & valid
+        leaf = ent & (meta < 0)
+        recs = table[(-meta[leaf]).long()].view(-1, 8, 16)
+        live = recs[..., 13] > 0
+        out["leaves"] += recs.shape[0]
+        out["records"] += int(live.sum())
+        out["record_flops"] += int((type_flops(recs[..., 9]) * live).sum())
+        node = ent & (meta > 0)
+        ray = ray[:, None].expand(-1, 8)[node]
+        row = meta[node].long()
+
+
+def walk_visits(table, ro, rd, t_lo, t_hi, kinds, stack) -> dict:
+    """The rows the plain walk (geom/packet.py::walk_torch, flat) visits
+    per ray, in its order (the kernel's, which culls alike): node rows
+    opened and leaf rows tested, counted lane by lane in lock step, and
+    per 32-lane warp the most any lane visits (a warp runs as long as
+    its longest walk). {"nodes", "leaves", "warp_max"}: [mean, p99]."""
+    from gpu_pathtracer_tpu_torch.geom.blocked import last_min, safe_inv, slab
+    from gpu_pathtracer_tpu_torch.geom.dense import rec_hits
+    n, dev = ro.shape[0], ro.device
+    inv = safe_inv(rd)
+    live = t_hi >= t_lo
+    nodes = torch.zeros(n, dtype=torch.int64, device=dev)
+    leaves = torch.zeros_like(nodes)
+    stack = torch.zeros((n, stack + 1), dtype=torch.int64, device=dev)
+    sp = live.long()
+    bt = t_hi.clone()
+    while True:
+        act = (sp > 0).nonzero().squeeze(1)
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        e = stack[act, sp[act]]
+        node = e >= 0
+        a = act[node]
+        if a.numel():
+            nodes[a] += 1
+            rows = table[e[node], :64].view(-1, 8, 8)
+            hit, tn = slab(rows[..., 0:3], rows[..., 3:6], ro[a, None],
+                           inv[a, None], bt[a, None])
+            hit = hit & (rows[..., 6] != 0)
+            order = torch.sort(torch.where(hit, tn, torch.inf), dim=1,
+                               stable=True).indices
+            nh = hit.sum(1)
+            meta = rows[..., 6].gather(1, order).long()
+            for r in range(8):   # the nearest lands on top
+                sel = nh > r
+                stack[a[sel], sp[a[sel]] + nh[sel] - 1 - r] = meta[sel, r]
+            sp[a] += nh
+        a = act[~node]
+        if a.numel():
+            leaves[a] += 1
+            rec = table[-e[~node]].view(-1, 8, 16)
+            ok, t = rec_hits([rec[..., c] for c in range(12)],
+                             tuple(ro[a, k:k + 1] for k in range(3)),
+                             tuple(rd[a, k:k + 1] for k in range(3)),
+                             t_lo[a, None], bt[a, None], kinds)
+            got, t_new, _ = last_min(ok & (rec[..., 13] > 0), t)
+            bt[a] = torch.where(got, t_new, bt[a])
+    steps = nodes + leaves
+    warp = torch.cat([steps, steps.new_zeros((-n) % 32)]).view(-1, 32) \
+        .amax(1)
+    q = lambda x: [x.float().mean().item(),  # noqa: E731
+                   x.float().quantile(0.99).item()]
+    return {"nodes": q(nodes[live]), "leaves": q(leaves[live]),
+            "warp_max": q(warp)}
+
+
+def visits_line(v) -> str:
+    return (f"the plain walk visits {v['nodes'][0]:.3f} node rows (p99 "
+            f"{v['nodes'][1]:.0f}) and {v['leaves'][0]:.3f} leaf rows (p99 "
+            f"{v['leaves'][1]:.0f}) a live ray; a warp's longest lane "
+            f"{v['warp_max'][0]:.3f} rows (p99 {v['warp_max'][1]:.0f})")
+
+
+def k4_bound(table, aux, n_inst, ro, rd, t_lo, t_hi, t_best,
+             any_hit=False) -> dict:
+    """K4's bound on these rays: a live ray (t_lo <= t_hi) reads its 32 B
+    and writes its hit (8 B, 1 B for any hit), a ray with an empty
+    interval reads its 8 B of interval and writes the same, the table
+    and the instance rows are read once; the operations are k4_work's
+    given t_best (the plain walk's), under "work" per live ray."""
+    live = t_hi >= t_lo
+    nl, n = int(live.sum()), ro.shape[0]
+    w = k4_work(table, aux, n_inst, ro[live], rd[live], t_lo[live],
+                t_best[live])
+    out_b = 1 if any_hit else 8
+    b = bound(nl * (32 + out_b) + (n - nl) * (8 + out_b)
+              + table.numel() * 4 + n_inst * 80,
+              SLAB_FLOPS * (w["inst"] + w["slabs"])
+              + XFORM_FLOPS * w["inst_entered"] + w["record_flops"])
+    per = {k: v / max(nl, 1) for k, v in w.items()}
+    b["work"] = ((f"a live ray: {per['inst']:.3f} instance box tests, "
+                  f"{per['inst_entered']:.3f} instances entered, "
+                  if n_inst else "a live ray: ")
+                 + f"{per['nodes']:.3f} node rows ({per['slabs']:.3f} slab "
+                 f"tests), {per['leaves']:.3f} leaf rows ({per['records']:.3f}"
+                 f" records, {per['record_flops']:.1f} flops)")
+    b["per_ray"] = per
+    return b
 
 
 def warp_coherence(bb, ro, rd, t_lo, t_best, k_max=16) -> dict:
@@ -961,6 +1287,8 @@ def phase_c(dev, rng, records):
                   f"wavefront {key} {mode}: launches {counts}")
     phase_c_media(dev, records, SMOKE)
     phase_c_media(dev, records, SMOKE_SKY)
+    from gpu_pathtracer_tpu_torch.geom import packet_cuda
+    packet_cuda.check_overflow()   # no K4 walk of this phase overflowed
 
 
 def phase_d(dev, card, records):
@@ -1037,8 +1365,8 @@ def phase_d(dev, card, records):
         if key == "forest":   # its host build on an emptied cache (the
             shutil.rmtree(bvh.cache_dir())   # BLAS are cached, the TLAS not)
         builds = main_path(key, kname, spp, card, records,
-                           capture=capture_main_k3 if key == "blocked"
-                           else None)
+                           capture={"blocked": capture_main_k3,
+                                    "scene": capture_main_k4}.get(key))
         if key == "forest":
             print(f"[D] {KNOT[key]} host build: cold {builds[0]:.3f} s, "
                   f"BVH cache hit {builds[1]:.3f} s")
@@ -1163,8 +1491,8 @@ def phase_e(dev, rng, card, records):
     ro, rd, tmin, tmax = random_rays(rng, n, dev)
     table = scene.dense_prims
     kinds = dense.kinds_of(static)   # triangles only: the main path's variant
-    HIT_INPUTS["K1 cornell_port 1M random"] = ("K1", SCENES[0], table, ro, rd,
-                                               tmin, tmax)
+    HIT_INPUTS["K1 cornell_port 1M random"] = hit_call(
+        "K1", SCENES[0], table, ro, rd, tmin, tmax)
     t1 = timed_windows({
         "kernel": lambda: dense_cuda.dense_hit_cuda(table, ro, rd, tmin,
                                                     tmax, False, kinds),
@@ -1218,15 +1546,18 @@ def phase_e(dev, rng, card, records):
                                plain_ms=mean(t2["plain"]), **b_k2,
                                library_ms=None)
 
-    # K2's environment and textured variants alone, each on its scene's
-    # primary rays; their bounds add the sky map's or the texture
-    # atlas's bytes, read once
-    for key in ("env", "textured"):
-        sc, st = flatten_scene(
-            load_scene(os.path.join(REPO, K2_VARIANTS[key])), dev)
+    HIT_INPUTS["K2 cornell_port one spp"] = hit_call(
+        "K2", SCENES[0], table, p_ro, p_rd, lanes=lanes32)
+    print(f"[E] K2 variant {variant_name(static)} is cornell_port's")
+
+    # K2's other variants alone, each on its scene's primary rays; their
+    # bounds add the sky map's and the texture atlas's bytes, read once
+    for key, path in (*K2_VARIANTS.items(), ("materials", SCENES[1])):
+        sc, st = flatten_scene(load_scene(os.path.join(REPO, path)), dev)
         v_ro, v_rd = primary_rays(
             sc, st, lane_stream(SEED, 1, lanes, None, 0, PSS_CAM_DIMS), px,
             py)
+        v_ro, v_rd = v_ro.contiguous(), v_rd.contiguous()
         tv = timed_windows({
             "kernel": lambda: pt_fused.fused_call(sc, st, SEED, 1, lanes32,
                                                   v_ro, v_rd),
@@ -1234,26 +1565,29 @@ def phase_e(dev, rng, card, records):
                                             v_rd, plain=True)})
         _, v_rays = pt_fused.fused_call(sc, st, SEED, 1, lanes32, v_ro, v_rd)
         v_rays = int(v_rays.sum())
-        extra = (sc.env_data.numel() * 4 if key == "env"
-                 else sc.tex_data.numel())
+        extra = ((sc.env_data.numel() * 4 if st.has_infinite else 0)
+                 + (sc.tex_data.numel() if st.has_textures else 0))
         fv = row_flops(sc.dense_prims)
         bv = bound(n * 44 + sc.dense_prims.numel() * 4
                    + sc.prim_attrs.numel() * 4 + extra, v_rays * fv)
-        print(f"[E] K2 {key} variant alone, one spp of {K2_VARIANTS[key]} "
+        HIT_INPUTS[f"K2 {key} one spp"] = hit_call(
+            "K2", path, sc.dense_prims, v_ro, v_rd, lanes=lanes32)
+        print(f"[E] K2 variant {variant_name(st)} alone, one spp of {path} "
               f"at 1024x1024 depth 5 from given primary rays: kernel "
               f"{mean(tv['kernel']):.4f} ms (windows {span(tv['kernel'])}), "
               f"plain {mean(tv['plain']):.4f} ms ({span(tv['plain'])}); "
               f"bound {bv['bound_ms']:.4f} ms by {bv['bound_by']} ({v_rays} "
               f"rays x {fv} flops over {st.n_primitives} prims, {extra} "
-              f"bytes of "
-              f"{'sky' if key == 'env' else 'texels'}) ({card})")
+              f"bytes of sky and texels) ({card})")
         records["pt_fused"].update({
             f"ms_{key}": mean(tv["kernel"]),
             f"plain_ms_{key}": mean(tv["plain"]),
             f"bound_ms_{key}": bv["bound_ms"],
             f"bound_by_{key}": bv["bound_by"]})
 
-    # K3 / K4 closest hit on each scene's 1M primary and bounce rays
+    # K3 / K4 closest hit on each scene's 1M primary and bounce rays, each
+    # beside its bound: the least work of K3's culling levels (k3_work),
+    # of any walk of K4's table (k4_work), given the plain version's hits
     for key, kname, pair, rec in (
             ("blocked", "K3", k3_pair, "blocked"),
             ("scene", "K4 flat", k4_pair, "bvh8_walk"),
@@ -1270,44 +1604,63 @@ def phase_e(dev, rng, card, records):
             line = (f"[E] {kname} closest hit, {KNOT[key]} 1M {set_name} "
                     f"rays: kernel {mean(t['kernel']):.4f} ms (windows "
                     f"{span(t['kernel'])})")
-            if rec is not None:
-                line += (f", plain {mean(t['plain']):.4f} ms "
-                         f"({span(t['plain'])})")
-                if key != "forest":
-                    t_best = (plain(ro, rd, t_lo, t_hi, False)[0]
-                              if rec == "blocked" else None)
-                    b = hit_bound(rec, scene, ro, rd, t_lo, t_hi, t_best)
-                    line += (f"; bound {b['bound_ms']:.4f} ms by "
-                             f"{b['bound_by']}")
-                    if rec == "blocked":
-                        line += f" ({b['work']})"
-                        HIT_INPUTS[f"K3 blocked.json 1M {set_name}"] = (
-                            "K3", KNOT[key], scene.dense_prims, ro, rd, t_lo,
-                            t_hi)
-                    sfx = "" if set_name == "primary" else "_bounce"
-                    records[rec].update({
-                        f"ms{sfx}": mean(t["kernel"]),
-                        f"plain_ms{sfx}": mean(t["plain"]),
-                        f"bound_ms{sfx}": b["bound_ms"],
-                        f"bound_by{sfx}": b["bound_by"]})
-                    records[rec]["library_ms"] = None
-                if key == "forest":
-                    sfx = "" if set_name == "primary" else "_bounce"
-                    records[rec].update({
-                        f"ms_instanced{sfx}": mean(t["kernel"]),
-                        f"plain_ms_instanced{sfx}": mean(t["plain"])})
-            print(line + f" ({card})")
+            if rec is None:
+                print(line + f" ({card})")
+                continue
+            t_best = plain(ro, rd, t_lo, t_hi, False)[0]
+            if rec == "blocked":
+                b = k3_bound(scene, ro, rd, t_lo, t_hi, t_best)
+                HIT_INPUTS[f"K3 blocked.json 1M {set_name}"] = hit_call(
+                    "K3", KNOT[key], scene.dense_prims, ro, rd, t_lo, t_hi)
+            else:
+                b = k4_bound(scene.bvh8_table, scene.bvh8_aux,
+                             static.bvh8_n_inst, ro, rd, t_lo, t_hi, t_best)
+                HIT_INPUTS[f"{kname} {key} 1M {set_name}"] = hit_call(
+                    "K4", KNOT[key], scene.bvh8_table, ro, rd, t_lo, t_hi)
+            print(line + f", plain {mean(t['plain']):.4f} ms "
+                  f"({span(t['plain'])}); bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']} ({b['work']}) ({card})")
+            sfx = ("" if key != "forest" else "_instanced") + \
+                ("" if set_name == "primary" else "_bounce")
+            if key == "scene":
+                v = walk_visits(scene.bvh8_table, ro, rd, t_lo, t_hi,
+                                dense.kinds_of(static), static.bvh8_stack)
+                print(f"[E] K4 {KNOT[key]} 1M {set_name} rays: "
+                      f"{visits_line(v)}")
+                records[rec][f"visits{sfx}"] = v
+            records[rec].update({
+                f"ms{sfx}": mean(t["kernel"]),
+                f"plain_ms{sfx}": mean(t["plain"]),
+                f"bound_ms{sfx}": b["bound_ms"],
+                f"bound_by{sfx}": b["bound_by"]})
+            if "per_ray" in b:
+                records[rec][f"work{sfx}"] = b["per_ray"]
+            records[rec]["library_ms"] = None
     phase_e_k3_main(dev, card, records)
+    phase_e_k4_main(card, records)
     phase_e_media(dev, rng, card, records)
     if BASELINE:
         baseline_times(card)
 
 
+def hit_call(kernel, spath, table, ro, rd, t0=None, t1=None,
+             any_hit=False, lanes=None) -> dict:
+    """A kernel call phase E times, saved for --baseline: K1, K3 or K4 (a
+    hit query: the rays' interval t0..t1, closest or any hit) or K2
+    (primary rays and their lane ids) on the scene at repo path `spath`,
+    whose table (dense_prims, or bvh8_table for K4) a checkout must
+    flatten to."""
+    return {"kernel": kernel, "scene": spath, "table": table, "ro": ro,
+            "rd": rd, "t0": t0, "t1": t1, "any_hit": any_hit,
+            "lanes": lanes}
+
+
 def baseline_times(card):
-    """K1 and K3 of the checkout at BASELINE and of this one on the same
-    inputs (HIT_INPUTS, saved under build/), closest hit through the
-    routes (geom/dense.py::dense_closest, geom/blocked.py::
-    blocked_closest, whose signatures do not change), each checkout in a
+    """K1, K2, K3 and K4 of the checkout at BASELINE and of this one on the
+    same calls (HIT_INPUTS, saved under build/), through the routes
+    (geom/dense.py::dense_closest, geom/blocked.py::blocked_closest,
+    geom/packet.py::walk_closest / walk_any, integrators/pt_fused.py::
+    fused_call, whose signatures do not change), each checkout in a
     process of its own, in turns: baseline, this, this, baseline."""
     path = os.path.join(REPO, "build", "hit_inputs.pt")
     torch.save(HIT_INPUTS, path)
@@ -1317,15 +1670,16 @@ def baseline_times(card):
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--time-hits", path, root], capture_output=True,
                            text=True)
-        check(p.returncode == 0, f"timing the hit kernels of {root} failed:\n"
+        check(p.returncode == 0, f"timing the kernels of {root} failed:\n"
               f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
         for label, ms in json.loads(p.stdout.splitlines()[-1]).items():
             runs.setdefault((root, label), []).extend(ms)
     os.unlink(path)
-    for label, call in HIT_INPUTS.items():
-        live = int((call[6] >= call[5]).sum())
+    for label, c in HIT_INPUTS.items():
+        n = c["ro"].shape[0]
+        live = n if c["t0"] is None else int((c["t1"] >= c["t0"]).sum())
         old, new = runs[(BASELINE, label)], runs[(REPO, label)]
-        print(f"[E] {label} ({call[3].shape[0]} lanes, {live} live): baseline "
+        print(f"[E] {label} ({n} lanes, {live} live): baseline "
               f"{BASELINE} {sum(old) / len(old):.4f} ms (windows "
               f"{min(old):.4f}-{max(old):.4f}), this checkout "
               f"{sum(new) / len(new):.4f} ms ({min(new):.4f}-{max(new):.4f}) "
@@ -1333,31 +1687,41 @@ def baseline_times(card):
 
 
 def time_hits(path, root):
-    """The child of --baseline: time the K1 and K3 routes of the checkout
-    at `root` on the inputs saved at `path`, on scenes that checkout
-    flattens (their dense_prims must equal the saved ones), in windows of
-    about one second; prints {label: [ms per window]} as its last line."""
+    """The child of --baseline: time the K1, K2, K3 and K4 routes of the
+    checkout at `root` on the calls saved at `path` (hit_call), on scenes
+    that checkout flattens (their tables must equal the saved ones), in
+    windows of about one second; prints {label: [ms per window]} as its
+    last line."""
     sys.path.insert(0, os.path.abspath(root))
     import gpu_pathtracer_tpu_torch
-    from gpu_pathtracer_tpu_torch.geom import blocked, dense
+    from gpu_pathtracer_tpu_torch.geom import blocked, dense, packet
+    from gpu_pathtracer_tpu_torch.integrators import pt_fused
     from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
     from gpu_pathtracer_tpu_torch.scene.parse import load_scene
     pkg = os.path.dirname(os.path.dirname(gpu_pathtracer_tpu_torch.__file__))
     check(pkg == os.path.abspath(root), f"imported the package of {pkg}")
     dev = torch.device("cuda", 0)
     scenes, out = {}, {}
-    for label, (kernel, spath, table, ro, rd, t0, t1) in torch.load(
-            path).items():
+    for label, c in torch.load(path).items():
+        spath = c["scene"]
         if spath not in scenes:
             scenes[spath] = flatten_scene(
                 load_scene(os.path.join(REPO, spath)), dev)
         sc, st = scenes[spath]
-        check(torch.equal(sc.dense_prims, table), f"{label}: {root} "
+        table = sc.bvh8_table if c["kernel"] == "K4" else sc.dense_prims
+        check(torch.equal(table, c["table"]), f"{label}: {root} "
               f"flattens {spath} to another table")
-        route = dense.dense_closest if kernel == "K1" else \
-            blocked.blocked_closest
-        out[label] = timed_windows(
-            {label: lambda: route(sc, st, ro, rd, t0, t1)}, min_reps=3)[label]
+        ro, rd, t0, t1 = c["ro"], c["rd"], c["t0"], c["t1"]
+        if c["kernel"] == "K2":
+            fn = lambda: pt_fused.fused_call(  # noqa: E731
+                sc, st, SEED, 1, c["lanes"], ro, rd)
+        else:
+            route = {"K1": dense.dense_closest,
+                     "K3": blocked.blocked_closest,
+                     "K4": packet.walk_any if c["any_hit"] else
+                     packet.walk_closest}[c["kernel"]]
+            fn = lambda: route(sc, st, ro, rd, t0, t1)  # noqa: E731
+        out[label] = timed_windows({label: fn}, min_reps=3)[label]
     print(json.dumps(out))
 
 
@@ -1369,7 +1733,7 @@ def phase_e_k3_main(dev, card, records):
     if "args" not in MAIN_K3:
         return
     tab, bb, sub, ro, rd, t_lo, t_hi, kinds = MAIN_K3["args"]
-    HIT_INPUTS["K3 blocked.json main-path call"] = (
+    HIT_INPUTS["K3 blocked.json main-path call"] = hit_call(
         "K3", KNOT["blocked"], tab, ro, rd, t_lo, t_hi)
     t = timed_windows({
         "kernel": lambda: blocked_cuda.blocked_hit_cuda(
@@ -1379,7 +1743,7 @@ def phase_e_k3_main(dev, card, records):
     from types import SimpleNamespace
     scene = SimpleNamespace(dense_prims=tab, block_bbox=bb, block_sub=sub)
     ent = k3_entries(scene, ro, rd, t_lo, t_hi, kinds)
-    b = hit_bound("blocked", scene, ro, rd, t_lo, t_hi, ent["t"])
+    b = k3_bound(scene, ro, rd, t_lo, t_hi, ent["t"])
     live = int((t_hi >= t_lo).sum())
     mean = lambda v: sum(v) / len(v)  # noqa: E731
     print(f"[E] K3 closest hit on blocked.json's main-path call (bounce 1, "
@@ -1397,19 +1761,14 @@ def phase_e_k3_main(dev, card, records):
         entered_main=entry_summary(ent), warps_main=coh)
 
 
-def hit_bound(rec, scene, ro, rd, t_lo, t_hi, t_best) -> dict:
-    """The bound of K3 ("blocked") or K4 ("bvh8_walk") on these rays. K3:
-    a live ray (t_lo <= t_hi) reads its 32 B and writes 8 B, a ray with
-    an empty interval reads its 8 B of interval and writes 8 B, and the
-    three tables are read once; its operations are the least work of
-    K3's culling levels (k3_work) given each live ray's closest hit
-    `t_best` (the plain version's t, t_hi on a miss), under "work" per
-    live ray. K4, whose walk length is not counted: a lower bound of one
-    8-wide node and one 8-record leaf per ray."""
+def k3_bound(scene, ro, rd, t_lo, t_hi, t_best) -> dict:
+    """The bound of K3 on these rays: a live ray (t_lo <= t_hi) reads its
+    32 B and writes 8 B, a ray with an empty interval reads its 8 B of
+    interval and writes 8 B, and the three tables are read once; its
+    operations are the least work of K3's culling levels (k3_work) given
+    each live ray's closest hit `t_best` (the plain version's t, t_hi on
+    a miss), under "work" per live ray. K4's is k4_bound."""
     n = ro.shape[0]
-    if rec == "bvh8_walk":
-        return bound(n * RAY_IO + scene.bvh8_table.numel() * 4,
-                     n * (8 * SLAB_FLOPS + 8 * TRI_FLOPS))
     live = t_hi >= t_lo
     nl = int(live.sum())
     w = k3_work(scene, ro[live], rd[live], t_lo[live], t_best[live])
@@ -1637,6 +1996,77 @@ def capture_main_k3():
     return lambda: setattr(blocked_cuda, "blocked_hit_cuda", orig)
 
 
+MAIN_K4 = {}   # the K4 calls captured on scene.json's main path (phase D)
+
+
+def capture_main_k4():
+    """Wrap packet_cuda.bvh8_walk_cuda so that the wavefront's second
+    closest-hit call (bounce 1) and its second any-hit call (bounce 1's
+    shadow rays) keep a copy of their arguments in MAIN_K4. Returns the
+    function that takes the wrapper away."""
+    from gpu_pathtracer_tpu_torch.geom import packet_cuda
+    orig = packet_cuda.bvh8_walk_cuda
+    seen = {False: 0, True: 0}
+
+    def wrapper(table, aux, n_inst, ro, rd, tmin, tmax, any_hit, stack,
+                kinds=(True, True, True)):
+        seen[any_hit] += 1
+        if seen[any_hit] == 2:
+            MAIN_K4["any" if any_hit else "closest"] = (
+                table, aux, n_inst, ro.clone(), rd.clone(), tmin.clone(),
+                tmax.clone(), stack, kinds)
+        return orig(table, aux, n_inst, ro, rd, tmin, tmax, any_hit, stack,
+                    kinds)
+
+    packet_cuda.bvh8_walk_cuda = wrapper
+    return lambda: setattr(packet_cuda, "bvh8_walk_cuda", orig)
+
+
+def phase_e_k4_main(card, records):
+    """K4 on the two calls captured from scene.json's main path in phase D
+    (bounce 1's closest hit and shadow rays, lanes sorted, finished lanes
+    empty): kernel vs plain, each with its bound (k4_work given the plain
+    walk's hit: its closest hit, or the hit its any-hit walk stops at)."""
+    from gpu_pathtracer_tpu_torch.geom import packet, packet_cuda
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    for kind in ("closest", "any"):
+        if kind not in MAIN_K4:
+            continue
+        table, aux, n_inst, ro, rd, t_lo, t_hi, stack, kinds = MAIN_K4[kind]
+        any_hit = kind == "any"
+        HIT_INPUTS[f"K4 scene.json main-path {kind} call"] = hit_call(
+            "K4", KNOT["scene"], table, ro, rd, t_lo, t_hi, any_hit)
+        t = timed_windows({
+            "kernel": lambda: packet_cuda.bvh8_walk_cuda(
+                table, aux, n_inst, ro, rd, t_lo, t_hi, any_hit, stack,
+                kinds),
+            "plain": lambda: packet.walk_torch(
+                table, aux, n_inst, ro, rd, t_lo, t_hi, any_hit, kinds,
+                stack)}, min_reps=1)
+        res = packet.walk_torch(table, aux, n_inst, ro, rd, t_lo, t_hi,
+                                any_hit, kinds, stack, with_t=True)
+        b = k4_bound(table, aux, n_inst, ro, rd, t_lo, t_hi, res[1 if any_hit
+                                                                else 0],
+                     any_hit)
+        live = int((t_hi >= t_lo).sum())
+        if not any_hit:
+            v = walk_visits(table, ro, rd, t_lo, t_hi, kinds, stack)
+            print(f"[E] K4 main-path closest call: {visits_line(v)}")
+            records["bvh8_walk"]["visits_main"] = v
+        print(f"[E] K4 {kind} hit on scene.json's main-path call (bounce 1, "
+              f"{ro.shape[0]} sorted lanes, {live} live): kernel "
+              f"{mean(t['kernel']):.4f} ms (windows {min(t['kernel']):.4f}-"
+              f"{max(t['kernel']):.4f}), plain {mean(t['plain']):.4f} ms; "
+              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['work']})"
+              f" ({card})")
+        sfx = "_main" if kind == "closest" else "_main_any"
+        records["bvh8_walk"].update({
+            f"ms{sfx}": mean(t["kernel"]), f"plain_ms{sfx}": mean(t["plain"]),
+            f"bound_ms{sfx}": b["bound_ms"], f"bound_by{sfx}": b["bound_by"],
+            f"work{sfx}": b["per_ray"], f"live{sfx}": live})
+    packet_cuda.check_overflow()
+
+
 K1_CALLS = []   # (lanes, live lanes, wholly empty warps, warps) per call
 K1_ARGS = []    # with --baseline: each call's (table, ro, rd, tmin, tmax)
 
@@ -1698,7 +2128,8 @@ def k1_live_report(records, n_steps):
         for label, k in (("step 3 closest hit", 3 * per),
                          ("step 3 first surface-NEE Tr segment",
                           3 * per + 1 + (per - 1) // 2)):
-            HIT_INPUTS[f"K1 smoke VPT {label}"] = ("K1", SMOKE, *K1_ARGS[k])
+            HIT_INPUTS[f"K1 smoke VPT {label}"] = hit_call("K1", SMOKE,
+                                                           *K1_ARGS[k])
         K1_ARGS.clear()
 
 
@@ -1929,8 +2360,8 @@ def main() -> None:
                     help="directory for the PNGs and compiler reports")
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="another checkout of the port (e.g. a git archive "
-                    "of the parent commit): phase E also times its K1 and "
-                    "K3 beside this checkout's on the same inputs")
+                    "of the parent commit): phase E also times its K1, K2, "
+                    "K3 and K4 beside this checkout's on the same inputs")
     ap.add_argument("--time-hits", nargs=2, metavar=("INPUTS", "ROOT"),
                     help=argparse.SUPPRESS)   # --baseline's child processes
     args = ap.parse_args()

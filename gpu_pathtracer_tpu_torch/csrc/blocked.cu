@@ -74,16 +74,6 @@ __device__ __forceinline__ float key_t(unsigned key) {
   return __uint_as_float(key & ~(unsigned)(kMaxBlocks - 1));
 }
 
-// Insert `key` into the ascending list l (the largest falls off).
-__device__ __forceinline__ void insert(unsigned (&l)[kList], unsigned key) {
-#pragma unroll
-  for (int i = 0; i < kList; ++i) {
-    const unsigned lo = min(l[i], key);
-    key = max(l[i], key);
-    l[i] = lo;
-  }
-}
-
 __device__ __forceinline__ bool box_hit(const float4* box, V3 o, V3 inv,
                                         float tmax_, float* tn) {
   const float4 a = box[0], b = box[1];   // min xyz, max x | max yz, pad
@@ -160,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
           const unsigned key = make_key(tn, b);
           if (key < floor_key) continue;
           ++entered;
-          if (key < l[kList - 1]) insert(l, key);
+          if (key < l[kList - 1]) list_insert(l, key);
         }
       }
       more = entered > kList;   // blocks past the list: another pass

@@ -46,24 +46,6 @@ constexpr int kRays = 2;   // rays per thread
 constexpr int kPerBlock = kThreads * kRays;
 constexpr int kWarps = kThreads / 32;
 
-// Stage the table with each triangle's normal in columns 13-15.
-__device__ __forceinline__ void stage_rows(float4* dst, const float* src,
-                                           int n_prims) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  for (int p = threadIdx.x; p < n_prims; p += blockDim.x) {
-    const float4 q0 = s4[4 * p], q1 = s4[4 * p + 1], q2 = s4[4 * p + 2];
-    V3 n = mk(0.f, 0.f, 0.f);
-    if (q2.y == PRIM_TRIANGLE) {
-      n = fcross(mk(q0.w, q1.x, q1.y), mk(q1.z, q1.w, q2.x));
-    }
-    dst[4 * p] = q0;
-    dst[4 * p + 1] = q1;
-    dst[4 * p + 2] = q2;
-    dst[4 * p + 3] = make_float4(s4[4 * p + 3].x, n.x, n.y, n.z);
-  }
-  __syncthreads();
-}
-
 template <bool kAll>
 __global__ void __launch_bounds__(kThreads)
     dense_kernel(const float* __restrict__ prims, int n_prims,

@@ -76,59 +76,6 @@ __device__ __forceinline__ bool line_hit(V3 ro, V3 rd, V3 p0, V3 p1,
   return ok && (d2 <= rr * rr);
 }
 
-// One dense_prims row [16] (staged as 4 float4) against a ray: v0 in
-// columns 0-2, e1 / p1 in 3-5, e2 in 6-8, type in 9, radii in 10-11.
-__device__ __forceinline__ bool prim_hit(const float4* row, V3 ro, V3 rd,
-                                         float tmin, float tmax_, float* t) {
-  const float4 q0 = row[0], q1 = row[1], q2 = row[2];
-  const float type = q2.y;
-  const V3 v0 = mk(q0.x, q0.y, q0.z);
-  const V3 a = mk(q0.w, q1.x, q1.y);
-  if (type == PRIM_TRIANGLE) {
-    return tri_hit(ro, rd, v0, a, mk(q1.z, q1.w, q2.x), tmin, tmax_, t);
-  }
-  if (type == PRIM_SPHERE) {
-    return sphere_hit(ro, rd, v0, q2.z, tmin, tmax_, t);
-  }
-  if (type == PRIM_LINE) {
-    float s;
-    return line_hit(ro, rd, v0, a, q2.z, q2.w, tmin, tmax_, t, &s);
-  }
-  return false;  // pad row
-}
-
-// Closest prim of an n_prims-row table staged in shared memory. Returns
-// the prim row (-1 for a miss) and leaves the hit's t in *t (tmax_ on a
-// miss). A row must beat the best t strictly, so ties keep the FIRST
-// row and a hit exactly at tmax_ does not count, like the JAX package's
-// dense_closest and geom/dense.py::dense_closest_torch.
-__device__ __forceinline__ int closest_loop(const float4* prims, int n_prims,
-                                            V3 ro, V3 rd, float tmin,
-                                            float tmax_, float* t) {
-  float best_t = tmax_;
-  int best = -1;
-  for (int p = 0; p < n_prims; ++p) {
-    float tp;
-    if (prim_hit(prims + 4 * p, ro, rd, tmin, best_t, &tp) && tp < best_t) {
-      best_t = tp;
-      best = p;
-    }
-  }
-  *t = best_t;
-  return best;
-}
-
-// Any hit within [tmin, tmax_]: stops at the first row that is hit.
-__device__ __forceinline__ bool any_loop(const float4* prims, int n_prims,
-                                         V3 ro, V3 rd, float tmin,
-                                         float tmax_) {
-  for (int p = 0; p < n_prims; ++p) {
-    float tp;
-    if (prim_hit(prims + 4 * p, ro, rd, tmin, tmax_, &tp)) return true;
-  }
-  return false;
-}
-
 // 1 / d with |d| kept >= 1e-20 (sign kept, -0 counts as +): slab planes
 // stay finite for axis-parallel rays (dense_tpu.py:324-330).
 __device__ __forceinline__ float safe_inv(float d) {
@@ -156,19 +103,10 @@ __device__ __forceinline__ bool slab_hit(V3 lo, V3 hi, V3 o, V3 inv,
   return (tf > 1e-5f) && (tn <= tf) && (tn <= tmax_);
 }
 
-// Stage a [n_prims, 16] f32 table into shared memory (all threads of
-// the block take part; ends with a barrier).
-__device__ __forceinline__ void stage_prims(float4* dst, const float* src,
-                                            int n_prims) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  for (int i = threadIdx.x; i < 4 * n_prims; i += blockDim.x) dst[i] = s4[i];
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------
-// Routines of the two redesigned hit kernels only (dense.cu K1 and
-// blocked.cu K3). They pick rows as the plain versions do within the hit
-// limits, not bit for bit:
+// Routines of the redesigned hit tests (dense.cu K1, blocked.cu K3,
+// bvh8_walk.cu K4 and pt_fused.cu K2's prim loops). They pick rows as
+// the plain versions do within the hit limits, not bit for bit:
 // - the triangle test compares the barycentric numerators and t's
 //   numerator against |det| (signs flipped by det's sign) and does not
 //   divide: the kernels keep their best hit as a fraction tnum / |det|
@@ -180,9 +118,9 @@ __device__ __forceinline__ void stage_prims(float4* dst, const float* src,
 //   written out: every source is built with -fmad=false, so nothing else
 //   fuses and the sphere, line and box tests stay those of the plain
 //   versions);
-// - K1 takes det and t's numerator from the triangle's normal
-//   n = e1 x e2 (staged once per row): det = -d.n, tnum = (o - v0).n,
-//   the barycentrics from q = (o - v0) x d.
+// - K1 and K2 take det and t's numerator from the triangle's normal
+//   n = e1 x e2 (staged once per row, stage_rows): det = -d.n,
+//   tnum = (o - v0).n, the barycentrics from q = (o - v0) x d.
 
 __device__ __forceinline__ float fdot(V3 a, V3 b) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, a.z * b.z));
@@ -242,4 +180,37 @@ __device__ __forceinline__ float widen_hi(float t) {
 template <bool kSpheres>
 __device__ __forceinline__ bool empty_interval(float tmin, float tmax_) {
   return !(tmax_ >= tmin) && (!kSpheres || !(tmax_ > 0.f));
+}
+
+// Stage a [n_prims, 16] dense_prims table into shared memory with each
+// triangle's normal n = e1 x e2 in columns 13-15 (0 for any other row);
+// column 12 (the prim id) is kept. All threads of the block take part;
+// ends with a barrier.
+__device__ __forceinline__ void stage_rows(float4* dst, const float* src,
+                                           int n_prims) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  for (int p = threadIdx.x; p < n_prims; p += blockDim.x) {
+    const float4 q0 = s4[4 * p], q1 = s4[4 * p + 1], q2 = s4[4 * p + 2];
+    V3 n = mk(0.f, 0.f, 0.f);
+    if (q2.y == PRIM_TRIANGLE) {
+      n = fcross(mk(q0.w, q1.x, q1.y), mk(q1.z, q1.w, q2.x));
+    }
+    dst[4 * p] = q0;
+    dst[4 * p + 1] = q1;
+    dst[4 * p + 2] = q2;
+    dst[4 * p + 3] = make_float4(s4[4 * p + 3].x, n.x, n.y, n.z);
+  }
+  __syncthreads();
+}
+
+// Insert `key` into the ascending list l of N keys (the largest falls
+// off): the sorted register lists of K3's blocks and K4's instances.
+template <int N>
+__device__ __forceinline__ void list_insert(unsigned (&l)[N], unsigned key) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const unsigned lo = min(l[i], key);
+    key = max(l[i], key);
+    l[i] = lo;
+  }
 }

@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from gpu_pathtracer_tpu_torch.kernels import (
-    KernelStats, check_cuda_f32, check_launch, load_library,
+    KernelStats, all_kinds, check_cuda_f32, check_launch, load_library,
 )
 
 DENSE_MAX = 512
@@ -64,7 +64,7 @@ def dense_hit_cuda(dense_prims, ro, rd, tmin, tmax, any_hit: bool, kinds):
         t.data_ptr() if t is not None else None,
         prim.data_ptr() if prim is not None else None,
         found.data_ptr() if found is not None else None, n, int(any_hit),
-        int(tuple(map(bool, kinds)) != (True, False, False)),
+        int(all_kinds(kinds)),
         torch.cuda.current_stream(device).cuda_stream)
     check_launch(rc, "dense_hit")
     STATS.launches += 1

@@ -21,13 +21,17 @@ tlas.py:9-14), walk from the root row in col 12, and add the slot base
 in col 13 to the hit's BLAS-local id.
 
 On a CUDA tensor `walk_closest` / `walk_any` launch the hand-written
-kernel (csrc/bvh8_walk.cu through geom/packet_cuda.py); on a CPU tensor
-they run `walk_torch`, the same walk in plain PyTorch: lanes step
-together, each popping its own entry, and a leaf row's 8 records are
-tested at once, the smallest t winning with the last slot among equals,
-which is what the kernel's in-order loop yields. The stack holds
-`static.bvh8_stack` entries (bvh8.stack_bound); a walk that would pass
-it raises.
+kernel (csrc/bvh8_walk.cu through geom/packet_cuda.py, its triangles-only
+variant when the scene has no sphere and no line); on a CPU tensor they
+run `walk_torch`, the same walk in plain PyTorch: lanes step together,
+each popping its own entry, and a leaf row's 8 records are tested at
+once, the smallest t winning with the last slot among equals, which is
+what an in-order loop yields. The kernel visits in the same order, takes
+a hit at t <= its best t as this loop does, but tests triangles without
+dividing, and is held to this version within the hit limits (PERF.md
+section 2). The stack holds `static.bvh8_stack` entries
+(bvh8.stack_bound); a walk that would pass it raises (the kernel's at
+packet_cuda.check_overflow).
 """
 
 from __future__ import annotations
@@ -115,9 +119,12 @@ def _walk(table, lanes, o, d, inv, tmin, root, base, best_t, best,
 
 def walk_torch(table, aux, n_inst: int, ro, rd, tmin, tmax, any_hit: bool,
                kinds=(True, True, True),
-               stack_depth: int = packet_cuda.MAX_STACK):
+               stack_depth: int = packet_cuda.MAX_STACK,
+               with_t: bool = False):
     """Plain version of the kernel: closest hit -> (t [N] = tmax on a
-    miss, prim [N] i32 = -1 on a miss), or with `any_hit` -> found [N]."""
+    miss, prim [N] i32 = -1 on a miss), or with `any_hit` -> found [N]
+    (with `with_t` also the t of the hit each ray stopped at, tmax on a
+    miss: (found, t))."""
     if ro.is_cuda:
         packet_cuda.STATS.plain_cuda += 1
     n = ro.shape[0]
@@ -131,7 +138,7 @@ def walk_torch(table, aux, n_inst: int, ro, rd, tmin, tmax, any_hit: bool,
         zero = torch.zeros(n, dtype=torch.int32, device=dev)
         _walk(table, lanes, ro, rd, inv, tmin, zero, zero, best_t, best,
               any_hit, kinds, stack_depth)
-        return best >= 0 if any_hit else (best_t, best)
+        return _result(best_t, best, any_hit, with_t)
 
     box = aux[:n_inst]
     hit, tn = slab(box[:, 14:17], box[:, 17:20], ro[:, None, :],
@@ -151,7 +158,13 @@ def walk_torch(table, aux, n_inst: int, ro, rd, tmin, tmax, any_hit: bool,
         _walk(table, lanes, o, d, safe_inv(d), tmin[lanes],
               m[:, 12].to(torch.int32), m[:, 13].to(torch.int32), best_t,
               best, any_hit, kinds, stack_depth)
-    return best >= 0 if any_hit else (best_t, best)
+    return _result(best_t, best, any_hit, with_t)
+
+
+def _result(best_t, best, any_hit, with_t):
+    if not any_hit:
+        return best_t, best
+    return (best >= 0, best_t) if with_t else best >= 0
 
 
 def _kernel(scene, static, ro, rd, tmin, tmax, any_hit):
@@ -159,7 +172,8 @@ def _kernel(scene, static, ro, rd, tmin, tmax, any_hit):
     return packet_cuda.bvh8_walk_cuda(
         scene.bvh8_table, scene.bvh8_aux, static.bvh8_n_inst,
         ro.contiguous(), rd.contiguous(), f32n(tmin, n, ro.device),
-        f32n(tmax, n, ro.device), any_hit, static.bvh8_stack)
+        f32n(tmax, n, ro.device), any_hit, static.bvh8_stack,
+        kinds_of(static))
 
 
 def _plain(scene, static, ro, rd, tmin, tmax, any_hit):

@@ -1,20 +1,25 @@
 """Path-trace megakernel: the whole PT estimator in one CUDA kernel.
 
 The port of gpu_pathtracer_tpu/integrators/pt_fused.py. One thread
-traces one path through every bounce (csrc/pt_fused.cu), so the path
-state never leaves registers; the plain PyTorch version beside it is the
+traces one path through every bounce (csrc/pt_fused.cu; for scenes of
+triangles only without a sky a persistent grid whose threads take the
+next lane when their path ends), so the path state never leaves
+registers; the plain PyTorch version beside it is the
 dense-regime wavefront of integrators/pt.py over the plain intersection
 (`render_lanes_torch`). Both read the same random sites (core/rng.py)
-and compute the same arithmetic, so on the same inputs they agree lane
-by lane.
+and compute the same shading arithmetic; the kernel tests triangles
+without dividing (csrc/intersect.cuh::tri_cross_n), so on the same
+inputs the two agree lane by lane within PERF.md section 2's radiance
+limits.
 
 Primary rays come from the shared plain camera code
 (integrators/common.primary_rays), as in the JAX package. Scope
 (`supports`): <= DENSE_MAX prims, up to 32 area lights and at least one
 light (an area light or the environment), the six material models and
 three prim types, with or without textures. The kernel has a variant
-per scene kind (environment light or not, textures or not), chosen at
-launch from the StaticConfig; each follows the wavefront's estimator,
+per scene kind (environment light or not, textures or not, triangles
+only or all prim kinds: `all_kinds`), chosen at launch from the
+StaticConfig; each follows the wavefront's estimator,
 not the JAX kernel's TPU workarounds (its escape record and mean-texel
 fold): the sky is credited on a miss with the wavefront's MIS weight
 and sampled by NEE through its slot of the full light CDF.
@@ -29,9 +34,10 @@ import torch
 from gpu_pathtracer_tpu_torch.core.rng import (
     PSS_BOUNCE_DIMS, PSS_CAM_DIMS, lane_stream,
 )
-from gpu_pathtracer_tpu_torch.geom.dense import DENSE_MAX
+from gpu_pathtracer_tpu_torch.geom.dense import DENSE_MAX, kinds_of
 from gpu_pathtracer_tpu_torch.integrators import pt
 from gpu_pathtracer_tpu_torch.integrators.common import primary_rays
+from gpu_pathtracer_tpu_torch import kernels
 from gpu_pathtracer_tpu_torch.kernels import (
     KernelStats, check_cuda_f32, check_launch, load_library,
 )
@@ -56,6 +62,12 @@ def supports(static) -> bool:
             and (static.n_lights >= 1 or static.has_infinite))
 
 
+def all_kinds(static) -> bool:
+    """Whether the kernel's all-kinds variant runs (the scene has spheres
+    or lines); else its triangles-only variant."""
+    return kernels.all_kinds(kinds_of(static))
+
+
 def _lib():
     lib = load_library("pt_fused")
     if lib.pt_fused.argtypes is None:
@@ -68,6 +80,7 @@ def _lib():
             _P, _I, _F, _I,        # light_cdf, max_depth, eps, aniso
             _P, _I, _I, _P, _P, _P, _F,  # env data, w, h, frame, tmax
             _P, _P, _P, _P,        # tex data, offsets, widths, heights
+            _I, _P,                # all kinds, lane counter
             _P, _P, _P]            # li out, rays out, stream
     return lib
 
@@ -144,6 +157,7 @@ def fused_call(scene, static, seed, iteration, lanes, ro, rd, psample=None):
     rays = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return li, rays
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     rc = _lib().pt_fused(
         ro.data_ptr(), rd.data_ptr(), lanes.data_ptr(), n,
         int(seed) & 0xFFFFFFFF, int(iteration) & 0xFFFFFFFF,
@@ -152,7 +166,8 @@ def fused_call(scene, static, seed, iteration, lanes, ro, rd, psample=None):
         scene.mat_attrs.data_ptr(), scene.light_attrs.data_ptr(),
         static.n_lights, scene.light_cdf.data_ptr(), static.max_depth,
         float(scene.epsilon), int(static.has_aniso), *env, *tex,
-        li.data_ptr(), rays.data_ptr(),
+        int(all_kinds(static)), counter.data_ptr(), li.data_ptr(),
+        rays.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "pt_fused")
     STATS.launches += 1

@@ -11,12 +11,13 @@ fallback: a missing `nvcc`, a failed build or a failed load raises.
 
 `-fmad=false` keeps nvcc from contracting a*b+c into one fused
 multiply-add: the kernels then round every operation like the plain
-PyTorch versions beside them, which is what lets them be held to those
-versions lane by lane (K2 in pt_fused.cu, K4 in bvh8_walk.cu, track.cu).
-The two hit kernels dense.cu (K1) and blocked.cu (K3) write their fused
-multiply-adds out (fmaf, in csrc/intersect.cuh's tri_cross routines
-only) and are held to their plain versions within the hit limits
-(PERF.md section 2); their sphere, line and box tests stay unfused. No
+PyTorch versions beside them, which is what lets track.cu be held to
+its plain version bit for bit. The hit tests of dense.cu (K1),
+blocked.cu (K3), bvh8_walk.cu (K4) and pt_fused.cu's prim loops (K2)
+write their fused multiply-adds out (fmaf, in csrc/intersect.cuh's
+tri_cross routines only) and are held to their plain versions within
+the hit limits, K2 within the radiance limits (PERF.md section 2);
+their sphere, line and box tests and K2's shading stay unfused. No
 fast-math flag is given, so division and sqrt are IEEE-rounded.
 """
 
@@ -120,6 +121,13 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built at first use."""
     build([name])
     return _LIBS[name]
+
+
+def all_kinds(kinds) -> bool:
+    """Whether a kernel with a triangles-only and an all-kinds variant
+    runs the all-kinds one: `kinds` = (has_tri, has_sph, has_lin), the
+    scene's prim kinds (geom/dense.py::kinds_of), is not triangles only."""
+    return tuple(map(bool, kinds)) != (True, False, False)
 
 
 def check_launch(rc: int, kernel: str) -> None:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from gpu_pathtracer_tpu_torch.film import film as film_mod
+from gpu_pathtracer_tpu_torch.geom import packet_cuda, traverse
 from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
 from gpu_pathtracer_tpu_torch.scene.model import HostScene, IntegratorType
 from gpu_pathtracer_tpu_torch.scene.parse import load_scene
@@ -64,6 +65,8 @@ class Renderer:
         self.height = self.static.height
         self.seed = seed
         self._program = lane_program(self.static.integrator)
+        # the BVH8 walk's stack overflows are read once per spp
+        self._walks = traverse.regime(self.static) in ("instanced", "bvh8")
         n = self.width * self.height
         self.tile_size = min(tile_size, n)
         ids = torch.arange(n, device=self.device, dtype=torch.int32)
@@ -76,7 +79,9 @@ class Renderer:
         self.iteration = 0
 
     def render_iteration(self) -> None:
-        """Add one sample per pixel to the film (no host synchronisation)."""
+        """Add one sample per pixel to the film. The host synchronises
+        only for a scene that the BVH8 walk serves, once, to read its
+        stack-overflow flag (geom/packet_cuda.check_overflow)."""
         self.iteration += 1
         n = self.acc.shape[0]
         for t0 in range(0, n, self.tile_size):
@@ -86,6 +91,8 @@ class Renderer:
                 self._px[t0:t1], self._py[t0:t1], with_stats=True)
             self.acc[t0:t1] += li
             self.rays += rays
+        if self._walks:
+            packet_cuda.check_overflow(self.device)
 
     def render(self, spp: int):
         for _ in range(spp):

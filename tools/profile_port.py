@@ -49,8 +49,8 @@ def port_kernels() -> list[str]:
                                        "csrc", "*.cu")):
         with open(path) as f:
             names.update(re.findall(
-                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
-                r"(\w+)", f.read()))
+                r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|"
+                r"\([^()]*\))*\)\s+)?(\w+)", f.read()))
     return sorted(names)
 
 
