@@ -55,7 +55,15 @@ Phases:
      from Philox and from a primary-sample matrix; the VPT wavefront over
      K1 + track vs the all-plain VPT on smoke_port and on
      smoke_port/sky.json, 65,536 lanes, and its rays traced (from Philox:
-     VPT takes no primary-sample matrix, as in the JAX package)
+     VPT takes no primary-sample matrix, as in the JAX package); the
+     programs of the other integrators, each over the kernels against
+     the same program all-plain (`plain=True`), 65,536 lanes at depth 5:
+     AO, light tracing and BDPT on cornell_port, the path tracer on
+     cornell_port/bssrdf.json (dipole BSSRDFs: the wavefront's
+     subsurface hook), light tracing and BDPT on smoke_port (the Tr walks
+     of track.cu); a splat film and the per-lane radiance are held to
+     the radiance limits apart (the film on the pixels either run
+     touched)
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after: scenes/cornell_port at 1024^2
      through the megakernel (spp/s, Mrays/s, the radiance against the
@@ -77,7 +85,14 @@ Phases:
      against the plain VPT on all lanes, whose first Tr walk of step 1
      is captured for phase E and whose K1 calls report, per step, the
      lanes alive and K1's warps wholly empty, then 2 timed spp; track and
-     K1 must launch, K2 must not)
+     K1 must launch, K2 must not); then the other integrators through
+     the CLI at 1024^2 depth 5 (one warm-up spp held against the
+     program all-plain on all lanes, then timed spp: spp/s, Mrays/s,
+     launches per kernel, plain-version calls on CUDA, which must be 0,
+     and torch.cuda.max_memory_allocated()): AO on cornell_port (K1) and
+     on knot_port/scene.json (K4, its probe an any-hit query ending at
+     maxDist) with 8 spp each, the path tracer on cornell_port/bssrdf.json
+     (K1) with 8, light tracing and BDPT on cornell_port (K1) with 2
   E  times, in windows of about one second, kernel and plain in turns:
      K1 vs plain at 1M rays; K2 alone vs plain from the same primary
      rays at 1024^2 depth 5, and the camera that makes those rays; K2's
@@ -139,6 +154,16 @@ KNOT = {   # the large-mesh scenes, by the kernel their route runs
 }
 SMOKE = "scenes/smoke_port/scene.json"   # VPT: smoke grid + fog, 25 prims
 SMOKE_SKY = "scenes/smoke_port/sky.json"   # the same under the sky
+BSSRDF = "scenes/cornell_port/bssrdf.json"   # dipole BSSRDF boxes: wavefront
+# the other integrators' programs of phase C: (integrator, scene)
+PROGRAMS_C = (("ao", SCENES[0]), ("lt", SCENES[0]), ("bdpt", SCENES[0]),
+              ("pt", BSSRDF), ("lt", SMOKE), ("bdpt", SMOKE))
+# and their main paths of phase D: (integrator, scene, timed spp, kernel)
+PROGRAMS_D = (("ao", SCENES[0], 8, "dense_hit"),
+              ("ao", KNOT["scene"], 8, "bvh8_walk"),
+              ("pt", BSSRDF, 8, "dense_hit"),
+              ("lt", SCENES[0], 2, "dense_hit"),
+              ("bdpt", SCENES[0], 2, "dense_hit"))
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "dense": ("gpu_pathtracer_tpu_torch/csrc/dense.cu",
               "gpu_pathtracer_tpu/geom/dense_tpu.py:29"),
@@ -1287,6 +1312,8 @@ def phase_c(dev, rng, records):
                   f"wavefront {key} {mode}: launches {counts}")
     phase_c_media(dev, records, SMOKE)
     phase_c_media(dev, records, SMOKE_SKY)
+    for integ, path in PROGRAMS_C:
+        phase_c_program(dev, records, integ, path)
     from gpu_pathtracer_tpu_torch.geom import packet_cuda
     packet_cuda.check_overflow()   # no K4 walk of this phase overflowed
 
@@ -1374,6 +1401,8 @@ def phase_d(dev, card, records):
                                         forest_build_cached_s=builds[1])
     knot_sky_main_path(card, records)
     vpt_main_path(card, records)
+    for integ, path, spp, kname in PROGRAMS_D:
+        program_main_path(card, records, integ, path, spp, kname)
 
 
 def knot_sky_main_path(card, records):
@@ -1970,6 +1999,146 @@ def phase_c_media(dev, records, path, n_lanes=65536):
     records["track"]["max_abs_err"] = max(
         records["track"].get("max_abs_err", 0.0),
         (li_k - li_p).abs().max().item())
+
+
+def run_program(integ, scene, static, ids, plain=False):
+    """One sample of program `integ` ("ao", "pt", "lt", "bdpt") on the
+    lanes (pixel or path indices) `ids` at iteration 1: (per-lane
+    radiance or None, splat film or None, rays traced). `plain` runs it
+    all-plain (for "pt", the plain wavefront)."""
+    from gpu_pathtracer_tpu_torch.integrators import ao, bdpt, lt, pt
+    px, py = ids % static.width, ids // static.width
+    if integ == "ao":
+        li, rays = ao.render_lanes(scene, static, SEED, 1, px, py, True,
+                                   plain=plain)
+        return li, None, rays
+    if integ == "pt":
+        if plain:
+            li, rays = pt.wavefront(scene, static, SEED, 1, px, py, True,
+                                    plain=True)
+        else:
+            li, rays = pt.render_lanes(scene, static, SEED, 1, px, py, True)
+        return li, None, rays
+    if integ == "lt":
+        film, rays = lt.render_film(scene, static, SEED, 1, ids, True,
+                                    plain=plain)
+        return None, film, rays
+    return bdpt.render_lanes(scene, static, SEED, 1, px, py, True,
+                             plain=plain)
+
+
+def hold_radiance(label, what, a, b) -> None:
+    """a against b (the plain version) within the radiance limits: agree
+    on >= 99% of the rows (of a film: of the pixels either touched),
+    means within 0.1%, a finite."""
+    if what == "film":
+        touched = (a != 0).any(1) | (b != 0).any(1)
+        a, b = a[touched], b[touched]
+    check(bool(torch.isfinite(a).all()), f"{label}: non-finite {what}")
+    frac = close_frac(a, b)
+    ratio = a.double().sum().item() / max(b.double().sum().item(), 1e-30)
+    print(f"[{label[0]}] {label[2:]} {what}: {a.shape[0]} rows, agree "
+          f"{frac:.6f}, bit-equal "
+          f"{(a == b).all(1).float().mean().item():.6f}, max abs err "
+          f"{(a - b).abs().max().item():.3e}, mean ratio {ratio:.7f}")
+    check(frac >= 0.99, f"{label} {what}: agree on {frac}")
+    check(abs(ratio - 1.0) <= 1e-3, f"{label} {what}: mean ratio {ratio}")
+
+
+def program_static(scene_path, integ, dev):
+    """The scene at `scene_path` flattened on `dev`, set to integrator
+    `integ` at depth 5."""
+    import dataclasses
+    from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+    scene, static = flat(scene_path, dev)
+    return scene, dataclasses.replace(
+        static, integrator=IntegratorType[integ.upper()], max_depth=5)
+
+
+def phase_c_program(dev, records, integ, path, n_lanes=65536):
+    """Program `integ` over the kernels against itself all-plain on the
+    scene at `path`, 65,536 lanes; the launches must be the scene's hit
+    kernel's (and track's in a scene with media)."""
+    scene, static = program_static(path, integ, dev)
+    n_pix = static.width * static.height
+    ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
+                       dtype=torch.int32)[:n_lanes]
+    stats = all_stats()
+    reset_counts(*stats.values())
+    li_k, film_k, r_k = run_program(integ, scene, static, ids)
+    torch.cuda.synchronize()
+    counts = {k: st.launches for k, st in stats.items()}
+    li_p, film_p, r_p = run_program(integ, scene, static, ids, plain=True)
+    label = f"C {integ} {path}"
+    print(f"[C] {integ} on {path}: {ids.numel()} lanes, rays {int(r_k)} vs "
+          f"{int(r_p)}, launches {counts}")
+    for what, a, b in (("radiance", li_k, li_p), ("film", film_k, film_p)):
+        if a is not None:
+            hold_radiance(label, what, a, b)
+    want = {"dense_hit"} | ({"track"} if static.has_hetero else set())
+    check(all(counts[k] > 0 for k in want)
+          and sum(counts[k] for k in want) == sum(counts.values()),
+          f"{label}: launches {counts}")
+    name = f"launches_c_{integ}_{os.path.basename(os.path.dirname(path))}"
+    for k in want:
+        records[k][name] = counts[k]
+
+
+def program_main_path(card, records, integ, path, spp, kname):
+    """Program `integ` through the CLI on the scene at `path`, 1024^2,
+    depth 5: one warm-up spp held against the program all-plain on every
+    lane (the film kind's film on the pixels either touched), then `spp`
+    timed spp whose launches must all be kernel `kname`'s, with the peak
+    device memory of the timed run."""
+    from gpu_pathtracer_tpu_torch.run import cli
+    stats = all_stats()
+    tag = f"{integ}_{os.path.basename(os.path.dirname(path))}_" \
+        f"{os.path.basename(path).split('.')[0]}"
+    label = f"{integ} {path}"
+
+    def render(n, name):
+        return cli.main([os.path.join(REPO, path), "--integrator", integ,
+                         "--size", "1024", "--depth", "5", "--spp", str(n),
+                         "--seed", str(SEED), "--out",
+                         os.path.join(OUT, name)])
+
+    warm = render(1, f"{tag}_1spp.png")
+    r = warm["renderer"]
+    ids = torch.arange(r.acc.shape[0], device=r.acc.device,
+                       dtype=torch.int32)
+    li_p, film_p, _ = run_program(integ, r.device_scene, r.static, ids,
+                                  plain=True)
+    ref = (li_p if li_p is not None else 0.0)         + (film_p if film_p is not None else 0.0)
+    hold_radiance(f"D {label} warm-up spp vs plain", "film"
+                  if integ == "lt" else "radiance", r.acc, ref)
+    del warm, r, li_p, film_p, ref
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # by the script's earlier phases
+    reset_counts(*stats.values())
+    res = render(spp, f"{tag}.png")
+    counts = {k: st.launches for k, st in stats.items()}
+    plain = sum(st.plain_cuda for st in stats.values())
+    peak = torch.cuda.max_memory_allocated()
+    r = res["renderer"]
+    img = r.image()
+    check(img.shape == (1024, 1024, 3) and bool(np.isfinite(img).all()),
+          f"{label}: image {img.shape}, finite {np.isfinite(img).all()}")
+    print(f"[D] {label} ({r.kind} kind) through {kname}: {spp} spp of "
+          f"1024x1024 depth {r.static.max_depth}, tile {r.tile_size} "
+          f"lanes, in {res['seconds']:.6f} s: {res['spp_per_s']:.3f} spp/s,"
+          f" {res['mrays_per_s']:.1f} Mrays/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above "
+          f"what was held before the run ({card}); launches {counts}, "
+          f"plain-version calls on CUDA {plain}")
+    check(counts[kname] > 0 and sum(counts.values()) == counts[kname],
+          f"{label}: main path launched {counts}")
+    check(plain == 0, f"{label}: {plain} plain-version calls on CUDA")
+    records[kname][f"launches_{tag}"] = counts[kname]
+    records[kname][f"peak_gib_{tag}"] = (peak - held) / 2**30
+    from gpu_pathtracer_tpu_torch.geom import packet_cuda
+    packet_cuda.check_overflow()
 
 
 MAIN_K3 = {}   # the K3 call captured on blocked.json's main path (phase D)

@@ -34,6 +34,12 @@ Its tracking walks (shade/media.py, csrc/track.cu) draw from counters
 256, so they never meet a site above; j counts the walk's draws, and
 each draw reads word 0 (the exponential step), word 1 (the acceptance)
 and word 2 (the Russian roulette of ratio tracking).
+
+Streams of their own, tags 1-15 (counters (i, d >> 2, tag, 0)): the
+path tracer's subsurface hook at bounce b reads sites 16 b + k of tag
+BSSRDF_TAG; BDPT's light subpath reads tag BDPT_LIGHT_TAG and its
+connection rounds tag BDPT_CONNECT_TAG (integrators/bdpt.py). Light
+tracing keys its tag-0 sites by the path index (integrators/lt.py).
 """
 
 from __future__ import annotations
@@ -53,6 +59,15 @@ TRACK_SAMPLE = 0     # distance sampling (media.medium_sample)
 TRACK_SCATTER = 1    # Tr walk of the medium NEE shadow ray
 TRACK_SURFACE = 2    # Tr walk of the surface NEE shadow ray
 TRACK_EMITTER = 3    # Tr of the segment to an emitter hit
+TRACK_CAMERA = 4     # Tr of a connection to the camera (LT, BDPT s = 1)
+TRACK_CONNECT = 5    # Tr of a BDPT connection (t = 1, general)
+TRACK_LIGHT_PATH = 6  # distance sampling on BDPT's light subpath
+
+# tags of the streams beside the tag-0 sites
+BSSRDF_TAG = 1         # the path tracer's subsurface hook
+BSSRDF_DIMS = 16       # its sites per bounce (9 read)
+BDPT_LIGHT_TAG = 2     # BDPT's light subpath
+BDPT_CONNECT_TAG = 3   # BDPT's connection rounds
 
 MASK32 = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53
@@ -109,14 +124,16 @@ class PhiloxStream:
     """RngStream-compatible Philox reader: each draw reads the next site.
 
     `base` is the first site of this scope and `budget` bounds the sites
-    it may consume, exactly like PrimarySampleStream; `shape` arguments
+    it may consume, exactly like PrimarySampleStream; `tag` is field 2
+    of the counter (0 for the sites above); `shape` arguments
     are accepted for interface parity and ignored (every draw is one
     value per lane). The four words of a counter block are computed once.
     """
 
     def __init__(self, seed: int, iteration: int, lane_ids, base: int = 0,
-                 budget: int | None = None):
+                 budget: int | None = None, tag: int = 0):
         self._key = (int(seed) & MASK32, int(iteration) & MASK32)
+        self._tag = tag
         self._lanes = lane_ids.to(torch.int64) & MASK32
         self._base = base
         self._budget = budget
@@ -133,8 +150,8 @@ class PhiloxStream:
         self._site += 1
         if self._block != d >> 2:
             z = torch.zeros_like(self._lanes)
-            self._words = philox4x32_10(self._lanes, z + (d >> 2), z, z,
-                                        *self._key)
+            self._words = philox4x32_10(self._lanes, z + (d >> 2),
+                                        z + self._tag, z, *self._key)
             self._block = d >> 2
         return bits_to_uniform(self._words[d & 3])
 
@@ -178,9 +195,9 @@ class PrimarySampleStream:
 
 
 def lane_stream(seed: int, iteration: int, lane_ids, psample, base: int,
-                budget: int):
+                budget: int, tag: int = 0):
     """The stream for one scope (camera or one bounce): the psample rows
-    when a matrix is given, else Philox at the same sites."""
+    when a matrix is given, else Philox at the same sites of `tag`."""
     if psample is not None:
         return PrimarySampleStream(psample, base, budget)
-    return PhiloxStream(seed, iteration, lane_ids, base, budget)
+    return PhiloxStream(seed, iteration, lane_ids, base, budget, tag)

@@ -93,6 +93,11 @@ def to_world(d, u, v, w):
     return d[..., 0:1] * u + d[..., 1:2] * v + d[..., 2:3] * w
 
 
+def to_local(d, u, v, w):
+    """World->local: (d.u, d.v, d.w) (reference wrap.h:22-24)."""
+    return torch.stack([dot(d, u), dot(d, v), dot(d, w)], -1)
+
+
 def is_black(c):
     """True where an RGB batch is black (reference common.h IsBlack)."""
     return (c[..., 0] <= 0.0) & (c[..., 1] <= 0.0) & (c[..., 2] <= 0.0)

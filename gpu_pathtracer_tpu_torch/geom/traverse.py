@@ -43,6 +43,7 @@ class Hit:
     mat_idx: torch.Tensor    # [N] i32 (-1 on a miss)
     light_idx: torch.Tensor  # [N] i32
     prim_idx: torch.Tensor   # [N] i32
+    bssrdf_idx: torch.Tensor  # [N] i32 (-1 on a miss or no BSSRDF)
     medium_inside: torch.Tensor   # [N] i32 (-1 on a miss or no medium)
     medium_outside: torch.Tensor  # [N] i32
 
@@ -202,6 +203,7 @@ def _hit_attributes(scene, static, ro, rd, t, prim, found) -> Hit:
         mat_idx=torch.where(found, attrs[:, 30].to(torch.int32), neg1),
         light_idx=torch.where(found, attrs[:, 31].to(torch.int32), neg1),
         prim_idx=torch.where(found, p.to(torch.int32), neg1),
+        bssrdf_idx=torch.where(found, attrs[:, 32].to(torch.int32), neg1),
         medium_inside=torch.where(found, attrs[:, 33].to(torch.int32), neg1),
         medium_outside=torch.where(found, attrs[:, 34].to(torch.int32),
                                    neg1))

@@ -145,3 +145,20 @@ def direct_light_nee(scene, static, rng, pos, nor, dpdu,
         torch.abs(dot(nor, sd))[:, None] \
         / torch.clamp_min(denom, 1e-30)[:, None]
     return torch.where(cand[:, None], contrib, 0.0), cand, shadow
+
+
+def shadow_transmittance(scene, static, med_idx, ro, rd, tmax, key, active,
+                         plain=False):
+    """The transmittance along shadow rays of the `active` lanes (tmax
+    given): the interface-walking walk of shade/media.py in a scene with
+    media, else an any-hit query (1 or 0). Returns (tr [N, 3], rays
+    traced: 0-d int64)."""
+    from gpu_pathtracer_tpu_torch.shade import media as media_mod
+    tmax = torch.where(active, tmax, 0.0)
+    if static.has_media:
+        return media_mod.transmittance(scene, static, med_idx, ro, rd, tmax,
+                                       key, active, plain)
+    blocked = traverse.intersect_any(scene, static, ro, rd, scene.epsilon,
+                                     tmax, plain)
+    return torch.where(blocked[:, None], 0.0, torch.ones_like(ro)), \
+        active.sum()

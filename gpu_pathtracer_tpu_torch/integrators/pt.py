@@ -26,6 +26,13 @@ sorted estimator equals the unsorted one bit for bit, lane for lane. An
 explicit `psample` (rows indexed by position) runs unsorted, as in the
 JAX package.
 
+Subsurface scattering (pt.py:190-198): a hit on a prim with a BSSRDF
+adds the dipole's single and multiple scattering estimates
+(shade/bssrdf.py) and ends the path. Its draws come from a stream of
+their own, Philox tag BSSRDF_TAG, sites 16 b + k at bounce b, also
+when an explicit `psample` drives the rest (the JAX package's psample
+budget has no room for them).
+
 Routing follows the JAX package: on CUDA tensors `render_lanes` hands
 every scene that `pt_fused.supports` admits to the megakernel, the rest
 run this wavefront over the intersection kernel of their regime
@@ -38,7 +45,8 @@ from __future__ import annotations
 import torch
 
 from gpu_pathtracer_tpu_torch.core.rng import (
-    PSS_BOUNCE_DIMS, PSS_CAM_DIMS, lane_stream,
+    BSSRDF_DIMS, BSSRDF_TAG, PSS_BOUNCE_DIMS, PSS_CAM_DIMS, PhiloxStream,
+    lane_stream,
 )
 from gpu_pathtracer_tpu_torch.core.sampling import power_heuristic
 from gpu_pathtracer_tpu_torch.core.vecmath import dot, is_black, luminance
@@ -114,6 +122,26 @@ def _arrival_credit(scene, static, hit, ro, rd, li, beta, specular,
     return li, alive
 
 
+def _subsurface(scene, static, seed, iteration, lanes, b, hit, rd, li,
+                beta, alive, rays, plain):
+    """The BSSRDF hook of bounce b: lanes that hit a prim with a BSSRDF
+    gain beta x (single + multiple scattering) and end. Returns (li,
+    alive, rays)."""
+    from gpu_pathtracer_tpu_torch.shade import bssrdf as bssrdf_mod
+    rng = PhiloxStream(seed, iteration, lanes, b * BSSRDF_DIMS, BSSRDF_DIMS,
+                       BSSRDF_TAG)
+    sss = alive & (hit.bssrdf_idx >= 0)
+    ls, r1 = bssrdf_mod.single_scatter(scene, static, rng, hit.pos, hit.nor,
+                                       hit.bssrdf_idx, -rd, sss, plain)
+    lm, r2 = bssrdf_mod.multiple_scatter(scene, static, rng, hit.pos,
+                                         hit.nor, hit.bssrdf_idx, -rd, sss,
+                                         plain)
+    ls = ls + lm
+    ok = sss & torch.isfinite(ls).all(-1)
+    li = li + torch.where(ok[:, None], beta * ls, 0.0)
+    return li, alive & ~sss, rays + r1 + r2
+
+
 def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
                  with_stats: bool = False, psample=None):
     """Per-lane radiance [N, 3] for one path-traced sample per lane.
@@ -173,6 +201,10 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
             plain)
         li, alive = _arrival_credit(scene, static, hit, ro, rd, li, beta,
                                     specular, prev_pdf, alive, b == 0)
+        if static.has_bssrdf:
+            li, alive, rays = _subsurface(scene, static, seed, iteration,
+                                          lanes, b, hit, rd, li, beta, alive,
+                                          rays, plain)
 
         mat = bsdf_mod.gather_materials(scene, static, hit.mat_idx, hit.uv)
         wi = -rd

@@ -55,9 +55,10 @@ _F = ctypes.c_float
 def supports(static) -> bool:
     """Scenes the megakernel covers; the rest run the wavefront (JAX
     pt_fused.py:101-106). All six material models and all three prim
-    types are compiled in, textured or not; BSSRDF scenes do not reach
-    here (flatten.py refuses them)."""
+    types are compiled in, textured or not. Scenes with a BSSRDF take the
+    wavefront, whose subsurface hook the kernel does not have."""
     return (static.n_primitives <= DENSE_MAX
+            and not static.has_bssrdf
             and static.n_lights <= MAX_LIGHTS
             and (static.n_lights >= 1 or static.has_infinite))
 

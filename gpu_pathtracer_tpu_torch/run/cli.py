@@ -1,8 +1,9 @@
 """Command-line renderer:
 `python -m gpu_pathtracer_tpu_torch.run.cli scene.json --spp 8 --out r.png`.
 
-The port of gpu_pathtracer_tpu/run/cli.py for path tracing and
-volumetric path tracing (`--integrator vpt`). Renders N
+The port of gpu_pathtracer_tpu/run/cli.py for ambient occlusion, path
+tracing, volumetric path tracing, light tracing and bidirectional path
+tracing (`--integrator ao|pt|vpt|lt|bdpt`). Renders N
 progressive samples per pixel on `--device` (default cuda: the command
 fails when no CUDA device is present) and writes a PNG, optionally an
 EXR of the radiance. Options of the JAX CLI whose machinery is not
@@ -50,7 +51,8 @@ def main(argv=None):
     ap.add_argument("--integrator", default=None,
                     choices=["ao", "pt", "vpt", "lt", "bdpt", "sppm", "ir",
                              "mlt"],
-                    help="override the scene's integrator (pt, vpt)")
+                    help="override the scene's integrator (ao, pt, vpt, "
+                    "lt, bdpt; sppm, ir and mlt are not ported yet)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     ap.add_argument("--no-cache", action="store_true",
@@ -67,9 +69,9 @@ def main(argv=None):
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             ap.error(f"--{name.replace('_', '-')}: {what}")
-    if args.integrator not in (None, "pt", "vpt"):
-        ap.error(f"--integrator {args.integrator}: only pt and vpt are "
-                 f"ported yet (ROADMAP.md, still to port: item 4)")
+    if args.integrator in ("sppm", "ir", "mlt"):
+        ap.error(f"--integrator {args.integrator}: not ported yet "
+                 f"(ROADMAP.md, still to port: item 4)")
     device = resolve_device(args.device)
 
     t0 = time.time()

@@ -1,10 +1,18 @@
 """Progressive renderer: one `render_iteration` adds one sample per pixel.
 
-The port of gpu_pathtracer_tpu/run/renderer.py for the "pixel" kind
-(path tracing and volumetric path tracing). Pixels are processed in
-tiles of `tile_size` lanes; the film accumulates in a [W*H, 3] tensor on
-`device`. Every random site is keyed by (seed, iteration, pixel index),
-so the image does not depend on the tile size.
+The port of gpu_pathtracer_tpu/run/renderer.py for three kinds of lane
+program (`lane_program`):
+- "pixel" (ambient occlusion, path tracing, volumetric path tracing):
+  lanes are pixels, each returns its own radiance;
+- "film" (light tracing): each iteration traces W*H light paths, in
+  tiles of `tile_size` paths, each tile returning a splatted [W*H, 3]
+  film; the sum is normalised by the path count;
+- "hybrid" (BDPT): lanes are pixels, each returns its own radiance plus
+  a film of its s == 1 splats.
+The film accumulates in a [W*H, 3] tensor on `device`. Every random
+site is keyed by (seed, iteration, pixel or path index), so the image
+does not depend on the tile size (a splatted film only within float32
+summation order).
 """
 
 from __future__ import annotations
@@ -21,13 +29,22 @@ DEFAULT_TILE = 1 << 20
 
 
 def lane_program(integrator: IntegratorType):
-    """Integrator dispatch: the per-pixel lane program. Path tracing and
-    volumetric path tracing are ported."""
-    from gpu_pathtracer_tpu_torch.integrators import pt, vpt
+    """Integrator dispatch (pathtracer.cu:2711-2745): (kind, program).
+    "pixel": program(scene, static, seed, it, px, py, with_stats) ->
+    (li [N, 3], rays); "film": program(scene, static, seed, it, path_ids,
+    with_stats) -> (film [W*H, 3], rays); "hybrid": program(scene,
+    static, seed, it, px, py, with_stats) -> (li, film, rays)."""
+    from gpu_pathtracer_tpu_torch.integrators import ao, bdpt, lt, pt, vpt
+    if integrator == IntegratorType.AO:
+        return "pixel", ao.render_lanes
     if integrator == IntegratorType.PT:
-        return pt.render_lanes
+        return "pixel", pt.render_lanes
     if integrator == IntegratorType.VPT:
-        return vpt.render_lanes
+        return "pixel", vpt.render_lanes
+    if integrator == IntegratorType.LT:
+        return "film", lt.render_film
+    if integrator == IntegratorType.BDPT:
+        return "hybrid", bdpt.render_lanes
     raise NotImplementedError(
         f"integrator {integrator.name} is not ported yet (ROADMAP.md, "
         f"still to port: item 4)")
@@ -64,13 +81,14 @@ class Renderer:
         self.width = self.static.width
         self.height = self.static.height
         self.seed = seed
-        self._program = lane_program(self.static.integrator)
+        self.kind, self._program = lane_program(self.static.integrator)
         # the BVH8 walk's stack overflows are read once per spp
         self._walks = traverse.regime(self.static) in ("instanced", "bvh8")
         n = self.width * self.height
         self.tile_size = min(tile_size, n)
         ids = torch.arange(n, device=self.device, dtype=torch.int32)
         # y = 0 is the bottom row, like the reference's GL-oriented film
+        self._ids = ids
         self._px = ids % self.width
         self._py = ids // self.width
         self.acc = torch.zeros((n, 3), dtype=torch.float32,
@@ -84,12 +102,25 @@ class Renderer:
         stack-overflow flag (geom/packet_cuda.check_overflow)."""
         self.iteration += 1
         n = self.acc.shape[0]
+        args = (self.device_scene, self.static, self.seed, self.iteration)
         for t0 in range(0, n, self.tile_size):
             t1 = min(t0 + self.tile_size, n)
-            li, rays = self._program(
-                self.device_scene, self.static, self.seed, self.iteration,
-                self._px[t0:t1], self._py[t0:t1], with_stats=True)
-            self.acc[t0:t1] += li
+            if self.kind == "film":
+                # paths t0 .. t1 - 1 of the W*H an iteration traces, as
+                # the reference; normalising by the path count (pixels /
+                # paths = 1) leaves the sum of the tiles' splats
+                film, rays = self._program(*args, self._ids[t0:t1],
+                                           with_stats=True)
+                self.acc += film
+            elif self.kind == "hybrid":
+                li, film, rays = self._program(
+                    *args, self._px[t0:t1], self._py[t0:t1], with_stats=True)
+                self.acc[t0:t1] += li
+                self.acc += film
+            else:
+                li, rays = self._program(
+                    *args, self._px[t0:t1], self._py[t0:t1], with_stats=True)
+                self.acc[t0:t1] += li
             self.rays += rays
         if self._walks:
             packet_cuda.check_overflow(self.device)

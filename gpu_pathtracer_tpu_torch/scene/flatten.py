@@ -11,9 +11,9 @@ the unified BVH8 table `bvh8_table` with its instance table `bvh8_aux`,
 participating media (flatten.py:617-660, 848-864: the medium records,
 also packed one row per medium in `med_table`, the bf16-pair oct-packed density grid and the supervoxel majorant table
 that the tracking walk reads). The numpy table code is the JAX
-package's, so both packages compute on the same values. BSSRDFs are not
-ported yet: a scene that needs them raises NotImplementedError naming
-its ROADMAP item. Not ported, because nothing on the port's path reads
+package's, so both packages compute on the same values, and the
+dipole BSSRDF records (flatten.py:658-668, one row per BSSRDF, the
+prim's index in `prim_attrs` column 32). Not ported, because nothing on the port's path reads
 them: the u8 density table `med_density_oct2` (a knob measured negative
 on the TPU), the x-pair grid `med_density_pairs` (read only by the JAX
 package's `_density`), the corner-packed texture rows `tex_corners`
@@ -51,7 +51,6 @@ from gpu_pathtracer_tpu_torch.geom.dense_cuda import DENSE_MAX
 from gpu_pathtracer_tpu_torch.scene.model import (
     GeometryType, HostScene, IntegratorType, MediumType,
 )
-from gpu_pathtracer_tpu_torch.scene.parse import ROADMAP_BSSRDF
 
 LUMA64 = np.array([0.212671, 0.715160, 0.072169])
 
@@ -190,6 +189,12 @@ class DeviceScene:
     # (`media_table`); derived, so change media with `replace_media`
     med_table: torch.Tensor
 
+    # dipole BSSRDFs, B = max(#bssrdfs, 1) records (bssrdf.h:18-141)
+    b_sigma_a: torch.Tensor          # [B, 3]
+    b_sigma_sp: torch.Tensor         # [B, 3] reduced scattering sigma_s'
+    b_eta: torch.Tensor              # [B]
+    b_g: torch.Tensor                # [B]
+
     camera: DeviceCamera
     epsilon: float                   # ray offset (pathtracer.cu:38)
 
@@ -201,6 +206,7 @@ class StaticConfig:
     height: int
     integrator: IntegratorType
     max_depth: int
+    max_dist: float        # AO's occlusion distance (maxDist)
     n_lights: int          # area lights
     has_infinite: bool     # an environment light
     has_textures: bool
@@ -225,6 +231,7 @@ class StaticConfig:
     has_hetero: bool
     camera_medium: int     # the medium the camera sits in (-1: vacuum)
     med_iter_max: int      # the tracking walk's draw cap (iterMax)
+    has_bssrdf: bool       # a prim carries a BSSRDF (prim_attrs col 32)
 
 
 def _tri_dpdv(pos: np.ndarray, uv: np.ndarray) -> np.ndarray:
@@ -396,10 +403,20 @@ def _media_arrays(scene: HostScene) -> tuple[dict, int]:
     return arrays, iter_max
 
 
-def _check_supported(scene: HostScene) -> None:
-    if scene.bssrdfs:
-        raise NotImplementedError(
-            "BSSRDF materials are not ported yet " + ROADMAP_BSSRDF)
+def _bssrdf_arrays(scene: HostScene) -> dict:
+    """The dipole BSSRDF records (flatten.py:658-668), B = max(#bssrdfs,
+    1) rows; the dummy row when there are none."""
+    B = max(len(scene.bssrdfs), 1)
+    b_sa = np.ones((B, 3), np.float32)
+    b_sp = np.ones((B, 3), np.float32)
+    b_eta = np.full(B, 1.5, np.float32)
+    b_g = np.zeros(B, np.float32)
+    for i, b in enumerate(scene.bssrdfs):
+        b_sa[i] = b.sigmaA
+        b_sp[i] = b.sigmaSP
+        b_eta[i] = b.eta
+        b_g[i] = b.g
+    return dict(b_sigma_a=b_sa, b_sigma_sp=b_sp, b_eta=b_eta, b_g=b_g)
 
 
 def _texture_arrays(scene: HostScene) -> dict:
@@ -437,7 +454,6 @@ def flatten_numpy(scene: HostScene, instancing: bool = False,
     (all but `bvh8_stack`, which device_scene_from_numpy derives).
     `instancing` plans TLAS/BLAS instances (geom/tlas.py); `cache` reads
     and writes the BVH disk cache."""
-    _check_supported(scene)
     fields = _prim_fields(scene)
     bmin, bmax = _prim_bboxes(scene, fields)
     plan = tlas_mod.plan_instances(scene, bmin, bmax, cache) if instancing \
@@ -695,11 +711,13 @@ def flatten_numpy(scene: HostScene, instancing: bool = False,
         bvh8_table=bvh8_table, bvh8_aux=bvh8_aux,
         prim_attrs=prim_attrs, fused_attrs=fused_attrs,
         mat_attrs=mat_attrs, light_attrs=light_attrs,
-        camera=camera, epsilon=np.float32(scene.epsilon), **med_arrays)
+        camera=camera, epsilon=np.float32(scene.epsilon), **med_arrays,
+        **_bssrdf_arrays(scene))
     static = dict(
         width=scene.width, height=scene.height,
         integrator=scene.integrator.type,
         max_depth=scene.integrator.maxDepth,
+        max_dist=scene.integrator.maxDist,
         n_lights=len(scene.lights),
         has_infinite=scene.infinite is not None,
         has_textures=bool(scene.textures),
@@ -719,7 +737,8 @@ def flatten_numpy(scene: HostScene, instancing: bool = False,
         has_media=bool(scene.mediums),
         has_hetero=any(m.type == MediumType.HETEROGENEOUS
                        for m in scene.mediums),
-        camera_medium=scene.camera.medium, med_iter_max=iter_max)
+        camera_medium=scene.camera.medium, med_iter_max=iter_max,
+        has_bssrdf=bool(scene.bssrdfs) and bool((bssrdf_idx >= 0).any()))
     return arrays, static
 
 

@@ -5,8 +5,9 @@ reference's parsescene.cpp:45-591 section by section (medium ->
 global/camera -> integrator -> material -> scene -> light), including
 every default value: textures (linear RGB quantised to uint8, one
 record per file) and the `infinite` environment light with its `rotate`
-or `matrix` frame. Diffuse-converted BSSRDFs (the `kd` form) are not
-ported yet and raise NotImplementedError naming the ROADMAP item.
+or `matrix` frame, and dipole BSSRDF materials, given by `sigmaA` /
+`sigmaSP` or converted from a diffuse colour (`kd`, `meanPathLength`)
+by shade/bssrdf.py::convert_from_diffuse.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ from gpu_pathtracer_tpu_torch.scene.model import (
     Medium, MediumType, Primitive, Texture,
 )
 
-# where a missing feature stands in ROADMAP.md ("Still to port")
-ROADMAP_BSSRDF = "(ROADMAP.md, still to port: item 4)"
 
 _MAT_MAP = {
     "lambertian": MaterialType.LAMBERTIAN,
@@ -157,8 +156,12 @@ def load_scene(path: str) -> HostScene:
                 g=float(m.get("g", 0.0)),
             )
             if "kd" in m:
-                raise NotImplementedError(
-                    "BSSRDFs are not ported yet " + ROADMAP_BSSRDF)
+                from gpu_pathtracer_tpu_torch.shade.bssrdf import (
+                    convert_from_diffuse,
+                )
+                b = convert_from_diffuse(
+                    _f3(m["kd"]), float(m.get("meanPathLength", 1.0)), b.eta,
+                    b.g)
             scene.bssrdfs.append(b)
             bssrdf_names.append(m["name"])
             continue

@@ -12,10 +12,11 @@ from __future__ import annotations
 import torch
 
 from gpu_pathtracer_tpu_torch.core.sampling import (
-    uniform_sphere, uniform_triangle,
+    cosine_hemisphere, uniform_sphere, uniform_triangle,
 )
 from gpu_pathtracer_tpu_torch.core.vecmath import (
-    INV_FOUR_PI, PI, TWO_PI, cross, dot, length, normalize,
+    INV_FOUR_PI, PI, TWO_PI, cross, dot, length, make_coordinate, normalize,
+    to_world,
 )
 from gpu_pathtracer_tpu_torch.shade.texture import env_lookup
 
@@ -78,6 +79,24 @@ def sample_area_light(scene, idx, pos, u1, u2, epsilon):
     radiance = torch.where((pdf != 0.0)[..., None], rad, 0.0)
     tmax = torch.sqrt(torch.clamp_min(dist2 - epsilon, 0.0))
     return radiance, pos, nd, tmax, nor, pdf
+
+
+def sample_area_light_emission(scene, idx, u1, u2, u3, u4, epsilon):
+    """Area::SampleLight emitting a photon (area.h:21-26 + mesh.h:
+    111-120): a uniform point of the light's triangle, a cosine-weighted
+    direction about its normal. Returns (ray_o, ray_d, light_nor,
+    radiance, pdf_a, pdf_w)."""
+    v0, v1, v2, n0, n1, n2, rad = _light_rows(scene, idx)
+    bu, bv = uniform_triangle(u1, u2)
+    w = 1.0 - bu - bv
+    p = bu[..., None] * v0 + bv[..., None] * v1 + w[..., None] * v2
+    nor = normalize(bu[..., None] * n0 + bv[..., None] * n1
+                    + w[..., None] * n2)
+    local, pdf_w = cosine_hemisphere(u3, u4)
+    uu, ww = make_coordinate(nor)
+    d = to_world(local, uu, nor, ww)
+    pdf_a = 1.0 / torch.clamp_min(_tri_area(v0, v1, v2), 1e-30)
+    return p, d, nor, rad, pdf_a, pdf_w
 
 
 def area_light_pdf(scene, idx, ray_d, nor):

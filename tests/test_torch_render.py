@@ -56,7 +56,7 @@ def test_cli_writes_png(tmp_path):
 
 @pytest.mark.parametrize("args, words", [
     (["--device", "cuda"], "CUDA"),
-    (["--device", "cpu", "--integrator", "lt"], "ROADMAP"),
+    (["--device", "cpu", "--integrator", "sppm"], "ROADMAP"),
     (["--device", "cpu", "--checkpoint", "c.npz"], "ROADMAP"),
 ])
 def test_cli_refuses(tmp_path, args, words):

@@ -155,7 +155,7 @@ def test_cli_vpt_writes_png(tmp_path):
     assert (w, h) == (8, 8) and len(raw) == h * (1 + 3 * w)
 
 
-@pytest.mark.parametrize("integrator", ["lt", "bdpt"])
+@pytest.mark.parametrize("integrator", ["sppm", "mlt"])
 def test_cli_refuses_unported_integrators(tmp_path, integrator):
     r = subprocess.run(
         [sys.executable, "-m", "gpu_pathtracer_tpu_torch.run.cli",

@@ -36,6 +36,8 @@ MANY_LIGHTS = REPO / "scenes" / "cornell_port" / "many_lights.json"
 KNOT_SCENE = REPO / "scenes" / "knot_port" / "scene.json"
 # heterogeneous smoke + homogeneous fog: volumetric path tracing
 SMOKE_SCENE = REPO / "scenes" / "smoke_port" / "scene.json"
+# cornell_port with its boxes in dipole BSSRDFs (sigma and kd forms)
+BSSRDF_SCENE = REPO / "scenes" / "cornell_port" / "bssrdf.json"
 
 
 def write_sphere_line_scene(dirpath) -> pathlib.Path:

@@ -1,6 +1,7 @@
 """Where the time goes in the port's main path, on one NVIDIA GPU.
 
-    python3 tools/profile_port.py [--spp 4] [scene.json ...]
+    python3 tools/profile_port.py [--spp 4] [--integrator ao|pt|vpt|lt|bdpt]
+        [scene.json ...]
 
 Renders each scene (default: scenes/cornell_port/scene.json, which takes
 the megakernel; scenes/env_port/scene.json, its environment variant;
@@ -10,7 +11,8 @@ wavefront over the block-culled kernel or the BVH8 walk, sky.json with
 textures and the sky; and scenes/smoke_port, whose volumetric path
 tracer runs over the dense-hit and media tracking kernels) at its own
 resolution
-and depth under torch.profiler
+and depth (and integrator, unless --integrator names another) under
+torch.profiler
 after one warm-up spp, and prints per scene: wall time per spp, device
 time per spp summed over kernels, the device's idle share of the window,
 the kernels that take the most device time, and then every kernel of
@@ -81,6 +83,9 @@ def profile(renderer, spp: int):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--integrator", default=None,
+                    choices=["ao", "pt", "vpt", "lt", "bdpt"],
+                    help="override each scene's integrator")
     ap.add_argument("scenes", nargs="*", default=[
         os.path.join(REPO, "scenes", folder, name)
         for folder, name in (("cornell_port", "scene.json"),
@@ -104,12 +109,15 @@ def main() -> None:
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
     kernels = port_kernels()
     for path in args.scenes:
-        r = Renderer(path, device="cuda")
+        r = Renderer(path, device="cuda", integrator=None
+                     if args.integrator is None
+                     else IntegratorType[args.integrator.upper()])
         wall, rows = profile(r, args.spp)
         dev_us = sum(us for _, us, _ in rows)
-        vpt = r.static.integrator == IntegratorType.VPT
-        regime = ("megakernel" if pt_fused.supports(r.static) and not vpt
-                  else f"{'VPT ' if vpt else ''}wavefront, "
+        integ = r.static.integrator
+        fused = integ == IntegratorType.PT and pt_fused.supports(r.static)
+        regime = ("megakernel" if fused else
+                  f"{integ.name} {r.kind} wavefront, "
                   f"{traverse.regime(r.static)} regime")
         print(f"[{os.path.basename(path)}, {regime}] {r.width}x{r.height} "
               f"depth {r.static.max_depth}: "
