@@ -8,7 +8,8 @@
 Builds the port's five CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
 path-traced Cornell box, environment-lit and textured scenes and
-large-mesh scenes, and its volumetric path tracer on the smoke scene, at
+large-mesh scenes, its volumetric path tracer on the smoke scene, and
+its other integrators: AO, BSSRDF, LT, BDPT, IR, SPPM and MLT, at
 1024x1024, depth 5) and times the kernels against their plain versions.
 Phases:
 
@@ -63,7 +64,14 @@ Phases:
      subsurface hook), light tracing and BDPT on smoke_port (the Tr walks
      of track.cu); a splat film and the per-lane radiance are held to
      the radiance limits apart (the film on the pixels either run
-     touched)
+     touched); instant radiosity on cornell_port, 65,536 lanes, its VPL
+     store of 32 light paths held field by field, and K1's any hit at
+     the JAX package's gather shape (32 slots x 1,048,576 lanes in one
+     call) against the same rays in calls of 1,048,576; SPPM and MLT,
+     which couple all pixels, as whole 256x256 images for 2 iterations:
+     SPPM's radius, photon statistic and film, MLT's bootstrap
+     candidates, chain luminance and film, on cornell_port and on
+     cornell_port/mlt_slit.json (its depth 10: K2 reading [84, 65,536])
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after: scenes/cornell_port at 1024^2
      through the megakernel (spp/s, Mrays/s, the radiance against the
@@ -92,7 +100,13 @@ Phases:
      and torch.cuda.max_memory_allocated()): AO on cornell_port (K1) and
      on knot_port/scene.json (K4, its probe an any-hit query ending at
      maxDist) with 8 spp each, the path tracer on cornell_port/bssrdf.json
-     (K1) with 8, light tracing and BDPT on cornell_port (K1) with 2
+     (K1) with 8, light tracing and BDPT on cornell_port (K1) with 2,
+     and on cornell_port IR (K1, 8 iterations), SPPM (K1, 4 iterations
+     at the scene's 100,000 photons) and MLT (K2 reading the chains'
+     [44, 1M] primary-sample matrix, 8 steps; the bootstrap is made
+     before the CLI's timed window), their warm-up iteration held
+     against the program all-plain (MLT's from the kernels' bootstrap,
+     whose candidates are held too), with the largest K1 call's rays
   E  times, in windows of about one second, kernel and plain in turns:
      K1 vs plain at 1M rays; K2 alone vs plain from the same primary
      rays at 1024^2 depth 5, and the camera that makes those rays; K2's
@@ -158,12 +172,20 @@ BSSRDF = "scenes/cornell_port/bssrdf.json"   # dipole BSSRDF boxes: wavefront
 # the other integrators' programs of phase C: (integrator, scene)
 PROGRAMS_C = (("ao", SCENES[0]), ("lt", SCENES[0]), ("bdpt", SCENES[0]),
               ("pt", BSSRDF), ("lt", SMOKE), ("bdpt", SMOKE))
-# and their main paths of phase D: (integrator, scene, timed spp, kernel)
+MLT_SLIT = "scenes/cornell_port/mlt_slit.json"   # a room lit through a slit
+# the programs that couple all pixels, as whole images in phase C:
+# (integrator, scene)
+COUPLED_C = (("sppm", SCENES[0]), ("mlt", SCENES[0]), ("mlt", MLT_SLIT))
+# and the main paths of phase D: (integrator, scene, timed spp or
+# iterations, kernel)
 PROGRAMS_D = (("ao", SCENES[0], 8, "dense_hit"),
               ("ao", KNOT["scene"], 8, "bvh8_walk"),
               ("pt", BSSRDF, 8, "dense_hit"),
               ("lt", SCENES[0], 2, "dense_hit"),
-              ("bdpt", SCENES[0], 2, "dense_hit"))
+              ("bdpt", SCENES[0], 2, "dense_hit"),
+              ("ir", SCENES[0], 8, "dense_hit"),
+              ("sppm", SCENES[0], 4, "dense_hit"),
+              ("mlt", SCENES[0], 8, "pt_fused"))
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "dense": ("gpu_pathtracer_tpu_torch/csrc/dense.cu",
               "gpu_pathtracer_tpu/geom/dense_tpu.py:29"),
@@ -1314,6 +1336,9 @@ def phase_c(dev, rng, records):
     phase_c_media(dev, records, SMOKE_SKY)
     for integ, path in PROGRAMS_C:
         phase_c_program(dev, records, integ, path)
+    phase_c_ir(dev, records)
+    for integ, path in COUPLED_C:
+        phase_c_coupled(dev, records, integ, path)
     from gpu_pathtracer_tpu_torch.geom import packet_cuda
     packet_cuda.check_overflow()   # no K4 walk of this phase overflowed
 
@@ -2084,12 +2109,217 @@ def phase_c_program(dev, records, integ, path, n_lanes=65536):
         records[k][name] = counts[k]
 
 
+def flat_sized(path, size, dev):
+    """The scene at repo path `path` at size x size, flattened on `dev`
+    (once per run)."""
+    from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+    key = f"{path}@{size}"
+    if key not in _FLAT:
+        host = load_scene(os.path.join(REPO, path))
+        host.width = host.height = size
+        _FLAT[key] = (*flatten_scene(host, dev), 0.0)
+    return _FLAT[key][:2]
+
+
+def held_counts(label, stats, kname, records, field) -> dict:
+    """The launches since the counts were set to 0: all of them kernel
+    `kname`'s, recorded under `field`."""
+    counts = {k: st.launches for k, st in stats.items()}
+    check(counts[kname] > 0 and sum(counts.values()) == counts[kname],
+          f"{label}: launches {counts}")
+    records[kname][field] = counts[kname]
+    return counts
+
+
+def phase_c_ir(dev, records, n_lanes=65536):
+    """Instant radiosity over K1 against itself all-plain on cornell_port:
+    the VPL store (32 light paths) and the camera pass of 65,536 lanes
+    gathering the store's fullest row; then K1's any hit at the JAX
+    package's gather shape, 32 slots x 1,048,576 lanes in one call,
+    against the same rays in calls of 1,048,576."""
+    from gpu_pathtracer_tpu_torch.integrators import ir
+    scene, static = program_static(SCENES[0], "ir", dev)
+    n_pix = static.width * static.height
+    ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
+                       dtype=torch.int32)[:n_lanes]
+    px, py = ids % static.width, ids // static.width
+    stats = all_stats()
+    reset_counts(*stats.values())
+    v_k, rv_k = ir.generate_vpls(scene, static, SEED, 1, True)
+    row = int(v_k.count.argmax())
+    li_k, r_k = ir.render_lanes(scene, static, SEED, 1, px, py, v_k, row,
+                                True)
+    torch.cuda.synchronize()
+    counts = held_counts("C ir", stats, "dense_hit", records,
+                         "launches_c_ir_cornell_port")
+    v_p, rv_p = ir.generate_vpls(scene, static, SEED, 1, True, plain=True)
+    li_p, r_p = ir.render_lanes(scene, static, SEED, 1, px, py, v_p, row,
+                                True, plain=True)
+    check(torch.equal(v_k.count, v_p.count),
+          f"C ir: VPL counts {v_k.count.tolist()} vs {v_p.count.tolist()}")
+    filled = torch.arange(ir.IR_MAX_VPLS, device=dev)[None, :] \
+        < v_k.count[:, None]
+    for name in ("beta", "pos", "nor", "dir", "dpdu"):
+        a, b = getattr(v_k, name)[filled], getattr(v_p, name)[filled]
+        frac = close_frac(a, b)
+        print(f"[C] ir VPL store {name}: {a.shape[0]} filled slots, agree "
+              f"{frac:.6f}, max abs err {(a - b).abs().max().item():.3e}")
+        check(frac >= 0.99, f"C ir VPL store {name}: agree on {frac}")
+    print(f"[C] ir on {SCENES[0]}: VPL counts {v_k.count.tolist()}, row "
+          f"{row}; {ids.numel()} lanes, rays {int(rv_k) + int(r_k)} vs "
+          f"{int(rv_p) + int(r_p)}, launches {counts}")
+    hold_radiance(f"C ir {SCENES[0]}", "radiance", li_k, li_p)
+    k1_gather_shape(dev, scene, static)
+
+
+def k1_gather_shape(dev, scene, static):
+    """K1's any hit at the JAX package's IR gather shape (IR_MAX_VPLS
+    slots x 1,048,576 lanes, one call) against the same rays in calls of
+    1,048,576: the port's gather traces only a row's filled slots, so no
+    main path launches this shape."""
+    from gpu_pathtracer_tpu_torch.geom import dense, dense_cuda
+    from gpu_pathtracer_tpu_torch.integrators import ir
+    n_big = ir.IR_MAX_VPLS << 20
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ro = torch.rand((n_big, 3), generator=gen, device=dev) \
+        * torch.tensor([1.9, 1.9, 1.9], device=dev) - \
+        torch.tensor([0.95, -0.05, 0.95], device=dev)
+    rd = torch.nn.functional.normalize(
+        torch.randn((n_big, 3), generator=gen, device=dev), dim=1)
+    tmin = torch.full((n_big,), 1e-3, device=dev)
+    tmax = torch.rand(n_big, generator=gen, device=dev) * 2.0
+    kinds = dense.kinds_of(static)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    found = dense_cuda.dense_hit_cuda(scene.dense_prims, ro, rd, tmin, tmax,
+                                      True, kinds)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    parts = torch.cat([dense_cuda.dense_hit_cuda(
+        scene.dense_prims, ro[i:i + (1 << 20)], rd[i:i + (1 << 20)],
+        tmin[i:i + (1 << 20)], tmax[i:i + (1 << 20)], True, kinds)
+        for i in range(0, n_big, 1 << 20)])
+    print(f"[C] K1 any hit at the JAX package's IR gather shape: {n_big} "
+          f"rays in one call, {found.float().mean().item():.6f} blocked, "
+          f"equal to 32 calls of 1,048,576 on "
+          f"{(found == parts).float().mean().item():.6f}; the call's peak "
+          f"device memory above its inputs {peak / 2**30:.3f} GiB")
+    check(torch.equal(found, parts), "K1 at 33,554,432 rays differs from "
+          "the same rays in calls of 1,048,576")
+    del ro, rd, tmin, tmax, found, parts
+
+
+def phase_c_coupled(dev, records, integ, path, size=256, iterations=2):
+    """SPPM or MLT, which couple all pixels, over the kernels against
+    itself all-plain as whole images of size x size for `iterations`
+    iterations: SPPM's radius, photon statistic n and film; MLT's
+    bootstrap candidates, then from the kernels' bootstrap its chain
+    luminance and film. cornell_port runs at depth 5, mlt_slit.json at
+    its own 10."""
+    import dataclasses
+    from gpu_pathtracer_tpu_torch.integrators import mlt, sppm
+    from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+    scene, static = flat_sized(path, size, dev)
+    if path != MLT_SLIT:
+        static = dataclasses.replace(
+            static, integrator=IntegratorType[integ.upper()], max_depth=5)
+    n = size * size
+    ids = torch.arange(n, device=dev, dtype=torch.int32)
+    px, py = ids % size, ids // size
+    stats = all_stats()
+    label = f"C {integ} {path} {size}x{size}"
+    kname = "dense_hit" if integ == "sppm" else "pt_fused"
+    name = f"launches_c_{integ}_{os.path.basename(os.path.dirname(path))}_" \
+        f"{os.path.basename(path).split('.')[0]}"
+    reset_counts(*stats.values())
+    if integ == "sppm":
+        def run(plain):
+            state = sppm.init_state(n, static.init_radius, dev)
+            rays = 0
+            for it in range(1, iterations + 1):
+                state, film, r = sppm.render_iteration(
+                    scene, static, SEED, it, state, px, py, True, plain)
+                rays += int(r)
+            return state, film, rays
+        s_k, f_k, r_k = run(False)
+        counts = held_counts(label, stats, kname, records, name)
+        s_p, f_p, r_p = run(True)
+        print(f"[C] sppm on {path}: {n} pixels x {iterations} iterations at "
+              f"{static.photons_per_iteration} photons, rays {r_k} vs {r_p},"
+              f" launches {counts}; radius mean {s_k.radius.mean().item():.6f}"
+              f" (first {static.init_radius})")
+        check(bool(torch.equal(s_k.valid, s_p.valid)), f"{label}: valid")
+        hold_radiance(label, "radius", s_k.radius[:, None], s_p.radius[:, None])
+        hold_radiance(label, "photon statistic n", s_k.n[:, None],
+                      s_p.n[:, None])
+        hold_radiance(label, "radiance", f_k, f_p)
+        return
+    cands = mlt.candidates(scene, static, SEED, n)
+    s_k = mlt.resample(static, cands)
+    s_p = s_k
+    rays = int(cands[5])
+    for it in range(1, iterations + 1):
+        s_k, img_k, r = mlt.render_iteration(scene, static, SEED, it, s_k,
+                                             True)
+        rays += int(r)
+    torch.cuda.synchronize()
+    counts = held_counts(label, stats, kname, records, name)
+    cands_p = mlt.candidates(scene, static, SEED, n, plain=True)
+    hold_radiance(label, "bootstrap candidates' radiance", cands[1],
+                  cands_p[1])
+    for it in range(1, iterations + 1):
+        s_p, img_p, _ = mlt.render_iteration(scene, static, SEED, it, s_p,
+                                             True, plain=True)
+    print(f"[C] mlt on {path}: {n} chains, depth {static.max_depth}, psample "
+          f"[{mlt.n_dims(static) - 2}, {n}], bootstrap + {iterations} steps, "
+          f"rays {rays}, launches {counts}; accepted-state luminance mean "
+          f"{s_k['lum'].mean().item():.6f}")
+    hold_radiance(label, "chain luminance", s_k["lum"][:, None],
+                  s_p["lum"][:, None])
+    hold_radiance(label, "film", img_k, img_p)
+
+
+def plain_reference(integ, r):
+    """What program `integ` all-plain gives for the first iteration of
+    renderer `r` (its seed SEED), on every lane: per-lane radiance plus
+    splat film, IR's camera pass over its own VPL store, SPPM's absolute
+    film, or MLT's image after one step from the kernels' bootstrap,
+    whose candidates are held against their plain evaluation here."""
+    from gpu_pathtracer_tpu_torch.integrators import ir, mlt, sppm
+    scene, static = r.device_scene, r.static
+    n = r.acc.shape[0]
+    ids = torch.arange(n, device=r.acc.device, dtype=torch.int32)
+    if integ == "ir":
+        vpls = ir.generate_vpls(scene, static, SEED, 1, plain=True)
+        return ir.render_lanes(scene, static, SEED, 1, r._px, r._py, vpls,
+                               0, plain=True)
+    if integ == "sppm":
+        state = sppm.init_state(n, static.init_radius, r.acc.device)
+        return sppm.render_iteration(scene, static, SEED, 1, state, r._px,
+                                     r._py, plain=True)[1]
+    if integ == "mlt":
+        cands = mlt.candidates(scene, static, SEED, n)
+        cands_p = mlt.candidates(scene, static, SEED, n, plain=True)
+        hold_radiance(f"D mlt {SCENES[0]} bootstrap vs plain",
+                      "candidates' radiance", cands[1], cands_p[1])
+        return mlt.render_iteration(scene, static, SEED, 1,
+                                    mlt.resample(static, cands),
+                                    plain=True)[1]
+    li_p, film_p, _ = run_program(integ, scene, static, ids, plain=True)
+    return (li_p if li_p is not None else 0.0) \
+        + (film_p if film_p is not None else 0.0)
+
+
 def program_main_path(card, records, integ, path, spp, kname):
     """Program `integ` through the CLI on the scene at `path`, 1024^2,
-    depth 5: one warm-up spp held against the program all-plain on every
-    lane (the film kind's film on the pixels either touched), then `spp`
-    timed spp whose launches must all be kernel `kname`'s, with the peak
-    device memory of the timed run."""
+    depth 5: one warm-up spp (iteration) held against the program
+    all-plain on every lane (`plain_reference`; a film on the pixels
+    either touched), then `spp` timed spp whose launches must all be
+    kernel `kname`'s, with the peak device memory of the timed run (for
+    MLT it holds the bootstrap, made before the CLI's timed window)."""
+    from gpu_pathtracer_tpu_torch.geom import dense_cuda
     from gpu_pathtracer_tpu_torch.run import cli
     stats = all_stats()
     tag = f"{integ}_{os.path.basename(os.path.dirname(path))}_" \
@@ -2104,20 +2334,27 @@ def program_main_path(card, records, integ, path, spp, kname):
 
     warm = render(1, f"{tag}_1spp.png")
     r = warm["renderer"]
-    ids = torch.arange(r.acc.shape[0], device=r.acc.device,
-                       dtype=torch.int32)
-    li_p, film_p, _ = run_program(integ, r.device_scene, r.static, ids,
-                                  plain=True)
-    ref = (li_p if li_p is not None else 0.0)         + (film_p if film_p is not None else 0.0)
+    ref = plain_reference(integ, r)
     hold_radiance(f"D {label} warm-up spp vs plain", "film"
-                  if integ == "lt" else "radiance", r.acc, ref)
-    del warm, r, li_p, film_p, ref
+                  if integ in ("lt", "mlt") else "radiance", r.acc, ref)
+    del warm, r, ref
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()   # by the script's earlier phases
+    k1_sizes = []   # the rays of each K1 call of the timed run
+    k1 = dense_cuda.dense_hit_cuda
+
+    def k1_sized(prims, ro, *args):
+        k1_sizes.append(ro.shape[0])
+        return k1(prims, ro, *args)
+
+    dense_cuda.dense_hit_cuda = k1_sized
     reset_counts(*stats.values())
-    res = render(spp, f"{tag}.png")
+    try:
+        res = render(spp, f"{tag}.png")
+    finally:
+        dense_cuda.dense_hit_cuda = k1
     counts = {k: st.launches for k, st in stats.items()}
     plain = sum(st.plain_cuda for st in stats.values())
     peak = torch.cuda.max_memory_allocated()
@@ -2128,10 +2365,12 @@ def program_main_path(card, records, integ, path, spp, kname):
     print(f"[D] {label} ({r.kind} kind) through {kname}: {spp} spp of "
           f"1024x1024 depth {r.static.max_depth}, tile {r.tile_size} "
           f"lanes, in {res['seconds']:.6f} s: {res['spp_per_s']:.3f} spp/s,"
-          f" {res['mrays_per_s']:.1f} Mrays/s, peak device memory "
+          f" {res['mrays_per_s']:.1f} Mrays/s, host set-up "
+          f"{res['build_seconds']:.3f} s, peak device memory "
           f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above "
           f"what was held before the run ({card}); launches {counts}, "
-          f"plain-version calls on CUDA {plain}")
+          f"plain-version calls on CUDA {plain}, largest K1 call "
+          f"{max(k1_sizes, default=0)} rays")
     check(counts[kname] > 0 and sum(counts.values()) == counts[kname],
           f"{label}: main path launched {counts}")
     check(plain == 0, f"{label}: {plain} plain-version calls on CUDA")

@@ -40,6 +40,29 @@ path tracer's subsurface hook at bounce b reads sites 16 b + k of tag
 BSSRDF_TAG; BDPT's light subpath reads tag BDPT_LIGHT_TAG and its
 connection rounds tag BDPT_CONNECT_TAG (integrators/bdpt.py). Light
 tracing keys its tag-0 sites by the path index (integrators/lt.py).
+
+The last three integrators:
+- Instant radiosity (integrators/ir.py). Its camera pass reads the
+  tag-0 pixel sites: 0-3 the camera, 4 + 8 b + k (k = 0-2) bounce b's
+  BSDF sample. Its VPL light paths read tag IR_VPL_TAG, lane = path
+  index 0 .. 31, keyed by the iteration that regenerates the set:
+  sites 0-4 the emission (light pick, triangle u, v, direction u1, u2),
+  IR_EMIT_DIMS + IR_BOUNCE_DIMS b + k bounce b's BSDF u1-u3 (k = 0-2)
+  and Russian roulette (k = 3).
+- SPPM (integrators/sppm.py). Its eye pass reads the tag-0 pixel sites:
+  0-1 the pixel jitter (no aperture), 4 + SPPM_EYE_DIMS b + k bounce
+  b's k = 0 light pick, 1-2 light u, v, 3-5 the BSDF sample of the MIS
+  pair, 6-8 the BSDF sample of the walk. Its photons read tag
+  SPPM_PHOTON_TAG, lane = photon index: sites 0-4 the emission,
+  PHOTON_EMIT_DIMS + PHOTON_BOUNCE_DIMS b + k bounce b's k = 0 deposit
+  rotation, 1-3 BSDF u1-u3, 4 Russian roulette.
+- PSSMLT (integrators/mlt.py). Tag MLT_TAG, lane = chain index. The
+  bootstrap (iteration 0) reads sites 0 .. D - 1 as its candidate u and
+  site D as its resampling offset; the mutation step of iteration it
+  reads site 0 (large step or not), 1 (acceptance), 4 + j (row j of
+  the fresh sample), 4 + D + j (the perturbation's magnitude) and
+  4 + 2 D + j (its sign), j < D. Its path evaluations read the chain's
+  u, not Philox (`lane_stream` with a psample).
 """
 
 from __future__ import annotations
@@ -68,6 +91,9 @@ BSSRDF_TAG = 1         # the path tracer's subsurface hook
 BSSRDF_DIMS = 16       # its sites per bounce (9 read)
 BDPT_LIGHT_TAG = 2     # BDPT's light subpath
 BDPT_CONNECT_TAG = 3   # BDPT's connection rounds
+IR_VPL_TAG = 4         # instant radiosity's VPL light paths
+SPPM_PHOTON_TAG = 5    # SPPM's photon paths
+MLT_TAG = 6            # PSSMLT's bootstrap and mutation draws
 
 MASK32 = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53
@@ -118,6 +144,29 @@ def track_words(seed: int, iteration: int, lanes, tag: int, j):
 def bits_to_uniform(w):
     """uint32 word -> U[0, 1) with 24 bits, exact in float32."""
     return (w >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+ROW_BLOCKS = 8   # counter blocks (4 sites each) uniform_rows computes at once
+
+
+def uniform_rows(seed: int, iteration: int, lane_ids, n_rows: int, tag: int):
+    """Sites 0 .. n_rows - 1 of stream `tag` for every lane, as one
+    [n_rows, N] float32 tensor: the draws PhiloxStream would hand out in
+    turn, computed ROW_BLOCKS counter blocks at a time (which bounds the
+    int64 temporaries at [ROW_BLOCKS, N])."""
+    lanes = lane_ids.to(torch.int64)[None, :] & MASK32
+    n_blocks = (n_rows + 3) // 4
+    out = torch.empty((n_blocks * 4, lanes.shape[1]), dtype=torch.float32,
+                      device=lanes.device)
+    for b0 in range(0, n_blocks, ROW_BLOCKS):
+        b1 = min(b0 + ROW_BLOCKS, n_blocks)
+        blk = torch.arange(b0, b1, dtype=torch.int64,
+                           device=lanes.device)[:, None]
+        z = torch.zeros_like(lanes)
+        w = philox4x32_10(lanes, blk, z + tag, z, seed, iteration)
+        for k in range(4):
+            out[4 * b0 + k:4 * b1:4] = bits_to_uniform(w[k])
+    return out[:n_rows]
 
 
 class PhiloxStream:

@@ -1,13 +1,15 @@
 """Command-line renderer:
 `python -m gpu_pathtracer_tpu_torch.run.cli scene.json --spp 8 --out r.png`.
 
-The port of gpu_pathtracer_tpu/run/cli.py for ambient occlusion, path
-tracing, volumetric path tracing, light tracing and bidirectional path
-tracing (`--integrator ao|pt|vpt|lt|bdpt`). Renders N
-progressive samples per pixel on `--device` (default cuda: the command
+The port of gpu_pathtracer_tpu/run/cli.py for every integrator of the
+JAX package (`--integrator ao|pt|vpt|lt|bdpt|sppm|ir|mlt`, SPPM's
+`--photons` and `--init-radius`). Renders N progressive samples per
+pixel (for MLT: N mutation steps of every chain, after the bootstrap,
+which is part of the set-up) on `--device` (default cuda: the command
 fails when no CUDA device is present) and writes a PNG, optionally an
 EXR of the radiance. Options of the JAX CLI whose machinery is not
-ported yet exit with an error naming the ROADMAP item.
+ported yet (`--checkpoint`, `--shard`, `--profile`) exit with an error
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ _NOT_PORTED = {
     "checkpoint": "checkpoints (ROADMAP.md, still to port: item 5)",
     "shard": "multi-GPU rendering (ROADMAP.md, still to port: item 5)",
     "profile": "profiling (ROADMAP.md, still to port: item 5)",
-    "photons": "SPPM (ROADMAP.md, still to port: item 4)",
-    "init_radius": "SPPM (ROADMAP.md, still to port: item 4)",
 }
 
 
@@ -51,8 +51,7 @@ def main(argv=None):
     ap.add_argument("--integrator", default=None,
                     choices=["ao", "pt", "vpt", "lt", "bdpt", "sppm", "ir",
                              "mlt"],
-                    help="override the scene's integrator (ao, pt, vpt, "
-                    "lt, bdpt; sppm, ir and mlt are not ported yet)")
+                    help="override the scene's integrator")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     ap.add_argument("--no-cache", action="store_true",
@@ -61,17 +60,14 @@ def main(argv=None):
         ap.add_argument(f"--{name}", default=None, help="not ported yet")
     ap.add_argument("--shard", action="store_true", help="not ported yet")
     ap.add_argument("--photons", type=int, default=None,
-                    help="not ported yet")
+                    help="SPPM photons per iteration (default: the scene's)")
     ap.add_argument("--init-radius", type=float, default=None,
-                    help="not ported yet")
+                    help="SPPM initial photon radius (default: the scene's)")
     args = ap.parse_args(argv)
 
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             ap.error(f"--{name.replace('_', '-')}: {what}")
-    if args.integrator in ("sppm", "ir", "mlt"):
-        ap.error(f"--integrator {args.integrator}: not ported yet "
-                 f"(ROADMAP.md, still to port: item 4)")
     device = resolve_device(args.device)
 
     t0 = time.time()
@@ -85,7 +81,8 @@ def main(argv=None):
         integrator = IntegratorType[args.integrator.upper()]
     r = Renderer(scene, tile_size=args.tile, seed=args.seed,
                  integrator=integrator, max_depth=args.depth, device=device,
-                 cache=not args.no_cache)
+                 cache=not args.no_cache, photons_per_iteration=args.photons,
+                 init_radius=args.init_radius)
     build_s = time.time() - t0
     print(f"[scene] {r.static.n_primitives} prims, {r.width}x{r.height}, "
           f"integrator={r.static.integrator.name}, depth "
@@ -93,6 +90,7 @@ def main(argv=None):
           f"(built in {build_s:.2f}s)")
 
     _sync(device)
+    rays0 = int(r.rays)   # MLT's bootstrap traced these during the set-up
     t0 = time.time()
     for i in range(args.spp):
         r.render_iteration()
@@ -102,7 +100,7 @@ def main(argv=None):
                   f"{(i + 1) / (time.time() - t0):.3f} spp/s")
     _sync(device)
     dt = time.time() - t0
-    rays = int(r.rays)
+    rays = int(r.rays) - rays0
     print(f"[render] {args.spp} spp in {dt:.3f}s "
           f"({args.spp / dt:.3f} spp/s, {rays / dt / 1e6:.2f} Mrays/s)")
 

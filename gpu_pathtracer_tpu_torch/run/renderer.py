@@ -1,14 +1,22 @@
 """Progressive renderer: one `render_iteration` adds one sample per pixel.
 
-The port of gpu_pathtracer_tpu/run/renderer.py for three kinds of lane
-program (`lane_program`):
+The port of gpu_pathtracer_tpu/run/renderer.py. Kinds of lane program
+(`lane_program`):
 - "pixel" (ambient occlusion, path tracing, volumetric path tracing):
   lanes are pixels, each returns its own radiance;
 - "film" (light tracing): each iteration traces W*H light paths, in
   tiles of `tile_size` paths, each tile returning a splatted [W*H, 3]
   film; the sum is normalised by the path count;
 - "hybrid" (BDPT): lanes are pixels, each returns its own radiance plus
-  a film of its s == 1 splats.
+  a film of its s == 1 splats;
+- "ir" (instant radiosity): a pixel program gathering one row of a VPL
+  store that is regenerated every IR_MAX_VPLS iterations (the
+  iteration it - 1 = 0 mod 32 regenerates it; iteration it gathers row
+  (it - 1) mod 32, pathtracer.cu:2739-2744);
+- "sppm" and "mlt": programs that couple all pixels (the photon grid,
+  the Markov chains), run untiled on state kept on `device` between
+  iterations; their film is absolute, not a sum over iterations. MLT's
+  chains are bootstrapped when the renderer is made (and on `reset`).
 The film accumulates in a [W*H, 3] tensor on `device`. Every random
 site is keyed by (seed, iteration, pixel or path index), so the image
 does not depend on the tile size (a splatted film only within float32
@@ -33,21 +41,25 @@ def lane_program(integrator: IntegratorType):
     "pixel": program(scene, static, seed, it, px, py, with_stats) ->
     (li [N, 3], rays); "film": program(scene, static, seed, it, path_ids,
     with_stats) -> (film [W*H, 3], rays); "hybrid": program(scene,
-    static, seed, it, px, py, with_stats) -> (li, film, rays)."""
-    from gpu_pathtracer_tpu_torch.integrators import ao, bdpt, lt, pt, vpt
-    if integrator == IntegratorType.AO:
-        return "pixel", ao.render_lanes
-    if integrator == IntegratorType.PT:
-        return "pixel", pt.render_lanes
-    if integrator == IntegratorType.VPT:
-        return "pixel", vpt.render_lanes
-    if integrator == IntegratorType.LT:
-        return "film", lt.render_film
-    if integrator == IntegratorType.BDPT:
-        return "hybrid", bdpt.render_lanes
-    raise NotImplementedError(
-        f"integrator {integrator.name} is not ported yet (ROADMAP.md, "
-        f"still to port: item 4)")
+    static, seed, it, px, py, with_stats) -> (li, film, rays); "ir":
+    program(scene, static, seed, it, px, py, vpls, row, with_stats) ->
+    (li, rays); "sppm": program(scene, static, seed, it, state, px, py,
+    with_stats) -> (state, film, rays); "mlt": program(scene, static,
+    seed, it, state, with_stats) -> (state, film, rays). Each takes
+    `plain=True` to run over the plain intersection on any device."""
+    from gpu_pathtracer_tpu_torch.integrators import (
+        ao, bdpt, ir, lt, mlt, pt, sppm, vpt,
+    )
+    return {
+        IntegratorType.AO: ("pixel", ao.render_lanes),
+        IntegratorType.PT: ("pixel", pt.render_lanes),
+        IntegratorType.VPT: ("pixel", vpt.render_lanes),
+        IntegratorType.LT: ("film", lt.render_film),
+        IntegratorType.BDPT: ("hybrid", bdpt.render_lanes),
+        IntegratorType.IR: ("ir", ir.render_lanes),
+        IntegratorType.SPPM: ("sppm", sppm.render_iteration),
+        IntegratorType.MLT: ("mlt", mlt.render_iteration),
+    }[integrator]
 
 
 def resolve_device(device) -> torch.device:
@@ -63,7 +75,8 @@ class Renderer:
     def __init__(self, scene: HostScene | str, tile_size: int = DEFAULT_TILE,
                  seed: int = 0, integrator: IntegratorType | None = None,
                  max_depth: int | None = None, device="cuda",
-                 cache: bool = True):
+                 cache: bool = True, photons_per_iteration: int | None = None,
+                 init_radius: float | None = None):
         if isinstance(scene, str):
             scene = load_scene(scene)
         self.device = resolve_device(device)
@@ -76,6 +89,10 @@ class Renderer:
             repl["integrator"] = integrator
         if max_depth is not None:
             repl["max_depth"] = max_depth
+        if photons_per_iteration is not None:
+            repl["photons_per_iteration"] = photons_per_iteration
+        if init_radius is not None:
+            repl["init_radius"] = init_radius
         if repl:
             self.static = dataclasses.replace(self.static, **repl)
         self.width = self.static.width
@@ -91,18 +108,59 @@ class Renderer:
         self._ids = ids
         self._px = ids % self.width
         self._py = ids // self.width
+        self.rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.reset()
+
+    def reset(self) -> None:
+        """Restart the film (the camera moved, pathtracer.cu:2521): the
+        iteration count, SPPM's visible points, IR's VPL store and MLT's
+        chains (bootstrapped again here) start anew."""
+        n = self.width * self.height
         self.acc = torch.zeros((n, 3), dtype=torch.float32,
                                device=self.device)
-        self.rays = torch.zeros((), dtype=torch.int64, device=self.device)
         self.iteration = 0
+        self._vpls = None
+        if self.kind == "sppm":
+            from gpu_pathtracer_tpu_torch.integrators import sppm
+            self._sppm_state = sppm.init_state(n, self.static.init_radius,
+                                               self.device)
+        if self.kind == "mlt":
+            from gpu_pathtracer_tpu_torch.integrators import mlt
+            self._mlt_state, rays = mlt.bootstrap(
+                self.device_scene, self.static, self.seed, n)
+            self.rays += rays
 
     def render_iteration(self) -> None:
-        """Add one sample per pixel to the film. The host synchronises
-        only for a scene that the BVH8 walk serves, once, to read its
-        stack-overflow flag (geom/packet_cuda.check_overflow)."""
+        """Add one sample per pixel to the film (SPPM, MLT: replace the
+        absolute film). The host synchronises for a scene that the BVH8
+        walk serves, once, to read its stack-overflow flag
+        (geom/packet_cuda.check_overflow), and where a program compacts
+        lanes (IR's gather, SPPM's deposits)."""
         self.iteration += 1
-        n = self.acc.shape[0]
         args = (self.device_scene, self.static, self.seed, self.iteration)
+        if self.kind == "sppm":
+            self._sppm_state, self.acc, rays = self._program(
+                *args, self._sppm_state, self._px, self._py, with_stats=True)
+            self.rays += rays
+        elif self.kind == "mlt":
+            self._mlt_state, self.acc, rays = self._program(
+                *args, self._mlt_state, with_stats=True)
+            self.rays += rays
+        else:
+            self._render_tiles(args)
+        if self._walks:
+            packet_cuda.check_overflow(self.device)
+
+    def _render_tiles(self, args) -> None:
+        n = self.acc.shape[0]
+        extra = ()
+        if self.kind == "ir":
+            from gpu_pathtracer_tpu_torch.integrators import ir
+            row = (self.iteration - 1) % ir.IR_MAX_VPLS
+            if row == 0 or self._vpls is None:
+                self._vpls, rays = ir.generate_vpls(*args, with_stats=True)
+                self.rays += rays
+            extra = (self._vpls, row)
         for t0 in range(0, n, self.tile_size):
             t1 = min(t0 + self.tile_size, n)
             if self.kind == "film":
@@ -119,23 +177,27 @@ class Renderer:
                 self.acc += film
             else:
                 li, rays = self._program(
-                    *args, self._px[t0:t1], self._py[t0:t1], with_stats=True)
+                    *args, self._px[t0:t1], self._py[t0:t1], *extra,
+                    with_stats=True)
                 self.acc[t0:t1] += li
             self.rays += rays
-        if self._walks:
-            packet_cuda.check_overflow(self.device)
 
     def render(self, spp: int):
         for _ in range(spp):
             self.render_iteration()
         return self.image()
 
+    def _divisor(self) -> int:
+        """What the film is divided by: the iteration count, or 1 for the
+        absolute films of SPPM and MLT."""
+        return 1 if self.kind in ("sppm", "mlt") else max(self.iteration, 1)
+
     def radiance(self):
         """Mean radiance film [H, W, 3] numpy (row 0 = bottom)."""
-        acc = (self.acc / max(self.iteration, 1)).cpu().numpy()
+        acc = (self.acc / self._divisor()).cpu().numpy()
         return acc.reshape(self.height, self.width, 3)
 
     def image(self):
         """Tonemapped display image [H, W, 3] numpy (row 0 = bottom)."""
-        img = film_mod.tonemap(self.acc, self.iteration, self.static.filmic)
+        img = film_mod.tonemap(self.acc, self._divisor(), self.static.filmic)
         return img.cpu().numpy().reshape(self.height, self.width, 3)

@@ -207,6 +207,9 @@ class StaticConfig:
     integrator: IntegratorType
     max_depth: int
     max_dist: float        # AO's occlusion distance (maxDist)
+    init_radius: float     # SPPM's first photon radius (initRadius)
+    photons_per_iteration: int  # SPPM's photons a pass (photonsPerIteration)
+    vpl_bias: float        # IR's squared-distance clamp (vplBias)
     n_lights: int          # area lights
     has_infinite: bool     # an environment light
     has_textures: bool
@@ -718,6 +721,9 @@ def flatten_numpy(scene: HostScene, instancing: bool = False,
         integrator=scene.integrator.type,
         max_depth=scene.integrator.maxDepth,
         max_dist=scene.integrator.maxDist,
+        init_radius=scene.integrator.initRadius,
+        photons_per_iteration=scene.integrator.photonsPerIteration,
+        vpl_bias=scene.integrator.vplBias,
         n_lights=len(scene.lights),
         has_infinite=scene.infinite is not None,
         has_textures=bool(scene.textures),

@@ -82,6 +82,12 @@ def is_delta(mtype):
     return (mtype == MIRROR) | (mtype == DIELECTRIC)
 
 
+def is_glossy(mtype):
+    """material.h:32-34."""
+    return (mtype == ROUGHCONDUCTOR) | (mtype == ROUGHDIELECTRIC) | (
+        mtype == SUBSTRATE)
+
+
 # ---------------------------------------------------------------------------
 # Fresnel + microfacet building blocks (pathtracer.cu:51-164)
 # ---------------------------------------------------------------------------

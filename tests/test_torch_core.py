@@ -177,6 +177,17 @@ def test_philox_stream_sites():
         s.uniform()
 
 
+@pytest.mark.parametrize("n_rows", [7, 4 * trng.ROW_BLOCKS + 5])
+def test_uniform_rows_are_the_stream_sites(n_rows):
+    """uniform_rows' row d is PhiloxStream's site d of the same tag, also
+    past the first ROW_BLOCKS counter blocks."""
+    lanes = torch.tensor([0, 3, 1 << 20, (1 << 31) - 1])
+    rows = trng.uniform_rows(77, 5, lanes, n_rows, trng.MLT_TAG)
+    s = trng.PhiloxStream(77, 5, lanes, tag=trng.MLT_TAG)
+    assert rows.shape == (n_rows, 4)
+    assert torch.equal(rows, torch.stack([s.uniform() for _ in range(n_rows)]))
+
+
 def test_primary_sample_stream_reads_rows():
     u = torch.rand(12, 5, generator=torch.Generator().manual_seed(0))
     s = trng.PrimarySampleStream(u, base=4, budget=8)

@@ -56,7 +56,7 @@ def test_cli_writes_png(tmp_path):
 
 @pytest.mark.parametrize("args, words", [
     (["--device", "cuda"], "CUDA"),
-    (["--device", "cpu", "--integrator", "sppm"], "ROADMAP"),
+    (["--device", "cpu", "--shard"], "ROADMAP"),
     (["--device", "cpu", "--checkpoint", "c.npz"], "ROADMAP"),
 ])
 def test_cli_refuses(tmp_path, args, words):
@@ -69,6 +69,44 @@ def test_cli_refuses(tmp_path, args, words):
               *args], tmp_path)
     assert r.returncode != 0
     assert words in r.stderr
+
+
+@pytest.mark.parametrize("integrator", ["ir", "sppm", "mlt"])
+def test_cli_integrator_writes_png(tmp_path, integrator):
+    """The last three integrators through the CLI, with SPPM's options."""
+    out = tmp_path / "r.png"
+    r = _run(["-m", "gpu_pathtracer_tpu_torch.run.cli",
+              str(tp.PORT_SCENES["cornell"]), "--device", "cpu", "--size",
+              "8", "--spp", "2", "--integrator", integrator, "--photons",
+              "2048", "--init-radius", "0.3", "--out", str(out)], tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert f"integrator={integrator.upper()}" in r.stdout
+    assert "2 spp" in r.stdout and "Mrays/s" in r.stdout
+    w, h, raw = _decode_png(out.read_bytes())
+    assert (w, h) == (8, 8)
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)
+    assert rows[:, 1:].mean() > 5
+
+
+@pytest.mark.parametrize("integrator", ["pt", "ir", "sppm", "mlt"])
+def test_reset_restarts(integrator):
+    """reset() restarts the film and every integrator's state (SPPM's
+    visible points, IR's VPL store, MLT's chains): the next iterations
+    repeat the first ones bit for bit."""
+    from gpu_pathtracer_tpu_torch.run.renderer import Renderer
+    from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+    host = load_scene(str(tp.PORT_SCENES["cornell"]))
+    host.width = host.height = 8
+    r = Renderer(host, device="cpu", max_depth=3, photons_per_iteration=512,
+                 integrator=IntegratorType[integrator.upper()])
+    r.render(2)
+    first = r.radiance()
+    r.reset()
+    assert r.iteration == 0 and not r.acc.any()
+    r.render(2)
+    np.testing.assert_array_equal(r.radiance(), first)
+    assert first.sum() > 0
 
 
 def test_renderer_matches_jax_statistically():

@@ -29,8 +29,11 @@ SKY_SCENES = {
 
 
 @pytest.fixture(params=["cornell", "materials", "many_lights",
-                        "sphere_line", "smoke", "bssrdf", *SKY_SCENES])
+                        "sphere_line", "smoke", "bssrdf", "mlt_slit",
+                        *SKY_SCENES])
 def scene_path(request, tmp_path):
+    if request.param == "mlt_slit":   # a mesh of another scene's folder
+        return SCENES / "cornell_port" / "mlt_slit.json"
     if request.param == "sphere_line":
         return tp.write_sphere_line_scene(tmp_path)
     if request.param == "many_lights":
@@ -128,16 +131,22 @@ def test_sky_scenes_route():
 
 
 @pytest.mark.parametrize("feature", ["sppm", "ir"])
-def test_unported_features_raise(feature):
-    """Integrators still to port raise, naming their ROADMAP item (the
-    CLI refuses them the same way)."""
+def test_unported_features_raise(feature, capsys):
+    """SPPM and IR raised here (NotImplementedError, ROADMAP item 4) until
+    they were ported: the Renderer now builds each as its own kind. What
+    is still unported around them, the CLI's checkpoints (ROADMAP item
+    5), is refused naming its item."""
+    from gpu_pathtracer_tpu_torch.run import cli
     from gpu_pathtracer_tpu_torch.run.renderer import Renderer
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
     host = load_scene(str(tp.PORT_SCENES["cornell"]))
     host.width = host.height = 8
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Renderer(host, device="cpu",
-                 integrator=IntegratorType[feature.upper()])
+    r = Renderer(host, device="cpu", integrator=IntegratorType[feature.upper()])
+    assert r.kind == feature and r.acc.shape == (64, 3)
+    with pytest.raises(SystemExit):
+        cli.main([str(tp.PORT_SCENES["cornell"]), "--integrator", feature,
+                  "--device", "cpu", "--checkpoint", "c.npz"])
+    assert "item 5" in capsys.readouterr().err
 
 
 def test_bssrdf_scene_routes_to_the_wavefront():

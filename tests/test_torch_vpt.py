@@ -157,9 +157,17 @@ def test_cli_vpt_writes_png(tmp_path):
 
 @pytest.mark.parametrize("integrator", ["sppm", "mlt"])
 def test_cli_refuses_unported_integrators(tmp_path, integrator):
-    r = subprocess.run(
-        [sys.executable, "-m", "gpu_pathtracer_tpu_torch.run.cli",
-         str(tp.PORT_SCENES["cornell"]), "--integrator", integrator,
-         "--device", "cpu", "--size", "8", "--spp", "1"],
-        cwd=tmp_path, env=ENV, capture_output=True, text=True, timeout=120)
+    """The CLI refused SPPM and MLT until they were ported: it now renders
+    them, and refuses what is still unported with them, multi-GPU
+    rendering (`--shard`, ROADMAP item 5)."""
+    args = [sys.executable, "-m", "gpu_pathtracer_tpu_torch.run.cli",
+            str(tp.PORT_SCENES["cornell"]), "--integrator", integrator,
+            "--device", "cpu", "--size", "8", "--spp", "1", "--out",
+            str(tmp_path / "r.png")]
+    r = subprocess.run(args, cwd=tmp_path, env=ENV, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert f"integrator={integrator.upper()}" in r.stdout
+    r = subprocess.run(args + ["--shard"], cwd=tmp_path, env=ENV,
+                       capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "ROADMAP" in r.stderr

@@ -1,7 +1,7 @@
 """Where the time goes in the port's main path, on one NVIDIA GPU.
 
-    python3 tools/profile_port.py [--spp 4] [--integrator ao|pt|vpt|lt|bdpt]
-        [scene.json ...]
+    python3 tools/profile_port.py [--spp 4]
+        [--integrator ao|pt|vpt|lt|bdpt|ir|sppm|mlt] [scene.json ...]
 
 Renders each scene (default: scenes/cornell_port/scene.json, which takes
 the megakernel; scenes/env_port/scene.json, its environment variant;
@@ -17,8 +17,11 @@ after one warm-up spp, and prints per scene: wall time per spp, device
 time per spp summed over kernels, the device's idle share of the window,
 the kernels that take the most device time, and then every kernel of
 the port's own CUDA sources (the __global__ functions of
-gpu_pathtracer_tpu_torch/csrc/*.cu) with its share. Needs a CUDA device;
-prints the card's name and power limit first.
+gpu_pathtracer_tpu_torch/csrc/*.cu) with its share. A "spp" of SPPM is
+one iteration (eye pass, grid, photon pass), of MLT one mutation of
+every chain (the bootstrap is made with the renderer, before the
+window). Needs a CUDA device; prints the card's name and power limit
+first.
 """
 
 from __future__ import annotations
@@ -84,7 +87,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--integrator", default=None,
-                    choices=["ao", "pt", "vpt", "lt", "bdpt"],
+                    choices=["ao", "pt", "vpt", "lt", "bdpt", "ir", "sppm",
+                             "mlt"],
                     help="override each scene's integrator")
     ap.add_argument("scenes", nargs="*", default=[
         os.path.join(REPO, "scenes", folder, name)
@@ -115,8 +119,9 @@ def main() -> None:
         wall, rows = profile(r, args.spp)
         dev_us = sum(us for _, us, _ in rows)
         integ = r.static.integrator
-        fused = integ == IntegratorType.PT and pt_fused.supports(r.static)
-        regime = ("megakernel" if fused else
+        fused = integ in (IntegratorType.PT, IntegratorType.MLT) \
+            and pt_fused.supports(r.static)
+        regime = (f"{integ.name} over the megakernel" if fused else
                   f"{integ.name} {r.kind} wavefront, "
                   f"{traverse.regime(r.static)} regime")
         print(f"[{os.path.basename(path)}, {regime}] {r.width}x{r.height} "
