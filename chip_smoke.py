@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py               # all phases
     python3 chip_smoke.py --phases ABC  # build and kernel checks only
+    python3 chip_smoke.py --phases F    # build, checkpoints, sharding
+    python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
     python3 chip_smoke.py --baseline DIR  # also time DIR's K1 and K3
 
@@ -132,6 +134,24 @@ Phases:
      rays and two calls of the VPT warm-up spp, K2's primary rays of
      each variant, K3's and K4's primary, bounce and main-path calls),
      each checkout in its own process, in turns.
+  F  checkpoints and sharding (run/checkpoint.py, parallel/dist.py), at
+     1024^2 depth 5: PT on cornell_port (K2) and on knot_port/scene.json
+     (K4), VPT on smoke_port (K1 + track) and IR, SPPM and MLT on
+     cornell_port each render 2 iterations, save a checkpoint (its MB and
+     write seconds), render 2 more; a new renderer loads the file (read
+     seconds) and renders 2: PT, VPT and IR bit-equal, SPPM's radius and
+     photon statistic and MLT's chain luminance equal, their films within
+     the radiance limits. PT, VPT, LT, BDPT, IR, SPPM and MLT render 2
+     iterations unsharded, then through Renderer(shard=True) on a group of
+     one NCCL rank (this process, a file:// store) and on 2 gloo ranks
+     on cuda:0 (this script under torchrun, `--rank-of gloo`), each held
+     against the unsharded render (PT, VPT, IR bit-equal; LT, BDPT within
+     the radiance limits; SPPM, MLT as above; the rays equal), with the
+     all_reduce milliseconds per iteration and of the film's read; then
+     whether NCCL takes 2 ranks on one card (`--rank-of nccl-pair`,
+     killed after 120 s). Last, the CLI with --profile for 1 spp of cornell_port:
+     the trace must name K2's pt_fused_kernel. Every path's launches must
+     be its kernels' (> 0 each) and its plain-version calls on CUDA 0.
 
 Every check that fails exits non-zero before the last line. The last two
 lines are the kernels' JSON record and
@@ -2758,11 +2778,390 @@ def walk_bound(scene, med_idx, ro, rd, tmax, n_cand) -> dict:
                  n_cand * 80 + n_walk * media.NSEG * 20)
 
 
+# ---------------------------------------------------------------- phase F
+
+# checkpoint resume at 1024^2 depth 5: (integrator, scene, kernels)
+CKPT_F = (("pt", SCENES[0], ("pt_fused",)),
+          ("pt", KNOT["scene"], ("bvh8_walk",)),
+          ("vpt", SMOKE, ("dense_hit", "track")),
+          ("ir", SCENES[0], ("dense_hit",)),
+          ("sppm", SCENES[0], ("dense_hit",)),
+          ("mlt", SCENES[0], ("pt_fused",)))
+# sharded renders at 1024^2 depth 5, 2 iterations: (integrator, scene,
+# kernels)
+SHARD_F = (("pt", SCENES[0], ("pt_fused",)),
+           ("vpt", SMOKE, ("dense_hit", "track")),
+           ("lt", SCENES[0], ("dense_hit",)),
+           ("bdpt", SCENES[0], ("dense_hit",)),
+           ("ir", SCENES[0], ("dense_hit",)),
+           ("sppm", SCENES[0], ("dense_hit",)),
+           ("mlt", SCENES[0], ("pt_fused",)))
+BIT_EQUAL_F = ("pt", "vpt", "ir")   # kinds whose film equals bit for bit
+F_TIMEOUT_S = 300   # a spawned rank's limit
+# the collectives' bootstrap sockets stay on the loopback interface
+LOOPBACK = {"NCCL_SOCKET_IFNAME": "lo", "GLOO_SOCKET_IFNAME": "lo"}
+
+
+def f_dir() -> str:
+    """Phase F's scratch directory (checkpoints, stores, rank outputs),
+    emptied at the end of the phase."""
+    path = os.path.join(REPO, "build", "phase_f")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def f_renderer(integ, path, dev, shard=False):
+    """Renderer of program `integ` on the scene at `path`, 1024^2 (the
+    scenes' own size), depth 5, seed SEED."""
+    from gpu_pathtracer_tpu_torch.run.renderer import Renderer
+    from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+    return Renderer(os.path.join(REPO, path), seed=SEED, device=dev,
+                    integrator=IntegratorType[integ.upper()], max_depth=5,
+                    shard=shard)
+
+
+def f_counts(label, stats, knames) -> dict:
+    """The launches since the counts were set to 0: each of `knames`
+    launched, no other kernel, no plain version on CUDA."""
+    counts = {k: st.launches for k, st in stats.items()}
+    plain = sum(st.plain_cuda for st in stats.values())
+    check(all(counts[k] > 0 for k in knames)
+          and sum(counts[k] for k in knames) == sum(counts.values()),
+          f"{label}: launches {counts}")
+    check(plain == 0, f"{label}: {plain} plain-version calls on CUDA")
+    return {k: counts[k] for k in knames}
+
+
+def phase_f_checkpoint(dev, card) -> None:
+    """Each CKPT_F path renders 2 iterations, saves, renders 2 more; a
+    new renderer loads the file and renders 2: PT, VPT and IR bit-equal,
+    SPPM and MLT within the radiance limits (their deposits and splats
+    add in no fixed order on the card) with SPPM's radius and photon
+    statistic and MLT's chain luminance equal."""
+    from gpu_pathtracer_tpu_torch.geom import packet_cuda
+    from gpu_pathtracer_tpu_torch.run import checkpoint as ckpt
+    stats = all_stats()
+    for integ, path, knames in CKPT_F:
+        label = f"F {integ} {path} resumed"
+        f = os.path.join(f_dir(), f"{integ}.npz")
+        reset_counts(*stats.values())
+        a = f_renderer(integ, path, dev)
+        a.render(2)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ckpt.save_checkpoint(a, f)
+        t_write = time.time() - t0
+        mb = os.path.getsize(f) / 2**20
+        a.render(2)
+        b = f_renderer(integ, path, dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ckpt.load_checkpoint(b, f)
+        torch.cuda.synchronize()
+        t_read = time.time() - t0
+        check(b.iteration == 2, f"{label}: iteration {b.iteration}")
+        b.render(2)
+        torch.cuda.synchronize()
+        counts = f_counts(label, stats, knames)
+        print(f"[F] {integ} on {path} ({a.kind} kind), 1024x1024 depth 5: "
+              f"checkpoint at 2 of 4 iterations, {mb:.3f} MB, write "
+              f"{t_write:.6f} s, read {t_read:.6f} s ({card}); launches "
+              f"{counts}, plain-version calls on CUDA 0")
+        if integ in BIT_EQUAL_F:
+            same = (a.acc == b.acc).all(1).float().mean().item()
+            print(f"[F] {integ} {path} resumed vs uninterrupted: bit-equal "
+                  f"on {same:.6f} of {a.acc.shape[0]} pixels")
+            check(torch.equal(a.acc, b.acc), f"{label}: film differs")
+        elif integ == "sppm":
+            st_a, st_b = a._sppm_state, b._sppm_state
+            check(torch.equal(st_a.radius, st_b.radius)
+                  and torch.equal(st_a.n, st_b.n),
+                  f"{label}: radius or photon statistic differs")
+            hold_radiance(label, "radiance", b.acc, a.acc)
+        else:
+            check(torch.equal(a._mlt_state["lum"], b._mlt_state["lum"]),
+                  f"{label}: chain luminance differs")
+            hold_radiance(label, "film", b.acc, a.acc)
+        check(bool(torch.isfinite(b.acc).all()) and b.acc.sum() > 0,
+              f"{label}: film not finite or black")
+        packet_cuda.check_overflow()
+        os.remove(f)
+        del a, b
+
+
+class ReduceTimer:
+    """Wraps torch.distributed.all_reduce (which parallel/dist.py calls)
+    to add up its calls' milliseconds, the card synchronised around each
+    call."""
+
+    def __init__(self):
+        self.ms, self.calls = 0.0, 0
+        self._orig = torch.distributed.all_reduce
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            return out
+        torch.distributed.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_reduce = self._orig
+
+
+def f_arrays(r) -> dict:
+    """What phase F compares of a renderer, whole, as numpy (a collective
+    on a sharded renderer): the film, the rays, SPPM's radius and photon
+    statistic, MLT's chain luminance."""
+    out = {"film": r.film().cpu().numpy(), "rays": int(r.rays)}
+    if r.kind == "sppm":
+        out.update(radius=r._sppm_state.radius.cpu().numpy(),
+                   n=r._sppm_state.n.cpu().numpy())
+    if r.kind == "mlt":
+        out["lum"] = r.shard.gather(r._mlt_state["lum"],
+                                    r.width * r.height).cpu().numpy()
+    return out
+
+
+def f_sharded(integ, path, knames, dev, stats) -> tuple:
+    """Program `integ` sharded over the current group for 2 iterations:
+    (f_arrays, launches, reduction ms per iteration, ms of the read)."""
+    r = f_renderer(integ, path, dev, shard=True)
+    reset_counts(*stats.values())
+    with ReduceTimer() as t_it:
+        for _ in range(2):
+            r.render_iteration()
+    with ReduceTimer() as t_read:
+        arrays = f_arrays(r)
+    torch.cuda.synchronize()
+    counts = f_counts(f"F {integ} sharded, rank {r.shard.rank}", stats,
+                      knames)
+    from gpu_pathtracer_tpu_torch.geom import packet_cuda
+    packet_cuda.check_overflow()
+    return arrays, counts, t_it.ms / 2, t_it.calls, t_read.ms
+
+
+def hold_sharded(label, integ, got, ref) -> None:
+    """A sharded render against one rank's: the rays equal; PT, VPT and
+    IR bit-equal; LT and BDPT within the radiance limits; SPPM's radius
+    and photon statistic equal, its film within the limits; MLT's chain
+    luminance equal, its film within the limits."""
+    check(got["rays"] == ref["rays"],
+          f"{label}: rays {got['rays']} vs {ref['rays']}")
+    a, b = torch.as_tensor(got["film"]), torch.as_tensor(ref["film"])
+    if integ in BIT_EQUAL_F:
+        same = (a == b).all(1).float().mean().item()
+        print(f"[F] {label[2:]}: bit-equal on {same:.6f} of {a.shape[0]} "
+              f"pixels")
+        check(torch.equal(a, b), f"{label}: film differs")
+        return
+    if integ == "sppm":
+        check(np.array_equal(got["radius"], ref["radius"])
+              and np.array_equal(got["n"], ref["n"]),
+              f"{label}: radius or photon statistic differs")
+    if integ == "mlt":
+        check(np.array_equal(got["lum"], ref["lum"]),
+              f"{label}: chain luminance differs")
+    hold_radiance(label, "film" if integ in ("lt", "mlt") else "radiance",
+                  a, b)
+
+
+def f_references(dev) -> dict:
+    """{integ: f_arrays} of SHARD_F rendered unsharded, 2 iterations."""
+    stats = all_stats()
+    ref = {}
+    for integ, path, knames in SHARD_F:
+        reset_counts(*stats.values())
+        r = f_renderer(integ, path, dev)
+        for _ in range(2):
+            r.render_iteration()
+        ref[integ] = f_arrays(r)
+        f_counts(f"F {integ} unsharded", stats, knames)
+        del r
+    return ref
+
+
+def phase_f_shard(dev, card) -> None:
+    """SHARD_F one rank unsharded (the reference), then through
+    Renderer(shard=True) on a world of 1 on NCCL (in this process) and
+    on 2 gloo ranks spawned on cuda:0; then whether NCCL takes 2 ranks on
+    one card."""
+    from gpu_pathtracer_tpu_torch.parallel import dist
+    os.environ.update(LOOPBACK)
+    stats = all_stats()
+    ref = f_references(dev)
+    store = os.path.join(f_dir(), "store_nccl_1")
+    dist.init("nccl", f"file://{store}", 0, 1, timeout_s=F_TIMEOUT_S)
+    try:
+        with ReduceTimer() as setup:   # NCCL makes its communicator here
+            torch.distributed.all_reduce(torch.ones(1, device=dev))
+        print(f"[F] one NCCL rank: the first all_reduce (communicator "
+              f"set-up) {setup.ms:.3f} ms ({card})")
+        for integ, path, knames in SHARD_F:
+            got, counts, ms_it, calls, ms_read = f_sharded(
+                integ, path, knames, dev, stats)
+            print(f"[F] {integ} on {path}, 1 NCCL rank: launches {counts}, "
+                  f"plain 0; reductions {ms_it:.3f} ms per iteration "
+                  f"({calls} all_reduce calls in 2), read {ms_read:.3f} ms "
+                  f"({card})")
+            hold_sharded(f"F {integ} 1 NCCL rank vs unsharded", integ, got,
+                         ref[integ])
+    finally:
+        torch.distributed.destroy_process_group()
+
+    hold_ranks("gloo", 2, "2 gloo ranks on cuda:0", ref)
+    rc, log = torchrun(2, ["--rank-of", "nccl-pair", f_dir()], 120)
+    said = [ln for ln in log.splitlines() if "Duplicate" in ln
+            or "all_reduce gave" in ln or "Error" in ln][:3]
+    print(f"[F] NCCL, 2 ranks on cuda:0 (torchrun): exit {rc}: "
+          + " | ".join(ln.strip()[:300] for ln in said))
+
+
+def f_rank(kind: str, out: str) -> None:
+    """A rank of phase F that torchrun started. "gloo": one of 2 gloo
+    ranks on cuda:0, and "nccl" (--cards): one NCCL rank a card, each
+    rendering SHARD_F sharded over the group, rank 0 writing the arrays
+    to compare to out/<kind>_<integ>.npz; "nccl-pair": one of 2 NCCL
+    ranks on cuda:0, one all_reduce."""
+    from gpu_pathtracer_tpu_torch.parallel import dist
+    card = card_line()
+    dev = torch.device("cuda", dist.local_rank() if kind == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    rank, world = dist.init("gloo" if kind == "gloo" else "nccl",
+                            timeout_s=60 if kind == "nccl-pair"
+                            else F_TIMEOUT_S)
+    with ReduceTimer() as setup:
+        x = torch.ones(1, device=dev)
+        torch.distributed.all_reduce(x)
+    where = f"{kind} rank {rank} of {world} on {dev}"
+    print(f"[F] {where}: the first all_reduce {setup.ms:.3f} ms, all_reduce "
+          f"gave {x.item()}", flush=True)
+    if kind != "nccl-pair":
+        stats = all_stats()
+        for integ, path, knames in SHARD_F:
+            got, counts, ms_it, calls, ms_read = f_sharded(
+                integ, path, knames, dev, stats)
+            print(f"[F] {integ} on {path}, {where}: launches {counts}, plain "
+                  f"0; reductions {ms_it:.3f} ms per iteration ({calls} "
+                  f"all_reduce calls in 2), read {ms_read:.3f} ms ({card})",
+                  flush=True)
+            if rank == 0:
+                np.savez(os.path.join(out, f"{kind}_{integ}.npz"), **got)
+    torch.distributed.destroy_process_group()
+
+
+def torchrun(n: int, args: list, timeout: float, module=False):
+    """Run this script (or with module=True, `-m args[0]`) as n ranks
+    under torchrun in a session of its own, from the repository, with
+    the collectives' sockets on loopback; past `timeout` seconds the
+    whole session is killed and the phase fails. Returns (exit code,
+    output)."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}"]
+    cmd += (["-m"] if module else [os.path.abspath(__file__)]) + args
+    if not module:
+        cmd += ["--out", OUT]
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO, **LOOPBACK),
+                         start_new_session=True)
+    try:
+        log = p.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        fail(f"torchrun {' '.join(args[:3])} ... ran past {timeout} s")
+    return p.returncode, log
+
+
+def hold_ranks(kind: str, n: int, what: str, ref: dict) -> None:
+    """SHARD_F over n ranks of `kind` under torchrun (f_rank), each held
+    against the unsharded render `ref`."""
+    rc, log = torchrun(n, ["--rank-of", kind, f_dir()], 2 * F_TIMEOUT_S)
+    print(log.rstrip())
+    check(rc == 0, f"F {what}: torchrun exited {rc}")
+    for integ, _, _ in SHARD_F:
+        got = dict(np.load(os.path.join(f_dir(), f"{kind}_{integ}.npz")))
+        got["rays"] = int(got["rays"])
+        hold_sharded(f"F {integ} {what} vs unsharded", integ, got,
+                     ref[integ])
+
+
+def phase_f_cards(dev, card, n: int) -> None:
+    """--cards n (n cards): SHARD_F on one card unsharded, then sharded
+    over n NCCL ranks started by torchrun, one a card, each held as in
+    phase_f_shard; then the CLI's PT on cornell_port, 2 spp, on one card
+    and under torchrun with --shard: the two checkpoints' films
+    bit-equal."""
+    from gpu_pathtracer_tpu_torch.run import cli
+    check(torch.cuda.device_count() >= n,
+          f"--cards {n}: {torch.cuda.device_count()} cards")
+    hold_ranks("nccl", n, f"{n} NCCL ranks, one a card", f_references(dev))
+    out = f_dir()
+    args = [os.path.join(REPO, SCENES[0]), "--spp", "2", "--seed", str(SEED)]
+    one, many = (os.path.join(out, f"cli_{k}.npz") for k in ("one", "many"))
+    cli.main(args + ["--checkpoint", one, "--out",
+                     os.path.join(OUT, "cli_one.png")])
+    rc, log = torchrun(n, ["gpu_pathtracer_tpu_torch.run.cli", *args,
+                           "--shard", "--checkpoint", many, "--out",
+                           os.path.join(OUT, "cli_many.png")], F_TIMEOUT_S,
+                       module=True)
+    print(log.rstrip())
+    check(rc == 0 and f"[shard] {n} rank(s)" in log,
+          f"F the CLI under torchrun, {n} ranks: exit {rc}")
+    with np.load(one) as a, np.load(many) as b:
+        same = np.array_equal(a["acc"], b["acc"])
+        print(f"[F] the CLI's PT on {SCENES[0]}, 2 spp: {n} ranks' "
+              f"checkpoint film bit-equal to one card's: {same} ({card})")
+        check(same, f"F the CLI under torchrun, {n} ranks: film differs")
+
+
+def phase_f_profile(dev, card) -> None:
+    """--profile through the CLI for 1 spp of cornell_port: the trace
+    names K2's kernel."""
+    from gpu_pathtracer_tpu_torch.run import cli
+    stats = all_stats()
+    prof = os.path.join(f_dir(), "profile")
+    reset_counts(*stats.values())
+    cli.main([os.path.join(REPO, SCENES[0]), "--spp", "1", "--seed",
+              str(SEED), "--out", os.path.join(OUT, "profiled.png"),
+              "--profile", prof])
+    counts = f_counts("F --profile", stats, ("pt_fused",))
+    trace = os.path.join(prof, "trace_rank0.json")
+    check(os.path.exists(trace), f"--profile wrote no {trace}")
+    with open(trace) as f:
+        text = f.read()
+    n = text.count("pt_fused_kernel")
+    print(f"[F] --profile: {trace}, {len(text) / 2**20:.3f} MB, names "
+          f"pt_fused_kernel {n} times; launches {counts} ({card})")
+    check(n > 0, "the --profile trace does not name K2's pt_fused_kernel")
+
+
+def phase_f(dev, card) -> None:
+    import shutil
+    t0 = time.time()
+    phase_f_checkpoint(dev, card)
+    t1 = time.time()
+    phase_f_shard(dev, card)
+    t2 = time.time()
+    phase_f_profile(dev, card)
+    shutil.rmtree(f_dir())
+    print(f"[F] done in {time.time() - t0:.1f} s: checkpoints "
+          f"{t1 - t0:.1f} s, sharding {t2 - t1:.1f} s, profile "
+          f"{time.time() - t2:.1f} s")
+
+
 def main() -> None:
     global OUT, BASELINE
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDE",
+    ap.add_argument("--phases", default="ABCDEF",
                     help="phases to run after the build (default all)")
     ap.add_argument("--out", default=OUT,
                     help="directory for the PNGs and compiler reports")
@@ -2772,6 +3171,12 @@ def main() -> None:
                     "K3 and K4 beside this checkout's on the same inputs")
     ap.add_argument("--time-hits", nargs=2, metavar=("INPUTS", "ROOT"),
                     help=argparse.SUPPRESS)   # --baseline's child processes
+    ap.add_argument("--cards", type=int, default=1,
+                    help="with N > 1: build, then only phase F's sharded "
+                    "renders over N NCCL ranks under torchrun, one a card, "
+                    "and the CLI under torchrun (needs N cards)")
+    ap.add_argument("--rank-of", nargs=2, metavar=("KIND", "OUT"),
+                    help=argparse.SUPPRESS)   # phase F's ranks (f_rank)
     args = ap.parse_args()
     phases = args.phases.upper()
     OUT = os.path.abspath(args.out)
@@ -2779,6 +3184,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this test needs a GPU")
     if args.time_hits:
         time_hits(*args.time_hits)
+        return
+    if args.rank_of:
+        sys.path.insert(0, REPO)
+        os.environ["GPT_TORCH_CACHE_DIR"] = os.path.join(OUT, "bvh_cache")
+        f_rank(*args.rank_of)
         return
     if args.baseline:
         BASELINE = os.path.abspath(args.baseline)
@@ -2816,6 +3226,12 @@ def main() -> None:
     print(f"[A] built bvh_builder (g++) in {b.seconds:.2f} s: {b.path}")
     print(f"[A] builds done in {time.time() - t0:.2f} s")
 
+    if args.cards > 1:
+        import shutil
+        phase_f_cards(dev, card, args.cards)
+        shutil.rmtree(f_dir())
+        print(f"[--cards {args.cards}] done: a partial run prints no result")
+        sys.exit(0)
     if "B" in phases:
         phase_b(dev, rng, records)
     if "C" in phases:
@@ -2824,7 +3240,9 @@ def main() -> None:
         phase_d(dev, card, records)
     if "E" in phases:
         phase_e(dev, rng, card, records)
-    if phases != "ABCDE":
+    if "F" in phases:
+        phase_f(dev, card)
+    if phases != "ABCDEF":
         print(f"[{phases}] done: a partial run prints no result")
         sys.exit(0)
 

@@ -65,12 +65,17 @@ def state_from_numpy(arrays: dict, device) -> dict:
                                device=device) for k in names}
 
 
+def pixel_of(static, u):
+    """The pixel (px, py) of each chain's sample u [D, N]."""
+    w, h = static.width, static.height
+    return (torch.clamp((u[0] * w).to(torch.int32), 0, w - 1),
+            torch.clamp((u[1] * h).to(torch.int32), 0, h - 1))
+
+
 def evaluate(scene, static, seed: int, iteration: int, u, plain=False):
     """f(u) of every chain: (radiance [N, 3], luminance [N], px, py,
     rays traced: 0-d int64). `plain` runs the plain wavefront."""
-    w, h = static.width, static.height
-    px = torch.clamp((u[0] * w).to(torch.int32), 0, w - 1)
-    py = torch.clamp((u[1] * h).to(torch.int32), 0, h - 1)
+    px, py = pixel_of(static, u)
     if plain:
         li, rays = pt.wavefront(scene, static, seed, iteration, px, py, True,
                                 u[2:], plain=True)
@@ -81,64 +86,98 @@ def evaluate(scene, static, seed: int, iteration: int, u, plain=False):
 
 
 def candidates(scene, static, seed: int, n_chains: int, plain=False,
-               draws=None):
+               draws=None, chain_ids=None):
     """The bootstrap's uniform candidate paths: (u [D, N], radiance,
-    luminance, px, py, rays, resampling offsets [N]). `draws` = (u,
-    offsets) replaces the Philox draws."""
+    luminance, px, py, rays, resampling offsets [N]) of chains
+    `chain_ids` (default 0 .. n_chains - 1). `draws` = (u, offsets)
+    replaces the Philox draws."""
     d = n_dims(static)
     if draws is None:
-        rows = uniform_rows(seed, 0, torch.arange(n_chains,
-                                                  device=scene.device),
-                            d + 1, MLT_TAG)
+        if chain_ids is None:
+            chain_ids = torch.arange(n_chains, device=scene.device)
+        rows = uniform_rows(seed, 0, chain_ids, d + 1, MLT_TAG)
         draws = (rows[:d], rows[d])
     u, u_r = draws
     return (u, *evaluate(scene, static, seed, 0, u, plain), u_r)
 
 
-def resample(static, cands) -> dict:
+def resample(static, cands, shard=None, seed: int = 0,
+             n_chains: int = 0) -> dict:
     """The chain state from the candidates: each chain's start taken in
     proportion to I by systematic resampling (stratified positions over
-    the float64 cumulative luminance)."""
+    the float64 cumulative luminance).
+
+    On a rank of a sharded render (`shard`, parallel/dist.py), `cands`
+    are the rank's share of the n_chains: the cdf runs over every
+    candidate's luminance (gathered), a chosen candidate's radiance is
+    gathered and its u drawn again from Philox by its index (stream
+    `seed`), so the chains equal one rank's. b_sum and b_cnt are the
+    rank's share."""
     u, li, lum, px, py, _, u_r = cands
-    n = lum.shape[0]
-    cdf = torch.cumsum(lum.double(), 0)
-    pos = (torch.arange(n, dtype=torch.float64, device=lum.device)
-           + u_r.double()) * (cdf[-1] / n)
+    joined = shard is not None and shard.joined
+    chain_ids = torch.arange(lum.shape[0], device=lum.device)
+    lum_all, li_all = lum, li
+    if joined:
+        chain_ids = shard.ids(n_chains, lum.device)
+        lum_all = shard.gather(lum, n_chains)
+        li_all = shard.gather(li, n_chains)
+    n = lum_all.shape[0]
+    cdf = torch.cumsum(lum_all.double(), 0)
+    pos = (chain_ids.double() + u_r.double()) * (cdf[-1] / n)
     idx = torch.clamp(torch.searchsorted(cdf, pos), 0, n - 1)
+    if joined:
+        u = uniform_rows(seed, 0, idx, u.shape[0], MLT_TAG)
+        px, py = pixel_of(static, u)
+    else:
+        u, px, py = u[:, idx], px[idx], py[idx]
     f32 = dict(dtype=torch.float32, device=lum.device)
     return dict(
-        u=u[:, idx], lum=lum[idx], li=li[idx], px=px[idx], py=py[idx],
+        u=u, lum=lum_all[idx], li=li_all[idx], px=px, py=py,
         film=torch.zeros((static.width * static.height, 3), **f32),
-        b_sum=lum.sum(), b_cnt=torch.tensor(float(n), **f32),
+        b_sum=lum.sum(), b_cnt=torch.tensor(float(lum.shape[0]), **f32),
         steps=torch.zeros((), **f32))
 
 
-def bootstrap(scene, static, seed: int, n_chains: int, draws=None):
+def bootstrap(scene, static, seed: int, n_chains: int, draws=None,
+              shard=None):
     """The initial chain state (`candidates` then `resample`) and the
-    rays the candidates traced."""
-    cands = candidates(scene, static, seed, n_chains, draws=draws)
-    return resample(static, cands), cands[5]
+    rays the candidates traced; with `shard`, of the rank's chains."""
+    ids = None if shard is None else shard.ids(n_chains, scene.device)
+    cands = candidates(scene, static, seed, n_chains, draws=draws,
+                       chain_ids=ids)
+    return resample(static, cands, shard, seed, n_chains), cands[5]
 
 
-def mutation_draws(seed: int, iteration: int, n: int, d: int, device):
-    """The Philox draws of one mutation step: (large-step U [N],
-    acceptance U [N], fresh [D, N], magnitude U [D, N], sign U [D, N])."""
-    rows = uniform_rows(seed, iteration, torch.arange(n, device=device),
-                        4 + 3 * d, MLT_TAG)
+def mutation_draws(seed: int, iteration: int, n: int, d: int, device,
+                   chain_ids=None):
+    """The Philox draws of one mutation step of chains `chain_ids`
+    (default 0 .. n - 1): (large-step U [N], acceptance U [N], fresh
+    [D, N], magnitude U [D, N], sign U [D, N])."""
+    if chain_ids is None:
+        chain_ids = torch.arange(n, device=device)
+    rows = uniform_rows(seed, iteration, chain_ids, 4 + 3 * d, MLT_TAG)
     return (rows[0], rows[1], rows[4:4 + d], rows[4 + d:4 + 2 * d],
             rows[4 + 2 * d:4 + 3 * d])
 
 
 def render_iteration(scene, static, seed: int, iteration: int, state: dict,
                      with_stats: bool = False, plain: bool = False,
-                     draws=None):
+                     draws=None, shard=None):
     """One Metropolis mutation of every chain. Returns (state, absolute
-    image [W*H, 3]) and, with_stats, the rays of the proposal's path."""
+    image [W*H, 3]) and, with_stats, the rays of the proposal's path.
+
+    On a rank of a sharded render (`shard`, parallel/dist.py; W*H chains
+    in all), `state` holds the rank's chains, its share of the film and
+    of b_sum and b_cnt; the image is made from their sums over the
+    ranks, and the rays are the rank's own."""
     n_pix = static.width * static.height
     u = state["u"]
     d, n = u.shape
+    chain_ids = None
+    if shard is not None and shard.joined:
+        chain_ids = shard.ids(n_pix, u.device)
     if draws is None:
-        draws = mutation_draws(seed, iteration, n, d, u.device)
+        draws = mutation_draws(seed, iteration, n, d, u.device, chain_ids)
     u_sel, u_acc, fresh, u_mag, u_sign = draws
 
     # ---- the Kelemen proposal ----------------------------------------
@@ -177,6 +216,12 @@ def render_iteration(scene, static, seed: int, iteration: int, state: dict,
         py=torch.where(acc, py2, state["py"]),
         film=film, b_sum=b_sum, b_cnt=b_cnt, steps=steps)
 
+    if chain_ids is not None:
+        n = n_pix
+        flat = shard.reduce(torch.cat([film.reshape(-1), b_sum[None],
+                                       b_cnt[None]]))
+        film, b_sum, b_cnt = flat[:-2].reshape(film.shape), flat[-2], \
+            flat[-1]
     b = b_sum / torch.clamp_min(b_cnt, 1.0)
     image = film * (n_pix * b / (n * torch.clamp_min(steps, 1.0)))
     if with_stats:

@@ -358,19 +358,22 @@ def _deposit(scene, static, state, frame, sorted_vp, acc, ppos, prd, pbeta,
 
 def photon_pass(scene, static, seed: int, iteration: int, state: SppmState,
                 grid, n_photons: int, hash_size: int, psample=None,
-                plain: bool = False):
+                plain: bool = False, photon_ids=None):
     """TracePhoton (pathtracer.cu:2207-2281): returns (phi [N, 3], m [N],
     rays traced: 0-d int64), the visible points' flux sums and photon
-    counts for the progressive update. Photons deposit at bounces > 0."""
+    counts for the progressive update. Photons deposit at bounces > 0.
+    `photon_ids` (default 0 .. n_photons - 1) are the photons traced:
+    a rank of a sharded render traces its share of the ids."""
     sorted_vp, bucket_start, bmin, bmax, res = grid
     sorted_vp, bucket_start = sorted_vp.long(), bucket_start.long()
     dev = state.radius.device
-    n = n_photons
+    lanes = torch.arange(n_photons, device=dev) if photon_ids is None \
+        else photon_ids
+    n = lanes.shape[0]
     eps = scene.epsilon
     types = static.material_types
     diag = bmax - bmin
     frame = tuple(_frame_bf16(f) for f in (state.nor, state.dpdu, state.dir))
-    lanes = torch.arange(n, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
 
     rng = lane_stream(seed, iteration, lanes, psample, 0, PHOTON_EMIT_DIMS,
@@ -454,19 +457,43 @@ def density_pass(state: SppmState, phi, m, iteration: int, n_photons: int):
 
 def render_iteration(scene, static, seed: int, iteration: int,
                      state: SppmState, pixel_x, pixel_y,
-                     with_stats: bool = False, plain: bool = False):
+                     with_stats: bool = False, plain: bool = False,
+                     shard=None):
     """One SPPM iteration over every pixel: eye pass -> grid -> photon
     pass -> density. Returns (state, absolute film [N, 3]) and, with
     with_stats, the rays traced (eye closest hits, NEE shadow rays,
-    BSDF-sample closest hits, photon closest hits)."""
+    BSDF-sample closest hits, photon closest hits).
+
+    With `shard` (parallel/dist.py's Shard of a sharded render), the
+    state and film are whole on every rank: the rank runs the eye pass
+    on its pixels, the visible points are gathered bit for bit (so every
+    rank builds the same grid), the rank traces its share of the photon
+    ids, phi and m are summed over the ranks and the density pass runs
+    whole. The rays are the rank's own."""
     n = pixel_x.shape[0]
-    state, r_eye = eye_pass(scene, static, seed, iteration, pixel_x, pixel_y,
-                            state, plain=plain)
+    n_photons = static.photons_per_iteration
+    if shard is None or not shard.joined:
+        state, r_eye = eye_pass(scene, static, seed, iteration, pixel_x,
+                                pixel_y, state, plain=plain)
+        photon_ids = None
+    else:
+        lo, hi = shard.range(n)
+        part = SppmState(**{f.name: getattr(state, f.name)[lo:hi]
+                            for f in dataclasses.fields(SppmState)})
+        part, r_eye = eye_pass(scene, static, seed, iteration,
+                               pixel_x[lo:hi], pixel_y[lo:hi], part,
+                               plain=plain)
+        state = SppmState(**{f.name: shard.gather(getattr(part, f.name), n)
+                             for f in dataclasses.fields(SppmState)})
+        photon_ids = shard.ids(n_photons, pixel_x.device)
     grid = build_grid(state, n)
     phi, m, r_ph = photon_pass(scene, static, seed, iteration, state, grid,
-                               static.photons_per_iteration, n, plain=plain)
-    state, film = density_pass(state, phi, m, iteration,
-                               static.photons_per_iteration)
+                               n_photons, n, plain=plain,
+                               photon_ids=photon_ids)
+    if photon_ids is not None:
+        pm = shard.reduce(torch.cat([phi, m[:, None]], 1))
+        phi, m = pm[:, 0:3], pm[:, 3]
+    state, film = density_pass(state, phi, m, iteration, n_photons)
     if with_stats:
         return state, film, r_eye + r_ph
     return state, film

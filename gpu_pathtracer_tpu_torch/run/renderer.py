@@ -21,14 +21,34 @@ The film accumulates in a [W*H, 3] tensor on `device`. Every random
 site is keyed by (seed, iteration, pixel or path index), so the image
 does not depend on the tile size (a splatted film only within float32
 summation order).
+
+`shard=True` splits the work over the ranks of the initialised
+torch.distributed group (parallel/dist.py; without one, a world of 1),
+each rank a process on its own device with the whole scene. Rank r
+takes lanes `lane_range(W*H, r, world)`: pixels ("pixel", "ir",
+"hybrid", SPPM's eye pass), light paths ("film") or chains ("mlt");
+SPPM also splits its photons and MLT its chains' draws by the same
+rule (integrators/sppm.py, mlt.py). What every rank holds:
+- "pixel", "ir": its pixels' sums; the film is gathered bit for bit
+  when read, so it equals one rank's (IR's VPL store, keyed by seed and
+  iteration alone, is made whole on every rank);
+- "film", "hybrid": its paths' splats (and its pixels' radiance); the
+  films are summed when read: one rank's within float32 summation order;
+- "sppm", "mlt": the whole film, made from the ranks' sums every
+  iteration; SPPM's visible points whole, MLT's chains the rank's own.
+Reading the film (`film`, `radiance`, `image`), the rays (`rays`) or a
+checkpoint is a collective there: every rank makes the same calls.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from gpu_pathtracer_tpu_torch.film import film as film_mod
 from gpu_pathtracer_tpu_torch.geom import packet_cuda, traverse
+from gpu_pathtracer_tpu_torch.parallel import dist
 from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
 from gpu_pathtracer_tpu_torch.scene.model import HostScene, IntegratorType
 from gpu_pathtracer_tpu_torch.scene.parse import load_scene
@@ -76,10 +96,18 @@ class Renderer:
                  seed: int = 0, integrator: IntegratorType | None = None,
                  max_depth: int | None = None, device="cuda",
                  cache: bool = True, photons_per_iteration: int | None = None,
-                 init_radius: float | None = None):
+                 init_radius: float | None = None, shard: bool = False):
         if isinstance(scene, str):
             scene = load_scene(scene)
         self.device = resolve_device(device)
+        self.shard = dist.Shard()
+        if shard:
+            self.shard = dist.Shard.current()
+            if not self.shard.joined and \
+                    int(os.environ.get("WORLD_SIZE", "1")) > 1:
+                raise RuntimeError(
+                    "shard=True under WORLD_SIZE > 1 needs the process "
+                    "group initialised first (parallel/dist.init)")
         self.host = scene
         self.device_scene, self.static = flatten_scene(scene, self.device,
                                                        cache=cache)
@@ -103,12 +131,14 @@ class Renderer:
         self._walks = traverse.regime(self.static) in ("instanced", "bvh8")
         n = self.width * self.height
         self.tile_size = min(tile_size, n)
+        # this rank's pixels, light paths or chains
+        self._lo, self._hi = self.shard.range(n)
         ids = torch.arange(n, device=self.device, dtype=torch.int32)
         # y = 0 is the bottom row, like the reference's GL-oriented film
         self._ids = ids
         self._px = ids % self.width
         self._py = ids // self.width
-        self.rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._rays = torch.zeros((), dtype=torch.int64, device=self.device)
         self.reset()
 
     def reset(self) -> None:
@@ -127,8 +157,9 @@ class Renderer:
         if self.kind == "mlt":
             from gpu_pathtracer_tpu_torch.integrators import mlt
             self._mlt_state, rays = mlt.bootstrap(
-                self.device_scene, self.static, self.seed, n)
-            self.rays += rays
+                self.device_scene, self.static, self.seed, n,
+                shard=self.shard)
+            self._rays += rays
 
     def render_iteration(self) -> None:
         """Add one sample per pixel to the film (SPPM, MLT: replace the
@@ -140,29 +171,31 @@ class Renderer:
         args = (self.device_scene, self.static, self.seed, self.iteration)
         if self.kind == "sppm":
             self._sppm_state, self.acc, rays = self._program(
-                *args, self._sppm_state, self._px, self._py, with_stats=True)
-            self.rays += rays
+                *args, self._sppm_state, self._px, self._py, with_stats=True,
+                shard=self.shard)
+            self._rays += rays
         elif self.kind == "mlt":
             self._mlt_state, self.acc, rays = self._program(
-                *args, self._mlt_state, with_stats=True)
-            self.rays += rays
+                *args, self._mlt_state, with_stats=True, shard=self.shard)
+            self._rays += rays
         else:
             self._render_tiles(args)
         if self._walks:
             packet_cuda.check_overflow(self.device)
 
     def _render_tiles(self, args) -> None:
-        n = self.acc.shape[0]
         extra = ()
         if self.kind == "ir":
             from gpu_pathtracer_tpu_torch.integrators import ir
             row = (self.iteration - 1) % ir.IR_MAX_VPLS
             if row == 0 or self._vpls is None:
+                # every rank makes the whole store; rank 0 counts its rays
                 self._vpls, rays = ir.generate_vpls(*args, with_stats=True)
-                self.rays += rays
+                if self.shard.rank == 0:
+                    self._rays += rays
             extra = (self._vpls, row)
-        for t0 in range(0, n, self.tile_size):
-            t1 = min(t0 + self.tile_size, n)
+        for t0 in range(self._lo, self._hi, self.tile_size):
+            t1 = min(t0 + self.tile_size, self._hi)
             if self.kind == "film":
                 # paths t0 .. t1 - 1 of the W*H an iteration traces, as
                 # the reference; normalising by the path count (pixels /
@@ -180,7 +213,7 @@ class Renderer:
                     *args, self._px[t0:t1], self._py[t0:t1], *extra,
                     with_stats=True)
                 self.acc[t0:t1] += li
-            self.rays += rays
+            self._rays += rays
 
     def render(self, spp: int):
         for _ in range(spp):
@@ -192,12 +225,38 @@ class Renderer:
         absolute films of SPPM and MLT."""
         return 1 if self.kind in ("sppm", "mlt") else max(self.iteration, 1)
 
+    @property
+    def rays(self) -> torch.Tensor:
+        """Rays traced since the renderer was made (0-d int64; summed
+        over the ranks of a sharded render)."""
+        return self.shard.reduce(self._rays)
+
+    def film(self) -> torch.Tensor:
+        """The whole accumulated film [W*H, 3] on `device` (`acc` of a
+        world of 1; of a sharded render, gathered or summed over the
+        ranks, by kind)."""
+        if not self.shard.joined or self.kind in ("sppm", "mlt"):
+            return self.acc
+        if self.kind in ("pixel", "ir"):
+            return self.shard.gather(self.acc[self._lo:self._hi],
+                                     self.acc.shape[0])
+        return self.shard.reduce(self.acc)
+
+    def place_film(self, whole: torch.Tensor) -> None:
+        """Set the film to `whole` [W*H, 3] (a checkpoint's): on a rank
+        of a sharded render "film" and "hybrid" keep it on rank 0 only,
+        so that their sum over the ranks is `whole` again."""
+        self.acc = whole.to(self.device, torch.float32)
+        if self.shard.rank > 0 and self.kind in ("film", "hybrid"):
+            self.acc = torch.zeros_like(self.acc)
+
     def radiance(self):
         """Mean radiance film [H, W, 3] numpy (row 0 = bottom)."""
-        acc = (self.acc / self._divisor()).cpu().numpy()
+        acc = (self.film() / self._divisor()).cpu().numpy()
         return acc.reshape(self.height, self.width, 3)
 
     def image(self):
         """Tonemapped display image [H, W, 3] numpy (row 0 = bottom)."""
-        img = film_mod.tonemap(self.acc, self._divisor(), self.static.filmic)
+        img = film_mod.tonemap(self.film(), self._divisor(),
+                               self.static.filmic)
         return img.cpu().numpy().reshape(self.height, self.width, 3)

@@ -56,19 +56,78 @@ def test_cli_writes_png(tmp_path):
 
 @pytest.mark.parametrize("args, words", [
     (["--device", "cuda"], "CUDA"),
-    (["--device", "cpu", "--shard"], "ROADMAP"),
-    (["--device", "cpu", "--checkpoint", "c.npz"], "ROADMAP"),
+    pytest.param(["--device", "cpu", "--shard"], "[shard] 1 rank",
+                 id="args1-ROADMAP"),
+    pytest.param(["--device", "cpu", "--checkpoint", "c.npz"],
+                 "[resume] c.npz @ 1", id="args2-ROADMAP"),
 ])
 def test_cli_refuses(tmp_path, args, words):
+    """The CLI refuses a CUDA device that is absent. It refused
+    `--shard` and `--checkpoint` until they were ported (the cases keep
+    the ids of those refusals): without torchrun `--shard` renders as a
+    world of 1, and a second run with `--checkpoint` resumes from the
+    file the first wrote."""
     if "cuda" in args:
         import torch
         if torch.cuda.is_available():
             pytest.skip("this machine has a CUDA device")
+    cmd = ["-m", "gpu_pathtracer_tpu_torch.run.cli",
+           str(tp.PORT_SCENES["cornell"]), "--size", "8", "--spp", "1",
+           *args]
+    if "cuda" in args:
+        r = _run(cmd, tmp_path)
+        assert r.returncode != 0
+        assert words in r.stderr
+        return
+    if "--checkpoint" in args:
+        r = _run(cmd, tmp_path)
+        assert r.returncode == 0, r.stderr
+        assert "[out] checkpoint c.npz @ 1 spp" in r.stdout
+        cmd[cmd.index("--spp") + 1] = "2"
+    r = _run(cmd, tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert words in r.stdout and "[out] wrote" in r.stdout
+
+
+def test_cli_profile_and_hbm(tmp_path):
+    """`--profile DIR` writes a torch.profiler Chrome trace of the render
+    loop into DIR; the `[hbm]` line gives the scene tables' memory by
+    category."""
     r = _run(["-m", "gpu_pathtracer_tpu_torch.run.cli",
-              str(tp.PORT_SCENES["cornell"]), "--size", "8", "--spp", "1",
-              *args], tmp_path)
-    assert r.returncode != 0
-    assert words in r.stderr
+              str(tp.PORT_SCENES["cornell"]), "--device", "cpu", "--size",
+              "8", "--spp", "1", "--profile", "prof"], tmp_path)
+    assert r.returncode == 0, r.stderr
+    trace = tmp_path / "prof" / "trace_rank0.json"
+    assert trace.exists() and "[profile] trace in prof" in r.stdout
+    import json
+    assert json.loads(trace.read_text())["traceEvents"]
+    hbm = [ln for ln in r.stdout.splitlines() if ln.startswith("[hbm] ")]
+    assert len(hbm) == 1
+    mb = dict(part.rsplit(" ", 2)[:2] for part in hbm[0][6:].split(", "))
+    assert list(mb) == ["geometry", "bvh", "materials", "lights",
+                        "textures", "env", "media"]
+    assert float(mb["geometry"]) > 0 and float(mb["bvh"]) > 0
+
+
+def test_scene_bytes_cover_every_table():
+    """The [hbm] categories add up to every tensor of the DeviceScene."""
+    from gpu_pathtracer_tpu_torch.run import cli
+    from gpu_pathtracer_tpu_torch.run.renderer import Renderer
+    r = Renderer(str(tp.PORT_SCENES["cornell"]), device="cpu", cache=False)
+    got = cli.scene_bytes(r.device_scene)
+    import dataclasses
+    import torch
+    total = sum(v.numel() * v.element_size()
+                for f in dataclasses.fields(r.device_scene)
+                if isinstance(v := getattr(r.device_scene, f.name),
+                              torch.Tensor))
+    assert sum(got.values()) == total
+    assert got["lights"] == sum(
+        t.numel() * t.element_size() for t in (
+            r.device_scene.light_attrs, r.device_scene.light_cdf,
+            *(getattr(r.device_scene, f"l_{k}") for k in (
+                "v0", "v1", "v2", "n0", "n1", "n2", "radiance",
+                "medium"))))
 
 
 @pytest.mark.parametrize("integrator", ["ir", "sppm", "mlt"])

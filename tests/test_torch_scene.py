@@ -131,11 +131,12 @@ def test_sky_scenes_route():
 
 
 @pytest.mark.parametrize("feature", ["sppm", "ir"])
-def test_unported_features_raise(feature, capsys):
-    """SPPM and IR raised here (NotImplementedError, ROADMAP item 4) until
-    they were ported: the Renderer now builds each as its own kind. What
-    is still unported around them, the CLI's checkpoints (ROADMAP item
-    5), is refused naming its item."""
+def test_unported_features_raise(feature, capsys, tmp_path):
+    """SPPM and IR raised here (NotImplementedError) until they were
+    ported: the Renderer now builds each as its own kind. The CLI's
+    checkpoints around them, refused until they were ported too, now
+    save their state (SPPM's visible points, IR's VPL store) and resume
+    from it."""
     from gpu_pathtracer_tpu_torch.run import cli
     from gpu_pathtracer_tpu_torch.run.renderer import Renderer
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
@@ -143,10 +144,17 @@ def test_unported_features_raise(feature, capsys):
     host.width = host.height = 8
     r = Renderer(host, device="cpu", integrator=IntegratorType[feature.upper()])
     assert r.kind == feature and r.acc.shape == (64, 3)
-    with pytest.raises(SystemExit):
-        cli.main([str(tp.PORT_SCENES["cornell"]), "--integrator", feature,
-                  "--device", "cpu", "--checkpoint", "c.npz"])
-    assert "item 5" in capsys.readouterr().err
+    path = tmp_path / "c.npz"
+    args = [str(tp.PORT_SCENES["cornell"]), "--integrator", feature,
+            "--device", "cpu", "--size", "8", "--photons", "1024",
+            "--checkpoint", str(path), "--out", str(tmp_path / "r.png")]
+    cli.main(args + ["--spp", "1"])
+    with np.load(path) as f:
+        key = {"sppm": "sppm_radius", "ir": "vpl_count"}[feature]
+        assert int(f["iteration"]) == 1 and key in f.files
+    res = cli.main(args + ["--spp", "2"])
+    assert f"[resume] {path} @ 1 spp" in capsys.readouterr().out
+    assert res["renderer"].iteration == 2 and res["spp"] == 1
 
 
 def test_bssrdf_scene_routes_to_the_wavefront():

@@ -158,8 +158,8 @@ def test_cli_vpt_writes_png(tmp_path):
 @pytest.mark.parametrize("integrator", ["sppm", "mlt"])
 def test_cli_refuses_unported_integrators(tmp_path, integrator):
     """The CLI refused SPPM and MLT until they were ported: it now renders
-    them, and refuses what is still unported with them, multi-GPU
-    rendering (`--shard`, ROADMAP item 5)."""
+    them, and, since multi-GPU rendering was ported, renders them with
+    `--shard` too (a world of 1 without torchrun)."""
     args = [sys.executable, "-m", "gpu_pathtracer_tpu_torch.run.cli",
             str(tp.PORT_SCENES["cornell"]), "--integrator", integrator,
             "--device", "cpu", "--size", "8", "--spp", "1", "--out",
@@ -170,4 +170,5 @@ def test_cli_refuses_unported_integrators(tmp_path, integrator):
     assert f"integrator={integrator.upper()}" in r.stdout
     r = subprocess.run(args + ["--shard"], cwd=tmp_path, env=ENV,
                        capture_output=True, text=True, timeout=120)
-    assert r.returncode != 0 and "ROADMAP" in r.stderr
+    assert r.returncode == 0, r.stderr
+    assert "[shard] 1 rank" in r.stdout and "[out] wrote" in r.stdout
