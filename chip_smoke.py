@@ -75,9 +75,11 @@ Phases:
      candidates, chain luminance and film, on cornell_port and on
      cornell_port/mlt_slit.json (its depth 10: K2 reading [84, 65,536])
   D  the main paths through the CLI, each with every launch count set to
-     0 just before it and read just after: scenes/cornell_port at 1024^2
-     through the megakernel (spp/s, Mrays/s, the radiance against the
-     plain version's lane by lane), then over about one second of spp;
+     0 just before it and read just after, then timed from where its
+     render stands by the bench's windows (run/bench.py: D_WINDOWS
+     windows of at least 2 spp and 0.5 s; median spp/s with the windows'
+     min and max, Mrays/s): scenes/cornell_port at 1024^2 through the
+     megakernel (the radiance against the plain version's lane by lane);
      env_port/scene.json and cornell_port/textured.json through K2's
      environment and textured variants (one warm-up spp held against the
      plain version on all lanes, then 8 timed spp);
@@ -227,6 +229,9 @@ LINE_FLOPS = 67   # of one ray-segment test (line_hit)
 SLAB_FLOPS = 24   # of one ray-box slab test
 N_RAYS = 1 << 20  # rays of the kernel-vs-plain checks and timings
 SEED = 2024
+# phase D's timing, the bench's windows (run/bench.py): how many, and
+# each of at least this many spp and seconds
+D_WINDOWS = (3, 2, 0.5)
 _FLAT = {}   # scene path -> (DeviceScene, StaticConfig, host seconds)
 BASELINE = None   # --baseline: another checkout, timed on phase E's calls
 # the calls phase E times K1-K4 on, for --baseline: {label: hit_call(...)}
@@ -316,26 +321,32 @@ def timed_windows(fns: dict, window_ms: float = 1000.0,
 
 
 def close_frac(a, b) -> float:
-    """Share of lanes with |a - b| <= 1e-4 + 1e-3 |b| in all channels."""
-    return ((a - b).abs() <= 1e-4 + 1e-3 * b.abs()).all(1) \
-        .float().mean().item()
+    """Share of lanes with |a - b| <= 1e-4 + 1e-3 |b| in all channels
+    (run/reference.py)."""
+    from gpu_pathtracer_tpu_torch.run import reference
+    return reference.close_frac(a, b)
 
 
 def reset_counts(*stats) -> None:
-    for st in stats:
-        st.launches = st.plain_cuda = 0
+    from gpu_pathtracer_tpu_torch.run import reference
+    reference.reset_counts(*stats)
 
 
 def all_stats() -> dict:
-    """{kernel name: its wrapper's KernelStats}."""
-    from gpu_pathtracer_tpu_torch.geom import (
-        blocked_cuda, dense_cuda, packet_cuda,
-    )
-    from gpu_pathtracer_tpu_torch.integrators import pt_fused
-    from gpu_pathtracer_tpu_torch.shade import media_cuda
-    return {"dense_hit": dense_cuda.STATS, "pt_fused": pt_fused.STATS,
-            "blocked": blocked_cuda.STATS, "bvh8_walk": packet_cuda.STATS,
-            "track": media_cuda.STATS}
+    """{kernel name: its wrapper's KernelStats} (run/reference.py)."""
+    from gpu_pathtracer_tpu_torch.run import reference
+    return reference.kernel_stats()
+
+
+def rate(r) -> str:
+    """The bench's measurement (run/bench.py's windows) of renderer r's
+    progressive render from where it stands: D_WINDOWS windows, the
+    median spp/s with the windows' min and max, and the median Mrays/s."""
+    from gpu_pathtracer_tpu_torch.run import bench
+    s = bench.window_summary(bench.windows(r, *D_WINDOWS))
+    return (f"{s['value']:.3f} spp/s (windows {s['min']:.3f}-"
+            f"{s['max']:.3f}, {s['spp']} spp in {s['seconds']:.3f} s), "
+            f"{s['mrays_s']:.1f} Mrays/s")
 
 
 def bound(n_bytes: float, flops: float) -> dict:
@@ -1385,8 +1396,7 @@ def phase_d(dev, card, records):
     records["pt_fused"]["launches"] = k2_n
     records["dense_hit"]["launches"] = k1_n
     print(f"[D] cornell_port through K2: {res['spp']} spp of 1024x1024 "
-          f"depth 5 in {res['seconds']:.6f} s: {res['spp_per_s']:.3f} spp/s,"
-          f" {res['mrays_per_s']:.1f} Mrays/s ({card})")
+          f"depth 5 in {res['seconds']:.6f} s through the CLI")
     print(f"[D] launches in the main-path run: {counts}; plain-version "
           f"calls on CUDA tensors: {plain}")
     check(k2_n > 0, "main path never launched K2")
@@ -1420,12 +1430,8 @@ def phase_d(dev, card, records):
     check(frac >= 0.99, f"main path: agree on {frac}")
     check(abs(ratio - 1.0) <= 1e-3, f"main path: mean ratio {ratio}")
 
-    # a steadier rate: the same CLI over about one second of spp
-    n_spp = max(8, int(res["spp_per_s"]))
-    res_l, _ = render(n_spp, "cornell_port_long.png")
-    print(f"[D] cornell_port through K2: {n_spp} spp in "
-          f"{res_l['seconds']:.6f} s: {res_l['spp_per_s']:.3f} spp/s, "
-          f"{res_l['mrays_per_s']:.1f} Mrays/s ({card})")
+    # the rate, as the bench measures it, from where the render stands
+    print(f"[D] cornell_port through K2: {rate(r)} ({card})")
 
     import shutil
     from gpu_pathtracer_tpu_torch.geom import bvh
@@ -1536,10 +1542,10 @@ def main_path(key, kname, spp, card, records, after_build=None,
     check(img.shape == (1024, 1024, 3) and bool(np.isfinite(img).all()),
           f"{key}: image {img.shape}, finite {np.isfinite(img).all()}")
     print(f"[D] {label} through {kname}: {spp} spp of 1024x1024 depth "
-          f"{res['renderer'].static.max_depth} in {res['seconds']:.6f} s: "
-          f"{res['spp_per_s']:.3f} spp/s, {res['mrays_per_s']:.1f} Mrays/s, "
-          f"host build {res['build_seconds']:.2f} s ({card}); launches "
-          f"{counts}, plain-version calls on CUDA {plain}")
+          f"{res['renderer'].static.max_depth} in {res['seconds']:.6f} s, "
+          f"then {rate(res['renderer'])}, host build "
+          f"{res['build_seconds']:.2f} s ({card}); launches {counts}, "
+          f"plain-version calls on CUDA {plain}")
     check(counts[kname] > 0, f"{key}: main path never launched {kname}")
     check(sum(counts.values()) == counts[kname],
           f"{key}: main path launched {counts}")
@@ -2046,48 +2052,25 @@ def phase_c_media(dev, records, path, n_lanes=65536):
         (li_k - li_p).abs().max().item())
 
 
-def run_program(integ, scene, static, ids, plain=False):
-    """One sample of program `integ` ("ao", "pt", "lt", "bdpt") on the
-    lanes (pixel or path indices) `ids` at iteration 1: (per-lane
-    radiance or None, splat film or None, rays traced). `plain` runs it
-    all-plain (for "pt", the plain wavefront)."""
-    from gpu_pathtracer_tpu_torch.integrators import ao, bdpt, lt, pt
-    px, py = ids % static.width, ids // static.width
-    if integ == "ao":
-        li, rays = ao.render_lanes(scene, static, SEED, 1, px, py, True,
-                                   plain=plain)
-        return li, None, rays
-    if integ == "pt":
-        if plain:
-            li, rays = pt.wavefront(scene, static, SEED, 1, px, py, True,
-                                    plain=True)
-        else:
-            li, rays = pt.render_lanes(scene, static, SEED, 1, px, py, True)
-        return li, None, rays
-    if integ == "lt":
-        film, rays = lt.render_film(scene, static, SEED, 1, ids, True,
-                                    plain=plain)
-        return None, film, rays
-    return bdpt.render_lanes(scene, static, SEED, 1, px, py, True,
-                             plain=plain)
-
-
 def hold_radiance(label, what, a, b) -> None:
-    """a against b (the plain version) within the radiance limits: agree
-    on >= 99% of the rows (of a film: of the pixels either touched),
-    means within 0.1%, a finite."""
-    if what == "film":
-        touched = (a != 0).any(1) | (b != 0).any(1)
-        a, b = a[touched], b[touched]
+    """a against b (the plain version) within the radiance limits
+    (run/reference.py's `held`): agree on >= 99% of the rows (of a film:
+    of the pixels either touched), means within 0.1%, a finite."""
+    from gpu_pathtracer_tpu_torch.run.reference import held
+    h = held(a, b, what)
+    check(h["rows"] > 0, f"{label} {what}: no rows to compare")
+    print(f"[{label[0]}] {label[2:]} {what}: {h['rows']} rows, agree "
+          f"{h['agree']:.6f}, bit-equal {h['bit_equal']:.6f}, max abs err "
+          f"{h['max_abs_err']:.3e}, mean ratio {h['mean_ratio']:.7f}")
     check(bool(torch.isfinite(a).all()), f"{label}: non-finite {what}")
-    frac = close_frac(a, b)
-    ratio = a.double().sum().item() / max(b.double().sum().item(), 1e-30)
-    print(f"[{label[0]}] {label[2:]} {what}: {a.shape[0]} rows, agree "
-          f"{frac:.6f}, bit-equal "
-          f"{(a == b).all(1).float().mean().item():.6f}, max abs err "
-          f"{(a - b).abs().max().item():.3e}, mean ratio {ratio:.7f}")
-    check(frac >= 0.99, f"{label} {what}: agree on {frac}")
-    check(abs(ratio - 1.0) <= 1e-3, f"{label} {what}: mean ratio {ratio}")
+    check(h["ok"], f"{label} {what}: {h['rows']} rows, agree on "
+          f"{h['agree']}, mean ratio {h['mean_ratio']}")
+
+
+def run_program(integ, scene, static, ids, plain=False):
+    """run/reference.py's `run_program` at this script's seed."""
+    from gpu_pathtracer_tpu_torch.run import reference
+    return reference.run_program(integ, scene, static, ids, SEED, plain)
 
 
 def program_static(scene_path, integ, dev):
@@ -2301,46 +2284,16 @@ def phase_c_coupled(dev, records, integ, path, size=256, iterations=2):
     hold_radiance(label, "film", img_k, img_p)
 
 
-def plain_reference(integ, r):
-    """What program `integ` all-plain gives for the first iteration of
-    renderer `r` (its seed SEED), on every lane: per-lane radiance plus
-    splat film, IR's camera pass over its own VPL store, SPPM's absolute
-    film, or MLT's image after one step from the kernels' bootstrap,
-    whose candidates are held against their plain evaluation here."""
-    from gpu_pathtracer_tpu_torch.integrators import ir, mlt, sppm
-    scene, static = r.device_scene, r.static
-    n = r.acc.shape[0]
-    ids = torch.arange(n, device=r.acc.device, dtype=torch.int32)
-    if integ == "ir":
-        vpls = ir.generate_vpls(scene, static, SEED, 1, plain=True)
-        return ir.render_lanes(scene, static, SEED, 1, r._px, r._py, vpls,
-                               0, plain=True)
-    if integ == "sppm":
-        state = sppm.init_state(n, static.init_radius, r.acc.device)
-        return sppm.render_iteration(scene, static, SEED, 1, state, r._px,
-                                     r._py, plain=True)[1]
-    if integ == "mlt":
-        cands = mlt.candidates(scene, static, SEED, n)
-        cands_p = mlt.candidates(scene, static, SEED, n, plain=True)
-        hold_radiance(f"D mlt {SCENES[0]} bootstrap vs plain",
-                      "candidates' radiance", cands[1], cands_p[1])
-        return mlt.render_iteration(scene, static, SEED, 1,
-                                    mlt.resample(static, cands),
-                                    plain=True)[1]
-    li_p, film_p, _ = run_program(integ, scene, static, ids, plain=True)
-    return (li_p if li_p is not None else 0.0) \
-        + (film_p if film_p is not None else 0.0)
-
-
 def program_main_path(card, records, integ, path, spp, kname):
     """Program `integ` through the CLI on the scene at `path`, 1024^2,
     depth 5: one warm-up spp (iteration) held against the program
-    all-plain on every lane (`plain_reference`; a film on the pixels
-    either touched), then `spp` timed spp whose launches must all be
-    kernel `kname`'s, with the peak device memory of the timed run (for
-    MLT it holds the bootstrap, made before the CLI's timed window)."""
+    all-plain on every lane (run/reference.py's `plain_reference`; a
+    film on the pixels either touched), then `spp` spp whose launches
+    must all be kernel `kname`'s, with the peak device memory of that
+    run (for MLT it holds the bootstrap, made before the CLI's timed
+    window), then the bench's windows."""
     from gpu_pathtracer_tpu_torch.geom import dense_cuda
-    from gpu_pathtracer_tpu_torch.run import cli
+    from gpu_pathtracer_tpu_torch.run import cli, reference
     stats = all_stats()
     tag = f"{integ}_{os.path.basename(os.path.dirname(path))}_" \
         f"{os.path.basename(path).split('.')[0]}"
@@ -2354,10 +2307,9 @@ def program_main_path(card, records, integ, path, spp, kname):
 
     warm = render(1, f"{tag}_1spp.png")
     r = warm["renderer"]
-    ref = plain_reference(integ, r)
-    hold_radiance(f"D {label} warm-up spp vs plain", "film"
-                  if integ in ("lt", "mlt") else "radiance", r.acc, ref)
-    del warm, r, ref
+    for what, a, b in reference.plain_reference(integ, r):
+        hold_radiance(f"D {label} warm-up spp vs plain", what, a, b)
+    del warm, r, a, b
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2384,8 +2336,7 @@ def program_main_path(card, records, integ, path, spp, kname):
           f"{label}: image {img.shape}, finite {np.isfinite(img).all()}")
     print(f"[D] {label} ({r.kind} kind) through {kname}: {spp} spp of "
           f"1024x1024 depth {r.static.max_depth}, tile {r.tile_size} "
-          f"lanes, in {res['seconds']:.6f} s: {res['spp_per_s']:.3f} spp/s,"
-          f" {res['mrays_per_s']:.1f} Mrays/s, host set-up "
+          f"lanes, in {res['seconds']:.6f} s, then {rate(r)}, host set-up "
           f"{res['build_seconds']:.3f} s, peak device memory "
           f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above "
           f"what was held before the run ({card}); launches {counts}, "
@@ -2645,10 +2596,10 @@ def vpt_main_path(card, records):
     check(img.shape == (1024, 1024, 3) and bool(np.isfinite(img).all()),
           f"smoke_port: image {img.shape}, finite {np.isfinite(img).all()}")
     print(f"[D] {SMOKE} VPT through K1 + track: 2 spp of 1024x1024 depth "
-          f"{res['renderer'].static.max_depth} in {res['seconds']:.6f} s: "
-          f"{res['spp_per_s']:.3f} spp/s, {res['mrays_per_s']:.1f} Mrays/s, "
-          f"host build {res['build_seconds']:.2f} s ({card}); launches "
-          f"{counts}, plain-version calls on CUDA {plain}")
+          f"{res['renderer'].static.max_depth} in {res['seconds']:.6f} s, "
+          f"then {rate(res['renderer'])}, host build "
+          f"{res['build_seconds']:.2f} s ({card}); launches {counts}, "
+          f"plain-version calls on CUDA {plain}")
     check(counts["track"] > 0 and counts["dense_hit"] > 0,
           f"VPT main path launches {counts}")
     check(counts["pt_fused"] == 0 and counts["blocked"] == 0

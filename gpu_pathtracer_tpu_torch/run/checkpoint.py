@@ -99,14 +99,18 @@ def _state_tensors(renderer) -> dict:
 
 def save_checkpoint(renderer, path: str) -> None:
     """Write the film, the iteration and the kind's state to `path`
-    (npz). Every rank of a sharded render calls it; rank 0 writes."""
+    (npz, under that name as given). Every rank of a sharded render
+    calls it; rank 0 writes."""
     arrays = to_numpy(_state_tensors(renderer))
     if renderer.shard.rank != 0:
         return
     arrays["fingerprint"] = np.frombuffer(
         _fingerprint(renderer).encode(), dtype=np.uint8)
     arrays["iteration"] = np.int64(renderer.iteration)
-    np.savez(path, **arrays)
+    # through a file handle: np.savez adds ".npz" to a bare path, and the
+    # CLI would then not find the file it was given
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
 
 
 def load_checkpoint(renderer, path: str) -> None:

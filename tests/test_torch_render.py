@@ -60,13 +60,16 @@ def test_cli_writes_png(tmp_path):
                  id="args1-ROADMAP"),
     pytest.param(["--device", "cpu", "--checkpoint", "c.npz"],
                  "[resume] c.npz @ 1", id="args2-ROADMAP"),
+    pytest.param(["--device", "cpu", "--checkpoint", "ck"],
+                 "[resume] ck @ 1 spp", id="checkpoint-without-suffix"),
 ])
 def test_cli_refuses(tmp_path, args, words):
     """The CLI refuses a CUDA device that is absent. It refused
     `--shard` and `--checkpoint` until they were ported (the cases keep
     the ids of those refusals): without torchrun `--shard` renders as a
     world of 1, and a second run with `--checkpoint` resumes from the
-    file the first wrote."""
+    file the first wrote, under the name it was given (numpy adds no
+    ".npz" to a path without it)."""
     if "cuda" in args:
         import torch
         if torch.cuda.is_available():
@@ -80,13 +83,17 @@ def test_cli_refuses(tmp_path, args, words):
         assert words in r.stderr
         return
     if "--checkpoint" in args:
+        path = args[args.index("--checkpoint") + 1]
         r = _run(cmd, tmp_path)
         assert r.returncode == 0, r.stderr
-        assert "[out] checkpoint c.npz @ 1 spp" in r.stdout
+        assert f"[out] checkpoint {path} @ 1 spp" in r.stdout
         cmd[cmd.index("--spp") + 1] = "2"
     r = _run(cmd, tmp_path)
     assert r.returncode == 0, r.stderr
     assert words in r.stdout and "[out] wrote" in r.stdout
+    if "--checkpoint" in args:
+        assert sorted(p.name for p in tmp_path.iterdir()
+                      if p.suffix != ".png") == [path]
 
 
 def test_cli_profile_and_hbm(tmp_path):
@@ -197,7 +204,8 @@ def test_renderer_matches_jax_statistically():
 
 def test_port_runs_without_jax(tmp_path):
     """A meta-path hook refuses JAX, flax, ml_dtypes, PIL and the JAX
-    package; the port still imports and renders one spp."""
+    package; the port still imports and renders one spp, and its bench
+    (run/bench.py) runs a row in this process."""
     script = textwrap.dedent(f"""
         import sys
         BLOCKED = ("jax", "jaxlib", "flax", "ml_dtypes", "PIL",
@@ -217,12 +225,20 @@ def test_port_runs_without_jax(tmp_path):
         host.width = host.height = 16
         r = Renderer(host, device="cpu")
         r.render(1)
-        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("rendered", float(r.acc.mean()))
+        from gpu_pathtracer_tpu_torch.run import bench
+        bench.main(["--row", "cornell", "--device", "cpu", "--size", "8",
+                    "--windows", "1", "--min-spp", "1", "--min-seconds",
+                    "0"])
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     """)
     r = _run(["-c", script], tmp_path)
     assert r.returncode == 0, r.stderr
     assert "rendered" in r.stdout
+    import json
+    (row,) = [json.loads(ln[4:]) for ln in r.stdout.splitlines()
+              if ln.startswith("ROW ")]
+    assert row["correct"] is True and row["value"] > 0
 
 
 def test_chip_smoke_needs_a_gpu(tmp_path):

@@ -27,7 +27,6 @@ first.
 from __future__ import annotations
 
 import argparse
-import glob
 import os
 import re
 import subprocess
@@ -45,18 +44,6 @@ def _device_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
-
-
-def port_kernels() -> list[str]:
-    """Names of the __global__ functions in the port's csrc/*.cu."""
-    names = set()
-    for path in glob.glob(os.path.join(REPO, "gpu_pathtracer_tpu_torch",
-                                       "csrc", "*.cu")):
-        with open(path) as f:
-            names.update(re.findall(
-                r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|"
-                r"\([^()]*\))*\)\s+)?(\w+)", f.read()))
-    return sorted(names)
 
 
 def _row(us, count, dev_us, spp, key) -> str:
@@ -109,6 +96,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from gpu_pathtracer_tpu_torch.geom import traverse
     from gpu_pathtracer_tpu_torch.integrators import pt_fused
+    from gpu_pathtracer_tpu_torch.run.bench import port_kernels
     from gpu_pathtracer_tpu_torch.run.renderer import Renderer
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
     kernels = port_kernels()
