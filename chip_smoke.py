@@ -320,24 +320,6 @@ def timed_windows(fns: dict, window_ms: float = 1000.0,
     return out
 
 
-def close_frac(a, b) -> float:
-    """Share of lanes with |a - b| <= 1e-4 + 1e-3 |b| in all channels
-    (run/reference.py)."""
-    from gpu_pathtracer_tpu_torch.run import reference
-    return reference.close_frac(a, b)
-
-
-def reset_counts(*stats) -> None:
-    from gpu_pathtracer_tpu_torch.run import reference
-    reference.reset_counts(*stats)
-
-
-def all_stats() -> dict:
-    """{kernel name: its wrapper's KernelStats} (run/reference.py)."""
-    from gpu_pathtracer_tpu_torch.run import reference
-    return reference.kernel_stats()
-
-
 def rate(r) -> str:
     """The bench's measurement (run/bench.py's windows) of renderer r's
     progressive render from where it stands: D_WINDOWS windows, the
@@ -1253,6 +1235,8 @@ def phase_c(dev, rng, records):
     wavefront over K1 vs the same plain version. On many_lights.json the
     wavefront is reached through pt.render_lanes' routing, and K1's
     launches in that call are recorded apart from the main path's."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        close_frac, kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.core.rng import (
         PSS_BOUNCE_DIMS, PSS_CAM_DIMS,
     )
@@ -1329,7 +1313,7 @@ def phase_c(dev, rng, records):
     # the wavefront over K3 / K4 against the plain wavefront, from Philox
     # (lanes sorted for coherence) and from a primary-sample matrix
     # (unsorted); knot_port/sky.json adds textures and the sky
-    stats = all_stats()
+    stats = kernel_stats()
     for key, kname in (("blocked", "blocked"), ("scene", "bvh8_walk"),
                        ("forest", "bvh8_walk"), ("sky", "bvh8_walk")):
         scene, static = flat(key, dev)
@@ -1378,6 +1362,8 @@ def phase_d(dev, card, records):
     """The main path through the CLI: the Cornell box at 1024^2, depth 5,
     which pt.render_lanes routes to K2; launch counts, spp/s, Mrays/s, and
     the radiance against the plain version's lane by lane."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        close_frac, kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.integrators import pt_fused
     from gpu_pathtracer_tpu_torch.run import cli
 
@@ -1387,7 +1373,7 @@ def phase_d(dev, card, records):
                          "--out", out, "--seed", str(SEED)]), out
 
     render(1, "warmup.png")                     # the warm-up spp
-    stats = all_stats()
+    stats = kernel_stats()
     reset_counts(*stats.values())
     res, png = render(8, "cornell_port.png")
     counts = {k: st.launches for k, st in stats.items()}
@@ -1498,11 +1484,13 @@ def main_path(key, kname, spp, card, records, after_build=None,
     all be kernel `kname`'s. Returns the host build seconds of the two
     runs; `after_build()` is called after each, `capture()` wraps the
     warm-up spp (it returns the function that ends the capture)."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        close_frac, kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.integrators import pt
     from gpu_pathtracer_tpu_torch.run import cli
     label = KNOT.get(key) or K2_VARIANTS[key]
     path = os.path.join(REPO, label)
-    stats = all_stats()
+    stats = kernel_stats()
 
     def render(n, name):
         return cli.main([path, "--spp", str(n), "--seed", str(SEED),
@@ -2021,13 +2009,15 @@ def phase_b_media(dev, rng, records):
 def phase_c_media(dev, records, path, n_lanes=65536):
     """The VPT wavefront over K1 + track vs the all-plain VPT on the
     smoke scene at `path`, 65,536 lanes."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        close_frac, kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.integrators import vpt
     scene, static = flat(path, dev)
     n_pix = static.width * static.height
     ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
                        dtype=torch.int32)[:n_lanes]
     px, py = ids % static.width, ids // static.width
-    stats = all_stats()
+    stats = kernel_stats()
     reset_counts(*stats.values())
     li_k, r_k = vpt.render_lanes(scene, static, SEED, 1, px, py, True)
     torch.cuda.synchronize()
@@ -2067,12 +2057,6 @@ def hold_radiance(label, what, a, b) -> None:
           f"{h['agree']}, mean ratio {h['mean_ratio']}")
 
 
-def run_program(integ, scene, static, ids, plain=False):
-    """run/reference.py's `run_program` at this script's seed."""
-    from gpu_pathtracer_tpu_torch.run import reference
-    return reference.run_program(integ, scene, static, ids, SEED, plain)
-
-
 def program_static(scene_path, integ, dev):
     """The scene at `scene_path` flattened on `dev`, set to integrator
     `integ` at depth 5."""
@@ -2087,16 +2071,19 @@ def phase_c_program(dev, records, integ, path, n_lanes=65536):
     """Program `integ` over the kernels against itself all-plain on the
     scene at `path`, 65,536 lanes; the launches must be the scene's hit
     kernel's (and track's in a scene with media)."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, reset_counts, run_program)
     scene, static = program_static(path, integ, dev)
     n_pix = static.width * static.height
     ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
                        dtype=torch.int32)[:n_lanes]
-    stats = all_stats()
+    stats = kernel_stats()
     reset_counts(*stats.values())
-    li_k, film_k, r_k = run_program(integ, scene, static, ids)
+    li_k, film_k, r_k = run_program(integ, scene, static, ids, SEED)
     torch.cuda.synchronize()
     counts = {k: st.launches for k, st in stats.items()}
-    li_p, film_p, r_p = run_program(integ, scene, static, ids, plain=True)
+    li_p, film_p, r_p = run_program(integ, scene, static, ids, SEED,
+                                    plain=True)
     label = f"C {integ} {path}"
     print(f"[C] {integ} on {path}: {ids.numel()} lanes, rays {int(r_k)} vs "
           f"{int(r_p)}, launches {counts}")
@@ -2141,13 +2128,15 @@ def phase_c_ir(dev, records, n_lanes=65536):
     gathering the store's fullest row; then K1's any hit at the JAX
     package's gather shape, 32 slots x 1,048,576 lanes in one call,
     against the same rays in calls of 1,048,576."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        close_frac, kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.integrators import ir
     scene, static = program_static(SCENES[0], "ir", dev)
     n_pix = static.width * static.height
     ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
                        dtype=torch.int32)[:n_lanes]
     px, py = ids % static.width, ids // static.width
-    stats = all_stats()
+    stats = kernel_stats()
     reset_counts(*stats.values())
     v_k, rv_k = ir.generate_vpls(scene, static, SEED, 1, True)
     row = int(v_k.count.argmax())
@@ -2221,6 +2210,8 @@ def phase_c_coupled(dev, records, integ, path, size=256, iterations=2):
     bootstrap candidates, then from the kernels' bootstrap its chain
     luminance and film. cornell_port runs at depth 5, mlt_slit.json at
     its own 10."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, reset_counts)
     import dataclasses
     from gpu_pathtracer_tpu_torch.integrators import mlt, sppm
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
@@ -2231,7 +2222,7 @@ def phase_c_coupled(dev, records, integ, path, size=256, iterations=2):
     n = size * size
     ids = torch.arange(n, device=dev, dtype=torch.int32)
     px, py = ids % size, ids // size
-    stats = all_stats()
+    stats = kernel_stats()
     label = f"C {integ} {path} {size}x{size}"
     kname = "dense_hit" if integ == "sppm" else "pt_fused"
     name = f"launches_c_{integ}_{os.path.basename(os.path.dirname(path))}_" \
@@ -2292,9 +2283,11 @@ def program_main_path(card, records, integ, path, spp, kname):
     must all be kernel `kname`'s, with the peak device memory of that
     run (for MLT it holds the bootstrap, made before the CLI's timed
     window), then the bench's windows."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.geom import dense_cuda
     from gpu_pathtracer_tpu_torch.run import cli, reference
-    stats = all_stats()
+    stats = kernel_stats()
     tag = f"{integ}_{os.path.basename(os.path.dirname(path))}_" \
         f"{os.path.basename(path).split('.')[0]}"
     label = f"{integ} {path}"
@@ -2548,10 +2541,12 @@ def vpt_main_path(card, records):
     depth 5; one warm-up spp held against the plain VPT on every lane
     (the first Tr walk of its step 1 captured for phase E), then 2 timed
     spp whose launches must be K1's and track's."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        close_frac, kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.integrators import vpt
     from gpu_pathtracer_tpu_torch.run import cli
     path = os.path.join(REPO, SMOKE)
-    stats = all_stats()
+    stats = kernel_stats()
 
     def render(n, name):
         return cli.main([path, "--integrator", "vpt", "--size", "1024",
@@ -2789,9 +2784,11 @@ def phase_f_checkpoint(dev, card) -> None:
     SPPM and MLT within the radiance limits (their deposits and splats
     add in no fixed order on the card) with SPPM's radius and photon
     statistic and MLT's chain luminance equal."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.geom import packet_cuda
     from gpu_pathtracer_tpu_torch.run import checkpoint as ckpt
-    stats = all_stats()
+    stats = kernel_stats()
     for integ, path, knames in CKPT_F:
         label = f"F {integ} {path} resumed"
         f = os.path.join(f_dir(), f"{integ}.npz")
@@ -2882,6 +2879,7 @@ def f_arrays(r) -> dict:
 def f_sharded(integ, path, knames, dev, stats) -> tuple:
     """Program `integ` sharded over the current group for 2 iterations:
     (f_arrays, launches, reduction ms per iteration, ms of the read)."""
+    from gpu_pathtracer_tpu_torch.run.reference import reset_counts
     r = f_renderer(integ, path, dev, shard=True)
     reset_counts(*stats.values())
     with ReduceTimer() as t_it:
@@ -2924,7 +2922,9 @@ def hold_sharded(label, integ, got, ref) -> None:
 
 def f_references(dev) -> dict:
     """{integ: f_arrays} of SHARD_F rendered unsharded, 2 iterations."""
-    stats = all_stats()
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, reset_counts)
+    stats = kernel_stats()
     ref = {}
     for integ, path, knames in SHARD_F:
         reset_counts(*stats.values())
@@ -2942,9 +2942,10 @@ def phase_f_shard(dev, card) -> None:
     Renderer(shard=True) on a world of 1 on NCCL (in this process) and
     on 2 gloo ranks spawned on cuda:0; then whether NCCL takes 2 ranks on
     one card."""
+    from gpu_pathtracer_tpu_torch.run.reference import kernel_stats
     from gpu_pathtracer_tpu_torch.parallel import dist
     os.environ.update(LOOPBACK)
-    stats = all_stats()
+    stats = kernel_stats()
     ref = f_references(dev)
     store = os.path.join(f_dir(), "store_nccl_1")
     dist.init("nccl", f"file://{store}", 0, 1, timeout_s=F_TIMEOUT_S)
@@ -2979,6 +2980,7 @@ def f_rank(kind: str, out: str) -> None:
     rendering SHARD_F sharded over the group, rank 0 writing the arrays
     to compare to out/<kind>_<integ>.npz; "nccl-pair": one of 2 NCCL
     ranks on cuda:0, one all_reduce."""
+    from gpu_pathtracer_tpu_torch.run.reference import kernel_stats
     from gpu_pathtracer_tpu_torch.parallel import dist
     card = card_line()
     dev = torch.device("cuda", dist.local_rank() if kind == "nccl" else 0)
@@ -2993,7 +2995,7 @@ def f_rank(kind: str, out: str) -> None:
     print(f"[F] {where}: the first all_reduce {setup.ms:.3f} ms, all_reduce "
           f"gave {x.item()}", flush=True)
     if kind != "nccl-pair":
-        stats = all_stats()
+        stats = kernel_stats()
         for integ, path, knames in SHARD_F:
             got, counts, ms_it, calls, ms_read = f_sharded(
                 integ, path, knames, dev, stats)
@@ -3076,8 +3078,10 @@ def phase_f_cards(dev, card, n: int) -> None:
 def phase_f_profile(dev, card) -> None:
     """--profile through the CLI for 1 spp of cornell_port: the trace
     names K2's kernel."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, reset_counts)
     from gpu_pathtracer_tpu_torch.run import cli
-    stats = all_stats()
+    stats = kernel_stats()
     prof = os.path.join(f_dir(), "profile")
     reset_counts(*stats.values())
     cli.main([os.path.join(REPO, SCENES[0]), "--spp", "1", "--seed",

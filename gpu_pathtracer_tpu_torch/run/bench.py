@@ -13,25 +13,27 @@ of scenes/ through `Renderer` at --size^2 (1024) and depth 5, seed
 - renders one warm-up spp, which also builds and loads the kernels
   (under sharding also NCCL's first all_reduce), and holds it against
   the program run all-plain for the same iteration within PERF.md
-  section 2's radiance limits (run/reference.py; VPT, LT and BDPT on a
-  65,536-lane slice), giving "correct";
+  section 2's radiance limits (run/reference.py), giving "correct";
+  VPT, LT and BDPT on a 65,536-lane slice: VPT's film and BDPT's
+  per-lane radiance as the warm-up spp left them, LT's film and BDPT's
+  splats from a separate pass over the kernels on the slice;
 - times --windows windows (7), each of whole spp, at least --min-spp
   (2) and until at least --min-seconds (5 s; twice that for cornell,
-  cornell_wavefront and ao, the noisiest) have passed, on the host
-  clock around work that ends in a device synchronise, tracing off:
-  the median spp/s (iterations/s for SPPM and MLT) with the windows'
-  min and max, Mrays/s from `Renderer.rays` over the same windows, and
-  the peak device memory above what the renderer held before them;
-  before and after the windows, the host's cost of one small operation
-  (`launch_us`), which the host-bound rows' spp/s follow;
+  PERF.md section 6) have passed, on the host clock around work that
+  ends in a device synchronise, tracing off: the median spp/s
+  (iterations/s for SPPM and MLT) with the windows' min and max,
+  Mrays/s from `Renderer.rays` over the same windows, and the peak
+  device memory above what the renderer held before them;
 - on CUDA, fails unless the windows launched the row's kernels and no
   other, and no plain version ran on a CUDA tensor;
 - profiles one spp after the windows (torch.profiler): device ms/spp,
-  the device's idle share (1 - device ms/spp x the windows' median
-  spp/s: tracing slows the host, so the traced spp's own share is
-  reported beside it), the five device operations that take the most
-  time, each kernel of csrc/*.cu with its share, and the longest idle
-  gaps with the host calls they sat in.
+  the device's busy share (device ms/spp x the windows' median spp/s)
+  and idle share (1 - busy; tracing slows the host, so the traced
+  spp's own share is reported beside it), the five device operations
+  that take the most time, each kernel of csrc/*.cu with its share,
+  and the longest idle gaps with the host calls they sat in. Neither
+  share is clamped: a busy share above BUSY_MAX (a device time that
+  over-counts, or kernels that tracing slowed) flags the row.
 `sppm_4card` runs under `torchrun --nproc-per-node 4` with
 `Renderer(shard=True)`, one card a rank; with fewer than 4 CUDA devices
 it prints -2.0 and says why.
@@ -41,12 +43,13 @@ is left of --budget seconds (1500); after each row one JSON line holding
 the whole result so far is printed, so the last line is always
 complete. A failed row prints -1.0 as its value, a row skipped for the
 budget or for want of cards -2.0. The bench exits non-zero when a row
-failed or was not correct.
+failed or was not correct; the last line lists flagged rows apart.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -69,6 +72,7 @@ ROW_TIMEOUT_S = 900    # a row's limit, cut to what is left of the budget
 MIN_ROW_S = 30         # a row is not started with less budget left
 DEPTH = 5              # every row's path depth (PERF.md section 2)
 SPPM_PHOTONS = 100_000
+BUSY_MAX = 1.05        # a busy share above this flags the row's profile
 # the collectives' bootstrap sockets stay on the loopback interface
 LOOPBACK = {"NCCL_SOCKET_IFNAME": "lo", "GLOO_SOCKET_IFNAME": "lo"}
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
@@ -84,8 +88,9 @@ class Row:
     stands_for: tuple = ()   # the JAX bench.py rows it stands for
     sliced: bool = False  # held on a 65,536-lane slice
     cards: int = 1
-    # windows last window_scale x --min-seconds: rows whose two whole
-    # runs differed by more than 5% with 5 s windows (PERF.md section 6)
+    # windows last window_scale x --min-seconds: cornell, whose two
+    # whole runs came within 5% only with 10 s windows (PERF.md
+    # section 6)
     window_scale: float = 1.0
 
 
@@ -93,7 +98,7 @@ ROWS = (
     Row("cornell", "cornell_port/scene.json", "pt", ("pt_fused",),
         ("cornell", "integ_pt"), window_scale=2.0),
     Row("cornell_wavefront", "cornell_port/many_lights.json", "pt",
-        ("dense_hit",), window_scale=2.0),
+        ("dense_hit",)),
     Row("env", "env_port/scene.json", "pt", ("pt_fused",)),
     Row("knot", "knot_port/scene.json", "pt", ("bvh8_walk",),
         ("dragon_100k",)),
@@ -103,7 +108,7 @@ ROWS = (
     Row("vpt", "smoke_port/scene.json", "vpt", ("dense_hit", "track"),
         ("integ_vpt",), sliced=True),
     Row("ao", "cornell_port/scene.json", "ao", ("dense_hit",),
-        ("integ_ao",), window_scale=2.0),
+        ("integ_ao",)),
     Row("lt", "cornell_port/scene.json", "lt", ("dense_hit",),
         ("integ_lt",), sliced=True),
     Row("bdpt", "cornell_port/scene.json", "bdpt", ("dense_hit",),
@@ -178,24 +183,6 @@ def window_summary(wins: list) -> dict:
             "windows": len(wins), "spp": sum(w["spp"] for w in wins),
             "rays": sum(w["rays"] for w in wins),
             "seconds": sum(w["seconds"] for w in wins)}
-
-
-def launch_us(device, n: int = 200, reps: int = 5) -> float:
-    """The host's cost of one small operation on `device` in this
-    process: the least over `reps` runs of n in-place adds on a 1-element
-    tensor, ended by a synchronise, per add (microseconds). The
-    counterpart of bench.py's dispatch floor: the host-bound rows' spp/s
-    move with it when other work shares the host's cores."""
-    x = torch.zeros(1, device=device)
-    best = float("inf")
-    for _ in range(reps):
-        _sync(device)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            x.add_(1.0)
-        _sync(device)
-        best = min(best, (time.perf_counter() - t0) / n)
-    return best * 1e6
 
 
 def port_kernels() -> list:
@@ -273,25 +260,27 @@ def trace_summary(events: list, wall_s: float, spp: int, kernels: list,
                      else nxt["name"][:60])})
     return {"device_ms_per_spp": busy_us / 1e3 / spp,
             "traced_wall_ms_per_spp": wall_s * 1e3 / spp,
-            "traced_idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall_s),
+            "traced_idle_share": 1.0 - busy_us / 1e6 / wall_s,
             "top_ops": [entry(name, us, c) for name, (us, c) in ranked[:top]],
             "port_kernels": mine, "gaps": out_gaps}
 
 
-def profile_spp(r) -> dict | None:
-    """One spp of renderer `r` under torch.profiler (CPU and CUDA
+def profile_spp(r, spp: int = 1) -> dict | None:
+    """`spp` spp of renderer `r` under torch.profiler (CPU and CUDA
     activities) summarised by `trace_summary`; every rank of a sharded
-    render renders it, rank 0 alone profiles and returns the summary."""
+    render renders them, rank 0 alone profiles and returns the summary."""
     from torch.profiler import ProfilerActivity, profile
     _sync(r.device)
     if r.shard.rank != 0:
-        r.render_iteration()
+        for _ in range(spp):
+            r.render_iteration()
         _sync(r.device)
         return None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.render_iteration()
+        for _ in range(spp):
+            r.render_iteration()
         _sync(r.device)
         wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -299,7 +288,20 @@ def profile_spp(r) -> dict | None:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return trace_summary(events, wall, 1, port_kernels())
+    return trace_summary(events, wall, spp, port_kernels())
+
+
+def device_shares(prof: dict, spp_s: float) -> list:
+    """Add to profile summary `prof` the device's busy share of an
+    untraced spp (device ms/spp x `spp_s`, the untraced spp/s) and its
+    idle share (1 - busy), unclamped; return the flags they raise (a
+    busy share above BUSY_MAX)."""
+    busy = prof["device_ms_per_spp"] * spp_s / 1e3
+    prof["busy_share"], prof["idle_share"] = busy, 1.0 - busy
+    if busy <= BUSY_MAX:
+        return []
+    return [f"busy share {busy:.4f} > {BUSY_MAX}: the traced spp's device "
+            "time exceeds the untraced wall time"]
 
 
 def _renderer(row: Row, opts, device, shard: bool):
@@ -346,9 +348,13 @@ def _measure(row: Row, opts, device, shard: bool) -> dict | None:
     cuda = device.type == "cuda"
     r, build_s = _renderer(row, opts, device, shard)
     lead = r.shard.rank == 0
+    # a hybrid program's per-lane radiance, apart from its splats
+    keep = (reference.tile_radiance(r) if row.sliced and r.kind == "hybrid"
+            else contextlib.nullcontext())
     t0 = time.perf_counter()
-    r.render_iteration()
-    _sync(device)
+    with keep as tile_li:
+        r.render_iteration()
+        _sync(device)
     warmup_s = time.perf_counter() - t0
 
     checks = []
@@ -356,7 +362,9 @@ def _measure(row: Row, opts, device, shard: bool) -> dict | None:
         lanes = (reference.slice_ids(r.width * r.height, device)
                  if row.sliced else None)
         checks = [reference.held(a, b, what) for what, a, b in
-                  reference.plain_reference(row.integrator, r, lanes)]
+                  reference.plain_reference(row.integrator, r, lanes,
+                                            tile_li)]
+    del tile_li
     finite = bool(torch.isfinite(r.acc).all())
     wrong = _agreed(r, not (finite and all(c["ok"] for c in checks)))
     stats = reference.kernel_stats()
@@ -365,10 +373,8 @@ def _measure(row: Row, opts, device, shard: bool) -> dict | None:
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
     reference.reset_counts(*stats.values())
-    floor = [launch_us(device)]
     wins = windows(r, opts.windows, opts.min_spp,
                    opts.min_seconds * row.window_scale)
-    floor.append(launch_us(device))
     launches = {k: st.launches for k, st in stats.items()}
     plain = sum(st.plain_cuda for st in stats.values())
     peak_mb = resident_mb = None
@@ -387,9 +393,7 @@ def _measure(row: Row, opts, device, shard: bool) -> dict | None:
     if not lead:
         return None
     summary = window_summary(wins)
-    if prof is not None:   # the device's idle share of an untraced spp
-        prof["idle_share"] = max(
-            0.0, 1.0 - prof["device_ms_per_spp"] * summary["value"] / 1e3)
+    flags = [] if prof is None else device_shares(prof, summary["value"])
     return {
         **summary,
         "unit": ("iterations/s" if row.integrator in ("sppm", "mlt")
@@ -399,7 +403,7 @@ def _measure(row: Row, opts, device, shard: bool) -> dict | None:
         "kernels": list(row.kernels), "stands_for": list(row.stands_for),
         "cards": r.shard.world, "size": opts.size,
         "depth": r.static.max_depth, "seed": opts.seed,
-        "build_s": build_s, "warmup_s": warmup_s, "launch_us": floor,
+        "build_s": build_s, "warmup_s": warmup_s, "flags": flags,
         "launches_per_spp": {k: launches[k] / summary["spp"]
                              for k in row.kernels},
         "peak_mb": peak_mb, "resident_mb": resident_mb,
@@ -523,6 +527,8 @@ def main(argv=None) -> int:
     bad = [n for n, res in result["rows"].items()
            if res["value"] == -1.0 or res.get("correct") is False]
     result["failed"] = bad
+    result["flagged"] = [n for n, res in result["rows"].items()
+                         if res.get("flags")]
     emit(result)
     return 1 if bad else 0
 

@@ -12,6 +12,8 @@ kernels' launch counters through `kernel_stats`.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 ATOL, RTOL = 1e-4, 1e-3    # a row agrees within atol + rtol |b|
@@ -98,7 +100,28 @@ def slice_ids(n_pix: int, device, n_lanes: int = SLICE_LANES):
                         dtype=torch.int32)[:n_lanes]
 
 
-def plain_reference(integ, r, lanes=None) -> list:
+@contextlib.contextmanager
+def tile_radiance(r):
+    """While the block runs, keep the per-lane radiance that renderer
+    `r`'s tiles return (its "pixel" and "hybrid" programs, whose film
+    adds it): yields a [W*H, 3] tensor that the block's iterations add
+    their lanes' radiance into, apart from any splatted film."""
+    kept = torch.zeros_like(r.acc)
+    program = r._program
+
+    def keeping(scene, static, seed, it, px, py, *rest, **kw):
+        out = program(scene, static, seed, it, px, py, *rest, **kw)
+        kept[(py * r.width + px).long()] += out[0]
+        return out
+
+    r._program = keeping
+    try:
+        yield kept
+    finally:
+        r._program = program
+
+
+def plain_reference(integ, r, lanes=None, tile_li=None) -> list:
     """What renderer `r` (its first iteration rendered, not sharded or
     an SPPM or MLT renderer, whose film is whole on every rank) is held
     against: a list of (what, over the kernels, all-plain), each a pair
@@ -109,18 +132,26 @@ def plain_reference(integ, r, lanes=None) -> list:
     camera pass over its own VPL store, SPPM's absolute film, MLT's
     image after one step from the kernels' bootstrap, whose candidates
     are held against their plain evaluation too). With `lanes` (ids of
-    pixels or light paths; "ao", "pt", "vpt", "lt", "bdpt"): the program
-    over the kernels against itself all-plain on those lanes only, for
-    programs whose all-plain run on every lane would take minutes."""
+    pixels or light paths), for programs whose all-plain run on every
+    lane would take minutes, against the program all-plain on those
+    lanes only: "ao", "pt", "vpt": r's film on those pixels; "bdpt":
+    r's per-lane radiance on them (`tile_li`, kept by `tile_radiance`
+    around its first iteration), and its splat film from a separate
+    pass over the kernels on those lanes; "lt": a separate pass over the
+    kernels on those light paths (a path's splats land anywhere, so r's
+    film holds every path's)."""
     from gpu_pathtracer_tpu_torch.integrators import ir, mlt, sppm
     scene, static, seed = r.device_scene, r.static, r.seed
     if lanes is not None:
-        li_k, film_k, _ = run_program(integ, scene, static, lanes, seed)
         li_p, film_p, _ = run_program(integ, scene, static, lanes, seed,
                                       plain=True)
-        return [(what, a, b) for what, a, b in (
-            ("radiance", li_k, li_p), ("film", film_k, film_p))
-            if a is not None]
+        if integ in ("ao", "pt", "vpt"):
+            return [("radiance", r.acc[lanes.long()], li_p)]
+        _, film_k, _ = run_program(integ, scene, static, lanes, seed)
+        if integ == "lt":
+            return [("film", film_k, film_p)]
+        return [("radiance", tile_li[lanes.long()], li_p),
+                ("film", film_k, film_p)]
     n = r.width * r.height
     if integ == "ir":
         vpls = ir.generate_vpls(scene, static, seed, 1, plain=True)

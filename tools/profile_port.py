@@ -10,64 +10,35 @@ dense-hit kernel; the large-mesh scenes of scenes/knot_port, through the
 wavefront over the block-culled kernel or the BVH8 walk, sky.json with
 textures and the sky; and scenes/smoke_port, whose volumetric path
 tracer runs over the dense-hit and media tracking kernels) at its own
-resolution
-and depth (and integrator, unless --integrator names another) under
-torch.profiler
-after one warm-up spp, and prints per scene: wall time per spp, device
-time per spp summed over kernels, the device's idle share of the window,
-the kernels that take the most device time, and then every kernel of
-the port's own CUDA sources (the __global__ functions of
-gpu_pathtracer_tpu_torch/csrc/*.cu) with its share. A "spp" of SPPM is
-one iteration (eye pass, grid, photon pass), of MLT one mutation of
-every chain (the bootstrap is made with the renderer, before the
-window). Needs a CUDA device; prints the card's name and power limit
-first.
+resolution and depth (and integrator, unless --integrator names
+another). After one warm-up spp it times one untraced window of --spp
+spp and profiles --spp more, with the bench's own measurement
+(run/bench.py: `windows`, `profile_spp`, `device_shares`), and prints
+per scene: wall ms/spp untraced and traced, device ms/spp (the union
+of the device's intervals), the device's busy and idle shares of an
+untraced spp, the device operations that take the most time, every
+kernel of the port's own CUDA sources (the __global__ functions of
+gpu_pathtracer_tpu_torch/csrc/*.cu) with its share, and the longest
+idle gaps. A "spp" of SPPM is one iteration (eye pass, grid, photon
+pass), of MLT one mutation of every chain (the bootstrap is made with
+the renderer, before the window). Needs a CUDA device; prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import re
-import subprocess
 import sys
-import time
 
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
-def _row(us, count, dev_us, spp, key) -> str:
-    return (f"    {us / 1e3 / spp:9.3f} ms/spp  "
-            f"{100 * us / max(dev_us, 1e-9):5.1f}%  x{count // spp}/spp  "
-            f"{key[:90]}")
-
-
-def profile(renderer, spp: int):
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    renderer.render_iteration()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(spp):
-            renderer.render_iteration()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted(((e.key, _device_us(e), e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda r: -r[1])
-    return wall, rows
+def _op(e) -> str:
+    return (f"    {e['ms_per_spp']:9.3f} ms/spp  {100 * e['share']:5.1f}%  "
+            f"x{e['per_spp']:g}/spp  {e['name'][:90]}")
 
 
 def main() -> None:
@@ -90,22 +61,21 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
     sys.path.insert(0, REPO)
     from gpu_pathtracer_tpu_torch.geom import traverse
     from gpu_pathtracer_tpu_torch.integrators import pt_fused
-    from gpu_pathtracer_tpu_torch.run.bench import port_kernels
+    from gpu_pathtracer_tpu_torch.run import bench
     from gpu_pathtracer_tpu_torch.run.renderer import Renderer
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
-    kernels = port_kernels()
+    print(bench.card_line())
     for path in args.scenes:
         r = Renderer(path, device="cuda", integrator=None
                      if args.integrator is None
                      else IntegratorType[args.integrator.upper()])
-        wall, rows = profile(r, args.spp)
-        dev_us = sum(us for _, us, _ in rows)
+        r.render_iteration()
+        spp_s = bench.window_summary(bench.windows(r, 1, args.spp, 0.0))
+        prof = bench.profile_spp(r, args.spp)
+        flags = bench.device_shares(prof, spp_s["value"])
         integ = r.static.integrator
         fused = integ in (IntegratorType.PT, IntegratorType.MLT) \
             and pt_fused.supports(r.static)
@@ -113,17 +83,19 @@ def main() -> None:
                   f"{integ.name} {r.kind} wavefront, "
                   f"{traverse.regime(r.static)} regime")
         print(f"[{os.path.basename(path)}, {regime}] {r.width}x{r.height} "
-              f"depth {r.static.max_depth}: "
-              f"wall {1e3 * wall / args.spp:.3f} ms/spp, device "
-              f"{dev_us / 1e3 / args.spp:.3f} ms/spp, idle share "
-              f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}")
-        for key, us, count in rows[:8]:
-            print(_row(us, count, dev_us, args.spp, key))
-        for name in kernels:
-            for key, us, count in rows:
-                if re.search(rf"\b{name}\b", key):
-                    print("  port kernel" + _row(us, count, dev_us,
-                                                 args.spp, key)[3:])
+              f"depth {r.static.max_depth}: wall {1e3 / spp_s['value']:.3f} "
+              f"ms/spp untraced, {prof['traced_wall_ms_per_spp']:.3f} "
+              f"traced; device {prof['device_ms_per_spp']:.3f} ms/spp; "
+              f"busy {prof['busy_share']:.3f}, idle "
+              f"{prof['idle_share']:.3f} (traced "
+              f"{prof['traced_idle_share']:.3f}) {' '.join(flags)}".rstrip())
+        for e in prof["top_ops"]:
+            print(_op(e))
+        for e in prof["port_kernels"]:
+            print("  port kernel" + _op(e)[3:])
+        for g in prof["gaps"]:
+            print(f"    gap {g['ms']:.3f} ms during {g['during']}; "
+                  f"then {g['next']}")
 
 
 if __name__ == "__main__":
