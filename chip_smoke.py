@@ -3,11 +3,12 @@
     python3 chip_smoke.py               # all phases
     python3 chip_smoke.py --phases ABC  # build and kernel checks only
     python3 chip_smoke.py --phases F    # build, checkpoints, sharding
+    python3 chip_smoke.py --phases R    # build, the Philox draw kernel
     python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
     python3 chip_smoke.py --baseline DIR  # also time DIR's K1 and K3
 
-Builds the port's five CUDA kernels from csrc/, holds each against its
+Builds the port's six CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
 path-traced Cornell box, environment-lit and textured scenes and
 large-mesh scenes, its volumetric path tracer on the smoke scene, and
@@ -17,8 +18,9 @@ Phases:
 
   A  build the dense-hit kernel (K1), the path-trace megakernel (K2), the
      block-culled hit kernel (K3), the BVH8 walk (K4) and the media
-     tracking kernel (track.cu, K5's counterpart), one nvcc each, all at
-     once, and the native BVH builder (g++)
+     tracking kernel (track.cu, K5's counterpart) and the Philox draw
+     kernel (rng.cu), one nvcc each, all at once, and the native BVH
+     builder (g++)
   B  K1 vs plain: 1,048,576 rays, closest and any hit, its triangles-only
      and all-kinds variants on cornell_port's table, the all-kinds one on
      a 512-row synthetic table of all three kinds, a table of exact twins
@@ -74,6 +76,17 @@ Phases:
      SPPM's radius, photon statistic and film, MLT's bootstrap
      candidates, chain luminance and film, on cornell_port and on
      cornell_port/mlt_slit.json (its depth 10: K2 reading [84, 65,536])
+  R  (after C) rng.cu vs its plain version (core/rng.py::
+     philox_uniform_torch), bit for bit: 1,048,576 lanes x 136 rows (an
+     MLT step's shape), lanes up to 2**32 - 1 at N = 1M - 37, a first
+     block of 7, tags 0-6, keys 0 and 2**32 - 1, uniform_rows at 1, 7,
+     135 and 136 rows and a PhiloxStream across blocks; one cornell_port
+     spp through K2, one MLT step of 1M chains (state and image) and one
+     knot scene.json spp over K4, each with its draws from the kernel
+     and from the plain version (`plain_draws`), bit-equal; the
+     kernel, the plain version and the bound (bytes, or the kernel's
+     SASS instructions at the issue peak) in turns at the camera's shape
+     (1M lanes x 4 rows) and MLT's
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after, then timed from where its
      render stands by the bench's windows (run/bench.py: D_WINDOWS
@@ -164,6 +177,7 @@ unless --out names another directory.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -219,6 +233,9 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                   "gpu_pathtracer_tpu/geom/packet_tpu.py:126"),
     "track": ("gpu_pathtracer_tpu_torch/csrc/track.cu",
               "gpu_pathtracer_tpu/ops/small_gather.py:30"),
+    "rng": ("gpu_pathtracer_tpu_torch/csrc/rng.cu",
+            "no Pallas kernel; the JAX package's `jax.random` draws and "
+            "`pt_fused.py:910`'s in-kernel generator"),
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM: device memory rate
 F32_FLOPS = 67e12           # and float32 peak outside the tensor cores
@@ -246,6 +263,14 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def only(counts: dict, *knames) -> bool:
+    """Whether each kernel of `knames` launched and no other did, the
+    Philox draw kernel apart (rng: any path that draws from Philox
+    launches it; name it in `knames` to require it)."""
+    return all(counts[k] > 0 for k in knames) and not any(
+        n for k, n in counts.items() if k not in (*knames, "rng"))
 
 
 def kernel_name(mangled: str) -> str:
@@ -1344,8 +1369,8 @@ def phase_c(dev, rng, records):
             check(abs(ratio - 1.0) <= 1e-3,
                   f"wavefront {key} {mode}: ratio {ratio}")
             check(bool(torch.isfinite(li_k).all()), f"{key}: non-finite li")
-            check(counts[kname] > 0
-                  and sum(counts.values()) == counts[kname],
+            check(only(counts, kname, *(("rng",) if mode == "philox"
+                                        else ())),
                   f"wavefront {key} {mode}: launches {counts}")
     phase_c_media(dev, records, SMOKE)
     phase_c_media(dev, records, SMOKE_SKY)
@@ -1356,6 +1381,211 @@ def phase_c(dev, rng, records):
         phase_c_coupled(dev, records, integ, path)
     from gpu_pathtracer_tpu_torch.geom import packet_cuda
     packet_cuda.check_overflow()   # no K4 walk of this phase overflowed
+
+INT_OPS = 33.45e12   # instructions a second at the SMs' issue peak: 132 SMs
+# x 128 lanes x 1.98 GHz (F32_FLOPS counts an FMA as 2 operations)
+CAMERA_BLOCKS = 1    # counter blocks a lane of the camera draws
+MLT_BLOCKS = 34      # of an MLT step at depth 5: 4 + 3 x 44 = 136 rows
+
+
+def sass_instructions(so_path: str, kernel: str):
+    """Instructions (NOPs aside) of `kernel` in library `so_path`, as
+    cuobjdump -sass lists them; None without cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                         text=True)
+    if out.returncode:
+        return None
+    n, inside = 0, False
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+        elif inside and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+[A-Z@]", ln) \
+                and " NOP" not in ln:
+            n += 1
+    return n
+
+
+def rng_bound(n: int, n_blocks: int, sass) -> dict:
+    """csrc/rng.cu's least time on n lanes x n_blocks counter blocks: the
+    lanes read (8 B each) and rows written (16 B a lane a block), or one
+    thread's SASS instructions per (lane, block) at the issue peak."""
+    tb = (8 * n + 16 * n * n_blocks) / HBM_BYTES_PER_S * 1e3
+    to = (sass or 0) * n * n_blocks / INT_OPS * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, sets) one call of fn()
+    runs, counted in a torch.profiler trace (run/bench.py's categories)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from gpu_pathtracer_tpu_torch.run.bench import DEVICE_CATS
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("ph") == "X"
+               and str(e.get("cat", "")).lower() in DEVICE_CATS)
+
+
+@contextlib.contextmanager
+def plain_draws():
+    """Inside the block every Philox draw takes csrc/rng.cu's plain
+    version; the path's other kernels launch as they do."""
+    from gpu_pathtracer_tpu_torch.core import rng
+    gate = rng.philox_uniform
+
+    def plain(lanes, block0, n_blocks, tag, seed, iteration, plain=False):
+        return gate(lanes, block0, n_blocks, tag, seed, iteration, True)
+
+    rng.philox_uniform = plain
+    try:
+        yield
+    finally:
+        rng.philox_uniform = gate
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (index_add_'s sums in a fixed
+    order) inside the block, so two runs can be held bit for bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_r(dev, card, records):
+    """csrc/rng.cu against its plain version bit for bit (MLT's shape,
+    lanes up to 2**32 - 1, N not a multiple of the block, block0 > 0,
+    tags 0-6, extreme keys, uniform_rows' row counts, a stream crossing
+    blocks); one cornell spp through K2, one MLT step and one knot
+    wavefront spp with the draws from the kernel and from the plain
+    version, bit-equal; the kernel, the plain version and the bound in
+    turns at the camera's and MLT's shapes."""
+    import dataclasses
+    from gpu_pathtracer_tpu_torch import kernels
+    from gpu_pathtracer_tpu_torch.core import rng as trng
+    from gpu_pathtracer_tpu_torch.core import rng_cuda
+    from gpu_pathtracer_tpu_torch.integrators import mlt, pt, pt_fused
+    from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+    m32 = trng.MASK32
+    n = N_RAYS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ids = torch.arange(n, device=dev, dtype=torch.int64)
+    high = torch.randint(0, 1 << 32, (n - 37,), device=dev, generator=gen)
+    high[:4] = torch.tensor([0, 1 << 31, m32 - 1, m32], device=dev)
+    cases = [("MLT's shape, 1,048,576 chains x 136 rows", ids, 0,
+              MLT_BLOCKS, trng.MLT_TAG, (SEED, 1)),
+             ("lanes up to 2**32 - 1, N = 1M - 37", high, 0, 2, 0, (SEED, 3)),
+             ("block0 = 7", ids, 7, 3, trng.BSSRDF_TAG, (SEED, 1)),
+             *((f"tag {t}", ids[:65536], 0, 2, t, (SEED, 2))
+               for t in range(7)),
+             ("key (0, 0)", high, 0, 1, 0, (0, 0)),
+             ("key (2**32 - 1, 2**32 - 1)", high, 0, 1, 0, (m32, m32)),
+             ("key (0, 2**32 - 1)", high, 1, 1, trng.MLT_TAG, (0, m32))]
+    for label, lanes, b0, nb, tag, key in cases:
+        a = rng_cuda.philox_uniform_cuda(lanes, b0, nb, tag, *key)
+        b = trng.philox_uniform_torch(lanes, b0, nb, tag, *key)
+        torch.cuda.synchronize()
+        print(f"[R] rng {label}: [{a.shape[0]}, {a.shape[1]}] bit-equal "
+              f"{torch.equal(a, b)}")
+        check(torch.equal(a, b), f"rng {label}: differs from plain")
+    for n_rows in (1, 7, 135, 136):
+        a = trng.uniform_rows(SEED, 4, high, n_rows, trng.MLT_TAG)
+        b = trng.uniform_rows(SEED, 4, high, n_rows, trng.MLT_TAG, plain=True)
+        check(a.shape == (n_rows, high.shape[0]) and torch.equal(a, b),
+              f"uniform_rows {n_rows} rows: {tuple(a.shape)}, differs")
+    sk = trng.PhiloxStream(SEED, 5, high, base=2, tag=trng.BDPT_CONNECT_TAG)
+    sp = trng.PhiloxStream(SEED, 5, high, base=2, tag=trng.BDPT_CONNECT_TAG,
+                           plain=True)
+    check(all(torch.equal(sk.uniform(), sp.uniform()) for _ in range(9)),
+          "PhiloxStream across blocks differs from plain")
+    print("[R] uniform_rows (1, 7, 135, 136 rows) and a PhiloxStream of 9 "
+          "sites across 3 blocks bit-equal to plain")
+
+    stats = rng_cuda.STATS
+    films = []
+    sc, st = flat_sized(SCENES[0], 1024, dev)
+    px, py = ids % st.width, ids // st.width
+    stats.launches = 0
+    li_k = pt_fused.render_lanes(sc, st, SEED, 1, px, py)
+    n_k = stats.launches
+    with plain_draws():
+        li_p = pt_fused.render_lanes(sc, st, SEED, 1, px, py)
+    films.append(("cornell spp through K2, camera drawn by rng vs plain",
+                  n_k, [(li_k, li_p)]))
+    st_m = dataclasses.replace(st, integrator=IntegratorType.MLT,
+                               max_depth=5)
+    state = mlt.resample(st_m, mlt.candidates(sc, st_m, SEED, n))
+    with deterministic():
+        stats.launches = 0
+        s_k, img_k = mlt.render_iteration(sc, st_m, SEED, 1, state)
+        n_k = stats.launches
+        with plain_draws():
+            s_p, img_p = mlt.render_iteration(sc, st_m, SEED, 1, state)
+    films.append(("MLT step of 1M chains, state and image", n_k,
+                  [(s_k[k], s_p[k]) for k in s_k] + [(img_k, img_p)]))
+    del state, s_k, s_p
+    sc, st = flat("scene", dev)
+    px, py = ids % st.width, ids // st.width
+    with deterministic():
+        stats.launches = 0
+        li_k = pt.render_lanes(sc, st, SEED, 1, px, py)
+        n_k = stats.launches
+        with plain_draws():
+            li_p = pt.render_lanes(sc, st, SEED, 1, px, py)
+    films.append(("knot scene.json wavefront spp over K4", n_k,
+                  [(li_k, li_p)]))
+    torch.cuda.synchronize()
+    for label, n_k, pairs in films:
+        same = all(torch.equal(a, b) for a, b in pairs)
+        print(f"[R] {label}: bit-equal {same}, rng launches {n_k}")
+        check(same and n_k > 0, f"{label}: differs, or rng launched {n_k}")
+    del films, li_k, li_p
+
+    sass = sass_instructions(kernels.BUILDS["rng"].path,
+                             "philox_uniform_kernel")
+    print(f"[R] philox_uniform_kernel: {sass} SASS instructions a thread "
+          "(one (lane, block) each), NOPs aside")
+    out = {}
+    for shape, nb, tag in (("camera", CAMERA_BLOCKS, 0),
+                           ("mlt", MLT_BLOCKS, trng.MLT_TAG)):
+        t = timed_windows({
+            "kernel": lambda: rng_cuda.philox_uniform_cuda(ids, 0, nb, tag,
+                                                           SEED, 1),
+            "plain": lambda: trng.philox_uniform_torch(ids, 0, nb, tag,
+                                                       SEED, 1)})
+        ms = {k: sum(v) / len(v) for k, v in t.items()}
+        ms["plain_ops"] = device_ops(
+            lambda: trng.philox_uniform_torch(ids, 0, nb, tag, SEED, 1))
+        b = rng_bound(n, nb, sass)
+        print(f"[R] rng at {shape}'s shape, {n} lanes x {4 * nb} rows: "
+              f"kernel {ms['kernel']:.4f} ms (windows "
+              f"{min(t['kernel']):.4f}-{max(t['kernel']):.4f}), plain "
+              f"{ms['plain']:.4f} ms in {ms['plain_ops']} device ops, bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({card})")
+        out[shape] = (ms, b)
+    (ms, b), (ms_m, b_m) = out["camera"], out["mlt"]
+    records["rng"].update(
+        max_abs_err=0.0, ms=ms["kernel"], plain_ms=ms["plain"], **b,
+        library_ms=None, ms_mlt=ms_m["kernel"], plain_ms_mlt=ms_m["plain"],
+        bound_ms_mlt=b_m["bound_ms"], bound_by_mlt=b_m["bound_by"],
+        sass_instructions=sass, plain_ops=ms["plain_ops"],
+        plain_ops_mlt=ms_m["plain_ops"])
 
 
 def phase_d(dev, card, records):
@@ -1386,7 +1616,8 @@ def phase_d(dev, card, records):
     print(f"[D] launches in the main-path run: {counts}; plain-version "
           f"calls on CUDA tensors: {plain}")
     check(k2_n > 0, "main path never launched K2")
-    check(sum(counts.values()) == k2_n, f"main path launched {counts}")
+    check(only(counts, "pt_fused", "rng"), f"main path launched {counts}")
+    records["rng"]["launches"] = counts["rng"]
     check(plain == 0, f"{plain} plain-version calls on CUDA in phase D")
 
     r = res["renderer"]
@@ -1535,12 +1766,12 @@ def main_path(key, kname, spp, card, records, after_build=None,
           f"{res['build_seconds']:.2f} s ({card}); launches {counts}, "
           f"plain-version calls on CUDA {plain}")
     check(counts[kname] > 0, f"{key}: main path never launched {kname}")
-    check(sum(counts.values()) == counts[kname],
-          f"{key}: main path launched {counts}")
+    check(only(counts, kname, "rng"), f"{key}: main path launched {counts}")
     check(plain == 0, f"{key}: {plain} plain-version calls on CUDA")
     field = ("launches" if key in ("scene", "blocked") else
              "launches_instanced" if key == "forest" else f"launches_{key}")
     records[kname][field] = counts[kname]
+    records["rng"][f"launches_{name}"] = counts["rng"]
     return build_warm, res["build_seconds"]
 
 
@@ -1592,7 +1823,7 @@ def phase_e(dev, rng, card, records):
     print(f"[E] K2 alone, one spp of 1024x1024 depth 5 from given primary "
           f"rays: kernel {mean(t2['kernel']):.4f} ms (windows "
           f"{span(t2['kernel'])}), plain {mean(t2['plain']):.4f} ms "
-          f"({span(t2['plain'])}); camera (plain PyTorch, both routes) "
+          f"({span(t2['plain'])}); camera (rng.cu + plain rays, both routes) "
           f"{mean(t2['camera']):.4f} ms ({span(t2['camera'])}) ({card})")
     # bounds (RAY_IO: 32 B of ray in, 8 B of hit out; row_flops per ray:
     # one test of each prim by its type): K1 tests every prim; K2 every
@@ -2034,8 +2265,7 @@ def phase_c_media(dev, records, path, n_lanes=65536):
     check(abs(ratio - 1.0) <= 1e-3, f"VPT wavefront: ratio {ratio}")
     check(int(r_k) == int(r_p), "VPT wavefront: ray counts differ")
     check(bool(torch.isfinite(li_k).all()), "VPT: non-finite li")
-    check(counts["dense_hit"] > 0 and counts["track"] > 0
-          and counts["dense_hit"] + counts["track"] == sum(counts.values()),
+    check(only(counts, "dense_hit", "track", "rng"),
           f"VPT wavefront: launches {counts}")
     records["track"]["max_abs_err"] = max(
         records["track"].get("max_abs_err", 0.0),
@@ -2090,10 +2320,9 @@ def phase_c_program(dev, records, integ, path, n_lanes=65536):
     for what, a, b in (("radiance", li_k, li_p), ("film", film_k, film_p)):
         if a is not None:
             hold_radiance(label, what, a, b)
-    want = {"dense_hit"} | ({"track"} if static.has_hetero else set())
-    check(all(counts[k] > 0 for k in want)
-          and sum(counts[k] for k in want) == sum(counts.values()),
-          f"{label}: launches {counts}")
+    want = {"dense_hit", "rng"} | ({"track"} if static.has_hetero
+                                   else set())
+    check(only(counts, *want), f"{label}: launches {counts}")
     name = f"launches_c_{integ}_{os.path.basename(os.path.dirname(path))}"
     for k in want:
         records[k][name] = counts[k]
@@ -2116,8 +2345,7 @@ def held_counts(label, stats, kname, records, field) -> dict:
     """The launches since the counts were set to 0: all of them kernel
     `kname`'s, recorded under `field`."""
     counts = {k: st.launches for k, st in stats.items()}
-    check(counts[kname] > 0 and sum(counts.values()) == counts[kname],
-          f"{label}: launches {counts}")
+    check(only(counts, kname, "rng"), f"{label}: launches {counts}")
     records[kname][field] = counts[kname]
     return counts
 
@@ -2335,10 +2563,10 @@ def program_main_path(card, records, integ, path, spp, kname):
           f"what was held before the run ({card}); launches {counts}, "
           f"plain-version calls on CUDA {plain}, largest K1 call "
           f"{max(k1_sizes, default=0)} rays")
-    check(counts[kname] > 0 and sum(counts.values()) == counts[kname],
-          f"{label}: main path launched {counts}")
+    check(only(counts, kname, "rng"), f"{label}: main path launched {counts}")
     check(plain == 0, f"{label}: {plain} plain-version calls on CUDA")
     records[kname][f"launches_{tag}"] = counts[kname]
+    records["rng"][f"launches_{tag}"] = counts["rng"]
     records[kname][f"peak_gib_{tag}"] = (peak - held) / 2**30
     from gpu_pathtracer_tpu_torch.geom import packet_cuda
     packet_cuda.check_overflow()
@@ -2595,13 +2823,12 @@ def vpt_main_path(card, records):
           f"then {rate(res['renderer'])}, host build "
           f"{res['build_seconds']:.2f} s ({card}); launches {counts}, "
           f"plain-version calls on CUDA {plain}")
-    check(counts["track"] > 0 and counts["dense_hit"] > 0,
+    check(only(counts, "dense_hit", "track", "rng"),
           f"VPT main path launches {counts}")
-    check(counts["pt_fused"] == 0 and counts["blocked"] == 0
-          and counts["bvh8_walk"] == 0, f"VPT main path launches {counts}")
     check(plain == 0, f"VPT main path: {plain} plain-version calls on CUDA")
     records["track"]["launches"] = counts["track"]
     records["dense_hit"]["launches"] = counts["dense_hit"]
+    records["rng"]["launches_vpt_smoke"] = counts["rng"]
 
 
 def phase_e_media(dev, rng, card, records):
@@ -2727,21 +2954,21 @@ def walk_bound(scene, med_idx, ro, rd, tmax, n_cand) -> dict:
 # ---------------------------------------------------------------- phase F
 
 # checkpoint resume at 1024^2 depth 5: (integrator, scene, kernels)
-CKPT_F = (("pt", SCENES[0], ("pt_fused",)),
-          ("pt", KNOT["scene"], ("bvh8_walk",)),
-          ("vpt", SMOKE, ("dense_hit", "track")),
-          ("ir", SCENES[0], ("dense_hit",)),
-          ("sppm", SCENES[0], ("dense_hit",)),
-          ("mlt", SCENES[0], ("pt_fused",)))
+CKPT_F = (("pt", SCENES[0], ("pt_fused", "rng")),
+          ("pt", KNOT["scene"], ("bvh8_walk", "rng")),
+          ("vpt", SMOKE, ("dense_hit", "track", "rng")),
+          ("ir", SCENES[0], ("dense_hit", "rng")),
+          ("sppm", SCENES[0], ("dense_hit", "rng")),
+          ("mlt", SCENES[0], ("pt_fused", "rng")))
 # sharded renders at 1024^2 depth 5, 2 iterations: (integrator, scene,
 # kernels)
-SHARD_F = (("pt", SCENES[0], ("pt_fused",)),
-           ("vpt", SMOKE, ("dense_hit", "track")),
-           ("lt", SCENES[0], ("dense_hit",)),
-           ("bdpt", SCENES[0], ("dense_hit",)),
-           ("ir", SCENES[0], ("dense_hit",)),
-           ("sppm", SCENES[0], ("dense_hit",)),
-           ("mlt", SCENES[0], ("pt_fused",)))
+SHARD_F = (("pt", SCENES[0], ("pt_fused", "rng")),
+           ("vpt", SMOKE, ("dense_hit", "track", "rng")),
+           ("lt", SCENES[0], ("dense_hit", "rng")),
+           ("bdpt", SCENES[0], ("dense_hit", "rng")),
+           ("ir", SCENES[0], ("dense_hit", "rng")),
+           ("sppm", SCENES[0], ("dense_hit", "rng")),
+           ("mlt", SCENES[0], ("pt_fused", "rng")))
 BIT_EQUAL_F = ("pt", "vpt", "ir")   # kinds whose film equals bit for bit
 F_TIMEOUT_S = 300   # a spawned rank's limit
 # the collectives' bootstrap sockets stay on the loopback interface
@@ -2771,9 +2998,7 @@ def f_counts(label, stats, knames) -> dict:
     launched, no other kernel, no plain version on CUDA."""
     counts = {k: st.launches for k, st in stats.items()}
     plain = sum(st.plain_cuda for st in stats.values())
-    check(all(counts[k] > 0 for k in knames)
-          and sum(counts[k] for k in knames) == sum(counts.values()),
-          f"{label}: launches {counts}")
+    check(only(counts, *knames), f"{label}: launches {counts}")
     check(plain == 0, f"{label}: {plain} plain-version calls on CUDA")
     return {k: counts[k] for k in knames}
 
@@ -3087,7 +3312,7 @@ def phase_f_profile(dev, card) -> None:
     cli.main([os.path.join(REPO, SCENES[0]), "--spp", "1", "--seed",
               str(SEED), "--out", os.path.join(OUT, "profiled.png"),
               "--profile", prof])
-    counts = f_counts("F --profile", stats, ("pt_fused",))
+    counts = f_counts("F --profile", stats, ("pt_fused", "rng"))
     trace = os.path.join(prof, "trace_rank0.json")
     check(os.path.exists(trace), f"--profile wrote no {trace}")
     with open(trace) as f:
@@ -3116,7 +3341,7 @@ def main() -> None:
     global OUT, BASELINE
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEF",
+    ap.add_argument("--phases", default="ABCDEFR",
                     help="phases to run after the build (default all)")
     ap.add_argument("--out", default=OUT,
                     help="directory for the PNGs and compiler reports")
@@ -3191,13 +3416,15 @@ def main() -> None:
         phase_b(dev, rng, records)
     if "C" in phases:
         phase_c(dev, rng, records)
+    if "R" in phases:
+        phase_r(dev, card, records)
     if "D" in phases:
         phase_d(dev, card, records)
     if "E" in phases:
         phase_e(dev, rng, card, records)
     if "F" in phases:
         phase_f(dev, card)
-    if phases != "ABCDEF":
+    if set(phases) != set("ABCDEFR"):
         print(f"[{phases}] done: a partial run prints no result")
         sys.exit(0)
 

@@ -17,6 +17,14 @@ result does not depend on tiling, and csrc/pt_fused.cu computes the same
 bits from the same formula. The uint32 arithmetic is emulated in int64
 with masks, valid on either device.
 
+`philox_uniform` hands out whole counter blocks as float rows: on CUDA
+lanes it launches csrc/rng.cu (core/rng_cuda.py), one launch for all the
+blocks of a call, bit-equal to its plain version `philox_uniform_torch`
+(philox4x32_10 + bits_to_uniform, int64 elementwise ops); on CPU lanes,
+or with `plain=True`, it runs the plain version. `uniform_rows` and
+`PhiloxStream` draw through it and take `plain` from their callers, so
+an integrator run with `plain=True` draws nothing through the kernel.
+
 In general a counter is (i, block, tag, j): the path tracer's sites
 above are tag = j = 0. The volumetric path tracer (integrators/vpt.py)
 keeps sites 0-3 for the camera and gives step s of its loop the 16
@@ -68,6 +76,8 @@ The last three integrators:
 from __future__ import annotations
 
 import torch
+
+from gpu_pathtracer_tpu_torch.core import rng_cuda
 
 PSS_CAM_DIMS = 4
 PSS_BOUNCE_DIMS = 8
@@ -146,27 +156,53 @@ def bits_to_uniform(w):
     return (w >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-ROW_BLOCKS = 8   # counter blocks (4 sites each) uniform_rows computes at once
+ROW_BLOCKS = 8   # counter blocks (4 sites each) the plain version does at once
 
 
-def uniform_rows(seed: int, iteration: int, lane_ids, n_rows: int, tag: int):
-    """Sites 0 .. n_rows - 1 of stream `tag` for every lane, as one
-    [n_rows, N] float32 tensor: the draws PhiloxStream would hand out in
-    turn, computed ROW_BLOCKS counter blocks at a time (which bounds the
-    int64 temporaries at [ROW_BLOCKS, N])."""
-    lanes = lane_ids.to(torch.int64)[None, :] & MASK32
-    n_blocks = (n_rows + 3) // 4
-    out = torch.empty((n_blocks * 4, lanes.shape[1]), dtype=torch.float32,
+def philox_uniform_torch(lanes, block0: int, n_blocks: int, tag: int,
+                         seed: int, iteration: int):
+    """The plain version of csrc/rng.cu: rows 4 b + k (b < n_blocks) =
+    site 4 (block0 + b) + k of stream `tag` for each lane of `lanes` (int64
+    [N] of uint32 values), float32 [4 n_blocks, N], computed ROW_BLOCKS
+    counter blocks at a time (which bounds the int64 temporaries at
+    [ROW_BLOCKS, N])."""
+    if lanes.is_cuda:
+        rng_cuda.STATS.plain_cuda += 1
+    lanes = lanes[None, :]
+    out = torch.empty((4 * n_blocks, lanes.shape[1]), dtype=torch.float32,
                       device=lanes.device)
+    z = torch.zeros_like(lanes)
     for b0 in range(0, n_blocks, ROW_BLOCKS):
         b1 = min(b0 + ROW_BLOCKS, n_blocks)
-        blk = torch.arange(b0, b1, dtype=torch.int64,
+        blk = torch.arange(block0 + b0, block0 + b1, dtype=torch.int64,
                            device=lanes.device)[:, None]
-        z = torch.zeros_like(lanes)
         w = philox4x32_10(lanes, blk, z + tag, z, seed, iteration)
         for k in range(4):
             out[4 * b0 + k:4 * b1:4] = bits_to_uniform(w[k])
-    return out[:n_rows]
+    return out
+
+
+def philox_uniform(lanes, block0: int, n_blocks: int, tag: int, seed: int,
+                   iteration: int, plain: bool = False):
+    """Counter blocks block0 .. block0 + n_blocks - 1 of stream `tag` as
+    float32 rows [4 n_blocks, N] (row 4 b + k: word k of block block0 +
+    b). CUDA lanes launch csrc/rng.cu; CPU lanes, or `plain`, take
+    `philox_uniform_torch`."""
+    if plain or lanes.device.type != "cuda":
+        return philox_uniform_torch(lanes, block0, n_blocks, tag, seed,
+                                    iteration)
+    return rng_cuda.philox_uniform_cuda(lanes, block0, n_blocks, tag, seed,
+                                        iteration)
+
+
+def uniform_rows(seed: int, iteration: int, lane_ids, n_rows: int, tag: int,
+                 plain: bool = False):
+    """Sites 0 .. n_rows - 1 of stream `tag` for every lane, as one
+    [n_rows, N] float32 tensor: the draws PhiloxStream would hand out in
+    turn, from one `philox_uniform` call."""
+    lanes = lane_ids.to(torch.int64) & MASK32
+    return philox_uniform(lanes, 0, (n_rows + 3) // 4, tag, seed, iteration,
+                          plain)[:n_rows]
 
 
 class PhiloxStream:
@@ -176,19 +212,22 @@ class PhiloxStream:
     it may consume, exactly like PrimarySampleStream; `tag` is field 2
     of the counter (0 for the sites above); `shape` arguments
     are accepted for interface parity and ignored (every draw is one
-    value per lane). The four words of a counter block are computed once.
+    value per lane). The four rows of a counter block are drawn at once
+    (`philox_uniform`, `plain` as there).
     """
 
     def __init__(self, seed: int, iteration: int, lane_ids, base: int = 0,
-                 budget: int | None = None, tag: int = 0):
+                 budget: int | None = None, tag: int = 0,
+                 plain: bool = False):
         self._key = (int(seed) & MASK32, int(iteration) & MASK32)
         self._tag = tag
+        self._plain = plain
         self._lanes = lane_ids.to(torch.int64) & MASK32
         self._base = base
         self._budget = budget
         self._site = 0
         self._block = None
-        self._words = None
+        self._rows = None
 
     def _row(self):
         if self._budget is not None and self._site >= self._budget:
@@ -198,11 +237,10 @@ class PhiloxStream:
         d = self._base + self._site
         self._site += 1
         if self._block != d >> 2:
-            z = torch.zeros_like(self._lanes)
-            self._words = philox4x32_10(self._lanes, z + (d >> 2),
-                                        z + self._tag, z, *self._key)
+            self._rows = philox_uniform(self._lanes, d >> 2, 1, self._tag,
+                                        *self._key, self._plain)
             self._block = d >> 2
-        return bits_to_uniform(self._words[d & 3])
+        return self._rows[d & 3]
 
     def uniform(self, shape=()):
         return self._row()
@@ -244,9 +282,10 @@ class PrimarySampleStream:
 
 
 def lane_stream(seed: int, iteration: int, lane_ids, psample, base: int,
-                budget: int, tag: int = 0):
+                budget: int, tag: int = 0, plain: bool = False):
     """The stream for one scope (camera or one bounce): the psample rows
-    when a matrix is given, else Philox at the same sites of `tag`."""
+    when a matrix is given, else Philox at the same sites of `tag`
+    (`plain` as in `philox_uniform`)."""
     if psample is not None:
         return PrimarySampleStream(psample, base, budget)
-    return PhiloxStream(seed, iteration, lane_ids, base, budget, tag)
+    return PhiloxStream(seed, iteration, lane_ids, base, budget, tag, plain)

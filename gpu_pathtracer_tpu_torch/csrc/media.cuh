@@ -15,6 +15,7 @@
 // where a segment that computed both of its ends would compute 84.
 #pragma once
 
+#include "philox.cuh"
 #include "vec.cuh"
 
 namespace media {
@@ -23,31 +24,6 @@ constexpr int kNseg = 42;       // shade/media.py NSEG
 constexpr int kMedCols = 24;    // scene/flatten.py MED_COLS
 constexpr int kHeterogeneous = 1;
 constexpr float kLn2Eps = 1e-30f;
-
-// Philox4x32-10 of a full counter (core/rng.py::philox4x32_10).
-__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
-                                        uint32_t c3, uint32_t k0,
-                                        uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-__device__ __forceinline__ float bits_to_uniform(uint32_t w) {
-  return (float)(w >> 8) * (1.0f / 16777216.0f);
-}
 
 // One row of the scene's med_table (scene/flatten.py::media_table), read
 // from device or shared memory.

@@ -36,7 +36,7 @@
 //   only cache;
 // - everything else is the plain PyTorch wavefront of integrators/pt.py
 //   (its plain version) written per thread: the same operations in the
-//   same order, the same random sites (Philox below, or rows of an
+//   same order, the same random sites (philox.cuh, or rows of an
 //   explicit primary-sample matrix) and the same table reads. The kernel
 //   is held to that version within PERF.md section 2's radiance limits: a
 //   ray through a shared edge may take the other triangle.
@@ -53,6 +53,7 @@
 // texture: it stays in the 50 MB L2) and blends them as the Lambertian
 // or substrate diffuse (shade/texture.py, shade/lights.py).
 #include "intersect.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -86,34 +87,6 @@ __device__ __forceinline__ V3 ldg3(const float* p) {
   return mk(__ldg(p), __ldg(p + 1), __ldg(p + 2));
 }
 
-// ---------------------------------------------------------------------------
-// Philox4x32-10 (core/rng.py): site d of lane i is word d & 3 of
-// philox(counter = (i, d >> 2, 0, 0), key = (seed, iteration)) >> 8, * 2^-24
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                               uint32_t k0, uint32_t k1) {
-  uint32_t c2 = 0u, c3 = 0u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-__device__ __forceinline__ float bits_to_uniform(uint32_t w) {
-  return (float)(w >> 8) * (1.0f / 16777216.0f);
-}
-
 // The 8 sites of one bounce: psample rows when given, else Philox.
 struct BounceDraws {
   float u[kBounceDims];
@@ -131,9 +104,9 @@ __device__ __forceinline__ void bounce_draws(BounceDraws* d, int bounce,
       d->u[k] = __ldg(psample + (size_t)(base + k) * n + lane_col);
     return;
   }
-  const uint4 a = philox4x32_10(lane, (uint32_t)(base >> 2), seed, iteration);
-  const uint4 b =
-      philox4x32_10(lane, (uint32_t)((base >> 2) + 1), seed, iteration);
+  const uint32_t blk = (uint32_t)(base >> 2);
+  const uint4 a = philox(lane, blk, 0u, 0u, seed, iteration);
+  const uint4 b = philox(lane, blk + 1u, 0u, 0u, seed, iteration);
   d->u[0] = bits_to_uniform(a.x);
   d->u[1] = bits_to_uniform(a.y);
   d->u[2] = bits_to_uniform(a.z);

@@ -35,7 +35,8 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
     returns the rays traced (closest hits + probes) as a 0-d int64
     tensor; `plain` runs the plain PyTorch intersection on any device."""
     lanes = lane_ids_of(static, pixel_x, pixel_y)
-    rng = lane_stream(seed, iteration, lanes, psample, 0, AO_DIMS)
+    rng = lane_stream(seed, iteration, lanes, psample, 0, AO_DIMS,
+                      plain=plain)
     ro, rd = primary_rays(scene, static, rng, pixel_x, pixel_y)
     n = ro.shape[0]
     eps = scene.epsilon

@@ -274,7 +274,7 @@ def camera_subpath(scene, static, seed, iteration, lanes, pixel_x, pixel_y,
     Returns (Vertices, rays traced)."""
     n = pixel_x.shape[0]
     dev = pixel_x.device
-    rng = PhiloxStream(seed, iteration, lanes, 0, EMIT_DIMS)
+    rng = PhiloxStream(seed, iteration, lanes, 0, EMIT_DIMS, plain=plain)
     ox = rng.uniform() - 0.5
     oy = rng.uniform() - 0.5
     cam = scene.camera
@@ -294,7 +294,8 @@ def camera_subpath(scene, static, seed, iteration, lanes, pixel_x, pixel_y,
     rays = _generate_subpath(
         scene, static,
         lambda s: PhiloxStream(seed, iteration, lanes,
-                               EMIT_DIMS + s * STEP_DIMS, STEP_DIMS),
+                               EMIT_DIMS + s * STEP_DIMS, STEP_DIMS,
+                               plain=plain),
         lambda s: TrackKey(seed, iteration, lanes,
                            track_tag(s + 1, TRACK_SAMPLE)),
         n_verts, ro, rd, torch.ones((n, 3), device=dev), forward, med0, verts,
@@ -309,7 +310,8 @@ def light_subpath(scene, static, seed, iteration, lanes, n_verts,
     n = lanes.shape[0]
     dev = lanes.device
     eps = scene.epsilon
-    rng = PhiloxStream(seed, iteration, lanes, 0, EMIT_DIMS, BDPT_LIGHT_TAG)
+    rng = PhiloxStream(seed, iteration, lanes, 0, EMIT_DIMS, BDPT_LIGHT_TAG,
+                       plain)
     light_idx, choice_pdf = lights_mod.pick_light(scene, rng.uniform())
     light_idx = torch.clamp_max(light_idx, max(static.n_lights - 1, 0))
     u1, u2, u3 = rng.uniform3()
@@ -331,7 +333,7 @@ def light_subpath(scene, static, seed, iteration, lanes, n_verts,
         scene, static,
         lambda s: PhiloxStream(seed, iteration, lanes,
                                EMIT_DIMS + s * STEP_DIMS, STEP_DIMS,
-                               BDPT_LIGHT_TAG),
+                               BDPT_LIGHT_TAG, plain),
         lambda s: TrackKey(seed, iteration, lanes,
                            track_tag(s + 1, TRACK_LIGHT_PATH)),
         n_verts, ro, rd, beta, pdf_w, med0, verts, bsdf_mod.IMPORTANCE, plain)
@@ -492,7 +494,8 @@ class _Round:
         valid = valid2.reshape(-1)
         cam = scene.camera
         rng = PhiloxStream(self.seed, self.iteration, self.items,
-                           CONNECT_DIMS * p, CONNECT_DIMS, BDPT_CONNECT_TAG)
+                           CONNECT_DIMS * p, CONNECT_DIMS, BDPT_CONNECT_TAG,
+                           self.plain)
         nanf = torch.full((m,), torch.nan, device=self.dev)
 
         if c1 is not None:

@@ -95,7 +95,7 @@ def generate_vpls(scene, static, seed: int, iteration: int,
     rays = torch.zeros((), dtype=torch.int64, device=dev)
 
     rng = lane_stream(seed, iteration, lanes, psample, 0, IR_EMIT_DIMS,
-                      IR_VPL_TAG)
+                      IR_VPL_TAG, plain)
     light_idx, choice_pdf = lights_mod.pick_light(scene, rng.uniform())
     light_idx = torch.clamp_max(light_idx, max(static.n_lights - 1, 0))
     u1, u2, u3 = rng.uniform3()
@@ -124,7 +124,7 @@ def generate_vpls(scene, static, seed: int, iteration: int,
     for b in range(static.max_depth):
         rng = lane_stream(seed, iteration, lanes, psample,
                           IR_EMIT_DIMS + b * IR_BOUNCE_DIMS, IR_BOUNCE_DIMS,
-                          IR_VPL_TAG)
+                          IR_VPL_TAG, plain)
         rays = rays + alive.sum()
         hit = traverse.intersect_closest(
             scene, static, ro, rd, eps, torch.where(alive, torch.inf, 0.0),
@@ -234,7 +234,8 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
     dev = pixel_x.device
     eps = scene.epsilon
     lanes = lane_ids_of(static, pixel_x, pixel_y)
-    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS)
+    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS,
+                       plain=plain)
     ro, rd = primary_rays(scene, static, rng0, pixel_x, pixel_y)
     count = int(vpls.count[vpl_iter])
 
@@ -244,7 +245,8 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for b in range(static.max_depth):
         rng = lane_stream(seed, iteration, lanes, psample,
-                          PSS_CAM_DIMS + b * PSS_BOUNCE_DIMS, PSS_BOUNCE_DIMS)
+                          PSS_CAM_DIMS + b * PSS_BOUNCE_DIMS, PSS_BOUNCE_DIMS,
+                          plain=plain)
         rays = rays + alive.sum()
         hit = traverse.intersect_closest(
             scene, static, ro, rd, eps, torch.where(alive, torch.inf, 0.0),

@@ -99,7 +99,8 @@ def render_film(scene, static, seed: int, iteration: int, path_ids,
         return TrackKey(seed, iteration, lanes, track_tag(step, site))
 
     # ---- emission sampling (area.h:21-26; pathtracer.cu:1264-1275) ------
-    rng = lane_stream(seed, iteration, lanes, psample, 0, LT_EMIT_DIMS)
+    rng = lane_stream(seed, iteration, lanes, psample, 0, LT_EMIT_DIMS,
+                      plain=plain)
     light_idx, choice_pdf = lights_mod.pick_light(scene, rng.uniform())
     # the infinite light is no source (the reference indexes
     # kernel_lights directly): clamp to the area lights
@@ -131,7 +132,8 @@ def render_film(scene, static, seed: int, iteration: int, path_ids,
         if gate and not bool(alive.any()):
             break
         rng = lane_stream(seed, iteration, lanes, psample,
-                          LT_EMIT_DIMS + it * LT_STEP_DIMS, LT_STEP_DIMS)
+                          LT_EMIT_DIMS + it * LT_STEP_DIMS, LT_STEP_DIMS,
+                          plain=plain)
         u_bsdf = rng.uniform3()
         u_rr = rng.uniform()
         rays = rays + alive.sum()

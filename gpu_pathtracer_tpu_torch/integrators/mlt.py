@@ -95,7 +95,7 @@ def candidates(scene, static, seed: int, n_chains: int, plain=False,
     if draws is None:
         if chain_ids is None:
             chain_ids = torch.arange(n_chains, device=scene.device)
-        rows = uniform_rows(seed, 0, chain_ids, d + 1, MLT_TAG)
+        rows = uniform_rows(seed, 0, chain_ids, d + 1, MLT_TAG, plain)
         draws = (rows[:d], rows[d])
     u, u_r = draws
     return (u, *evaluate(scene, static, seed, 0, u, plain), u_r)
@@ -149,13 +149,15 @@ def bootstrap(scene, static, seed: int, n_chains: int, draws=None,
 
 
 def mutation_draws(seed: int, iteration: int, n: int, d: int, device,
-                   chain_ids=None):
+                   chain_ids=None, plain: bool = False):
     """The Philox draws of one mutation step of chains `chain_ids`
     (default 0 .. n - 1): (large-step U [N], acceptance U [N], fresh
-    [D, N], magnitude U [D, N], sign U [D, N])."""
+    [D, N], magnitude U [D, N], sign U [D, N]); one launch of csrc/rng.cu
+    on the card unless `plain`."""
     if chain_ids is None:
         chain_ids = torch.arange(n, device=device)
-    rows = uniform_rows(seed, iteration, chain_ids, 4 + 3 * d, MLT_TAG)
+    rows = uniform_rows(seed, iteration, chain_ids, 4 + 3 * d, MLT_TAG,
+                        plain)
     return (rows[0], rows[1], rows[4:4 + d], rows[4 + d:4 + 2 * d],
             rows[4 + 2 * d:4 + 3 * d])
 
@@ -177,7 +179,8 @@ def render_iteration(scene, static, seed: int, iteration: int, state: dict,
     if shard is not None and shard.joined:
         chain_ids = shard.ids(n_pix, u.device)
     if draws is None:
-        draws = mutation_draws(seed, iteration, n, d, u.device, chain_ids)
+        draws = mutation_draws(seed, iteration, n, d, u.device, chain_ids,
+                               plain)
     u_sel, u_acc, fresh, u_mag, u_sign = draws
 
     # ---- the Kelemen proposal ----------------------------------------

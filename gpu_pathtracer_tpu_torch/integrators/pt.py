@@ -129,7 +129,7 @@ def _subsurface(scene, static, seed, iteration, lanes, b, hit, rd, li,
     alive, rays)."""
     from gpu_pathtracer_tpu_torch.shade import bssrdf as bssrdf_mod
     rng = PhiloxStream(seed, iteration, lanes, b * BSSRDF_DIMS, BSSRDF_DIMS,
-                       BSSRDF_TAG)
+                       BSSRDF_TAG, plain)
     sss = alive & (hit.bssrdf_idx >= 0)
     ls, r1 = bssrdf_mod.single_scatter(scene, static, rng, hit.pos, hit.nor,
                                        hit.bssrdf_idx, -rd, sss, plain)
@@ -161,7 +161,8 @@ def wavefront(scene, static, seed, iteration, pixel_x, pixel_y,
     """The wavefront estimator; `plain` runs it over the plain PyTorch
     intersection on any device (the megakernel's reference)."""
     lanes = lane_ids_of(static, pixel_x, pixel_y)
-    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS)
+    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS,
+                       plain=plain)
     ro, rd = primary_rays(scene, static, rng0, pixel_x, pixel_y)
     return trace_paths(scene, static, seed, iteration, lanes, ro, rd,
                        with_stats, psample, plain)
@@ -192,7 +193,8 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
 
     for b in range(static.max_depth):
         rng = lane_stream(seed, iteration, lanes, psample,
-                          PSS_CAM_DIMS + b * PSS_BOUNCE_DIMS, PSS_BOUNCE_DIMS)
+                          PSS_CAM_DIMS + b * PSS_BOUNCE_DIMS, PSS_BOUNCE_DIMS,
+                          plain=plain)
         rays = rays + alive.sum()
         # finished lanes get an empty interval (tmax 0 < eps): the hit
         # kernels leave them at once; nothing reads their miss

@@ -166,7 +166,8 @@ def eye_pass(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
     eps = scene.epsilon
     types = static.material_types
     lanes = lane_ids_of(static, pixel_x, pixel_y)
-    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS)
+    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS,
+                       plain=plain)
     ox = rng0.uniform() - 0.5
     oy = rng0.uniform() - 0.5
     # no depth of field (quirk, pathtracer.cu:2302-2304)
@@ -195,7 +196,8 @@ def eye_pass(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
 
     for b in range(static.max_depth):
         rng = lane_stream(seed, iteration, lanes, psample,
-                          PSS_CAM_DIMS + b * SPPM_EYE_DIMS, SPPM_EYE_DIMS)
+                          PSS_CAM_DIMS + b * SPPM_EYE_DIMS, SPPM_EYE_DIMS,
+                          plain=plain)
         rays = rays + alive.sum()
         hit = traverse.intersect_closest(
             scene, static, ro, rd, eps, torch.where(alive, torch.inf, 0.0),
@@ -377,7 +379,7 @@ def photon_pass(scene, static, seed: int, iteration: int, state: SppmState,
     rays = torch.zeros((), dtype=torch.int64, device=dev)
 
     rng = lane_stream(seed, iteration, lanes, psample, 0, PHOTON_EMIT_DIMS,
-                      SPPM_PHOTON_TAG)
+                      SPPM_PHOTON_TAG, plain)
     light_idx, choice_pdf = lights_mod.pick_light(scene, rng.uniform())
     light_idx = torch.clamp_max(light_idx, max(static.n_lights - 1, 0))
     u1, u2, u3 = rng.uniform3()
@@ -395,7 +397,7 @@ def photon_pass(scene, static, seed: int, iteration: int, state: SppmState,
     for b in range(static.max_depth):
         rng = lane_stream(seed, iteration, lanes, psample,
                           PHOTON_EMIT_DIMS + b * PHOTON_BOUNCE_DIMS,
-                          PHOTON_BOUNCE_DIMS, SPPM_PHOTON_TAG)
+                          PHOTON_BOUNCE_DIMS, SPPM_PHOTON_TAG, plain)
         rays = rays + alive.sum()
         hit = traverse.intersect_closest(
             scene, static, ro, rd, eps, torch.where(alive, torch.inf, 0.0),

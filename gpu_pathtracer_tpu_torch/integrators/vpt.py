@@ -108,7 +108,8 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
     lanes = lane_ids_of(static, pixel_x, pixel_y)
     ro, rd = primary_rays(
         scene, static, lane_stream(seed, iteration, lanes, None, 0,
-                                   PSS_CAM_DIMS), pixel_x, pixel_y)
+                                   PSS_CAM_DIMS, plain=plain),
+        pixel_x, pixel_y)
     n = ro.shape[0]
     dev = ro.device
     eps = scene.epsilon
@@ -116,7 +117,7 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
     def stream(step, scope, budget):
         return lane_stream(seed, iteration, lanes, None,
                            PSS_CAM_DIMS + step * VPT_STEP_DIMS + scope,
-                           budget)
+                           budget, plain=plain)
 
     def key(step, site):
         return TrackKey(seed, iteration, lanes, track_tag(step, site))

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels (csrc/*.cu) and count their launches.
 
 Each kernel source (csrc/<name>.cu: dense, pt_fused, blocked,
-bvh8_walk, track) is compiled by `nvcc` into its own shared library with a
+bvh8_walk, track, rng) is compiled by `nvcc` into its own shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build
 takes seconds). The build runs at first use, into `build/` at the root
 of the checkout, keyed by a hash of the csrc/ sources and the flags, so
@@ -12,7 +12,8 @@ fallback: a missing `nvcc`, a failed build or a failed load raises.
 `-fmad=false` keeps nvcc from contracting a*b+c into one fused
 multiply-add: the kernels then round every operation like the plain
 PyTorch versions beside them, which is what lets track.cu be held to
-its plain version bit for bit. The hit tests of dense.cu (K1),
+its plain version bit for bit (rng.cu, integer work only, is bit-equal
+by construction). The hit tests of dense.cu (K1),
 blocked.cu (K3), bvh8_walk.cu (K4) and pt_fused.cu's prim loops (K2)
 write their fused multiply-adds out (fmaf, in csrc/intersect.cuh's
 tri_cross routines only) and are held to their plain versions within

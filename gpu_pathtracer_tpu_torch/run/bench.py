@@ -95,31 +95,31 @@ class Row:
 
 
 ROWS = (
-    Row("cornell", "cornell_port/scene.json", "pt", ("pt_fused",),
+    Row("cornell", "cornell_port/scene.json", "pt", ("pt_fused", "rng"),
         ("cornell", "integ_pt"), window_scale=2.0),
     Row("cornell_wavefront", "cornell_port/many_lights.json", "pt",
-        ("dense_hit",)),
-    Row("env", "env_port/scene.json", "pt", ("pt_fused",)),
-    Row("knot", "knot_port/scene.json", "pt", ("bvh8_walk",),
+        ("dense_hit", "rng")),
+    Row("env", "env_port/scene.json", "pt", ("pt_fused", "rng")),
+    Row("knot", "knot_port/scene.json", "pt", ("bvh8_walk", "rng"),
         ("dragon_100k",)),
-    Row("forest", "knot_port/forest.json", "pt", ("bvh8_walk",),
+    Row("forest", "knot_port/forest.json", "pt", ("bvh8_walk", "rng"),
         ("forest_1m",)),
-    Row("blocked", "knot_port/blocked.json", "pt", ("blocked",)),
-    Row("vpt", "smoke_port/scene.json", "vpt", ("dense_hit", "track"),
+    Row("blocked", "knot_port/blocked.json", "pt", ("blocked", "rng")),
+    Row("vpt", "smoke_port/scene.json", "vpt", ("dense_hit", "track", "rng"),
         ("integ_vpt",), sliced=True),
-    Row("ao", "cornell_port/scene.json", "ao", ("dense_hit",),
+    Row("ao", "cornell_port/scene.json", "ao", ("dense_hit", "rng"),
         ("integ_ao",)),
-    Row("lt", "cornell_port/scene.json", "lt", ("dense_hit",),
+    Row("lt", "cornell_port/scene.json", "lt", ("dense_hit", "rng"),
         ("integ_lt",), sliced=True),
-    Row("bdpt", "cornell_port/scene.json", "bdpt", ("dense_hit",),
+    Row("bdpt", "cornell_port/scene.json", "bdpt", ("dense_hit", "rng"),
         ("integ_bdpt",), sliced=True),
-    Row("ir", "cornell_port/scene.json", "ir", ("dense_hit",),
+    Row("ir", "cornell_port/scene.json", "ir", ("dense_hit", "rng"),
         ("integ_ir",)),
-    Row("sppm", "cornell_port/scene.json", "sppm", ("dense_hit",),
+    Row("sppm", "cornell_port/scene.json", "sppm", ("dense_hit", "rng"),
         ("integ_sppm",)),
-    Row("mlt", "cornell_port/scene.json", "mlt", ("pt_fused",),
+    Row("mlt", "cornell_port/scene.json", "mlt", ("pt_fused", "rng"),
         ("integ_mlt",)),
-    Row("sppm_4card", "cornell_port/scene.json", "sppm", ("dense_hit",),
+    Row("sppm_4card", "cornell_port/scene.json", "sppm", ("dense_hit", "rng"),
         cards=4),
 )
 ROW_BY_NAME = {row.name: row for row in ROWS}
@@ -505,7 +505,8 @@ def main(argv=None) -> int:
     emit(result)
     if cuda:   # every kernel once, one nvcc each at once, before the rows
         from gpu_pathtracer_tpu_torch import kernels
-        kernels.build(["dense", "pt_fused", "blocked", "bvh8_walk", "track"])
+        kernels.build(["dense", "pt_fused", "blocked", "bvh8_walk", "track",
+                       "rng"])
     for name in names:
         row = ROW_BY_NAME[name]
         left = opts.budget - (time.time() - t_start)

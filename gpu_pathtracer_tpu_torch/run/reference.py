@@ -24,7 +24,9 @@ SLICE_LANES = 65536        # lanes of a sliced reference
 
 def kernel_stats() -> dict:
     """{kernel name: its wrapper's KernelStats}: K1 "dense_hit", K2
-    "pt_fused", K3 "blocked", K4 "bvh8_walk" and "track" (K5's)."""
+    "pt_fused", K3 "blocked", K4 "bvh8_walk", "track" (K5's) and "rng"
+    (the Philox draws, csrc/rng.cu)."""
+    from gpu_pathtracer_tpu_torch.core import rng_cuda
     from gpu_pathtracer_tpu_torch.geom import (
         blocked_cuda, dense_cuda, packet_cuda,
     )
@@ -32,7 +34,7 @@ def kernel_stats() -> dict:
     from gpu_pathtracer_tpu_torch.shade import media_cuda
     return {"dense_hit": dense_cuda.STATS, "pt_fused": pt_fused.STATS,
             "blocked": blocked_cuda.STATS, "bvh8_walk": packet_cuda.STATS,
-            "track": media_cuda.STATS}
+            "track": media_cuda.STATS, "rng": rng_cuda.STATS}
 
 
 def reset_counts(*stats) -> None:
