@@ -4,11 +4,12 @@
     python3 chip_smoke.py --phases ABC  # build and kernel checks only
     python3 chip_smoke.py --phases F    # build, checkpoints, sharding
     python3 chip_smoke.py --phases R    # build, the Philox draw kernel
+    python3 chip_smoke.py --phases S    # build, the PT wavefront's shading
     python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
     python3 chip_smoke.py --baseline DIR  # also time DIR's K1 and K3
 
-Builds the port's six CUDA kernels from csrc/, holds each against its
+Builds the port's seven CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
 path-traced Cornell box, environment-lit and textured scenes and
 large-mesh scenes, its volumetric path tracer on the smoke scene, and
@@ -18,8 +19,9 @@ Phases:
 
   A  build the dense-hit kernel (K1), the path-trace megakernel (K2), the
      block-culled hit kernel (K3), the BVH8 walk (K4) and the media
-     tracking kernel (track.cu, K5's counterpart) and the Philox draw
-     kernel (rng.cu), one nvcc each, all at once, and the native BVH
+     tracking kernel (track.cu, K5's counterpart), the Philox draw
+     kernel (rng.cu) and the PT wavefront's shading kernel
+     (pt_shade.cu), one nvcc each, all at once, and the native BVH
      builder (g++)
   B  K1 vs plain: 1,048,576 rays, closest and any hit, its triangles-only
      and all-kinds variants on cornell_port's table, the all-kinds one on
@@ -87,6 +89,20 @@ Phases:
      kernel, the plain version and the bound (bytes, or the kernel's
      SASS instructions at the issue peak) in turns at the camera's shape
      (1M lanes x 4 rows) and MLT's
+  S  (after R) pt_shade.cu vs its plain version (integrators/pt_shade.py::
+     shade_torch) on the same inputs: one bounce of 1,048,576 lanes
+     captured from a wavefront spp over the kernels (SHADE_CASES: knot
+     scene.json bounces 0, 1 and the epilogue, bounce 1 from a psample,
+     knot sky.json, many_lights.json's 72 lights (also with its light
+     picks at the CDF's steps), textured.json,
+     env_port's scene.json and mixed.json, materials.json's lines,
+     spheres and six models, bssrdf.json's subsurface lanes), every
+     output bit for bit (`SHADE_FIELDS`: the next ray, li, beta, pdf,
+     flags, the pending NEE credit, the shadow ray, the keys, the ray
+     counts); one spp of knot scene.json, forest.json,
+     many_lights.json and bssrdf.json at 1024^2 depth 5 over the kernels
+     vs all-plain (`SHADE_FILMS`); the kernel, the plain version and the
+     bound in turns at knot scene.json's bounce 1
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after, then timed from where its
      render stands by the bench's windows (run/bench.py: D_WINDOWS
@@ -148,7 +164,8 @@ Phases:
      checkout are then timed on the same saved calls (K1's 1M phase-E
      rays and two calls of the VPT warm-up spp, K2's primary rays of
      each variant, K3's and K4's primary, bounce and main-path calls),
-     each checkout in its own process, in turns.
+     each checkout in its own process, in turns; K2's outputs on its
+     calls must be bit-equal between the checkouts.
   F  checkpoints and sharding (run/checkpoint.py, parallel/dist.py), at
      1024^2 depth 5: PT on cornell_port (K2) and on knot_port/scene.json
      (K4), VPT on smoke_port (K1 + track) and IR, SPPM and MLT on
@@ -236,6 +253,9 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "rng": ("gpu_pathtracer_tpu_torch/csrc/rng.cu",
             "no Pallas kernel; the JAX package's `jax.random` draws and "
             "`pt_fused.py:910`'s in-kernel generator"),
+    "pt_shade": ("gpu_pathtracer_tpu_torch/csrc/pt_shade.cu",
+                 "no Pallas kernel; the JAX package's jitted wavefront "
+                 "bounce, `gpu_pathtracer_tpu/integrators/pt.py:167`"),
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM: device memory rate
 F32_FLOPS = 67e12           # and float32 peak outside the tensor cores
@@ -1266,7 +1286,7 @@ def phase_c(dev, rng, records):
         PSS_BOUNCE_DIMS, PSS_CAM_DIMS,
     )
     from gpu_pathtracer_tpu_torch.geom import dense_cuda
-    from gpu_pathtracer_tpu_torch.integrators import pt, pt_fused
+    from gpu_pathtracer_tpu_torch.integrators import pt, pt_fused, pt_shade
     from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
     from gpu_pathtracer_tpu_torch.scene.parse import load_scene
 
@@ -1311,26 +1331,33 @@ def phase_c(dev, rng, records):
                   f"{ratio}")
             check(bool(torch.isfinite(li_k).all()), "K2: non-finite li")
         # the other route of pt.render_lanes: the wavefront over K1
-        reset_counts(dense_cuda.STATS, pt_fused.STATS)
+        reset_counts(dense_cuda.STATS, pt_fused.STATS, pt_shade.STATS)
         if fused:
             li_w = pt.wavefront(scene, static, SEED, 1, px, py)
         else:
             li_w = pt.render_lanes(scene, static, SEED, 1, px, py)
         torch.cuda.synchronize()
         k1_n, k2_n = dense_cuda.STATS.launches, pt_fused.STATS.launches
+        shade_n = pt_shade.STATS.launches
         li_p = pt_fused.render_lanes_torch(scene, static, SEED, 1, px, py)
         frac = close_frac(li_w, li_p)
         ratio = li_w.double().mean().item() / li_p.double().mean().item()
         print(f"[C] wavefront over K1 {os.path.basename(path)} philox: "
               f"agree {frac:.6f}, bit-equal "
               f"{(li_w == li_p).all(1).float().mean().item():.6f}, mean "
-              f"ratio {ratio:.7f}, K1 launches {k1_n}")
+              f"ratio {ratio:.7f}, K1 launches {k1_n}, pt_shade {shade_n}")
         # K1 is held to its plain version within the hit limits, so the
         # wavefront over it within the radiance limits, not bit for bit
         check(frac >= 0.99, f"wavefront {path}: agree on {frac}")
         check(abs(ratio - 1.0) <= 1e-3, f"wavefront {path}: ratio {ratio}")
-        check(k1_n > 0 and k2_n == 0, f"wavefront {path}: launches K1 "
-              f"{k1_n}, K2 {k2_n}")
+        check(k1_n > 0 and shade_n > 0 and k2_n == 0, f"wavefront {path}: "
+              f"launches K1 {k1_n}, pt_shade {shade_n}, K2 {k2_n}")
+        if fused:
+            # K2's inline bounce against pt_shade.cu's copies of its steps
+            # (shade.cuh names them): the two kernels on the same sites
+            hold_radiance(f"C K2 vs the wavefront over K1 and pt_shade "
+                          f"{os.path.basename(path)} philox", "radiance",
+                          li_k, li_w)
         if not fused:
             records["dense_hit"]["launches_wavefront_route"] = k1_n
     records["pt_fused"]["max_abs_err"] = max_err
@@ -1369,8 +1396,8 @@ def phase_c(dev, rng, records):
             check(abs(ratio - 1.0) <= 1e-3,
                   f"wavefront {key} {mode}: ratio {ratio}")
             check(bool(torch.isfinite(li_k).all()), f"{key}: non-finite li")
-            check(only(counts, kname, *(("rng",) if mode == "philox"
-                                        else ())),
+            check(only(counts, kname, "pt_shade",
+                       *(("rng",) if mode == "philox" else ())),
                   f"wavefront {key} {mode}: launches {counts}")
     phase_c_media(dev, records, SMOKE)
     phase_c_media(dev, records, SMOKE_SKY)
@@ -1588,6 +1615,215 @@ def phase_r(dev, card, records):
         plain_ops_mlt=ms_m["plain_ops"])
 
 
+# phase S's one-bounce cases, each at 1024^2: (label, scene, bounce,
+# from an explicit psample: True, or "steps": one whose light-pick sites
+# are the light CDF's entries); bounce 5 of a depth-5 scene is the
+# epilogue.
+# textured.json, env_port and materials.json render through K2 on the
+# card, so their wavefront is reached through pt.wavefront directly
+SHADE_CASES = (
+    ("knot scene.json", KNOT["scene"], 0, False),
+    ("knot scene.json", KNOT["scene"], 1, False),
+    ("knot scene.json", KNOT["scene"], 5, False),
+    ("knot scene.json, psample", KNOT["scene"], 1, True),
+    ("knot sky.json (sky, textures)", KNOT["sky"], 1, False),
+    ("many_lights.json (72 lights)", MANY_LIGHTS, 1, False),
+    ("many_lights.json, light picks at the CDF's steps", MANY_LIGHTS, 1,
+     "steps"),
+    ("textured.json (textures)", K2_VARIANTS["textured"], 1, False),
+    ("env_port scene.json (spheres, sky)", K2_VARIANTS["env"], 1, False),
+    ("env_port mixed.json (all variant flags)", K2_VARIANTS["mixed"], 2,
+     False),
+    ("materials.json (lines, spheres, six models)", SCENES[1], 1, False),
+    ("bssrdf.json (subsurface lanes)", BSSRDF, 0, False))
+# and its films: one spp at 1024^2 depth 5 over the kernels vs all-plain
+SHADE_FILMS = (KNOT["scene"], KNOT["forest"], MANY_LIGHTS, BSSRDF)
+# every output of integrators/pt_shade.py::Shaded, held bit for bit (the
+# keys are None on both sides where the wavefront does not sort)
+SHADE_FIELDS = ("ro", "rd", "li", "beta", "prev_pdf", "flags", "pending",
+                "shadow_o", "shadow_d", "shadow_t", "key", "shadow_key",
+                "rays")
+SHADE_FLOPS = 600   # float operations of one shaded lane (an estimate:
+#                     hit record ~80, BSDF sample + eval ~300, light
+#                     sample ~80, credits and keys ~140)
+
+
+def scene_1024(path, dev):
+    """The scene at repo path `path` flattened on `dev` at 1024^2."""
+    sc, st = flat(path, dev)
+    if st.width * st.height != N_RAYS:
+        sc, st = flat_sized(path, 1024, dev)
+    return sc, st
+
+
+def shade_inputs(dev, rng, path, bounce, psample):
+    """The arguments of integrators/pt_shade.py::shade at `bounce` of one
+    wavefront spp (over the kernels) of the scene at `path`, 1024^2,
+    lanes in pixel order, from Philox or from a random psample (its
+    light-pick rows set to the light CDF's entries, below 1, lane by
+    lane, when `psample` is "steps"): a dict by parameter name, without
+    `key`, `shadow_key` and `plain`."""
+    import inspect
+    from gpu_pathtracer_tpu_torch.core.rng import (
+        PSS_BOUNCE_DIMS, PSS_CAM_DIMS,
+    )
+    from gpu_pathtracer_tpu_torch.integrators import pt, pt_shade
+    sc, st = scene_1024(path, dev)
+    check(st.max_depth == 5, f"{path}: depth {st.max_depth}")
+    ids = torch.arange(N_RAYS, device=dev)
+    ps = None
+    if psample:
+        ps = torch.as_tensor(rng.random(
+            (PSS_CAM_DIMS + st.max_depth * PSS_BOUNCE_DIMS, N_RAYS),
+            dtype=np.float32), device=dev)
+        if psample == "steps":
+            steps = sc.light_cdf[sc.light_cdf < 1.0]
+            ps[PSS_CAM_DIMS::PSS_BOUNCE_DIMS] = steps[ids % steps.numel()]
+    got = []
+    shade = pt_shade.shade
+    sig = inspect.signature(shade)
+
+    def capture(*args, **kwargs):
+        kw = sig.bind(*args, **kwargs)
+        kw.apply_defaults()
+        if kw.arguments["b"] == bounce and not got:
+            got.append({k: v.clone() if torch.is_tensor(v) else v
+                        for k, v in kw.arguments.items()
+                        if k not in ("key", "shadow_key", "plain")})
+        return shade(*args, **kwargs)
+
+    pt_shade.shade = capture
+    try:
+        pt.wavefront(sc, st, SEED, 1, ids % st.width, ids // st.width,
+                     psample=ps)
+    finally:
+        pt_shade.shade = shade
+    check(len(got) == 1, f"{path}: no shading step at bounce {bounce}")
+    return got[0]
+
+
+def shade_bound(kw, out) -> dict:
+    """pt_shade.cu's least time on one call: the lane state it reads and
+    writes, each once, the prim_attrs rows the lanes hit, the material,
+    light and CDF tables and the sky and texel bytes, over 3.35 TB/s; or
+    SHADE_FLOPS a live lane over 67 TFLOP/s."""
+    scene, static = kw["scene"], kw["static"]
+    lane = sum(kw[f].numel() * kw[f].element_size()
+               for f in ("lanes", "t", "prim", "ro", "rd", "li", "beta",
+                         "prev_pdf", "flags", "pending", "psample")
+               if kw[f] is not None)
+    lane += sum(getattr(out, f).numel() * getattr(out, f).element_size()
+                for f in SHADE_FIELDS if getattr(out, f) is not None)
+    prim = kw["prim"]
+    rows = int(torch.unique(prim[prim >= 0]).numel()) * 40 * 4
+    tables = sum(t.numel() * t.element_size() for t in (
+        scene.mat_attrs, scene.light_attrs, scene.light_cdf))
+    if static.has_infinite:
+        tables += scene.env_data.numel() * 4
+    if static.has_textures:
+        tables += scene.tex_data.numel()
+    live = int(((kw["flags"] & 2) != 0).sum())
+    b = bound(lane + rows + tables, live * SHADE_FLOPS)
+    b["bytes"] = lane + rows + tables
+    return b
+
+
+def bits(x):
+    """x's bits: float32 viewed as int32 (so -0 differs from 0 and a NaN
+    equals only its own bits), integers as they are."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def phase_s(dev, rng, card, records):
+    """csrc/pt_shade.cu against shade_torch on the same inputs, one bounce
+    at 1M lanes for each SHADE_CASES case, every SHADE_FIELDS output bit
+    for bit; one spp of each SHADE_FILMS scene over the kernels against
+    all-plain; the kernel, the plain version and the bound in turns at
+    knot's bounce 1."""
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, reset_counts)
+    from gpu_pathtracer_tpu_torch.integrators import pt, pt_shade
+    from gpu_pathtracer_tpu_torch import kernels
+    print(f"[S] pt_shade: {ptxas_summary(kernels.BUILDS['pt_shade'].ptxas)}")
+    max_err = 0.0
+    timed = None
+    for label, path, bounce, psample in SHADE_CASES:
+        kw = shade_inputs(dev, rng, path, bounce, psample)
+        last = bounce == kw["static"].max_depth
+        reset_counts(pt_shade.STATS)
+        k = pt_shade.shade_cuda(**kw, key=not last, shadow_key=not last)
+        p = pt_shade.shade_torch(**kw, key=not last, shadow_key=not last,
+                                 plain=True)
+        torch.cuda.synchronize()
+        check(pt_shade.STATS.launches == 1 and pt_shade.STATS.plain_cuda == 1,
+              f"{label}: launches {pt_shade.STATS}")
+        tag = f"{label} bounce {bounce}"
+        alive_in = int(((kw["flags"] & pt_shade.ALIVE) != 0).sum())
+        print(f"[S] {tag}: {alive_in} of {N_RAYS} lanes alive, rays "
+              f"{k.rays.tolist()} vs {p.rays.tolist()}, shadow rays "
+              f"{int((k.shadow_t > 0.0).sum())}")
+        max_err = max(max_err, (k.li - p.li).abs().max().item())
+        differ = {}
+        for f in SHADE_FIELDS:
+            a, b = getattr(k, f), getattr(p, f)
+            if a is None or b is None:
+                check(a is None and b is None, f"{tag}: {f} written by one "
+                      "side only")
+                continue
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"{tag}: {f} {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+            ne = bits(a) != bits(b)
+            differ[f] = int(ne.reshape(ne.shape[0], -1).any(1).sum()) \
+                if f != "rays" else int(ne.any())
+        print(f"[S] {tag}: lanes not bit-equal by field " + ", ".join(
+            f"{f} {v}" for f, v in differ.items()))
+        check(not any(differ.values()), f"{tag}: kernel and plain version "
+              f"differ: {differ}")
+        if path == KNOT["scene"] and bounce == 1 and not psample:
+            timed = kw
+        del k, p, kw
+
+    stats = kernel_stats()
+    for path in SHADE_FILMS:
+        sc, st = scene_1024(path, dev)
+        ids = torch.arange(N_RAYS, device=dev)
+        px, py = ids % st.width, ids // st.width
+        reset_counts(*stats.values())
+        li_k, r_k = pt.render_lanes(sc, st, SEED, 1, px, py, True)
+        torch.cuda.synchronize()
+        counts = {k: s.launches for k, s in stats.items()}
+        plain = sum(s.plain_cuda for s in stats.values())
+        li_p, r_p = pt.wavefront(sc, st, SEED, 1, px, py, True, plain=True)
+        print(f"[S] film {path}: launches {counts}, plain-version calls on "
+              f"CUDA {plain}, rays {int(r_k)} vs {int(r_p)}")
+        hold_radiance(f"S film {path}", "radiance", li_k, li_p)
+        check(counts["pt_shade"] == st.max_depth + 1 and counts["pt_fused"]
+              == 0 and plain == 0, f"film {path}: launches {counts}, "
+              f"plain calls {plain}")
+        records["pt_shade"][f"launches_film_{os.path.basename(path)}"] = \
+            counts["pt_shade"]
+        del li_k, li_p
+
+    kw = timed
+    t = timed_windows({
+        "kernel": lambda: pt_shade.shade_cuda(**kw, key=True,
+                                              shadow_key=True),
+        "plain": lambda: pt_shade.shade_torch(**kw, key=True,
+                                              shadow_key=True, plain=True)})
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
+    b = shade_bound(kw, pt_shade.shade_cuda(**kw, key=True, shadow_key=True))
+    print(f"[S] pt_shade at knot scene.json's bounce 1 ({N_RAYS} lanes): "
+          f"kernel {ms['kernel']:.4f} ms (windows {min(t['kernel']):.4f}-"
+          f"{max(t['kernel']):.4f}), plain {ms['plain']:.4f} ms (windows "
+          f"{min(t['plain']):.4f}-{max(t['plain']):.4f}); bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} bytes) "
+          f"({card})")
+    records["pt_shade"].update(
+        max_abs_err=max_err, ms=ms["kernel"], plain_ms=ms["plain"],
+        bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None,
+        bound_bytes=b["bytes"])
+
+
 def phase_d(dev, card, records):
     """The main path through the CLI: the Cornell box at 1024^2, depth 5,
     which pt.render_lanes routes to K2; launch counts, spp/s, Mrays/s, and
@@ -1765,12 +2001,16 @@ def main_path(key, kname, spp, card, records, after_build=None,
           f"then {rate(res['renderer'])}, host build "
           f"{res['build_seconds']:.2f} s ({card}); launches {counts}, "
           f"plain-version calls on CUDA {plain}")
+    knames = (kname, "pt_shade") if key in KNOT else (kname,)
     check(counts[kname] > 0, f"{key}: main path never launched {kname}")
-    check(only(counts, kname, "rng"), f"{key}: main path launched {counts}")
+    check(only(counts, *knames, "rng"), f"{key}: main path launched {counts}")
     check(plain == 0, f"{key}: {plain} plain-version calls on CUDA")
     field = ("launches" if key in ("scene", "blocked") else
              "launches_instanced" if key == "forest" else f"launches_{key}")
     records[kname][field] = counts[kname]
+    if key in KNOT:
+        records["pt_shade"]["launches" if key == "scene"
+                            else f"launches_{key}"] = counts["pt_shade"]
     records["rng"][f"launches_{name}"] = counts["rng"]
     return build_warm, res["build_seconds"]
 
@@ -1960,20 +2200,31 @@ def baseline_times(card):
     (geom/dense.py::dense_closest, geom/blocked.py::blocked_closest,
     geom/packet.py::walk_closest / walk_any, integrators/pt_fused.py::
     fused_call, whose signatures do not change), each checkout in a
-    process of its own, in turns: baseline, this, this, baseline."""
+    process of its own, in turns: baseline, this, this, baseline. K2's
+    output (li and rays) must be bit-equal between the checkouts."""
     path = os.path.join(REPO, "build", "hit_inputs.pt")
     torch.save(HIT_INPUTS, path)
     torch.cuda.empty_cache()
-    runs = {}
+    runs, digests = {}, {}
     for root in (BASELINE, REPO, REPO, BASELINE):
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--time-hits", path, root], capture_output=True,
                            text=True)
         check(p.returncode == 0, f"timing the kernels of {root} failed:\n"
               f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
-        for label, ms in json.loads(p.stdout.splitlines()[-1]).items():
+        got = json.loads(p.stdout.splitlines()[-1])
+        if got["ptxas"]:   # the checkout's first child builds its K2
+            print(f"[E] K2 of {root}: {got['ptxas']}")
+        for label, ms in got["ms"].items():
             runs.setdefault((root, label), []).extend(ms)
+        for label, h in got["digest"].items():
+            digests.setdefault(label, set()).add(h)
     os.unlink(path)
+    for label, hs in digests.items():
+        print(f"[E] {label}: K2's li and rays bit-equal between {BASELINE} "
+              f"and this checkout: {len(hs) == 1}")
+        check(len(hs) == 1, f"{label}: K2's output differs between the "
+              "checkouts")
     for label, c in HIT_INPUTS.items():
         n = c["ro"].shape[0]
         live = n if c["t0"] is None else int((c["t1"] >= c["t0"]).sum())
@@ -1989,8 +2240,10 @@ def time_hits(path, root):
     """The child of --baseline: time the K1, K2, K3 and K4 routes of the
     checkout at `root` on the calls saved at `path` (hit_call), on scenes
     that checkout flattens (their tables must equal the saved ones), in
-    windows of about one second; prints {label: [ms per window]} as its
-    last line."""
+    windows of about one second; prints {"ms": {label: [ms per window]},
+    "digest": {label: sha256 of K2's li and rays}, "ptxas": K2's ptxas
+    report where this process built it} as its last line."""
+    import hashlib
     sys.path.insert(0, os.path.abspath(root))
     import gpu_pathtracer_tpu_torch
     from gpu_pathtracer_tpu_torch.geom import blocked, dense, packet
@@ -2000,7 +2253,7 @@ def time_hits(path, root):
     pkg = os.path.dirname(os.path.dirname(gpu_pathtracer_tpu_torch.__file__))
     check(pkg == os.path.abspath(root), f"imported the package of {pkg}")
     dev = torch.device("cuda", 0)
-    scenes, out = {}, {}
+    scenes, out, digest = {}, {}, {}
     for label, c in torch.load(path).items():
         spath = c["scene"]
         if spath not in scenes:
@@ -2014,6 +2267,10 @@ def time_hits(path, root):
         if c["kernel"] == "K2":
             fn = lambda: pt_fused.fused_call(  # noqa: E731
                 sc, st, SEED, 1, c["lanes"], ro, rd)
+            li, rays = fn()
+            digest[label] = hashlib.sha256(
+                li.cpu().numpy().tobytes()
+                + rays.cpu().numpy().tobytes()).hexdigest()
         else:
             route = {"K1": dense.dense_closest,
                      "K3": blocked.blocked_closest,
@@ -2021,7 +2278,10 @@ def time_hits(path, root):
                      packet.walk_closest}[c["kernel"]]
             fn = lambda: route(sc, st, ro, rd, t0, t1)  # noqa: E731
         out[label] = timed_windows({label: fn}, min_reps=3)[label]
-    print(json.dumps(out))
+    from gpu_pathtracer_tpu_torch import kernels
+    built = kernels.BUILDS.get("pt_fused")
+    print(json.dumps({"ms": out, "digest": digest, "ptxas": ptxas_summary(
+        built.ptxas) if built else ""}))
 
 
 def phase_e_k3_main(dev, card, records):
@@ -2321,7 +2581,8 @@ def phase_c_program(dev, records, integ, path, n_lanes=65536):
         if a is not None:
             hold_radiance(label, what, a, b)
     want = {"dense_hit", "rng"} | ({"track"} if static.has_hetero
-                                   else set())
+                                   else set()) \
+        | ({"pt_shade"} if integ == "pt" else set())
     check(only(counts, *want), f"{label}: launches {counts}")
     name = f"launches_c_{integ}_{os.path.basename(os.path.dirname(path))}"
     for k in want:
@@ -2563,9 +2824,12 @@ def program_main_path(card, records, integ, path, spp, kname):
           f"what was held before the run ({card}); launches {counts}, "
           f"plain-version calls on CUDA {plain}, largest K1 call "
           f"{max(k1_sizes, default=0)} rays")
-    check(only(counts, kname, "rng"), f"{label}: main path launched {counts}")
+    knames = (kname, "pt_shade") if integ == "pt" else (kname,)
+    check(only(counts, *knames, "rng"),
+          f"{label}: main path launched {counts}")
     check(plain == 0, f"{label}: {plain} plain-version calls on CUDA")
-    records[kname][f"launches_{tag}"] = counts[kname]
+    for k in knames:
+        records[k][f"launches_{tag}"] = counts[k]
     records["rng"][f"launches_{tag}"] = counts["rng"]
     records[kname][f"peak_gib_{tag}"] = (peak - held) / 2**30
     from gpu_pathtracer_tpu_torch.geom import packet_cuda
@@ -2955,7 +3219,7 @@ def walk_bound(scene, med_idx, ro, rd, tmax, n_cand) -> dict:
 
 # checkpoint resume at 1024^2 depth 5: (integrator, scene, kernels)
 CKPT_F = (("pt", SCENES[0], ("pt_fused", "rng")),
-          ("pt", KNOT["scene"], ("bvh8_walk", "rng")),
+          ("pt", KNOT["scene"], ("bvh8_walk", "pt_shade", "rng")),
           ("vpt", SMOKE, ("dense_hit", "track", "rng")),
           ("ir", SCENES[0], ("dense_hit", "rng")),
           ("sppm", SCENES[0], ("dense_hit", "rng")),
@@ -3341,7 +3605,7 @@ def main() -> None:
     global OUT, BASELINE
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFR",
+    ap.add_argument("--phases", default="ABCDEFRS",
                     help="phases to run after the build (default all)")
     ap.add_argument("--out", default=OUT,
                     help="directory for the PNGs and compiler reports")
@@ -3418,13 +3682,15 @@ def main() -> None:
         phase_c(dev, rng, records)
     if "R" in phases:
         phase_r(dev, card, records)
+    if "S" in phases:
+        phase_s(dev, rng, card, records)
     if "D" in phases:
         phase_d(dev, card, records)
     if "E" in phases:
         phase_e(dev, rng, card, records)
     if "F" in phases:
         phase_f(dev, card)
-    if set(phases) != set("ABCDEFR"):
+    if set(phases) != set("ABCDEFRS"):
         print(f"[{phases}] done: a partial run prints no result")
         sys.exit(0)
 

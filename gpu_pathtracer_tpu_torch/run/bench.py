@@ -98,13 +98,16 @@ ROWS = (
     Row("cornell", "cornell_port/scene.json", "pt", ("pt_fused", "rng"),
         ("cornell", "integ_pt"), window_scale=2.0),
     Row("cornell_wavefront", "cornell_port/many_lights.json", "pt",
-        ("dense_hit", "rng")),
+        ("dense_hit", "pt_shade", "rng")),
     Row("env", "env_port/scene.json", "pt", ("pt_fused", "rng")),
-    Row("knot", "knot_port/scene.json", "pt", ("bvh8_walk", "rng"),
+    Row("knot", "knot_port/scene.json", "pt",
+        ("bvh8_walk", "pt_shade", "rng"),
         ("dragon_100k",)),
-    Row("forest", "knot_port/forest.json", "pt", ("bvh8_walk", "rng"),
+    Row("forest", "knot_port/forest.json", "pt",
+        ("bvh8_walk", "pt_shade", "rng"),
         ("forest_1m",)),
-    Row("blocked", "knot_port/blocked.json", "pt", ("blocked", "rng")),
+    Row("blocked", "knot_port/blocked.json", "pt",
+        ("blocked", "pt_shade", "rng")),
     Row("vpt", "smoke_port/scene.json", "vpt", ("dense_hit", "track", "rng"),
         ("integ_vpt",), sliced=True),
     Row("ao", "cornell_port/scene.json", "ao", ("dense_hit", "rng"),
@@ -506,7 +509,7 @@ def main(argv=None) -> int:
     if cuda:   # every kernel once, one nvcc each at once, before the rows
         from gpu_pathtracer_tpu_torch import kernels
         kernels.build(["dense", "pt_fused", "blocked", "bvh8_walk", "track",
-                       "rng"])
+                       "rng", "pt_shade"])
     for name in names:
         row = ROW_BY_NAME[name]
         left = opts.budget - (time.time() - t_start)
