@@ -5,11 +5,12 @@
     python3 chip_smoke.py --phases F    # build, checkpoints, sharding
     python3 chip_smoke.py --phases R    # build, the Philox draw kernel
     python3 chip_smoke.py --phases S    # build, the PT wavefront's shading
+    python3 chip_smoke.py --phases V    # build, the VPT wavefront's step
     python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
     python3 chip_smoke.py --baseline DIR  # also time DIR's K1 and K3
 
-Builds the port's seven CUDA kernels from csrc/, holds each against its
+Builds the port's eight CUDA kernel sources from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
 path-traced Cornell box, environment-lit and textured scenes and
 large-mesh scenes, its volumetric path tracer on the smoke scene, and
@@ -20,9 +21,10 @@ Phases:
   A  build the dense-hit kernel (K1), the path-trace megakernel (K2), the
      block-culled hit kernel (K3), the BVH8 walk (K4) and the media
      tracking kernel (track.cu, K5's counterpart), the Philox draw
-     kernel (rng.cu) and the PT wavefront's shading kernel
-     (pt_shade.cu), one nvcc each, all at once, and the native BVH
-     builder (g++)
+     kernel (rng.cu), the PT wavefront's shading kernel
+     (pt_shade.cu) and the VPT wavefront's step kernels (vpt_shade.cu:
+     vpt_shade, vpt_tr_round, vpt_finish), one nvcc each, all at once,
+     and the native BVH builder (g++)
   B  K1 vs plain: 1,048,576 rays, closest and any hit, its triangles-only
      and all-kinds variants on cornell_port's table, the all-kinds one on
      a 512-row synthetic table of all three kinds, a table of exact twins
@@ -46,8 +48,10 @@ Phases:
      candidate counts) on the phase-B lanes, on a sparse set (three
      quarters of 1M lanes in vacuum or the fog, at random), on a set
      where no lane walks (an empty queue) and at an N that is not a
-     multiple of the block size, and rays that miss the box (Tr exactly
-     1, no candidate); the walk's launch shapes (occupancy API)
+     multiple of the block size, with a per-lane call site (the VPT
+     step's one walk: against the plain walk and bit-equal to each site's
+     own walk), and rays that miss the box (Tr exactly 1, no candidate);
+     the walk's launch shapes (occupancy API)
   C  K2 vs plain: 65,536 lanes at depth 5 on both bundled scenes and on
      its environment, textured and mixed variants' scenes
      (scenes/env_port/scene.json, scenes/cornell_port/textured.json,
@@ -60,9 +64,10 @@ Phases:
      K3, K4 flat and K4 instanced vs the plain wavefront on the knot
      scenes and on knot_port/sky.json (textures, the sky), 65,536 lanes,
      from Philox and from a primary-sample matrix; the VPT wavefront over
-     K1 + track vs the all-plain VPT on smoke_port and on
-     smoke_port/sky.json, 65,536 lanes, and its rays traced (from Philox:
-     VPT takes no primary-sample matrix, as in the JAX package); the
+     K1, track and the step's kernels (vpt_shade.cu) vs the all-plain VPT
+     on smoke_port and on smoke_port/sky.json, 65,536 lanes, and its rays
+     traced (from Philox: VPT takes no primary-sample matrix, as in the
+     JAX package); the
      programs of the other integrators, each over the kernels against
      the same program all-plain (`plain=True`), 65,536 lanes at depth 5:
      AO, light tracing and BDPT on cornell_port, the path tracer on
@@ -103,6 +108,19 @@ Phases:
      many_lights.json and bssrdf.json at 1024^2 depth 5 over the kernels
      vs all-plain (`SHADE_FILMS`); the kernel, the plain version and the
      bound in turns at knot scene.json's bounce 1
+  V  (after S) vpt_shade.cu vs its plain versions (integrators/
+     vpt_shade.py::shade_torch, tr_round_torch, finish_torch) on the same
+     inputs, captured by name from a VPT spp over the kernels at 1024^2
+     (VPT_CASES: smoke_port at steps 0, 1, 6 and 13, the last, where
+     lanes only collect credit; the camera in the fog; the camera in the
+     smoke, whose camera rays reach the light through it (emitter
+     walks); smoke_port/sky.json; cornell_port without media;
+     materials.json's lines and spheres; textured.json; bssrdf.json):
+     vpt_shade at the step, vpt_tr_round at its rounds 0 and 1 and
+     vpt_finish after the last step, every output bit for bit (float32
+     compared as int32 bits) and the ray counts; each kernel, its plain
+     version and its byte bound in turns on smoke_port's inputs (step 1,
+     its round 1, the finish after the last step)
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after, then timed from where its
      render stands by the bench's windows (run/bench.py: D_WINDOWS
@@ -125,8 +143,10 @@ Phases:
      scenes/smoke_port with --integrator vpt (one warm-up spp held
      against the plain VPT on all lanes, whose first Tr walk of step 1
      is captured for phase E and whose K1 calls report, per step, the
-     lanes alive and K1's warps wholly empty, then 2 timed spp; track and
-     K1 must launch, K2 must not); then the other integrators through
+     lanes alive and K1's warps wholly empty, then 2 timed spp; K1,
+     track, vpt_shade, vpt_tr_round, vpt_finish and rng must launch,
+     nothing else,
+     with their launches a spp); then the other integrators through
      the CLI at 1024^2 depth 5 (one warm-up spp held against the
      program all-plain on all lanes, then timed spp: spp/s, Mrays/s,
      launches per kernel, plain-version calls on CUDA, which must be 0,
@@ -239,6 +259,10 @@ PROGRAMS_D = (("ao", SCENES[0], 8, "dense_hit"),
               ("ir", SCENES[0], 8, "dense_hit"),
               ("sppm", SCENES[0], 4, "dense_hit"),
               ("mlt", SCENES[0], 8, "pt_fused"))
+# what the VPT launches on the card: the hit kernel of smoke_port's regime,
+# the tracking walk, the step's kernels, the camera's draws
+VPT_KERNELS = ("dense_hit", "track", "vpt_shade", "vpt_tr_round",
+               "vpt_finish", "rng")
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "dense": ("gpu_pathtracer_tpu_torch/csrc/dense.cu",
               "gpu_pathtracer_tpu/geom/dense_tpu.py:29"),
@@ -256,7 +280,21 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "pt_shade": ("gpu_pathtracer_tpu_torch/csrc/pt_shade.cu",
                  "no Pallas kernel; the JAX package's jitted wavefront "
                  "bounce, `gpu_pathtracer_tpu/integrators/pt.py:167`"),
+    "vpt_shade": ("gpu_pathtracer_tpu_torch/csrc/vpt_shade.cu",
+                  "no Pallas kernel; the JAX package's jitted VPT step, "
+                  "`gpu_pathtracer_tpu/integrators/vpt.py:128`"),
+    "vpt_tr_round": ("gpu_pathtracer_tpu_torch/csrc/vpt_shade.cu",
+                     "no Pallas kernel; the JAX package's jitted VPT step's "
+                     "Tr walk, `gpu_pathtracer_tpu/shade/media.py:950`"),
+    "vpt_finish": ("gpu_pathtracer_tpu_torch/csrc/vpt_shade.cu",
+                   "no Pallas kernel; the JAX package's jitted VPT render's "
+                   "NaN guard, `gpu_pathtracer_tpu/integrators/vpt.py:311`"),
 }
+
+
+def libraries() -> list:
+    """The csrc/*.cu sources of KERNELS, one library each."""
+    return sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM: device memory rate
 F32_FLOPS = 67e12           # and float32 peak outside the tensor cores
 RAY_IO = 40       # bytes per ray of a hit query: ro rd tmin tmax, t prim
@@ -297,12 +335,11 @@ def kernel_name(mangled: str) -> str:
     """The length-prefixed "..._kernel" identifier in a mangled name (the
     prefix may follow other digits, as in an anonymous namespace's hash)."""
     import re
-    for d in re.finditer(r"\d+", mangled):
-        for j in range(len(d.group())):
-            name = mangled[d.end():d.end() + int(d.group()[j:])]
-            if name.endswith("_kernel"):
-                return name
-    return mangled[:24]
+    names = [mangled[d.end():d.end() + int(d.group()[j:])]
+             for d in re.finditer(r"\d+", mangled)
+             for j in range(len(d.group()))]
+    names = [n for n in names if n.endswith("_kernel")]
+    return min(names, key=len) if names else mangled[:24]
 
 
 def ptxas_summary(report: str) -> str:
@@ -316,7 +353,10 @@ def ptxas_summary(report: str) -> str:
         if m:
             label = kernel_name(m.group(1))
             flags = re.findall(r"Lb(\d)E", m.group(1))
-            if len(flags) == 3:
+            if len(flags) == 4:
+                label += (f" (env {flags[0]}, tex {flags[1]}, all kinds "
+                          f"{flags[2]}, heterogeneous {flags[3]})")
+            elif len(flags) == 3:
                 label += (f" (env {flags[0]}, tex {flags[1]}, all kinds "
                           f"{flags[2]})")
             elif flags:
@@ -1824,6 +1864,346 @@ def phase_s(dev, rng, card, records):
         bound_bytes=b["bytes"])
 
 
+# ---------------------------------------------------------------- phase V
+
+# the VPT step's kernels against their plain versions: (label, scene,
+# step), each captured from a VPT spp over the kernels at 1024^2; step 13
+# is the last (max_depth 5 + INTERFACE_BUDGET 8), where the lanes left
+# only collect arrival credit; "fog_camera" and "smoke_camera" are edits
+# of smoke_port (vpt_edit_scene)
+VPT_CASES = (
+    ("smoke_port", SMOKE, 0),
+    ("smoke_port", SMOKE, 1),
+    ("smoke_port", SMOKE, 6),
+    ("smoke_port, the last step", SMOKE, 13),
+    ("the camera in the fog (homogeneous)", "fog_camera", 1),
+    ("the camera in the smoke (emitter walks)", "smoke_camera", 0),
+    ("smoke_port/sky.json (sky)", SMOKE_SKY, 1),
+    ("cornell_port (no media)", SCENES[0], 1),
+    ("materials.json (lines, spheres, six models)", SCENES[1], 1),
+    ("textured.json (textures)", K2_VARIANTS["textured"], 1),
+    ("bssrdf.json", BSSRDF, 1))
+
+
+def vpt_edit_scene(kind: str) -> str:
+    """smoke_port edited, written to OUT with absolute mesh and density
+    paths: "fog_camera" without the smoke, the camera in the fog sphere;
+    "smoke_camera" without the smoke box's interface, the camera in the
+    smoke's density box looking up at the light (its camera rays reach
+    the light through the heterogeneous medium). Returns its path."""
+    src = os.path.join(REPO, SMOKE)
+    with open(src) as f:
+        doc = json.load(f)
+    base = os.path.dirname(src)
+    for unit in doc["scene"] + doc["light"]:
+        if "mesh" in unit:
+            unit["mesh"] = os.path.join(base, unit["mesh"])
+    for med in doc["medium"]:
+        if "density" in med:
+            med["density"] = os.path.join(base, med["density"])
+    doc["scene"] = [u for u in doc["scene"] if u.get("inside") != "smoke"]
+    if kind == "fog_camera":
+        doc["medium"] = [m for m in doc["medium"] if m["name"] == "fog"]
+        doc["camera"].update(position=[0.5, 0.45, 0.7],
+                             lookat=[0.0, 1.0, -1.0], fov=60, medium="fog")
+    else:
+        doc["camera"].update(position=[-0.35, 1.2, -0.45],
+                             lookat=[0.0, 2.0, 0.0], fov=60, medium="smoke")
+    path = os.path.join(OUT, f"{kind}.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def _cloned(v):
+    """v with its tensors cloned: a tensor, or a Lanes / Walk record of
+    integrators/vpt_shade.py; anything else (the scene) as it is."""
+    import dataclasses
+    from gpu_pathtracer_tpu_torch.integrators.vpt_shade import Lanes, Walk
+    if torch.is_tensor(v):
+        return v.clone()
+    if isinstance(v, (Lanes, Walk)):
+        return dataclasses.replace(v, **{
+            f.name: _cloned(getattr(v, f.name))
+            for f in dataclasses.fields(v)})
+    return v
+
+
+def vpt_inputs(dev, path, step) -> dict:
+    """The arguments, by parameter name, of vpt_shade.shade at `step`, of
+    vpt_shade.tr_round at that step's rounds 0 and 1, and of
+    vpt_shade.finish, from one VPT spp over the kernels of the scene at
+    `path` at 1024^2, lanes in pixel order: {"shade": ..., "tr": [r0,
+    r1], "finish": ...} (without `plain`)."""
+    import inspect
+    from gpu_pathtracer_tpu_torch.integrators import vpt, vpt_shade
+    sc, st = scene_1024(path, dev)
+    ids = torch.arange(N_RAYS, device=dev)
+    got = {"shade": None, "tr": [], "finish": None}
+    at = {"step": -1, "round": 0}
+    orig = {k: getattr(vpt_shade, k) for k in ("shade", "tr_round", "finish")}
+
+    def wrap(name):
+        sig = inspect.signature(orig[name])
+
+        def fn(*args, **kwargs):
+            kw = sig.bind(*args, **kwargs)
+            kw.apply_defaults()
+            a = kw.arguments
+
+            def keep():
+                return {k: _cloned(v) for k, v in a.items() if k != "plain"}
+            if name == "shade":
+                at.update(step=a["step"], round=0)
+                if a["step"] == step:
+                    got["shade"] = keep()
+            elif name == "tr_round":
+                if at["step"] == step and at["round"] < 2:
+                    got["tr"].append(keep())
+                at["round"] += 1
+            else:
+                got["finish"] = keep()
+            return orig[name](*args, **kwargs)
+        return fn
+
+    for k in orig:
+        setattr(vpt_shade, k, wrap(k))
+    try:
+        vpt.render_lanes(sc, st, SEED, 1, ids % st.width, ids // st.width)
+    finally:
+        for k, f in orig.items():
+            setattr(vpt_shade, k, f)
+    check(got["shade"] is not None and len(got["tr"]) == 2
+          and got["finish"] is not None, f"{path}: no step {step} captured")
+    return got
+
+
+def vpt_differ(tag, k, p) -> dict:
+    """{field: lanes not bit-equal} of two Lanes / Walk records."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(k):
+        a, b = getattr(k, f.name), getattr(p, f.name)
+        if a is None or b is None:
+            check(a is None and b is None, f"{tag}: {f.name} written by one "
+                  "side only")
+            continue
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{tag}: {f.name} {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        ne = bits(a) != bits(b)
+        out[f.name] = int(ne.reshape(ne.shape[0], -1).any(1).sum())
+    return out
+
+
+def _tensor_bytes(*xs) -> int:
+    """The bytes of the tensors among xs (Lanes / Walk records by field)."""
+    import dataclasses
+    n = 0
+    for x in xs:
+        if torch.is_tensor(x):
+            n += x.numel() * x.element_size()
+        elif dataclasses.is_dataclass(x):
+            n += _tensor_bytes(*(getattr(x, f.name)
+                                 for f in dataclasses.fields(x)))
+    return n
+
+
+def _lane_bytes(mask, *xs) -> int:
+    """The bytes of the rows of the tensors among xs that the lanes of
+    `mask` read (each tensor's first dimension is the lane)."""
+    k = int(mask.sum())
+    return sum(k * (x.numel() // x.shape[0]) * x.element_size()
+               for x in xs if x is not None)
+
+
+def _settle_bytes(walk, walk_out) -> int:
+    """The bytes settle() (csrc/vpt_shade.cu) reads of the previous walk:
+    its flags on every lane; its tr and the pending factors it uses on
+    the lanes with credit (scatter 7, emitter 6, surface 12 floats); the
+    last track result on the credit lanes that fold it."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    if walk is None:
+        return 0
+    f = walk.flags
+    credit = (f & vs.CREDIT) != 0
+    n = _tensor_bytes(f) + _lane_bytes(credit, walk.tr)
+    for bit, floats in ((vs.SCATTER, 7), (vs.EMITTER, 6), (vs.SURFACE, 12)):
+        n += int(((f & bit) != 0).sum()) * floats * 4
+    if walk_out is not None:
+        n += _lane_bytes(credit & ((f & vs.FOLD) != 0), walk_out)
+    return n
+
+
+def vpt_shade_bound(kw, out) -> dict:
+    """vpt_shade's least time on one call: the bytes each lane must read
+    and write, over 3.35 TB/s (bytes-bound: its float work, a few hundred
+    operations a live lane, is some ten times below). Every lane reads its
+    state and its (t, prim) and writes every output; the lanes alive with
+    a hit read their lane id, their prim row and, in a heterogeneous
+    medium, found_t; the previous walk as settle() reads it; and the
+    material, light, CDF and media tables once."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    from gpu_pathtracer_tpu_torch.shade.media import HETEROGENEOUS
+    scene, lane = kw["scene"], kw["lane"]
+    prim = kw["prim"]
+    hit = ((lane.flags & vs.ALIVE) != 0) & (prim >= 0)
+    n_bytes = _tensor_bytes(kw["t"], prim, lane.ro, lane.rd, lane.li,
+                            lane.beta, lane.prev_pdf, lane.depth, lane.med,
+                            lane.flags, *out)
+    n_bytes += _lane_bytes(hit, kw["lanes"])
+    n_bytes += int(torch.unique(prim[hit]).numel()) * 40 * 4
+    if kw["found_t"] is not None:
+        med = lane.med
+        het = torch.zeros_like(hit)
+        inside = med >= 0
+        het[inside] = (scene.med_table[med[inside].long(), 0].to(torch.int32)
+                       == HETEROGENEOUS)
+        n_bytes += _lane_bytes(hit & het, kw["found_t"])
+    n_bytes += _settle_bytes(kw["walk"], kw["walk_out"])
+    n_bytes += _tensor_bytes(scene.mat_attrs, scene.light_attrs,
+                             scene.light_cdf, scene.med_table)
+    b = bound(n_bytes, 0)
+    b["bytes"] = n_bytes
+    return b
+
+
+def vpt_tr_bound(kw, out) -> dict:
+    """vpt_tr_round's least time on one call: the bytes each lane must
+    read and write, over 3.35 TB/s (bytes-bound: a walking lane's hit
+    record is some tens of operations). Every lane reads its walk's o,
+    rem, med, tr and flags and writes every output; the walking lanes
+    read their (t, prim), direction and hit prim row; the folding lanes
+    the last track result."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    walk = kw["walk"]
+    walking = (walk.flags & vs.WALKING) != 0
+    n_bytes = _tensor_bytes(walk.o, walk.rem, walk.med, walk.tr, walk.flags,
+                            out.o, out.rem, out.med, out.tr, out.flags,
+                            out.tmax, out.track_med, out.track_t)
+    n_bytes += _lane_bytes(walking, kw["t"], kw["prim"], walk.d)
+    prim = kw["prim"]
+    n_bytes += int(torch.unique(prim[walking & (prim >= 0)]).numel()) * 40 * 4
+    if kw["walk_out"] is not None:
+        n_bytes += _lane_bytes((walk.flags & vs.FOLD) != 0, kw["walk_out"])
+    b = bound(n_bytes, 0)
+    b["bytes"] = n_bytes
+    return b
+
+
+def vpt_finish_bound(kw, out) -> dict:
+    """vpt_finish's least time on one call: li read and li_out written on
+    every lane, the walk as settle() reads it, over 3.35 TB/s."""
+    n_bytes = _tensor_bytes(kw["li"], out)
+    n_bytes += _settle_bytes(kw["walk"], kw["walk_out"])
+    b = bound(n_bytes, 0)
+    b["bytes"] = n_bytes
+    return b
+
+
+def phase_v(dev, card, records):
+    """csrc/vpt_shade.cu against its plain versions on the same inputs, for
+    each VPT_CASES case at 1M lanes: vpt_shade at the step, vpt_tr_round
+    at its rounds 0 and 1, vpt_finish after the last step, every output
+    bit for bit; the kernels, the plain versions and the bounds in turns
+    on smoke_port's inputs (step 1, its round 1, the finish)."""
+    from gpu_pathtracer_tpu_torch import kernels
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    from gpu_pathtracer_tpu_torch.run.reference import reset_counts
+    print(f"[V] vpt_shade.cu: {ptxas_summary(kernels.BUILDS['vpt_shade'].ptxas)}")
+    t0 = time.time()
+    err = {"vpt_shade": 0.0, "vpt_tr_round": 0.0, "vpt_finish": 0.0}
+    timed = None
+    for label, path, step in VPT_CASES:
+        spath = vpt_edit_scene(path) if path in ("fog_camera",
+                                                 "smoke_camera") else path
+        got = vpt_inputs(dev, spath, step)
+        tag = f"{label} step {step}"
+        kw = got["shade"]
+        reset_counts(vs.STATS, vs.TR_STATS, vs.FINISH_STATS)
+        rk, rp = kw["rays"].clone(), kw["rays"].clone()
+        k = vs.shade_cuda(**{**kw, "rays": rk})
+        p = vs.shade_torch(**{**kw, "rays": rp}, plain=True)
+        torch.cuda.synchronize()
+        check(vs.STATS.launches == 1 and vs.STATS.plain_cuda == 1,
+              f"{tag}: launches {vs.STATS}")
+        differ = {**vpt_differ(tag, k[0], p[0]),
+                  **{f"walk {f}": v for f, v in
+                     vpt_differ(tag, k[1], p[1]).items()},
+                  "rays": int(rk != rp)}
+        walk = k[1]
+        sites = {int(s): int(((walk.sites == s) & (walk.flags != 0)).sum())
+                 for s in (1, 2, 3)}
+        alive = int(((kw["lane"].flags & vs.ALIVE) != 0).sum())
+        print(f"[V] {tag}: {alive} of {N_RAYS} lanes alive, rays "
+              f"{int(rk)} vs {int(rp)}, walks by call site (scatter, "
+              f"surface, emitter) {sites}; lanes not bit-equal: "
+              + ", ".join(f"{f} {v}" for f, v in differ.items()))
+        check(not any(differ.values()), f"{tag}: vpt_shade and its plain "
+              f"version differ: {differ}")
+        err["vpt_shade"] = max(err["vpt_shade"],
+                               (k[0].li - p[0].li).abs().max().item())
+        for r, tkw in enumerate(got["tr"]):
+            rk, rp = tkw["rays"].clone(), tkw["rays"].clone()
+            k = vs.tr_round_cuda(**{**tkw, "rays": rk})
+            p = vs.tr_round_torch(**{**tkw, "rays": rp})
+            torch.cuda.synchronize()
+            differ = {**vpt_differ(f"{tag} round {r}", k, p),
+                      "rays": int(rk != rp)}
+            walking = int(((tkw["walk"].flags & vs.WALKING) != 0).sum())
+            print(f"[V] {tag} round {r}: {walking} lanes walking, folds "
+                  f"{int(((k.flags & vs.FOLD) != 0).sum())}; lanes not "
+                  "bit-equal: " + ", ".join(f"{f} {v}"
+                                            for f, v in differ.items()))
+            check(not any(differ.values()), f"{tag} round {r}: vpt_tr_round "
+                  f"and its plain version differ: {differ}")
+            err["vpt_tr_round"] = max(err["vpt_tr_round"],
+                                      (k.tr - p.tr).abs().max().item())
+        fkw = got["finish"]
+        k = vs.finish_cuda(**fkw)
+        p = vs.finish_torch(**fkw)
+        ne = int((bits(k) != bits(p)).any(1).sum())
+        print(f"[V] {label}: vpt_finish lanes not bit-equal {ne}")
+        check(ne == 0, f"{label}: vpt_finish and its plain version differ")
+        err["vpt_finish"] = max(err["vpt_finish"],
+                                (k - p).abs().max().item())
+        check(all(st.launches == n and st.plain_cuda == n for st, n in (
+            (vs.STATS, 1), (vs.TR_STATS, 2), (vs.FINISH_STATS, 1))),
+              f"{tag}: launches {vs.STATS} {vs.TR_STATS} {vs.FINISH_STATS}")
+        if path == SMOKE and step == 1:
+            timed = got
+        del got, k, p, kw, fkw
+
+    kw, tkw, fkw = timed["shade"], timed["tr"][1], timed["finish"]
+    t = timed_windows({
+        "shade kernel": lambda: vs.shade_cuda(**kw),
+        "shade plain": lambda: vs.shade_torch(**kw, plain=True),
+        "round kernel": lambda: vs.tr_round_cuda(**tkw),
+        "round plain": lambda: vs.tr_round_torch(**tkw),
+        "finish kernel": lambda: vs.finish_cuda(**fkw),
+        "finish plain": lambda: vs.finish_torch(**fkw)})
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
+    where = {"shade": "step 1", "round": "step 1, round 1",
+             "finish": "after the last step"}
+    for name, kern, b in (
+            ("vpt_shade", "shade", vpt_shade_bound(kw, vs.shade_cuda(**kw))),
+            ("vpt_tr_round", "round",
+             vpt_tr_bound(tkw, vs.tr_round_cuda(**tkw))),
+            ("vpt_finish", "finish",
+             vpt_finish_bound(fkw, vs.finish_cuda(**fkw)))):
+        kt, pt_ = t[f"{kern} kernel"], t[f"{kern} plain"]
+        print(f"[V] {name} on smoke_port ({N_RAYS} lanes, {where[kern]}): "
+              "kernel "
+              f"{ms[kern + ' kernel']:.4f} ms (windows {min(kt):.4f}-"
+              f"{max(kt):.4f}), plain {ms[kern + ' plain']:.4f} ms (windows "
+              f"{min(pt_):.4f}-{max(pt_):.4f}); bound {b['bound_ms']:.4f} ms "
+              f"by {b['bound_by']} ({b['bytes']} bytes) ({card})")
+        records[name].update(
+            max_abs_err=err[name], ms=ms[kern + " kernel"],
+            plain_ms=ms[kern + " plain"], bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"], library_ms=None, bound_bytes=b["bytes"])
+    print(f"[V] done in {time.time() - t0:.1f} s")
+
+
 def phase_d(dev, card, records):
     """The main path through the CLI: the Cornell box at 1024^2, depth 5,
     which pt.render_lanes routes to K2; launch counts, spp/s, Mrays/s, and
@@ -2424,8 +2804,12 @@ def phase_b_media(dev, rng, records):
     lanes in vacuum or the fog, interleaved at random), on a set where no
     lane walks (an empty queue), on the phase-B lanes under a candidate
     cap (med_iter_max) of 1 and of 3, and at an N that is not a multiple
-    of the block size; and rays that miss the box."""
-    from gpu_pathtracer_tpu_torch.core.rng import TRACK_SURFACE, track_tag
+    of the block size; on the phase-B lanes with a per-lane call site
+    (TrackKey.sites), against the plain walk and against each site's own
+    walk merged by lane; and rays that miss the box."""
+    from gpu_pathtracer_tpu_torch.core.rng import (
+        TRACK_EMITTER, TRACK_SCATTER, TRACK_SURFACE, track_tag,
+    )
     from gpu_pathtracer_tpu_torch.shade import media, media_cuda
     scene, static = flat(SMOKE, dev)
     n = N_RAYS
@@ -2454,6 +2838,8 @@ def phase_b_media(dev, rng, records):
 
     key = media.TrackKey(SEED, 1, torch.arange(n, device=dev),
                          track_tag(0, TRACK_SURFACE))
+    mixed = key._replace(tag=track_tag(0, 0, 2), sites=torch.as_tensor(
+        rng.choice(np.array([1, 2, 3], np.int32), n), device=dev))
     # the lane sets: phase-B lanes; sparse (three quarters in vacuum or
     # the fog); none in the smoke (the queue stays empty)
     other = torch.as_tensor(rng.choice(np.array([-1, 1], np.int32), n),
@@ -2474,6 +2860,22 @@ def phase_b_media(dev, rng, records):
         err = max(err, walk_check(f"N = {n_odd}, {label}", sc, mode,
                                   idx[:n_odd], ro[:n_odd], rd[:n_odd],
                                   tmax[:n_odd], k_odd, static.med_iter_max))
+        # a per-lane call site (the VPT step's one walk): vs the plain
+        # walk, and vs the single-site walks merged by lane
+        err = max(err, walk_check(f"mixed call sites, {label}", sc, mode,
+                                  idx, ro, rd, tmax, mixed,
+                                  static.med_iter_max))
+        out, cand = media_cuda.track_cuda(sc, mode, idx, ro, rd, tmax, mixed,
+                                          static.med_iter_max)
+        for site in (TRACK_SCATTER, TRACK_SURFACE, TRACK_EMITTER):
+            o1, c1 = media_cuda.track_cuda(
+                sc, mode, idx, ro, rd, tmax,
+                key._replace(tag=track_tag(0, site, 2)), static.med_iter_max)
+            sel = mixed.sites == site
+            check(torch.equal(bits(out[sel]), bits(o1[sel]))
+                  and torch.equal(cand[sel], c1[sel]),
+                  f"track mixed call sites, {label}: site {site}'s lanes "
+                  "differ from its own walk")
         out, cand = media_cuda.track_cuda(sc, mode, other, ro, rd, tmax, key,
                                           static.med_iter_max)
         check(int(cand.sum()) == 0 and bool(
@@ -2517,7 +2919,8 @@ def phase_c_media(dev, records, path, n_lanes=65536):
                                  plain=True)
     frac = close_frac(li_k, li_p)
     ratio = li_k.double().mean().item() / li_p.double().mean().item()
-    print(f"[C] VPT over K1 + track, {path}: {ids.numel()} lanes, agree "
+    print(f"[C] VPT over K1, track and vpt_shade.cu, {path}: "
+          f"{ids.numel()} lanes, agree "
           f"{frac:.6f}, bit-equal "
           f"{(li_k == li_p).all(1).float().mean().item():.6f}, mean ratio "
           f"{ratio:.7f}, rays {int(r_k)} vs {int(r_p)}, launches {counts}")
@@ -2525,8 +2928,7 @@ def phase_c_media(dev, records, path, n_lanes=65536):
     check(abs(ratio - 1.0) <= 1e-3, f"VPT wavefront: ratio {ratio}")
     check(int(r_k) == int(r_p), "VPT wavefront: ray counts differ")
     check(bool(torch.isfinite(li_k).all()), "VPT: non-finite li")
-    check(only(counts, "dense_hit", "track", "rng"),
-          f"VPT wavefront: launches {counts}")
+    check(only(counts, *VPT_KERNELS), f"VPT wavefront: launches {counts}")
     records["track"]["max_abs_err"] = max(
         records["track"].get("max_abs_err", 0.0),
         (li_k - li_p).abs().max().item())
@@ -2990,8 +3392,7 @@ def k1_live_report(records, n_steps):
                                 vpt_empty_warp_share=dead_all)
     if K1_ARGS:   # two of these calls for --baseline
         for label, k in (("step 3 closest hit", 3 * per),
-                         ("step 3 first surface-NEE Tr segment",
-                          3 * per + 1 + (per - 1) // 2)):
+                         ("step 3 first Tr segment", 3 * per + 1)):
             HIT_INPUTS[f"K1 smoke VPT {label}"] = hit_call("K1", SMOKE,
                                                            *K1_ARGS[k])
         K1_ARGS.clear()
@@ -3082,17 +3483,21 @@ def vpt_main_path(card, records):
     img = res["renderer"].image()
     check(img.shape == (1024, 1024, 3) and bool(np.isfinite(img).all()),
           f"smoke_port: image {img.shape}, finite {np.isfinite(img).all()}")
-    print(f"[D] {SMOKE} VPT through K1 + track: 2 spp of 1024x1024 depth "
-          f"{res['renderer'].static.max_depth} in {res['seconds']:.6f} s, "
-          f"then {rate(res['renderer'])}, host build "
-          f"{res['build_seconds']:.2f} s ({card}); launches {counts}, "
+    per_spp = {k: n / 2 for k, n in counts.items() if n}
+    print(f"[D] {SMOKE} VPT through K1, track and vpt_shade.cu: 2 spp of "
+          f"1024x1024 depth {res['renderer'].static.max_depth} in "
+          f"{res['seconds']:.6f} s, then {rate(res['renderer'])}, host build "
+          f"{res['build_seconds']:.2f} s ({card}); launches {counts} "
+          f"({per_spp} a spp, {sum(per_spp.values()):.0f} in all), "
           f"plain-version calls on CUDA {plain}")
-    check(only(counts, "dense_hit", "track", "rng"),
-          f"VPT main path launches {counts}")
+    check(only(counts, *VPT_KERNELS), f"VPT main path launches {counts}")
     check(plain == 0, f"VPT main path: {plain} plain-version calls on CUDA")
-    records["track"]["launches"] = counts["track"]
-    records["dense_hit"]["launches"] = counts["dense_hit"]
-    records["rng"]["launches_vpt_smoke"] = counts["rng"]
+    for k in VPT_KERNELS:
+        if k == "rng":
+            records["rng"]["launches_vpt_smoke"] = counts["rng"]
+        else:
+            records[k]["launches"] = counts[k]
+            records[k]["launches_per_spp_vpt_smoke"] = per_spp[k]
 
 
 def phase_e_media(dev, rng, card, records):
@@ -3220,14 +3625,14 @@ def walk_bound(scene, med_idx, ro, rd, tmax, n_cand) -> dict:
 # checkpoint resume at 1024^2 depth 5: (integrator, scene, kernels)
 CKPT_F = (("pt", SCENES[0], ("pt_fused", "rng")),
           ("pt", KNOT["scene"], ("bvh8_walk", "pt_shade", "rng")),
-          ("vpt", SMOKE, ("dense_hit", "track", "rng")),
+          ("vpt", SMOKE, VPT_KERNELS),
           ("ir", SCENES[0], ("dense_hit", "rng")),
           ("sppm", SCENES[0], ("dense_hit", "rng")),
           ("mlt", SCENES[0], ("pt_fused", "rng")))
 # sharded renders at 1024^2 depth 5, 2 iterations: (integrator, scene,
 # kernels)
 SHARD_F = (("pt", SCENES[0], ("pt_fused", "rng")),
-           ("vpt", SMOKE, ("dense_hit", "track", "rng")),
+           ("vpt", SMOKE, VPT_KERNELS),
            ("lt", SCENES[0], ("dense_hit", "rng")),
            ("bdpt", SCENES[0], ("dense_hit", "rng")),
            ("ir", SCENES[0], ("dense_hit", "rng")),
@@ -3605,7 +4010,7 @@ def main() -> None:
     global OUT, BASELINE
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFRS",
+    ap.add_argument("--phases", default="ABCDEFRSV",
                     help="phases to run after the build (default all)")
     ap.add_argument("--out", default=OUT,
                     help="directory for the PNGs and compiler reports")
@@ -3657,8 +4062,8 @@ def main() -> None:
         for name, (src, tpu) in KERNELS.items()}
 
     t0 = time.time()
-    kernels.build(list(KERNELS))
-    for name in KERNELS:
+    kernels.build(libraries())
+    for name in libraries():
         b = kernels.BUILDS[name]
         print(f"[A] built {name} in {b.seconds:.2f} s: "
               f"{ptxas_summary(b.ptxas) or 'cached'}")
@@ -3684,13 +4089,15 @@ def main() -> None:
         phase_r(dev, card, records)
     if "S" in phases:
         phase_s(dev, rng, card, records)
+    if "V" in phases:
+        phase_v(dev, card, records)
     if "D" in phases:
         phase_d(dev, card, records)
     if "E" in phases:
         phase_e(dev, rng, card, records)
     if "F" in phases:
         phase_f(dev, card)
-    if set(phases) != set("ABCDEFRS"):
+    if set(phases) != set("ABCDEFRSV"):
         print(f"[{phases}] done: a partial run prints no result")
         sys.exit(0)
 

@@ -143,9 +143,10 @@ def track_tag(step: int, site: int, segment: int = 0) -> int:
     return ((step + 1) << 8) | (site << 4) | segment
 
 
-def track_words(seed: int, iteration: int, lanes, tag: int, j):
+def track_words(seed: int, iteration: int, lanes, tag, j):
     """Words 0-2 of draw j of the tracking walk of lanes `lanes` (int64
-    tensors of uint32 values; j broadcasts against lanes)."""
+    tensors of uint32 values; the tag, an int or a tensor, and j
+    broadcast against lanes)."""
     z = torch.zeros_like(lanes)
     w = philox4x32_10(lanes, z, z + tag, z + j, seed, iteration)
     return w[0], w[1], w[2]

@@ -45,6 +45,23 @@ __device__ __forceinline__ Medium load_medium(const float* r) {
   return m;
 }
 
+// The scattering columns of a med_table row, read through the read-only
+// cache: the VPT step's distance sample, phase function and Beer-Lambert
+// Tr (csrc/vpt_shade.cu; shade/media.py::gather_medium).
+struct Optics {
+  float g, sigma;     // HG asymmetry, luminance of sigma_t
+  V3 sigma_s, sigma_t;
+};
+
+__device__ __forceinline__ Optics load_optics(const float* r) {
+  Optics o;
+  o.g = __ldg(r + 1);
+  o.sigma_s = mk(__ldg(r + 5), __ldg(r + 6), __ldg(r + 7));
+  o.sigma_t = mk(__ldg(r + 8), __ldg(r + 9), __ldg(r + 10));
+  o.sigma = __ldg(r + 22);
+  return o;
+}
+
 // _box_clip: the ray's overlap [t0, t0 + ln] with the density box in
 // [0, tmax_].
 __device__ __forceinline__ float slab_inv(float d) {

@@ -1,8 +1,9 @@
 // Philox4x32-10 (Salmon et al., SC'11) and its float conversion, the one
 // device copy of core/rng.py::philox4x32_10 and bits_to_uniform: the
-// draw kernel (rng.cu), the path-trace megakernel (pt_fused.cu) and the
-// tracking walk (track.cu, through media.cuh) all include it, so the
-// three draw the same bits as the plain version.
+// draw kernel (rng.cu), the path-trace megakernel (pt_fused.cu), the
+// tracking walk (track.cu, through media.cuh) and the wavefronts' shading
+// kernels (pt_shade.cu, vpt_shade.cu) all include it, so they draw the
+// same bits as the plain version.
 //
 // Site d of stream `tag` for lane i is
 //   bits_to_uniform(word d & 3 of philox((i, d >> 2, tag, 0),

@@ -93,77 +93,12 @@ struct ShadeParams {
 
 // ---------------------------------------------------------------------------
 // K2's bounce steps (pt_fused.cu::bounce) as functions, line for line:
-// the material and its texel, the light sample, the NEE estimate and the
-// BSDF continuation with the roulette. K2 keeps them inline: factored
-// out, they took its sky variants from 96 to 105-106 registers and
-// slowed them (PERF.md section 6). An edit here must reach K2's copy
-// (shade.cuh).
+// the NEE estimate and the BSDF continuation with the roulette (the
+// material with its texel and the light sample are shade.cuh's
+// hit_material and sample_light). K2 keeps them inline: factored out,
+// they took its sky variants from 96 to 105-106 registers and slowed them
+// (PERF.md section 6). An edit here must reach K2's copy.
 // ---------------------------------------------------------------------------
-// The material at hit `h`, its diffuse colour the texel at the hit's uv
-// where the material has a texture (shade/bsdf.py::gather_materials).
-template <bool kTex>
-__device__ __forceinline__ Mat hit_material(const float* mats,
-                                            const uint8_t* tex,
-                                            const int32_t* tex_offset,
-                                            const int32_t* tex_w,
-                                            const int32_t* tex_h,
-                                            const Hit& h) {
-  Mat m = gather_material(mats, h.mat);
-  if (kTex) {
-    const int ti =
-        (int)__ldg(mats + (size_t)(h.mat < 0 ? 0 : h.mat) * kMatAttrs + 17);
-    if (ti >= 0)
-      m.diffuse = texel(tex, tex_offset, tex_w, tex_h, ti, h.u, h.v);
-  }
-  return m;
-}
-
-// common.py::sample_light toward `pos` of the picked light `idx`: the
-// sky (kEnv, idx == n_lights) by a uniform-sphere direction, else an
-// area light by a uniform point of its triangle (one-sided). Writes the
-// radiance, the unit direction, the solid-angle pdf and the shadow ray's
-// tmax.
-template <bool kEnv>
-__device__ __forceinline__ void sample_light(const float* lights,
-                                             int n_lights, const Env& env,
-                                             float env_tmax, float eps,
-                                             int idx, V3 pos, V3 nor, float u1,
-                                             float u2, V3* rad, V3* nd,
-                                             float* light_pdf, float* st) {
-  if (kEnv && idx == n_lights) {  // the sky: a uniform-sphere direction
-    *nd = uniform_sphere(u1, u2);
-    *rad = env_le(env, *nd);
-    *light_pdf = kInvFourPi;
-    *st = env_tmax;
-  } else if (n_lights == 0) {
-    // the sky alone, of zero power (its texel [0, 0] black): the CDF
-    // never picks its slot, and common.sample_light gives no sample
-    *rad = mk(0.f, 0.f, 0.f);
-    *nd = nor;
-    *light_pdf = *st = 0.f;
-  } else {
-    const float* la =
-        lights + (size_t)(idx < n_lights ? idx : n_lights - 1) * kLightAttrs;
-    const V3 v0 = ldg3(la), v1 = ldg3(la + 3), v2 = ldg3(la + 6);
-    const float su1 = sqrtf(tmax(u1, 0.f));
-    const float bu = 1.f - su1;
-    const float bv = u2 * su1;
-    const float bw = 1.f - bu - bv;
-    const V3 lp = add(add(scl(v0, bu), scl(v1, bv)), scl(v2, bw));
-    const V3 lnor = normalize(add(add(scl(ldg3(la + 9), bu),
-                                      scl(ldg3(la + 12), bv)),
-                                  scl(ldg3(la + 15), bw)));
-    const V3 d = sub(lp, pos);
-    const float dist2 = dot(d, d);
-    *nd = normalize(d);
-    const float cos_l = fabsf(dot(lnor, *nd));
-    *light_pdf = dist2 / tmax(tri_area(v0, v1, v2) * cos_l, 1e-30f);
-    if (dot(lnor, d) >= 0.f) *light_pdf = 0.f;
-    *rad = *light_pdf != 0.f ? ldg3(la + 18) : mk(0.f, 0.f, 0.f);
-    *st = sqrtf(tmax(dist2 - eps, 0.f));
-  }
-}
-
 // The light sample's estimate where its shadow ray is unoccluded
 // (common.py::nee_sample): the power heuristic of the light pdf x the
 // pick's pdf against the BSDF's, times fr rad |cos| / that pdf.
@@ -215,23 +150,6 @@ __device__ __forceinline__ bool continue_path(const Mat& m, const Hit& h,
   return true;
 }
 
-
-// torch.searchsorted(cdf, u, right=True) - 1 clamped to [0, n_rows]: the
-// same binary search (the first i with cdf[i] > u) over n_rows + 2 entries
-__device__ __forceinline__ int pick_light(const float* cdf, int n_rows,
-                                          float u) {
-  int lo = 0, hi = n_rows + 2;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (!(__ldg(cdf + mid) > u)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  const int idx = lo - 1;
-  return idx < 0 ? 0 : (idx > n_rows ? n_rows : idx);
-}
 
 // the cell of one coordinate: clamp(((x - c) * inv + 0.5) * scale, 0, hi)
 // truncated to int64, as PyTorch computes it on CUDA (a division by a

@@ -47,9 +47,11 @@
 // - the medium records and the majorant table live in each walk block's
 //   shared memory.
 // Every draw reads Philox counter (lane, 0, tag, j), j counting the
-// lane's draws, like the plain version (shade/media.py::_track_torch), in
-// the same order, and a lane's result does not depend on the thread that
-// walks it, so the two agree bit for bit.
+// lane's draws (with a per-lane call site array, tag | (site << 4): one
+// walk then serves the lanes of several call sites), like the plain
+// version (shade/media.py::_track_torch), in the same order, and a lane's
+// result does not depend on the thread that walks it, so the two agree
+// bit for bit.
 #include "media.cuh"
 
 namespace {
@@ -141,6 +143,7 @@ struct TrackArgs {
   const float* tmax_;
   const int32_t* med_idx;
   const int64_t* lanes;
+  const int32_t* sites;   // NULL, or each lane's call site (tag bits 4-7)
   float* out;
   int32_t* cand;
   int32_t* queue;     // [n] lanes that walk, in no fixed order
@@ -208,6 +211,8 @@ __device__ __forceinline__ void walk_lane(const TrackArgs& a,
                      tmax(m.p1.z - m.p0.z, 1e-30f));
   const bool residual = !sample && m.ett == 2;
   const uint32_t lane = (uint32_t)a.lanes[i];
+  const uint32_t tag =
+      a.sites ? a.tag | ((uint32_t)a.sites[i] << 4) : a.tag;
   V3 pa = sv_coord(f, 0);
   V3 pb = sv_coord(f, 1);
   const bool local_ok = segments_local(pa, pb);
@@ -217,7 +222,7 @@ __device__ __forceinline__ void walk_lane(const TrackArgs& a,
   float t = 0.f;
   int s = 0, nc = 0;
   // draw 0 up front, draw j right after candidate j - 1
-  uint4 w = philox(lane, 0u, a.tag, 0u, a.seed, a.iteration);
+  uint4 w = philox(lane, 0u, tag, 0u, a.seed, a.iteration);
   int j = 1;
   float tau = -logf(1.f - bits_to_uniform(w.x));
   for (;;) {
@@ -263,7 +268,7 @@ __device__ __forceinline__ void walk_lane(const TrackArgs& a,
       if (tr == 0.f) break;
     }
     if (j >= a.iter_max) break;
-    w = philox(lane, 0u, a.tag, (uint32_t)j, a.seed, a.iteration);
+    w = philox(lane, 0u, tag, (uint32_t)j, a.seed, a.iteration);
     ++j;
     tau = -logf(1.f - bits_to_uniform(w.x));
   }
@@ -362,13 +367,15 @@ extern "C" int segment_majorants(const float* table, const float* sv_max,
 
 // Entry point 2: the tracking walk, mode 0 (first collision) or 1 (Tr):
 // the classify pass, then the persistent walk, both on `stream`.
-// `queue` is int32 [n] scratch; `counters` two int32 zeros.
+// `sites` NULL: every lane draws at `tag`. `queue` is int32 [n] scratch;
+// `counters` two int32, set to 0 here.
 extern "C" int track(const float* table, int n_media, const float* sv_max,
                      int n_sv, int s1, const float* oct4, int dz1, int dy1,
                      int dx1, const float* ro, const float* rd,
                      const float* tmax_, const int32_t* med_idx,
-                     const int64_t* lanes, uint32_t seed, uint32_t iteration,
-                     uint32_t tag, int mode, int iter_max, float* out,
+                     const int64_t* lanes, const int32_t* sites,
+                     uint32_t seed, uint32_t iteration, uint32_t tag,
+                     int mode, int iter_max, float* out,
                      int32_t* cand, int32_t* queue, int32_t* counters, int n,
                      void* stream) {
   TrackArgs a;
@@ -380,6 +387,7 @@ extern "C" int track(const float* table, int n_media, const float* sv_max,
   a.tmax_ = tmax_;
   a.med_idx = med_idx;
   a.lanes = lanes;
+  a.sites = sites;
   a.out = out;
   a.cand = cand;
   a.queue = queue;
@@ -397,9 +405,11 @@ extern "C" int track(const float* table, int n_media, const float* sv_max,
   a.iteration = iteration;
   a.tag = tag;
   const cudaStream_t st = (cudaStream_t)stream;
+  int rc = (int)cudaMemsetAsync(counters, 0, 2 * sizeof(int32_t), st);
+  if (rc != 0) return rc;
   classify_kernel<<<(n + kTrackThreads - 1) / kTrackThreads, kTrackThreads, 0,
                     st>>>(a);
-  int rc = (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const size_t smem = walk_smem_bytes(n_media, n_sv);
   const int blocks =

@@ -108,7 +108,9 @@ ROWS = (
         ("forest_1m",)),
     Row("blocked", "knot_port/blocked.json", "pt",
         ("blocked", "pt_shade", "rng")),
-    Row("vpt", "smoke_port/scene.json", "vpt", ("dense_hit", "track", "rng"),
+    Row("vpt", "smoke_port/scene.json", "vpt",
+        ("dense_hit", "track", "vpt_shade", "vpt_tr_round", "vpt_finish",
+         "rng"),
         ("integ_vpt",), sliced=True),
     Row("ao", "cornell_port/scene.json", "ao", ("dense_hit", "rng"),
         ("integ_ao",)),
@@ -268,10 +270,11 @@ def trace_summary(events: list, wall_s: float, spp: int, kernels: list,
             "port_kernels": mine, "gaps": out_gaps}
 
 
-def profile_spp(r, spp: int = 1) -> dict | None:
+def profile_spp(r, spp: int = 1, top: int = 5) -> dict | None:
     """`spp` spp of renderer `r` under torch.profiler (CPU and CUDA
-    activities) summarised by `trace_summary`; every rank of a sharded
-    render renders them, rank 0 alone profiles and returns the summary."""
+    activities) summarised by `trace_summary` (its `top` device
+    operations); every rank of a sharded render renders them, rank 0
+    alone profiles and returns the summary."""
     from torch.profiler import ProfilerActivity, profile
     _sync(r.device)
     if r.shard.rank != 0:
@@ -291,7 +294,7 @@ def profile_spp(r, spp: int = 1) -> dict | None:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return trace_summary(events, wall, spp, port_kernels())
+    return trace_summary(events, wall, spp, port_kernels(), top)
 
 
 def device_shares(prof: dict, spp_s: float) -> list:
@@ -509,7 +512,7 @@ def main(argv=None) -> int:
     if cuda:   # every kernel once, one nvcc each at once, before the rows
         from gpu_pathtracer_tpu_torch import kernels
         kernels.build(["dense", "pt_fused", "blocked", "bvh8_walk", "track",
-                       "rng", "pt_shade"])
+                       "rng", "pt_shade", "vpt_shade"])
     for name in names:
         row = ROW_BY_NAME[name]
         left = opts.budget - (time.time() - t_start)

@@ -25,18 +25,24 @@ SLICE_LANES = 65536        # lanes of a sliced reference
 def kernel_stats() -> dict:
     """{kernel name: its wrapper's KernelStats}: K1 "dense_hit", K2
     "pt_fused", K3 "blocked", K4 "bvh8_walk", "track" (K5's), "rng"
-    (the Philox draws, csrc/rng.cu) and "pt_shade" (the PT wavefront's
-    shading, csrc/pt_shade.cu)."""
+    (the Philox draws, csrc/rng.cu), "pt_shade" (the PT wavefront's
+    shading, csrc/pt_shade.cu), and "vpt_shade" (the VPT step's
+    shading), "vpt_tr_round" (its Tr walk's rounds) and "vpt_finish"
+    (the last credit and the NaN guard), all three in csrc/vpt_shade.cu."""
     from gpu_pathtracer_tpu_torch.core import rng_cuda
     from gpu_pathtracer_tpu_torch.geom import (
         blocked_cuda, dense_cuda, packet_cuda,
     )
-    from gpu_pathtracer_tpu_torch.integrators import pt_fused, pt_shade
+    from gpu_pathtracer_tpu_torch.integrators import (
+        pt_fused, pt_shade, vpt_shade,
+    )
     from gpu_pathtracer_tpu_torch.shade import media_cuda
     return {"dense_hit": dense_cuda.STATS, "pt_fused": pt_fused.STATS,
             "blocked": blocked_cuda.STATS, "bvh8_walk": packet_cuda.STATS,
             "track": media_cuda.STATS, "rng": rng_cuda.STATS,
-            "pt_shade": pt_shade.STATS}
+            "pt_shade": pt_shade.STATS, "vpt_shade": vpt_shade.STATS,
+            "vpt_tr_round": vpt_shade.TR_STATS,
+            "vpt_finish": vpt_shade.FINISH_STATS}
 
 
 def reset_counts(*stats) -> None:

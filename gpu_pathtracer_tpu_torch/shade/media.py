@@ -76,11 +76,15 @@ HETEROGENEOUS = int(MediumType.HETEROGENEOUS)
 
 class TrackKey(NamedTuple):
     """Where a tracking walk draws: Philox counters (lane, 0, tag, j)
-    under key (seed, iteration); `tag` from core/rng.py::track_tag."""
+    under key (seed, iteration); `tag` from core/rng.py::track_tag. With
+    `sites` (int32 [N]), lane i draws at tag | (sites[i] << 4): the call
+    site field of track_tag set per lane, so that one walk serves lanes
+    of several call sites, each where its own walk would draw."""
     seed: int
     iteration: int
     lanes: torch.Tensor   # [N] lane ids (pixel indices)
     tag: int
+    sites: torch.Tensor | None = None   # [N] int32 call sites, or None
 
 
 def gather_medium(scene, med_idx):
@@ -209,11 +213,13 @@ def _track_torch(scene, mode, med_idx, ro, rd, tmax, key, iter_max):
     sigma, ett = med["sigma"], med["ett"]
     span = torch.clamp_min(med["p1"] - med["p0"], 1e-30)
     lanes = key.lanes.to(torch.int64) & 0xFFFFFFFF
+    tags = key.tag if key.sites is None else \
+        key.tag | (key.sites.to(torch.int64) << 4)
 
     def draw(i, j_i):
         """(tau, acceptance uniform, roulette uniform) of draw j_i."""
-        w0, w1, w2 = track_words(key.seed, key.iteration, lanes[i], key.tag,
-                                 j_i)
+        w0, w1, w2 = track_words(key.seed, key.iteration, lanes[i],
+                                 tags if key.sites is None else tags[i], j_i)
         return (-torch.log(1.0 - bits_to_uniform(w0)), bits_to_uniform(w1),
                 bits_to_uniform(w2))
 
@@ -295,6 +301,20 @@ def medium_sample(scene, static, med_idx, ro, rd, tmax, u0, key: TrackKey,
     heterogeneous walk draws at `key`. Returns (weight [N, 3], t [N],
     sampled [N]); lanes outside a medium or not active get weight 1,
     t = tmax, sampled False."""
+    found_t = None
+    if static.has_hetero:
+        med = gather_medium(scene, med_idx)
+        is_het = active & (med_idx >= 0) & (med["type"] == HETEROGENEOUS)
+        found_t, _ = track(scene, static, MODE_SAMPLE,
+                           torch.where(is_het, med_idx, -1), ro, rd, tmax,
+                           key, plain)
+    return sample_weight(scene, static, med_idx, tmax, u0, found_t, active)
+
+
+def sample_weight(scene, static, med_idx, tmax, u0, found_t, active):
+    """`medium_sample` after its walk: found_t [N] is the heterogeneous
+    walk's first collision (+inf if none; None without heterogeneous
+    media). Returns (weight [N, 3], t [N], sampled [N])."""
     in_medium = active & (med_idx >= 0)
     med = gather_medium(scene, med_idx)
     sigma = med["sigma"]
@@ -313,9 +333,6 @@ def medium_sample(scene, static, med_idx, ro, rd, tmax, u0, key: TrackKey,
 
     # heterogeneous delta tracking (medium.h:133-157)
     is_het = in_medium & (med["type"] == HETEROGENEOUS)
-    found_t, _ = track(scene, static, MODE_SAMPLE,
-                       torch.where(is_het, med_idx, -1), ro, rd, tmax, key,
-                       plain)
     hit_d = is_het & torch.isfinite(found_t)
     w_d = torch.where(hit_d[:, None], med["sigma_s"]
                       / torch.clamp_min(med["sigma_t"], 1e-30), 1.0)

@@ -36,8 +36,8 @@ def _lib():
                                           _I, _P]
         lib.track.restype = ctypes.c_int
         lib.track.argtypes = [_P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P,
-                              _P, _P, _U, _U, _U, _I, _I, _P, _P, _P, _P, _I,
-                              _P]
+                              _P, _P, _P, _U, _U, _U, _I, _I, _P, _P, _P, _P,
+                              _I, _P]
         lib.track_occupancy.restype = ctypes.c_int
         lib.track_occupancy.argtypes = [_I, _I, _P]
     return lib
@@ -94,9 +94,10 @@ def segment_majorants_cuda(scene, ro, rd, tmax_h, med_idx):
 def track_cuda(scene, mode: int, med_idx, ro, rd, tmax, key, iter_max: int):
     """The tracking walk (shade/media.py::track) on the card -> (out [N]
     f32, candidates [N] i32). med_idx: int32 [N]; tmax: float32 [N];
-    key.lanes: int64 [N], as the VPT passes them. Two launches on the
-    current stream, no host sync: the classify pass, then the persistent
-    walk over the queue of lanes that walk."""
+    key.lanes: int64 [N], as the VPT passes them; key.sites: None or
+    int32 [N]. Two launches on the current stream, no host sync: the
+    classify pass, then the persistent walk over the queue of lanes that
+    walk."""
     device = ro.device
     n = ro.shape[0]
     table, sv_max, s1, oct4 = _tables(scene, device)
@@ -106,6 +107,8 @@ def track_cuda(scene, mode: int, med_idx, ro, rd, tmax, key, iter_max: int):
     check_cuda_f32("tmax", tmax, (n,), device)
     _check_int("med_idx", med_idx, n, device)
     _check_int("lanes", key.lanes, n, device, torch.int64)
+    if key.sites is not None:
+        _check_int("sites", key.sites, n, device)
     if mode not in (0, 1):
         raise ValueError(f"mode must be 0 (sample) or 1 (tr), got {mode}")
     out = torch.empty(n, dtype=torch.float32, device=device)
@@ -113,13 +116,13 @@ def track_cuda(scene, mode: int, med_idx, ro, rd, tmax, key, iter_max: int):
     if n == 0:
         return out, cand
     queue = torch.empty(n, dtype=torch.int32, device=device)
-    counters = torch.zeros(2, dtype=torch.int32, device=device)
+    counters = torch.empty(2, dtype=torch.int32, device=device)
     _, dz1, dy1, dx1, _ = oct4.shape
     rc = _lib().track(
         table.data_ptr(), table.shape[0], sv_max.data_ptr(), sv_max.numel(),
         s1, oct4.data_ptr(), dz1, dy1, dx1, ro.data_ptr(), rd.data_ptr(),
         tmax.data_ptr(), med_idx.data_ptr(), key.lanes.data_ptr(),
-        key.seed & _MASK32, key.iteration & _MASK32, key.tag & _MASK32, mode,
+        None if key.sites is None else key.sites.data_ptr(), key.seed & _MASK32, key.iteration & _MASK32, key.tag & _MASK32, mode,
         int(iter_max), out.data_ptr(), cand.data_ptr(), queue.data_ptr(),
         counters.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
     check_launch(rc, "track")

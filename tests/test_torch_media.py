@@ -446,6 +446,38 @@ def test_lockstep_walk_equals_scalar_walk(scenes, mode, ett, cap):
         assert torch.isfinite(out).any()
 
 
+@pytest.mark.parametrize("mode, ett", [(tm.MODE_SAMPLE, 1), (tm.MODE_TR, 0),
+                                       (tm.MODE_TR, 1), (tm.MODE_TR, 2)])
+def test_per_lane_sites_merge_single_tag_walks(scenes, mode, ett):
+    """A walk with a per-lane call site (TrackKey.sites: the VPT step's
+    one walk for its scatter, surface and emitter lanes) equals, lane for
+    lane and bit for bit, the walks of each call site alone merged by
+    lane: lane i draws at tag | (sites[i] << 4)."""
+    td, tst, _, _ = scenes
+    td = _with_ett(td, ett, False)
+    rng = np.random.default_rng(70 + ett)
+    n = 96
+    ro, rd, tmax = _box_rays(td, rng, n)
+    idx = np.full(n, SMOKE, np.int32)
+    idx[:8] = -1
+    ro, rd, tmax, idx = (torch.as_tensor(x) for x in (ro, rd, tmax, idx))
+    lanes = torch.arange(500, 500 + n)
+    sites = torch.as_tensor(rng.choice(
+        [trng.TRACK_SCATTER, trng.TRACK_SURFACE, trng.TRACK_EMITTER], n)
+        .astype(np.int32))
+    base = trng.track_tag(3, 0, 2)
+    out, cand = tm.track(td, tst, mode, idx, ro, rd, tmax,
+                         tm.TrackKey(7, 4, lanes, base, sites))
+    for site in (trng.TRACK_SCATTER, trng.TRACK_SURFACE, trng.TRACK_EMITTER):
+        o1, c1 = tm.track(td, tst, mode, idx, ro, rd, tmax,
+                          tm.TrackKey(7, 4, lanes, trng.track_tag(3, site, 2)))
+        sel = sites == site
+        assert torch.equal(out[sel].view(torch.int32),
+                           o1[sel].view(torch.int32)), site
+        assert torch.equal(cand[sel], c1[sel]), site
+    assert int(cand.sum()) > 0 and int(cand[:8].sum()) == 0
+
+
 def _constant_smoke(td, ett, dens, maj=0.25, imd=8.0):
     """smoke_port's media at a constant density `dens` under a constant
     supervoxel majorant `maj` (both exact in bf16), global majorant

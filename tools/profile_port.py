@@ -1,6 +1,6 @@
 """Where the time goes in the port's main path, on one NVIDIA GPU.
 
-    python3 tools/profile_port.py [--spp 4]
+    python3 tools/profile_port.py [--spp 4] [--top 5]
         [--integrator ao|pt|vpt|lt|bdpt|ir|sppm|mlt] [scene.json ...]
 
 Renders each scene (default: scenes/cornell_port/scene.json, which takes
@@ -16,7 +16,9 @@ spp and profiles --spp more, with the bench's own measurement
 (run/bench.py: `windows`, `profile_spp`, `device_shares`), and prints
 per scene: wall ms/spp untraced and traced, device ms/spp (the union
 of the device's intervals), the device's busy and idle shares of an
-untraced spp, the device operations that take the most time, every
+untraced spp, the --top device operations that take the most time,
+the launches a spp and time of PyTorch's masked elementwise kernels and
+of its row gathers (all of them, not only the top ones), every
 kernel of the port's own CUDA sources (the __global__ functions of
 gpu_pathtracer_tpu_torch/csrc/*.cu) with its share, and the longest
 idle gaps. A "spp" of SPPM is one iteration (eye pass, grid, photon
@@ -36,6 +38,19 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# op families by name: PyTorch's row gathers (`index`:
+# `vectorized_gather_kernel`, `index_elementwise_kernel`) and its masked
+# elementwise work (where, mul, comparisons: the other
+# `elementwise_kernel`s)
+def _gather(name: str) -> bool:
+    return "gather_kernel" in name or "index_elementwise_kernel" in name
+
+
+FAMILIES = (("masked elementwise",
+             lambda n: "elementwise_kernel" in n and not _gather(n)),
+            ("gathers", _gather))
+
+
 def _op(e) -> str:
     return (f"    {e['ms_per_spp']:9.3f} ms/spp  {100 * e['share']:5.1f}%  "
             f"x{e['per_spp']:g}/spp  {e['name'][:90]}")
@@ -44,6 +59,8 @@ def _op(e) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--top", type=int, default=5,
+                    help="device operations to list, by time")
     ap.add_argument("--integrator", default=None,
                     choices=["ao", "pt", "vpt", "lt", "bdpt", "ir", "sppm",
                              "mlt"],
@@ -74,7 +91,7 @@ def main() -> None:
                      else IntegratorType[args.integrator.upper()])
         r.render_iteration()
         spp_s = bench.window_summary(bench.windows(r, 1, args.spp, 0.0))
-        prof = bench.profile_spp(r, args.spp)
+        prof = bench.profile_spp(r, args.spp, top=1 << 30)
         flags = bench.device_shares(prof, spp_s["value"])
         integ = r.static.integrator
         fused = integ in (IntegratorType.PT, IntegratorType.MLT) \
@@ -89,8 +106,13 @@ def main() -> None:
               f"busy {prof['busy_share']:.3f}, idle "
               f"{prof['idle_share']:.3f} (traced "
               f"{prof['traced_idle_share']:.3f}) {' '.join(flags)}".rstrip())
-        for e in prof["top_ops"]:
+        for e in prof["top_ops"][:args.top]:
             print(_op(e))
+        for family, member in FAMILIES:
+            ops = [e for e in prof["top_ops"] if member(e["name"])]
+            print(f"    {family}: {sum(e['per_spp'] for e in ops):g} launches "
+                  f"a spp, {sum(e['ms_per_spp'] for e in ops):.3f} ms/spp, "
+                  f"{100 * sum(e['share'] for e in ops):.1f}%")
         for e in prof["port_kernels"]:
             print("  port kernel" + _op(e)[3:])
         for g in prof["gaps"]:
