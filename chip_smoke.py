@@ -6,11 +6,12 @@
     python3 chip_smoke.py --phases R    # build, the Philox draw kernel
     python3 chip_smoke.py --phases S    # build, the PT wavefront's shading
     python3 chip_smoke.py --phases V    # build, the VPT wavefront's step
+    python3 chip_smoke.py --phases T    # build, BDPT's steps and rounds
     python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
     python3 chip_smoke.py --baseline DIR  # also time DIR's K1 and K3
 
-Builds the port's eight CUDA kernel sources from csrc/, holds each against its
+Builds the port's nine CUDA kernel sources from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
 path-traced Cornell box, environment-lit and textured scenes and
 large-mesh scenes, its volumetric path tracer on the smoke scene, and
@@ -22,8 +23,10 @@ Phases:
      block-culled hit kernel (K3), the BVH8 walk (K4) and the media
      tracking kernel (track.cu, K5's counterpart), the Philox draw
      kernel (rng.cu), the PT wavefront's shading kernel
-     (pt_shade.cu) and the VPT wavefront's step kernels (vpt_shade.cu:
-     vpt_shade, vpt_tr_round, vpt_finish), one nvcc each, all at once,
+     (pt_shade.cu), the VPT wavefront's step kernels (vpt_shade.cu:
+     vpt_shade, vpt_tr_round, vpt_finish) and BDPT's kernels (bdpt.cu:
+     bdpt_start, bdpt_step, bdpt_connect, bdpt_finish), one nvcc each,
+     all at once,
      and the native BVH builder (g++)
   B  K1 vs plain: 1,048,576 rays, closest and any hit, its triangles-only
      and all-kinds variants on cornell_port's table, the all-kinds one on
@@ -73,9 +76,14 @@ Phases:
      AO, light tracing and BDPT on cornell_port, the path tracer on
      cornell_port/bssrdf.json (dipole BSSRDFs: the wavefront's
      subsurface hook), light tracing and BDPT on smoke_port (the Tr walks
-     of track.cu); a splat film and the per-lane radiance are held to
-     the radiance limits apart (the film on the pixels either run
-     touched); instant radiosity on cornell_port, 65,536 lanes, its VPL
+     of track.cu; BDPT over bdpt.cu's kernels), BDPT on knot_port (K4,
+     its any-hit serving the queue) and on cornell_port at depth 17 (323
+     queue slots a lane), with the run's peak device memory; a splat
+     film and the per-lane radiance are held to the radiance limits
+     apart (the film on the pixels either run touched); BDPT at depth 17
+     over the kernels on the 1M-lane tile, its lanes in queue-sized
+     chunks, its time and peak device memory; instant radiosity on
+     cornell_port, 65,536 lanes, its VPL
      store of 32 light paths held field by field, and K1's any hit at
      the JAX package's gather shape (32 slots x 1,048,576 lanes in one
      call) against the same rays in calls of 1,048,576; SPPM and MLT,
@@ -121,6 +129,24 @@ Phases:
      compared as int32 bits) and the ray counts; each kernel, its plain
      version and its byte bound in turns on smoke_port's inputs (step 1,
      its round 1, the finish after the last step)
+  T  (after V) bdpt.cu vs its plain versions (integrators/bdpt_shade.py::
+     start_torch, step_torch, connect_torch, finish_torch) on the same
+     inputs: one
+     BDPT sample over the kernels at 1024^2 depth 5 (BDPT_CASES:
+     cornell_port, the bench row's shape; smoke_port, with smoke, fog,
+     interfaces, sample walks and Tr walks; materials.json's six BSDFs,
+     lines and spheres; textured.json), each kernel call held against its
+     plain version on a copy of its input (the table slots at and above
+     a row's count, which the kernels leave unwritten, set to the plain
+     tables' empty values): bdpt_start's and bdpt_step's vertex tables
+     below the count and rows' state, bdpt_connect's t0 radiance and queue
+     (flags and tmax on every slot, shadow ray, credit, medium and pixel
+     on the live ones) and bdpt_finish's radiance bit for bit, the rays
+     equal, the film within the radiance limits; on smoke_port the
+     queue's one Tr walk against a walk per round, bit for bit; then
+     each kernel, its plain version and its byte bound in turns on
+     cornell_port's inputs (the start, step 1, the connection rounds,
+     the finish)
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after, then timed from where its
      render stands by the bench's windows (run/bench.py: D_WINDOWS
@@ -153,7 +179,8 @@ Phases:
      and torch.cuda.max_memory_allocated()): AO on cornell_port (K1) and
      on knot_port/scene.json (K4, its probe an any-hit query ending at
      maxDist) with 8 spp each, the path tracer on cornell_port/bssrdf.json
-     (K1) with 8, light tracing and BDPT on cornell_port (K1) with 2,
+     (K1) with 8, light tracing and BDPT on cornell_port (K1; BDPT also
+     bdpt.cu's three kernels, with their launches a spp) with 2,
      and on cornell_port IR (K1, 8 iterations), SPPM (K1, 4 iterations
      at the scene's 100,000 photons) and MLT (K2 reading the chains'
      [44, 1M] primary-sample matrix, 8 steps; the bootstrap is made
@@ -246,6 +273,13 @@ BSSRDF = "scenes/cornell_port/bssrdf.json"   # dipole BSSRDF boxes: wavefront
 PROGRAMS_C = (("ao", SCENES[0]), ("lt", SCENES[0]), ("bdpt", SCENES[0]),
               ("pt", BSSRDF), ("lt", SMOKE), ("bdpt", SMOKE))
 MLT_SLIT = "scenes/cornell_port/mlt_slit.json"   # a room lit through a slit
+# the deepest scenes' maxDepth (scenes/cornell_dof, scenes/fur, whose
+# meshes lie outside the repository): cornell_port runs BDPT at it
+DEEP = 17
+# BDPT beyond the bench row's shape in phase C, over the kernels against
+# all-plain: (scene, depth, its hit kernel): through K4, whose any-hit
+# then serves the queue too, and at depth 17 (323 queue slots a lane)
+BDPT_C = ((KNOT["scene"], 5, "bvh8_walk"), (SCENES[0], DEEP, "dense_hit"))
 # the programs that couple all pixels, as whole images in phase C:
 # (integrator, scene)
 COUPLED_C = (("sppm", SCENES[0]), ("mlt", SCENES[0]), ("mlt", MLT_SLIT))
@@ -263,6 +297,8 @@ PROGRAMS_D = (("ao", SCENES[0], 8, "dense_hit"),
 # the tracking walk, the step's kernels, the camera's draws
 VPT_KERNELS = ("dense_hit", "track", "vpt_shade", "vpt_tr_round",
                "vpt_finish", "rng")
+# and BDPT's per-lane kernels around the hit kernel (and track in media)
+BDPT_KERNELS = ("bdpt_start", "bdpt_step", "bdpt_connect", "bdpt_finish")
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "dense": ("gpu_pathtracer_tpu_torch/csrc/dense.cu",
               "gpu_pathtracer_tpu/geom/dense_tpu.py:29"),
@@ -289,6 +325,21 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "vpt_finish": ("gpu_pathtracer_tpu_torch/csrc/vpt_shade.cu",
                    "no Pallas kernel; the JAX package's jitted VPT render's "
                    "NaN guard, `gpu_pathtracer_tpu/integrators/vpt.py:311`"),
+    "bdpt_start": ("gpu_pathtracer_tpu_torch/csrc/bdpt.cu",
+                   "no Pallas kernel; the JAX package's jitted BDPT "
+                   "subpaths' vertex 0 and first ray, `gpu_pathtracer_tpu/"
+                   "integrators/bdpt.py:312` and `:344`"),
+    "bdpt_step": ("gpu_pathtracer_tpu_torch/csrc/bdpt.cu",
+                  "no Pallas kernel; the JAX package's jitted BDPT subpath "
+                  "step, `gpu_pathtracer_tpu/integrators/bdpt.py:182`"),
+    "bdpt_connect": ("gpu_pathtracer_tpu_torch/csrc/bdpt.cu",
+                     "no Pallas kernel; the JAX package's jitted BDPT "
+                     "connection rounds, `gpu_pathtracer_tpu/integrators/"
+                     "bdpt.py:547` and `:832`"),
+    "bdpt_finish": ("gpu_pathtracer_tpu_torch/csrc/bdpt.cu",
+                    "no Pallas kernel; the JAX package's jitted BDPT "
+                    "crediting and splatting, `gpu_pathtracer_tpu/"
+                    "integrators/bdpt.py:465`"),
 }
 
 
@@ -342,10 +393,16 @@ def kernel_name(mangled: str) -> str:
     return min(names, key=len) if names else mangled[:24]
 
 
+# bdpt.cu's template flags, in order
+BDPT_FLAGS = {"bdpt_step_kernel": ("tex", "all kinds", "heterogeneous"),
+              "bdpt_connect_kernel": ("tex",)}
+
+
 def ptxas_summary(report: str) -> str:
     """nvcc's -Xptxas -v report, one "registers, stack frame, spills"
     entry per kernel entry point, template variants named by their flags
-    (K2: sky, textures, all prim kinds; K1, K3, K4: all prim kinds)."""
+    (K2: sky, textures, all prim kinds; K1, K3, K4: all prim kinds;
+    BDPT_FLAGS for bdpt.cu's)."""
     import re
     out, label, frame = [], "?", ""
     for ln in report.splitlines():
@@ -353,7 +410,11 @@ def ptxas_summary(report: str) -> str:
         if m:
             label = kernel_name(m.group(1))
             flags = re.findall(r"Lb(\d)E", m.group(1))
-            if len(flags) == 4:
+            if label in BDPT_FLAGS:
+                label += " (" + ", ".join(
+                    f"{f} {x}" for f, x in zip(BDPT_FLAGS[label], flags)) \
+                    + ")" if flags else ""
+            elif len(flags) == 4:
                 label += (f" (env {flags[0]}, tex {flags[1]}, all kinds "
                           f"{flags[2]}, heterogeneous {flags[3]})")
             elif len(flags) == 3:
@@ -1443,6 +1504,9 @@ def phase_c(dev, rng, records):
     phase_c_media(dev, records, SMOKE_SKY)
     for integ, path in PROGRAMS_C:
         phase_c_program(dev, records, integ, path)
+    for path, depth, kname in BDPT_C:
+        phase_c_program(dev, records, "bdpt", path, depth=depth, kname=kname)
+    phase_c_bdpt_tile(dev, records)
     phase_c_ir(dev, records)
     for integ, path in COUPLED_C:
         phase_c_coupled(dev, records, integ, path)
@@ -2204,6 +2268,443 @@ def phase_v(dev, card, records):
     print(f"[V] done in {time.time() - t0:.1f} s")
 
 
+BDPT_CASES = (
+    ("cornell_port (the bench row's shape)", SCENES[0]),
+    ("smoke_port (smoke, fog, interfaces, sample and Tr walks)", SMOKE),
+    ("materials.json (six BSDFs, lines, spheres)", SCENES[1]),
+    ("textured.json (textures)", K2_VARIANTS["textured"]))
+WALKER_FIELDS = ("ro", "rd", "beta", "forward", "med", "alive", "tmax",
+                 "med_sample")
+
+
+def bdpt_scene(path, dev):
+    """The scene at repo path `path` at 1024^2, set to BDPT at depth 5."""
+    import dataclasses
+    from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+    sc, st = scene_1024(path, dev)
+    return sc, dataclasses.replace(st, integrator=IntegratorType.BDPT,
+                                   max_depth=5)
+
+
+def record_differ(k, p, fields, mask=None) -> dict:
+    """{field: rows not bit-equal} of records k and p (Vertices, Walker or
+    Queue), over the rows of `mask` where given (a bool tensor leading
+    the field's shape)."""
+    out = {}
+    for f in fields:
+        a, b = getattr(k, f), getattr(p, f)
+        if a is None or b is None:
+            check(a is None and b is None, f"{f} written by one side only")
+            continue
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{f}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        ne = bits(a) != bits(b)
+        if mask is not None:
+            ne = ne[mask]
+        out[f] = int(ne.reshape(ne.shape[0], -1).any(1).sum()) \
+            if ne.numel() else 0
+    return out
+
+
+def tables_differ(k, p) -> dict:
+    """{field: rows not bit-equal} of two Vertices: the counts, and every
+    field on the slots below the count (bdpt.cu leaves the slots at and
+    above it unwritten, and no result reads them)."""
+    out = record_differ(k, p, ("count",))
+    below = torch.arange(p.pos.shape[1], device=p.count.device)[None, :] \
+        < p.count[:, None]
+    fields = [f for f in type(p).__annotations__ if f != "count"]
+    out.update(record_differ(k, p, fields, below))
+    return out
+
+
+def emptied(v):
+    """A copy of Vertices v whose slots at and above each row's count hold
+    empty_vertices' values, as the plain versions make their tables
+    (bdpt.cu leaves them unwritten: any bits)."""
+    import dataclasses
+    above = torch.arange(v.pos.shape[1], device=v.count.device)[None, :] \
+        >= v.count[:, None]
+    empty = {"mat_idx": -1, "light_idx": -1, "medium": -1}
+    out = {}
+    for f in type(v).__annotations__:
+        x = getattr(v, f).clone()
+        if f != "count":
+            x[above] = empty.get(f, 0)
+        out[f] = x
+    return dataclasses.replace(v, **out)
+
+
+def queue_differ(k, p) -> dict:
+    """{field: slots not bit-equal} of two queues: the flags and tmax on
+    every slot, the shadow ray, credit, medium and pixel on the live
+    slots (an empty slot's are not written by the kernel)."""
+    out = record_differ(k, p, ("live", "tmax"))
+    check(bool((k.live == p.live).all()), "the live slots differ")
+    out.update(record_differ(k, p, ("o", "d", "L", "med"), p.live))
+    out.update(record_differ(k, p, ("pix",), p.live[:p.pix.shape[0]]))
+    return out
+
+
+def copy_record(x):
+    """x (Vertices, Walker or Queue) with its tensors cloned."""
+    import dataclasses
+    return dataclasses.replace(x, **{
+        f.name: (getattr(x, f.name).clone()
+                 if torch.is_tensor(getattr(x, f.name))
+                 else getattr(x, f.name)) for f in dataclasses.fields(x)})
+
+
+def restorer(v, w):
+    """What a step changes besides the vertex it writes at `count`: the
+    rows' state and the counts. Putting copies of them back before a run
+    repeats the same step (its vertex slots are written again with the
+    same values)."""
+    saved = {f: getattr(w, f).clone() for f in WALKER_FIELDS
+             if getattr(w, f) is not None}
+    count = v.count.clone()
+
+    def restore():
+        for f, x in saved.items():
+            setattr(w, f, x.clone())
+        v.count = count.clone()
+    return restore
+
+
+def timed_restored(fns: dict, reps: int = 20) -> dict:
+    """Each (fn, restore) of `fns` timed with CUDA events around fn alone,
+    restore() before every run, in turns a, b, ..., b, a -> {name: [ms
+    per run, one value per turn]}."""
+    out = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        fn, restore = fns[k]
+        restore()
+        fn()   # warm-up
+        ts = []
+        for _ in range(reps):
+            restore()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            ts.append((s, e))
+        torch.cuda.synchronize()
+        out[k].append(sum(s.elapsed_time(e) for s, e in ts) / reps)
+    return out
+
+
+def bdpt_start_bound(v, w, lanes, scene) -> dict:
+    """bdpt_start's least time on one call, bytes over 3.35 TB/s: each of
+    the 2N rows writes its vertex 0 (every field, 77 B), its count and
+    its state once and reads its lane id, the N camera rows their pixel
+    (x, y), the light and CDF tables once. The slots above vertex 0 are
+    not written (the steps write them)."""
+    n2 = v.count.numel()
+    vertex0 = sum(getattr(v, f)[:, 0].element_size()
+                  * getattr(v, f)[0, 0].numel()
+                  for f in type(v).__annotations__ if f != "count")
+    n_bytes = n2 * (vertex0 + v.count.element_size() + lanes.element_size())
+    n_bytes += _tensor_bytes(w) + lanes.numel() * 2 * 4
+    n_bytes += _tensor_bytes(scene.light_attrs, scene.light_cdf)
+    b = bound(n_bytes, 0)
+    b["bytes"] = n_bytes
+    return b
+
+
+def bdpt_step_bound(static, before, after, prim) -> dict:
+    """bdpt_step's least time on one call, bytes over 3.35 TB/s (a row's
+    float work is a BSDF sample, some hundreds of operations, well below):
+    every row's alive flag; a row alive at the start reads its hit (t,
+    prim; found_t in a heterogeneous medium), its state, its lane id, its
+    previous vertex's position and normal and its prim row, and writes its
+    state; a row that makes a vertex writes it (73 B) and the previous
+    vertex's reverse pdf."""
+    v0, w0 = before
+    v1, _ = after
+    alive = w0.alive
+    a = int(alive.sum())
+    made = int((v1.count > v0.count).sum())
+    state = 12 * 3 + 4 * 4   # ro rd beta, forward med count tmax
+    n_bytes = alive.numel() + a * (8 + state + 1 + 8 + 24 + state + 1)
+    if static.has_hetero:
+        n_bytes += a * 12
+    n_bytes += made * (73 + 4)
+    n_bytes += int(torch.unique(prim[alive & (prim >= 0)]).numel()) * 160
+    b = bound(n_bytes, 0)
+    b["bytes"] = n_bytes
+    return b
+
+
+def bdpt_connect_bound(scene, v, q, n) -> dict:
+    """bdpt_connect's least time on one call, bytes over 3.35 TB/s: per
+    lane its id, both counts, both subpaths' fwd, rev and delta (the MIS
+    tables, 9 B a column), their vertices below the count (69 B each) and
+    the t0 radiance; per slot its flag and tmax; per live slot its shadow
+    ray and credit (and medium, and s1's pixel). Its float work, a few
+    hundred operations a valid item (two to four BSDF or phase
+    evaluations, four ConvertPdfs, the MIS weight), stays below: the
+    valid items are printed beside it."""
+    k = v.pos.shape[1]
+    live = q.live
+    n_bytes = n * (8 + 8 + 2 * 9 * k + 12) + int(v.count.sum()) * 69
+    n_bytes += live.numel() * 5 + int(live.sum()) * (36 + (4 if q.med is not
+                                                           None else 0))
+    n_bytes += int(live[:q.pix.shape[0]].sum()) * 4
+    n_bytes += _tensor_bytes(scene.mat_attrs, scene.light_attrs,
+                             scene.light_cdf)
+    cc, lc = v.count[:n].long(), v.count[n:].long()
+    below_c = torch.clamp_min(cc - 1, 0)   # s1, t0 and t1's columns
+    below_l = torch.clamp_min(lc - 1, 0)
+    items = int(below_l.sum()) + int(below_c.sum()) \
+        + int((below_c * (lc >= 1)).sum()) \
+        + sum(int(((cc >= s) * below_l).sum()) for s in range(2, k + 1))
+    b = bound(n_bytes, 0)
+    b["bytes"], b["items"] = n_bytes, items
+    return b
+
+
+def bdpt_finish_bound(q, shadow, n_pix) -> dict:
+    """bdpt_finish's least time on one call, bytes over 3.35 TB/s: every
+    slot's flag, each live slot's credit and verdict (and s1's pixel),
+    the lane's radiance in and out, the film written once."""
+    live = q.live
+    n = live.shape[1]
+    nl = int(live.sum())
+    n_bytes = live.numel() + nl * (12 + shadow.element_size()
+                                   * (1 if shadow.dim() == 1 else 3))
+    n_bytes += int(live[:q.pix.shape[0]].sum()) * 4 + n * 24 + n_pix * 12
+    b = bound(n_bytes, 0)
+    b["bytes"] = n_bytes
+    return b
+
+
+def per_round_walks(scene, static, lanes, q, tr) -> int:
+    """The queue's Tr in one walk (tr) against a walk per round, as the
+    rounds walked before: the slots of round p drawing at track_tag(p,
+    site). Returns the slots whose Tr is not bit-equal."""
+    from gpu_pathtracer_tpu_torch.core.rng import (
+        TRACK_CAMERA, TRACK_CONNECT, track_tag)
+    from gpu_pathtracer_tpu_torch.integrators import bdpt_shade as bs
+    from gpu_pathtracer_tpu_torch.integrators.common import (
+        shadow_transmittance)
+    from gpu_pathtracer_tpu_torch.shade.media import TrackKey
+    n, g = lanes.shape[0], q.pix.shape[0]
+    bad = 0
+    for p, site, j0 in [(1, TRACK_CAMERA, 0), (3, TRACK_CONNECT, g)] + [
+            (4 + s - 2, TRACK_CONNECT, bs.slot0("gen", g, s))
+            for s in range(2, g + 2)]:
+        sel = q.live[j0:j0 + g].reshape(-1).nonzero()[:, 0]
+        flat = j0 * n + sel
+        items = lanes.long()[sel % n] * bs.ITEM_LANES + sel // n
+        tr_p, _ = shadow_transmittance(
+            scene, static, q.med.reshape(-1)[flat], q.o.reshape(-1, 3)[flat],
+            q.d.reshape(-1, 3)[flat], q.tmax.reshape(-1)[flat],
+            TrackKey(SEED, 1, items, track_tag(p, site)),
+            torch.ones(sel.shape[0], dtype=torch.bool, device=tr.device))
+        bad += int((bits(tr[flat]) != bits(tr_p)).any(1).sum())
+    return bad
+
+
+def phase_t(dev, card, records):
+    """csrc/bdpt.cu against its plain versions on the same inputs, for each
+    BDPT_CASES case at 1M lanes: one BDPT sample over the kernels, each
+    bdpt_step call against step_torch on a copy of its input (`emptied`;
+    the tables below the count and the rows' state after it, bit for
+    bit), bdpt_connect against
+    connect_torch (the t0 radiance and the queue bit for bit, the queued
+    rays equal), bdpt_finish against finish_torch (the radiance bit for
+    bit, the film within the radiance limits); on smoke_port the queue's
+    one Tr walk against a walk per round (bit for bit); then each kernel,
+    its plain version and its bound in turns on cornell_port's inputs
+    (step 1, the connections, the finish)."""
+    import inspect
+    from gpu_pathtracer_tpu_torch import kernels
+    from gpu_pathtracer_tpu_torch.integrators import bdpt, bdpt_shade as bs
+    from gpu_pathtracer_tpu_torch.run.reference import reset_counts
+    print(f"[T] bdpt.cu: {ptxas_summary(kernels.BUILDS['bdpt'].ptxas)}")
+    t0 = time.time()
+    err = {k: 0.0 for k in BDPT_KERNELS}
+    timed = {}
+    orig = {k: getattr(bs, k) for k in ("start", "step", "connect",
+                                        "finish")}
+    sigs = {k: inspect.signature(f) for k, f in orig.items()}
+    for label, path in BDPT_CASES:
+        sc, st = bdpt_scene(path, dev)
+        ids = torch.arange(N_RAYS, device=dev)
+        px, py = ids % st.width, ids // st.width
+        lanes = (py.long() * st.width + px.long())
+        n_pix = st.width * st.height
+        seen = {"steps": 0, "differ": {}}
+        keep = path == SCENES[0]
+
+        def bound_args(name, args, kwargs):
+            a = sigs[name].bind(*args, **kwargs)
+            a.apply_defaults()
+            return dict(a.arguments)
+
+        def start_spy(*args, **kwargs):
+            a = bound_args("start", args, kwargs)
+            v, w = orig["start"](*args, **kwargs)
+            vp, wp = bs.start_torch(**{**a, "plain": True})
+            d = {**tables_differ(v, vp),
+                 **{f"w.{f}": x for f, x in record_differ(
+                     w, wp, WALKER_FIELDS).items()}}
+            for f, x in d.items():
+                if x:
+                    seen["differ"][f"start {f}"] = x
+            err["bdpt_start"] = max(err["bdpt_start"], max(
+                (getattr(w, f).float() - getattr(wp, f).float()).abs()
+                .max().item() for f in ("ro", "rd", "beta", "forward")))
+            if keep:
+                timed["start"] = a
+            return v, w
+
+        def step_spy(*args, **kwargs):
+            a = bound_args("step", args, kwargs)
+            v, w = a["v"], a["w"]
+            vp, wp = emptied(v), copy_record(w)
+            rays_p = a["rays"].clone()
+            if keep and a["step_"] == 1:
+                timed["step"] = (a, copy_record(v), copy_record(w))
+            orig["step"](*args, **kwargs)
+            bs.step_torch(**{**a, "v": vp, "w": wp, "rays": rays_p,
+                             "plain": True})
+            d = {**tables_differ(v, vp),
+                 **{f"w.{f}": x for f, x in record_differ(
+                     w, wp, WALKER_FIELDS).items()},
+                 "rays": int(a["rays"] != rays_p)}
+            below = torch.arange(vp.pos.shape[1], device=dev)[None, :] \
+                < vp.count[:, None]
+            err["bdpt_step"] = max(err["bdpt_step"], max(
+                (getattr(v, f)[below].float() - getattr(vp, f)[below].float())
+                .abs().max().item() for f in ("pos", "beta", "fwd", "rev")))
+            seen["steps"] += 1
+            for f, x in d.items():
+                if x:
+                    seen["differ"][f"step {a['step_']} {f}"] = x
+
+        def connect_spy(*args, **kwargs):
+            a = bound_args("connect", args, kwargs)
+            rays_p = a["rays"].clone()
+            li_k, q_k = orig["connect"](*args, **kwargs)
+            li_p, q_p = bs.connect_torch(**{**a, "v": emptied(a["v"]),
+                                            "rays": rays_p, "plain": True})
+            d = {"li": int((bits(li_k) != bits(li_p)).any(1).sum()),
+                 **queue_differ(q_k, q_p), "rays": int(a["rays"] != rays_p)}
+            for f, x in d.items():
+                if x:
+                    seen["differ"][f"connect {f}"] = x
+            err["bdpt_connect"] = max(err["bdpt_connect"],
+                                      (li_k - li_p).abs().max().item())
+            seen["live"] = int(q_k.live.sum())
+            seen["slots"] = q_k.live.numel()
+            if keep:
+                timed["connect"] = a
+            return li_k, q_k
+
+        def finish_spy(*args, **kwargs):
+            a = bound_args("finish", args, kwargs)
+            li_k, film_k = orig["finish"](*args, **kwargs)
+            li_p, film_p = bs.finish_torch(a["li"], a["q"], a["shadow"],
+                                           a["n_pix"])
+            ne = int((bits(li_k) != bits(li_p)).any(1).sum())
+            if ne:
+                seen["differ"]["finish li"] = ne
+            err["bdpt_finish"] = max(err["bdpt_finish"],
+                                     (li_k - li_p).abs().max().item())
+            hold_radiance(f"T bdpt_finish {label}", "film", film_k, film_p)
+            if st.has_media:
+                bad = per_round_walks(sc, st, lanes, a["q"], a["shadow"])
+                print(f"[T] {label}: the queue's one Tr walk vs a walk per "
+                      f"round, slots not bit-equal: {bad}")
+                check(bad == 0, f"{label}: one walk and the per-round walks "
+                      "differ")
+            if keep:
+                timed["finish"] = a
+            return li_k, film_k
+
+        reset_counts(bs.START_STATS, bs.STATS, bs.CONNECT_STATS,
+                     bs.FINISH_STATS)
+        bs.start, bs.step, bs.connect, bs.finish = (
+            start_spy, step_spy, connect_spy, finish_spy)
+        try:
+            li, film, rays = bdpt.render_lanes(sc, st, SEED, 1, px, py, True)
+        finally:
+            for k_, f in orig.items():
+                setattr(bs, k_, f)
+        torch.cuda.synchronize()
+        n_steps = st.max_depth + (bdpt.INTERFACE_BUDGET if st.has_media
+                                  else 0)
+        counts = (bs.START_STATS, bs.STATS, bs.CONNECT_STATS,
+                  bs.FINISH_STATS)
+        print(f"[T] {label}: {seen['steps']} steps of {2 * N_RAYS} rows, "
+              f"{seen['live']} live of {seen['slots']} queue slots, rays "
+              f"{int(rays)}; launches {[c.launches for c in counts]}, plain "
+              f"calls {[c.plain_cuda for c in counts]}; not bit-equal: "
+              f"{seen['differ'] or 'none'}")
+        check(seen["steps"] == n_steps, f"{label}: {seen['steps']} steps")
+        check([c.launches for c in counts] == [1, n_steps, 1, 1]
+              and [c.plain_cuda for c in counts] == [1, n_steps, 1, 1],
+              f"{label}: launches {counts}")
+        check(not seen["differ"], f"{label}: bdpt.cu and its plain versions "
+              f"differ: {seen['differ']}")
+        check(bool(torch.isfinite(li).all()) and li.mean().item() > 0
+              and film.sum().item() > 0, f"{label}: radiance {li.mean()}")
+        del li, film
+
+    a, v0, w0 = timed["step"]
+    fresh = {"v": copy_record(v0), "w": copy_record(w0)}
+    plain = {"v": emptied(v0), "w": copy_record(w0)}
+    kw = {k: x for k, x in a.items() if k not in ("v", "w", "plain")}
+    t = timed_restored({
+        "step kernel": (lambda: bs.step_cuda(**kw, **fresh),
+                        restorer(fresh["v"], fresh["w"])),
+        "step plain": (lambda: bs.step_torch(**kw, **plain, plain=True),
+                       restorer(plain["v"], plain["w"]))})
+    after = copy_record(fresh["v"]), None
+    ck = {k: x for k, x in timed["connect"].items() if k != "plain"}
+    ck_plain = {**ck, "v": emptied(ck["v"])}
+    fk = timed["finish"]
+    sk = {k: x for k, x in timed["start"].items() if k != "plain"}
+    t.update(timed_windows({
+        "start kernel": lambda: bs.start_cuda(**sk),
+        "start plain": lambda: bs.start_torch(**sk, plain=True),
+        "connect kernel": lambda: bs.connect_cuda(**ck),
+        "connect plain": lambda: bs.connect_torch(**ck_plain, plain=True),
+        "finish kernel": lambda: bs.finish_cuda(
+            fk["li"], fk["q"], fk["shadow"], fk["n_pix"]),
+        "finish plain": lambda: bs.finish_torch(
+            fk["li"], fk["q"], fk["shadow"], fk["n_pix"])}))
+    ms = {k: sum(x) / len(x) for k, x in t.items()}
+    sc, st = bdpt_scene(SCENES[0], dev)
+    q = bs.connect_cuda(**ck)[1]
+    bounds = {"start": bdpt_start_bound(*bs.start_cuda(**sk), sk["lanes"],
+                                        sc),
+              "step": bdpt_step_bound(st, (v0, w0), after, kw["prim"]),
+              "connect": bdpt_connect_bound(sc, ck["v"], q, N_RAYS),
+              "finish": bdpt_finish_bound(fk["q"], fk["shadow"],
+                                          fk["n_pix"])}
+    where = {"start": "the start", "step": "step 1",
+             "connect": "the connection rounds",
+             "finish": "the queued credits"}
+    for name in ("start", "step", "connect", "finish"):
+        b = bounds[name]
+        kt, pt_ = t[f"{name} kernel"], t[f"{name} plain"]
+        print(f"[T] bdpt_{name} on cornell_port ({N_RAYS} lanes, "
+              f"{where[name]}): kernel {ms[name + ' kernel']:.4f} ms (turns "
+              f"{min(kt):.4f}-{max(kt):.4f}), plain {ms[name + ' plain']:.4f} "
+              f"ms (turns {min(pt_):.4f}-{max(pt_):.4f}); bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} bytes"
+              + (f", {b['items']} valid items" if "items" in b else "")
+              + f") ({card})")
+        records[f"bdpt_{name}"].update(
+            max_abs_err=err[f"bdpt_{name}"], ms=ms[name + " kernel"],
+            plain_ms=ms[name + " plain"], bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"], library_ms=None, bound_bytes=b["bytes"])
+    print(f"[T] done in {time.time() - t0:.1f} s")
+
+
 def phase_d(dev, card, records):
     """The main path through the CLI: the Cornell box at 1024^2, depth 5,
     which pt.render_lanes routes to K2; launch counts, spp/s, Mrays/s, and
@@ -2949,46 +3450,100 @@ def hold_radiance(label, what, a, b) -> None:
           f"{h['agree']}, mean ratio {h['mean_ratio']}")
 
 
-def program_static(scene_path, integ, dev):
+def program_static(scene_path, integ, dev, depth=5):
     """The scene at `scene_path` flattened on `dev`, set to integrator
-    `integ` at depth 5."""
+    `integ` at `depth`."""
     import dataclasses
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
     scene, static = flat(scene_path, dev)
     return scene, dataclasses.replace(
-        static, integrator=IntegratorType[integ.upper()], max_depth=5)
+        static, integrator=IntegratorType[integ.upper()], max_depth=depth)
 
 
-def phase_c_program(dev, records, integ, path, n_lanes=65536):
+def phase_c_program(dev, records, integ, path, n_lanes=65536, depth=5,
+                    kname="dense_hit"):
     """Program `integ` over the kernels against itself all-plain on the
-    scene at `path`, 65,536 lanes; the launches must be the scene's hit
-    kernel's (and track's in a scene with media)."""
+    scene at `path`, 65,536 lanes, at `depth`; the launches must be the
+    scene's hit kernel's, `kname` (and track's in a scene with media)."""
     from gpu_pathtracer_tpu_torch.run.reference import (
         kernel_stats, reset_counts, run_program)
-    scene, static = program_static(path, integ, dev)
+    scene, static = program_static(path, integ, dev, depth)
     n_pix = static.width * static.height
     ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
                        dtype=torch.int32)[:n_lanes]
     stats = kernel_stats()
     reset_counts(*stats.values())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     li_k, film_k, r_k = run_program(integ, scene, static, ids, SEED)
     torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     counts = {k: st.launches for k, st in stats.items()}
     li_p, film_p, r_p = run_program(integ, scene, static, ids, SEED,
                                     plain=True)
     label = f"C {integ} {path}"
-    print(f"[C] {integ} on {path}: {ids.numel()} lanes, rays {int(r_k)} vs "
-          f"{int(r_p)}, launches {counts}")
+    print(f"[C] {integ} on {path} at depth {depth}: {ids.numel()} lanes, "
+          f"rays {int(r_k)} vs {int(r_p)}, peak device memory of the run "
+          f"over the kernels {peak:.3f} GiB above what was held, launches "
+          f"{counts}")
     for what, a, b in (("radiance", li_k, li_p), ("film", film_k, film_p)):
         if a is not None:
             hold_radiance(label, what, a, b)
-    want = {"dense_hit", "rng"} | ({"track"} if static.has_hetero
-                                   else set()) \
-        | ({"pt_shade"} if integ == "pt" else set())
+    # BDPT draws every site in its kernels: no rng launch
+    want = {kname} | ({"track"} if static.has_hetero else set()) \
+        | ({"pt_shade"} if integ == "pt" else set()) \
+        | (set(BDPT_KERNELS) if integ == "bdpt" else {"rng"})
     check(only(counts, *want), f"{label}: launches {counts}")
     name = f"launches_c_{integ}_{os.path.basename(os.path.dirname(path))}"
+    if depth != 5:
+        name += f"_depth{depth}"
     for k in want:
         records[k][name] = counts[k]
+
+
+def phase_c_bdpt_tile(dev, records):
+    """BDPT over the kernels on cornell_port at depth 17 on the renderer's
+    1M-lane tile, where the queue would take 323 slots a lane: the lanes
+    run in chunks of bdpt.QUEUE_SLOTS slots (a start and a connect
+    launch each); the sample's time and peak device memory, its radiance
+    finite."""
+    import dataclasses
+    from gpu_pathtracer_tpu_torch.integrators import bdpt, bdpt_shade as bs
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, reset_counts)
+    from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
+    sc, st = scene_1024(SCENES[0], dev)
+    st = dataclasses.replace(st, integrator=IntegratorType.BDPT,
+                             max_depth=DEEP)
+    ids = torch.arange(N_RAYS, device=dev)
+    px, py = ids % st.width, ids // st.width
+    chunk = bdpt.QUEUE_SLOTS // bs.n_slots(st.max_depth)
+    n_chunks = -(-N_RAYS // chunk)
+    bdpt.render_lanes(sc, st, SEED, 1, px, py)   # warm-up
+    stats = kernel_stats()
+    reset_counts(*stats.values())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    li, film, rays = bdpt.render_lanes(sc, st, SEED, 2, px, py, True)
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    counts = {k: x.launches for k, x in stats.items() if x.launches}
+    print(f"[C] bdpt on {SCENES[0]} at depth {DEEP}: {N_RAYS} lanes in "
+          f"{n_chunks} "
+          f"chunks of {chunk}, one sample in {sec:.4f} s, rays {int(rays)}, "
+          f"peak device memory {peak:.3f} GiB above what was held, "
+          f"launches {counts}")
+    check(counts.get("bdpt_start") == counts.get("bdpt_connect") == n_chunks,
+          f"depth {DEEP} at 1M lanes: launches {counts}")
+    check(bool(torch.isfinite(li).all()) and li.mean().item() > 0
+          and film.sum().item() > 0, f"depth {DEEP} at 1M lanes: radiance "
+          f"{li.mean().item()}")
+    records["bdpt_connect"]["peak_gib_bdpt_depth17_1m"] = peak
+    records["bdpt_connect"]["s_bdpt_depth17_1m"] = sec
 
 
 def flat_sized(path, size, dev):
@@ -3226,12 +3781,20 @@ def program_main_path(card, records, integ, path, spp, kname):
           f"what was held before the run ({card}); launches {counts}, "
           f"plain-version calls on CUDA {plain}, largest K1 call "
           f"{max(k1_sizes, default=0)} rays")
-    knames = (kname, "pt_shade") if integ == "pt" else (kname,)
-    check(only(counts, *knames, "rng"),
+    knames = {"pt": (kname, "pt_shade"),
+              "bdpt": (kname, *BDPT_KERNELS)}.get(integ, (kname,))
+    # BDPT draws every site in its kernels: no rng launch
+    check(only(counts, *knames, *(() if integ == "bdpt" else ("rng",))),
           f"{label}: main path launched {counts}")
     check(plain == 0, f"{label}: {plain} plain-version calls on CUDA")
     for k in knames:
         records[k][f"launches_{tag}"] = counts[k]
+    if integ == "bdpt":
+        per_spp = {k: counts[k] / spp for k in (kname, *BDPT_KERNELS)}
+        print(f"[D] {label}: launches a spp {per_spp}")
+        for k in BDPT_KERNELS:
+            records[k]["launches"] = counts[k]
+            records[k]["launches_per_spp_bdpt_cornell"] = per_spp[k]
     records["rng"][f"launches_{tag}"] = counts["rng"]
     records[kname][f"peak_gib_{tag}"] = (peak - held) / 2**30
     from gpu_pathtracer_tpu_torch.geom import packet_cuda
@@ -3634,7 +4197,7 @@ CKPT_F = (("pt", SCENES[0], ("pt_fused", "rng")),
 SHARD_F = (("pt", SCENES[0], ("pt_fused", "rng")),
            ("vpt", SMOKE, VPT_KERNELS),
            ("lt", SCENES[0], ("dense_hit", "rng")),
-           ("bdpt", SCENES[0], ("dense_hit", "rng")),
+           ("bdpt", SCENES[0], ("dense_hit", *BDPT_KERNELS)),
            ("ir", SCENES[0], ("dense_hit", "rng")),
            ("sppm", SCENES[0], ("dense_hit", "rng")),
            ("mlt", SCENES[0], ("pt_fused", "rng")))
@@ -4010,7 +4573,7 @@ def main() -> None:
     global OUT, BASELINE
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFRSV",
+    ap.add_argument("--phases", default="ABCDEFRSVT",
                     help="phases to run after the build (default all)")
     ap.add_argument("--out", default=OUT,
                     help="directory for the PNGs and compiler reports")
@@ -4091,13 +4654,15 @@ def main() -> None:
         phase_s(dev, rng, card, records)
     if "V" in phases:
         phase_v(dev, card, records)
+    if "T" in phases:
+        phase_t(dev, card, records)
     if "D" in phases:
         phase_d(dev, card, records)
     if "E" in phases:
         phase_e(dev, rng, card, records)
     if "F" in phases:
         phase_f(dev, card)
-    if set(phases) != set("ABCDEFRSV"):
+    if set(phases) != set("ABCDEFRSVT"):
         print(f"[{phases}] done: a partial run prints no result")
         sys.exit(0)
 

@@ -1,0 +1,1009 @@
+// BDPT's per-lane work: one thread starts one subpath row (bdpt_start) and
+// steps it (bdpt_step), one thread runs every connection round of one
+// lane (bdpt_connect), and one thread credits one lane's queued
+// connections (bdpt_finish).
+//
+// Replaces no Pallas kernel: the JAX package runs BDPT
+// (gpu_pathtracer_tpu/integrators/bdpt.py:465 render_lanes) as traced XLA
+// programs: the subpath step (:182, under a scan), the MIS tables and
+// weight (:383, :421) and the connection rounds (dense_round :547,
+// round_block :832). The port's plain versions are
+// integrators/bdpt_shade.py::start_torch, step_torch, connect_torch and
+// finish_torch: some 1,700 masked launches a sample over every row and
+// every (lane, column) item, and gathers of whole vertex records.
+//
+// A sample's launches (integrators/bdpt.py::render_lanes): bdpt_start,
+// then per step the closest hit of the 2N subpath rays (K1, K3 or K4),
+// the sample walk (track.cu, heterogeneous media) and bdpt_step; then
+// bdpt_connect, the queue's shadow rays (one any-hit call over the whole
+// queue, or with media one Tr walk over its live slots) and bdpt_finish.
+//
+// bdpt_start, per row: the camera's pixel jitter, primary ray and pdfW,
+// or the light pick and the light's emitted point and direction (the
+// draws of tag 0 or BDPT_LIGHT_TAG, sites 0-4), vertex 0 and the row's
+// state. It writes vertex 0 alone: each step writes its new vertex
+// whole (a reverse pdf of 0 until the next step sets it), so every slot
+// below a row's count is written and no kernel reads one above it.
+//
+// bdpt_step, per row (rows 0 .. N - 1 the camera subpaths in radiance
+// transport, N .. 2N - 1 the light subpaths in importance transport), in
+// the plain version's order: the step's draws; the hit record; the
+// distance sample's weight (the sample walk's first collision, or the
+// homogeneous closed form); a scatter vertex with its phase sample and the
+// previous vertex's reverse pdf; the interface crossing; a surface vertex
+// with its material, BSDF sample, the previous vertex's reverse pdf and
+// the next medium; the vertex count; the roulette after bounce 4; the next
+// step's tmax and sample-walk medium. Each row writes its vertex into the
+// tables in place. The tables are vertex-major: vertex m of row r is slot
+// m * 2N + r (bdpt_shade.py keeps [2N, K] views of [K, 2N] storage), so
+// a step's rows, which mostly add the same vertex, write side by side,
+// and the connect kernel's threads read vertex m of neighbouring lanes
+// side by side.
+//
+// bdpt_connect, per lane: the MIS suffix tables of both subpaths; then in
+// order the rounds s1, t0, t1 and general s = 2 .. K, each over the G = K -
+// 1 columns: the case's contribution with its pdf overrides, the MIS
+// weight, and (but t0) the roulette against the lane's mean over the
+// round's valid items. t0's columns add to li at once, in column order.
+// (A thread a (lane, round), each rebuilding the MIS tables, was slower
+// on cornell's 1M lanes: 5.37 against 4.97 ms, at 168 registers.)
+// A connection that survives its roulette gets its queue slot (shadow ray,
+// credit, medium, s1's raster pixel); the others get an empty slot (tmax
+// 0, which the hit kernels skip).
+//
+// bdpt_finish, per lane: L x tr of each live slot (tr 0 or 1 from the
+// any-hit call, or the walk's transmittance); the s1 credits atomically
+// into the film at their raster pixel; the other rounds' columns summed
+// in column order and added round by round to li; the NaN guard.
+//
+// Draws (philox.cuh): a step's 7 sites at counter blocks 2 + 2 s and 3 +
+// 2 s of the row's lane under tag 0 or BDPT_LIGHT_TAG; a connection round
+// p's sites at block p of item 32 lane + column under BDPT_CONNECT_TAG
+// (t1: words 0-2 the light sample, 3 the roulette; s1 and general: word
+// 0 the roulette).
+//
+// What bounds them on an H100: the bytes a row or a lane moves.
+// bdpt_step reads about 60 B of row state and a vertex (the previous) and
+// writes one vertex (77 B) and the row state; bdpt_connect reads both
+// subpaths' vertices below their counts (at most 2 K, about 0.9 KB a
+// lane at K = 6) and writes the queue: a byte and a float a slot, 40 B
+// more a live slot (35 slots a lane at K = 6); bdpt_finish reads a
+// slot's flag, and its credit and verdict where live. The connections'
+// arithmetic (up to four BSDF or phase evaluations and a MIS weight an
+// item) runs from registers; the MIS tables of a lane sit in local
+// memory. Every intermediate stays out of device memory, the scene
+// tables are read through __ldg, and the traced rays are counted with
+// one atomic a block.
+//
+// Variants (template flags): bdpt_step kTex (textures), kAll (spheres or
+// lines) and kHet (heterogeneous media: the sample walk's result);
+// bdpt_connect kTex. bdpt_start has one.
+#include "media.cuh"
+#include "shade.cuh"
+
+// The entry points' arguments (integrators/bdpt_shade.py's ctypes
+// structures mirror them field for field).
+struct BdptStartArgs {
+  const int64_t* lanes;   // [N] lane ids
+  const int32_t* px;      // [N] pixel x, y
+  const int32_t* py;
+  // the scene's tables and the camera (bdpt_shade.py::camera_record)
+  const float* cam;
+  const float* lights;
+  const float* cdf;
+  const int32_t* l_medium;   // each light's medium (NULL: no media)
+  const float* med_table;
+  // the rows' state and the vertex tables [2N, K], written whole
+  float* ro;
+  float* rd;
+  float* beta;
+  float* forward;
+  int32_t* med;
+  uint8_t* alive;
+  float* tmax;
+  int32_t* med_sample;  // NULL: no heterogeneous medium
+  float* pos;
+  float* nor;
+  float* uv;
+  float* dpdu;
+  float* vbeta;
+  float* fwd;
+  float* rev;
+  uint8_t* delta;
+  int32_t* mat_idx;
+  int32_t* light_idx;
+  int32_t* medium;
+  int32_t* count;
+  int n, n_lights, n_rows, environment, camera_medium;
+  uint32_t seed, iteration;
+  float eps;
+};
+
+struct BdptStepArgs {
+  // the step's closest hit of the 2N rows and their sample walk (found_t
+  // NULL: no heterogeneous medium); the N lane ids
+  const float* t;
+  const int32_t* prim;
+  const float* found_t;
+  const int64_t* lanes;
+  // the rows' state, read and written in place
+  float* ro;
+  float* rd;
+  float* beta;
+  float* forward;
+  int32_t* med;
+  uint8_t* alive;
+  float* tmax;          // the next closest hit's
+  int32_t* med_sample;  // the next sample walk's medium (kHet)
+  // the vertex tables [2N, K], written in place
+  float* pos;
+  float* nor;
+  float* uv;
+  float* dpdu;
+  float* vbeta;
+  float* fwd;
+  float* rev;
+  uint8_t* delta;
+  int32_t* mat_idx;
+  int32_t* light_idx;
+  int32_t* medium;
+  int32_t* count;
+  // the scene's tables
+  const float* prim_attrs;
+  const float* mats;
+  const float* med_table;
+  const uint8_t* tex;  // NULL: no textures
+  const int32_t* tex_offset;
+  const int32_t* tex_w;
+  const int32_t* tex_h;
+  unsigned long long* rays;  // += the rows alive at the step's start
+  int n, k, step, all_kinds, aniso, has_media;
+  uint32_t seed, iteration;
+};
+
+struct BdptConnectArgs {
+  const int64_t* lanes;
+  // the vertex tables [2N, K]
+  const float* pos;
+  const float* nor;
+  const float* uv;
+  const float* dpdu;
+  const float* vbeta;
+  const float* fwd;
+  const float* rev;
+  const uint8_t* delta;
+  const int32_t* mat_idx;
+  const int32_t* light_idx;
+  const int32_t* medium;
+  const int32_t* count;
+  // the scene's tables and the camera (bdpt_shade.py::camera_record)
+  const float* mats;
+  const float* lights;
+  const float* cdf;
+  const float* med_table;
+  const float* cam;
+  const uint8_t* tex;  // NULL: no textures
+  const int32_t* tex_offset;
+  const int32_t* tex_w;
+  const int32_t* tex_h;
+  float* li_out;  // [N, 3] the t0 strategies
+  // the queue, slot j of lane i at [j, i]
+  uint8_t* live;
+  float* q_o;
+  float* q_d;
+  float* q_tmax;
+  float* q_L;
+  int32_t* q_med;  // NULL: no media
+  int32_t* q_pix;  // [G, N]
+  unsigned long long* rays;  // += the live slots (without media)
+  int n, k, n_lights, n_rows, width, has_media;
+  uint32_t seed, iteration;
+  float eps;
+};
+
+struct BdptFinishArgs {
+  const float* li;
+  const uint8_t* live;
+  const float* q_L;
+  const int32_t* q_pix;
+  const uint8_t* occluded;  // the any-hit verdicts [S * N], or NULL
+  const float* tr;          // and then the walk's transmittance [S * N, 3]
+  float* li_out;
+  float* film;
+  int n, g;
+};
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kMaxK = 32;   // bdpt_shade.py ITEM_LANES: vertices a subpath
+constexpr int kEmitDims = 8, kStepDims = 8;   // bdpt_shade.py EMIT/STEP_DIMS
+constexpr uint32_t kLightTag = 2, kConnectTag = 3;   // core/rng.py
+constexpr float kConnectRR = 1.f;   // bdpt_shade.py CONNECT_RR
+
+__device__ __forceinline__ const float* med_row(const float* table, int k) {
+  return table + (size_t)(k < 0 ? 0 : k) * media::kMedCols;
+}
+
+__device__ __forceinline__ bool heterogeneous(const float* table, int k) {
+  return (int)__ldg(med_row(table, k)) == media::kHeterogeneous;
+}
+
+// i clamped into a K-column table
+__device__ __forceinline__ int tclamp_i(int i, int k) {
+  return i < 0 ? 0 : (i > k - 1 ? k - 1 : i);
+}
+
+// exp(sigma_t * -len) per channel (shade/media.py: Beer-Lambert)
+__device__ __forceinline__ V3 beer(V3 sigma_t, float len) {
+  return mk(expf(sigma_t.x * -len), expf(sigma_t.y * -len),
+            expf(sigma_t.z * -len));
+}
+
+// ---------------------------------------------------------------------------
+// bdpt_start
+// ---------------------------------------------------------------------------
+// Row r's vertex 0 and first ray: the camera's (rows below N: the pixel
+// jitter at tag 0's sites 0-1, the primary ray, its pdfW) or the light's
+// (the light pick, a point and a cosine direction at tag
+// BDPT_LIGHT_TAG's sites 0-4).
+__device__ __forceinline__ void start_row(const BdptStartArgs& p, int r) {
+  const bool light = r >= p.n;
+  const int i = light ? r - p.n : r;
+  const uint32_t lane = (uint32_t)p.lanes[i];
+  const Cam cam = load_camera(p.cam);
+  V3 ro, rd, beta, vpos, vnor, vbeta;
+  float forward, vfwd;
+  int med, vlight = -1;
+  if (!light) {
+    const uint4 w = philox(lane, 0u, 0u, 0u, p.seed, p.iteration);
+    const float x = (float)p.px[i] + (bits_to_uniform(w.x) - 0.5f);
+    const float y = (float)p.py[i] + (bits_to_uniform(w.y) - 0.5f);
+    primary_ray(cam, x, y, p.environment != 0, &ro, &rd);
+    forward = pdf_camera_w(cam, rd);
+    beta = vbeta = mk(1.f, 1.f, 1.f);
+    vpos = cam.pos;
+    vnor = neg(cam.w);
+    vfwd = 1.f;
+    med = p.camera_medium;
+  } else {
+    const uint4 wa = philox(lane, 0u, kLightTag, 0u, p.seed, p.iteration);
+    const uint4 wb = philox(lane, 1u, kLightTag, 0u, p.seed, p.iteration);
+    const int idx = pick_light(p.cdf, p.n_rows, bits_to_uniform(wa.x));
+    const float choice = light_choice_pdf(p.cdf, idx, p.n_rows);
+    const int last = p.n_lights - 1 > 0 ? p.n_lights - 1 : 0;
+    vlight = idx < last ? idx : last;
+    const float* la = light_row(p.lights, vlight, p.n_rows);
+    float pdf_a;
+    area_light_emission(la, bits_to_uniform(wa.y), bits_to_uniform(wa.z),
+                        bits_to_uniform(wa.w), bits_to_uniform(wb.x), &ro, &rd,
+                        &vnor, &pdf_a, &forward);
+    vbeta = ldg3(la + 18);
+    const float denom = tmax(pdf_a * forward * choice, 1e-30f);
+    beta = scl(vbeta, fabsf(dot(rd, vnor)) / denom);
+    vpos = ro;
+    vfwd = pdf_a * choice;
+    med = p.l_medium ? __ldg(p.l_medium + vlight) : -1;
+  }
+  // vertex 0, slot r, every field (the slots above it stay unwritten:
+  // the steps write vertex `count` whole, and no kernel reads a slot at
+  // or above a row's count)
+  const size_t at = r;
+  store3(p.pos + 3 * at, vpos);
+  store3(p.nor + 3 * at, vnor);
+  p.uv[2 * at] = 0.f;
+  p.uv[2 * at + 1] = 0.f;
+  store3(p.dpdu + 3 * at, mk(0.f, 0.f, 0.f));
+  store3(p.vbeta + 3 * at, vbeta);
+  p.fwd[at] = vfwd;
+  p.rev[at] = 0.f;
+  p.delta[at] = 0;
+  p.mat_idx[at] = -1;
+  p.light_idx[at] = vlight;
+  p.medium[at] = med;
+  p.count[r] = 1;
+  store3(p.ro + 3 * r, ro);
+  store3(p.rd + 3 * r, rd);
+  store3(p.beta + 3 * r, beta);
+  p.forward[r] = forward;
+  p.med[r] = med;
+  p.alive[r] = 1;
+  p.tmax[r] = INFINITY;
+  if (p.med_sample) {
+    p.med_sample[r] =
+        med >= 0 && heterogeneous(p.med_table, med) ? med : -1;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) bdpt_start_kernel(
+    BdptStartArgs p) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < 2 * p.n) start_row(p, r);
+}
+
+// ---------------------------------------------------------------------------
+// bdpt_step
+// ---------------------------------------------------------------------------
+template <bool kTex, bool kAll, bool kHet>
+__device__ __forceinline__ void step_row(const BdptStepArgs& p, int r,
+                                         bool* traced) {
+  *traced = p.alive[r] != 0;
+  if (!*traced) return;   // a row that does not step keeps its state
+  const int k = p.k;
+  const bool light = r >= p.n;
+  bool alive = true;
+  V3 ro = load3(p.ro + 3 * r), rd = load3(p.rd + 3 * r);
+  V3 beta = load3(p.beta + 3 * r);
+  float forward = p.forward[r];
+  int med = p.med[r];
+  int cnt = p.count[r];
+  const int prim = p.prim[r];
+  if (prim >= 0) {
+    const size_t rows = 2 * (size_t)p.n;
+    const float t = p.t[r];
+    const Hit h = hit_attributes<true, kAll>(p.prim_attrs, prim, ro, rd, t);
+    // the step's sites: block 2 + 2 s words 0-2 the BSDF, 3 the roulette;
+    // block 3 + 2 s words 0-1 the phase sample, 2 the distance sample
+    const uint32_t lane = (uint32_t)p.lanes[light ? r - p.n : r];
+    const uint32_t tag = light ? kLightTag : 0u;
+    const uint32_t blk = (uint32_t)((kEmitDims + p.step * kStepDims) >> 2);
+    const uint4 wa = philox(lane, blk, tag, 0u, p.seed, p.iteration);
+    // vertex m of row r is slot m * 2N + r (the tables are vertex-major)
+    const size_t prev = (size_t)tclamp_i(cnt - 1, k) * rows + r;
+    const V3 prev_pos = load3(p.pos + 3 * prev);
+    const V3 prev_nor = load3(p.nor + 3 * prev);
+    const V3 zero = mk(0.f, 0.f, 0.f);
+    const size_t at = (size_t)tclamp_i(cnt, k) * rows + r;   // the new one
+
+    // ---- a medium scattering vertex --------------------------------
+    bool in_scatter = false;
+    if (p.has_media) {
+      const uint4 wb = philox(lane, blk + 1u, tag, 0u, p.seed, p.iteration);
+      bool sampled = false;
+      float t_med = t;
+      if (med >= 0) {
+        const media::Optics o = media::load_optics(med_row(p.med_table, med));
+        V3 weight;
+        if (kHet && heterogeneous(p.med_table, med)) {
+          const float ft = p.found_t[r];
+          sampled = isfinite(ft);
+          weight = sampled ? mk(o.sigma_s.x / tmax(o.sigma_t.x, 1e-30f),
+                                o.sigma_s.y / tmax(o.sigma_t.y, 1e-30f),
+                                o.sigma_s.z / tmax(o.sigma_t.z, 1e-30f))
+                           : mk(1.f, 1.f, 1.f);
+          t_med = sampled ? ft : t;
+        } else {
+          const float u0 = bits_to_uniform(wb.z);
+          const float dist = -logf(tmax(1.f - u0, 1e-30f)) / o.sigma;
+          const V3 tr_h = beer(o.sigma_t, dist);
+          const float pdf_h = o.sigma * expf(-o.sigma * dist);
+          sampled = dist < t;
+          weight = sampled ? mk(tr_h.x * o.sigma_s.x / pdf_h,
+                                tr_h.y * o.sigma_s.y / pdf_h,
+                                tr_h.z * o.sigma_s.z / pdf_h)
+                           : mk(o.sigma_t.x * tr_h.x / pdf_h,
+                                o.sigma_t.y * tr_h.y / pdf_h,
+                                o.sigma_t.z * tr_h.z / pdf_h);
+          t_med = dist;
+        }
+        beta = mul(beta, weight);
+      }
+      if (is_black(beta)) alive = false;
+      in_scatter = alive && sampled;
+      if (in_scatter) {
+        const V3 sample_pos = add(ro, scl(rd, t_med));
+        const float g = __ldg(med_row(p.med_table, med) + 1);
+        const float pu1 = bits_to_uniform(wb.x), pu2 = bits_to_uniform(wb.y);
+        const V3 wi = neg(rd);
+        const V3 new_dir = media::sample_phase(g, wi, pu1, pu2);
+        const float ph = media::hg_phase(media::hg_costheta(g, pu1), g);
+        store3(p.pos + 3 * at, sample_pos);
+        store3(p.nor + 3 * at, zero);
+        p.uv[2 * at] = 0.f;
+        p.uv[2 * at + 1] = 0.f;
+        store3(p.dpdu + 3 * at, zero);
+        store3(p.vbeta + 3 * at, beta);
+        p.fwd[at] = convert_pdf(forward, prev_pos, sample_pos, zero);
+        p.rev[at] = 0.f;
+        p.delta[at] = 0;
+        p.mat_idx[at] = -1;
+        p.light_idx[at] = -1;
+        p.medium[at] = med;
+        p.rev[prev] = convert_pdf(ph, sample_pos, prev_pos, prev_nor);
+        forward = ph;
+        ro = sample_pos;
+        rd = new_dir;
+      }
+    }
+
+    // ---- the interface crossing: no bounce --------------------------
+    const float* pa = p.prim_attrs + (size_t)prim * kPrimAttrs;
+    bool on_surface = alive && !in_scatter;
+    if (on_surface && h.mat == -1) {
+      med = (int)__ldg(pa + (dot(rd, h.nor) > 0.f ? 34 : 33));
+      ro = h.pos;
+      on_surface = false;
+    }
+
+    // ---- a surface vertex and its BSDF sample -----------------------
+    bool surf_go = false;
+    if (on_surface) {
+      const Mat m = hit_material<kTex>(p.mats, p.tex, p.tex_offset, p.tex_w,
+                                       p.tex_h, h);
+      const bool delta = is_delta(m.type);
+      store3(p.pos + 3 * at, h.pos);
+      store3(p.nor + 3 * at, h.nor);
+      p.uv[2 * at] = h.u;
+      p.uv[2 * at + 1] = h.v;
+      store3(p.dpdu + 3 * at, h.dpdu);
+      store3(p.vbeta + 3 * at, beta);
+      p.fwd[at] = convert_pdf(forward, prev_pos, h.pos, h.nor);
+      p.rev[at] = 0.f;
+      p.delta[at] = delta ? 1 : 0;
+      p.mat_idx[at] = h.mat;
+      p.light_idx[at] = h.light;
+      p.medium[at] = med;
+      const V3 wi = neg(rd);
+      const float u1 = bits_to_uniform(wa.x), u2 = bits_to_uniform(wa.y);
+      const float u3 = bits_to_uniform(wa.z);
+      V3 wo, fr;
+      float pdf;
+      if (light) {
+        sample_bsdf_mode<true>(m, wi, h.nor, h.dpdu, u1, u2, u3, p.aniso != 0,
+                               &wo, &fr, &pdf);
+      } else {
+        sample_bsdf_mode<false>(m, wi, h.nor, h.dpdu, u1, u2, u3,
+                                p.aniso != 0, &wo, &fr, &pdf);
+      }
+      if (is_black(fr) || pdf <= 0.f) {
+        alive = false;
+      } else {
+        surf_go = true;
+        const float cos_o = fabsf(dot(wo, h.nor));
+        const float pm = tmax(pdf, 1e-30f);
+        beta = mk(beta.x * fr.x * cos_o / pm, beta.y * fr.y * cos_o / pm,
+                  beta.z * fr.z * cos_o / pm);
+        forward = delta ? 0.f : pdf;
+        // the previous vertex's reverse pdf
+        V3 fr_r;
+        float pdf_r;
+        eval_bsdf(m, wo, wi, h.nor, h.dpdu, &fr_r, &pdf_r);
+        p.rev[prev] = convert_pdf(pdf_r, h.pos, prev_pos, prev_nor);
+        // the next medium by crossing side; reflections keep the current
+        const float cos_wo = dot(wo, h.nor);
+        if (!(dot(wi, h.nor) * cos_wo > 0.f))
+          med = (int)__ldg(pa + (cos_wo > 0.f ? 34 : 33));
+        ro = h.pos;
+        rd = wo;
+      }
+      ++cnt;
+    }
+    if (in_scatter) ++cnt;
+    // Russian roulette; the bounces so far are the vertices after vertex 0
+    if (alive && (in_scatter || surf_go) && cnt - 1 > 4) {
+      const float rr_pdf = tclamp(1.f - luminance(beta), 0.f, 1.f);
+      if (bits_to_uniform(wa.w) < rr_pdf) {
+        alive = false;
+      } else {
+        beta = scl(beta, 1.f / tmax(1.f - rr_pdf, 1e-30f));
+      }
+    }
+  } else {
+    alive = false;   // the ray left the scene
+  }
+  store3(p.ro + 3 * r, ro);
+  store3(p.rd + 3 * r, rd);
+  store3(p.beta + 3 * r, beta);
+  p.forward[r] = forward;
+  p.med[r] = med;
+  p.count[r] = cnt;
+  alive = alive && cnt < k;   // room for the next step's vertex
+  p.alive[r] = alive ? 1 : 0;
+  p.tmax[r] = alive ? INFINITY : 0.f;
+  if (kHet) {
+    p.med_sample[r] =
+        alive && med >= 0 && heterogeneous(p.med_table, med) ? med : -1;
+  }
+}
+
+template <bool kTex, bool kAll, bool kHet>
+__global__ void __launch_bounds__(kThreads) bdpt_step_kernel(BdptStepArgs p) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  bool traced = false;
+  if (r < 2 * p.n) step_row<kTex, kAll, kHet>(p, r, &traced);
+  const int n_traced = __syncthreads_count(traced);
+  if (threadIdx.x == 0 && n_traced)
+    atomicAdd(p.rays, (unsigned long long)n_traced);
+}
+
+// ---------------------------------------------------------------------------
+// bdpt_connect
+// ---------------------------------------------------------------------------
+// One subpath's MIS suffix tables (bdpt_shade.py::_mis_tables): its fwd,
+// ok = not delta here and at the vertex before (0 at the camera's vertex
+// 0), and A[m] = r_m (ok_m + A[m - 1]) with r = remap(rev) / remap(fwd),
+// over the subpath's `count` vertices (a valid item's weight reads no
+// column at or above them).
+struct Side {
+  float fwd[kMaxK], ok[kMaxK], A[kMaxK];
+};
+
+__device__ __forceinline__ float remap(float x) { return x == 0.f ? 1.f : x; }
+
+__device__ __forceinline__ void mis_tables(const BdptConnectArgs& p,
+                                           size_t row, int count,
+                                           bool camera, Side* s) {
+  const size_t rows = 2 * (size_t)p.n;
+  float acc = 0.f;
+  bool dprev = count > 0 && p.delta[row] != 0;
+  for (int m = 0; m < count; ++m) {
+    const size_t at = m * rows + row;
+    const bool dm = p.delta[at] != 0;
+    const float f = p.fwd[at];
+    const float r = remap(p.rev[at]) / remap(f);
+    const float okm = (camera && m == 0) || dm || dprev ? 0.f : 1.f;
+    acc = r * (okm + acc);
+    s->fwd[m] = f;
+    s->ok[m] = okm;
+    s->A[m] = acc;
+    dprev = dm;
+  }
+}
+
+// bdpt_shade.py::_mis_weight for one item of strategy (s, t): c1 / c2
+// replace the camera side's rev at s - 1 / s - 2, l1 / l2 the light side's
+// at t - 1 / t - 2, l0_fwd its fwd[0] in the t1 round (`t1`)
+__device__ __forceinline__ float mis_weight(const Side& cam, const Side& lit,
+                                            int k, int s, int t, float c1_rev,
+                                            float c2_rev, float l1_rev,
+                                            float l2_rev, float l0_fwd,
+                                            bool t1) {
+  auto col = [k](int i) { return i < 0 ? 0 : (i > k - 1 ? k - 1 : i); };
+  // the camera side: terms exist for i in [1, s - 1]
+  const float r_e =
+      s - 1 >= 1 ? remap(c1_rev) / remap(cam.fwd[col(s - 1)]) : 0.f;
+  const float r_e1 =
+      s - 2 >= 1 ? remap(c2_rev) / remap(cam.fwd[col(s - 2)]) : 0.f;
+  const float pc1 = s - 1 >= 1 ? cam.ok[col(s - 1)] : 0.f;
+  const float pc2 = s - 2 >= 1 ? cam.ok[col(s - 2)] : 0.f;
+  const float pca = s - 3 >= 1 ? cam.A[col(s - 3)] : 0.f;
+  float sum_w = r_e * (pc1 + r_e1 * (pc2 + pca));
+  // the light side: terms exist for i in [0, t - 1]
+  const float f_e = t1 ? l0_fwd : lit.fwd[col(t - 1)];
+  const float r_le = t - 1 >= 0 ? remap(l1_rev) / remap(f_e) : 0.f;
+  const float r_le1 =
+      t - 2 >= 0 ? remap(l2_rev) / remap(lit.fwd[col(t - 2)]) : 0.f;
+  const float pl1 = t - 1 >= 0 ? lit.ok[col(t - 1)] : 0.f;
+  const float pl2 = t - 2 >= 0 ? lit.ok[col(t - 2)] : 0.f;
+  const float pla = t - 3 >= 0 ? lit.A[col(t - 3)] : 0.f;
+  sum_w = sum_w + r_le * (pl1 + r_le1 * (pl2 + pla));
+  const float w = 1.f / (1.f + sum_w);
+  return s + t == 2 ? 1.f : w;
+}
+
+// a vertex record of the tables
+struct Vtx {
+  V3 pos, nor, dpdu, beta;
+  float u, v;
+  int mat, med;
+  bool delta;
+};
+
+__device__ __forceinline__ Vtx load_vtx(const BdptConnectArgs& p, size_t at) {
+  Vtx x;
+  x.pos = load3(p.pos + 3 * at);
+  x.nor = load3(p.nor + 3 * at);
+  x.dpdu = load3(p.dpdu + 3 * at);
+  x.beta = load3(p.vbeta + 3 * at);
+  x.u = p.uv[2 * at];
+  x.v = p.uv[2 * at + 1];
+  x.mat = p.mat_idx[at];
+  x.med = p.medium[at];
+  x.delta = p.delta[at] != 0;
+  return x;
+}
+
+// the material at a vertex (bsdf.py::gather_materials at its uv)
+template <bool kTex>
+__device__ __forceinline__ Mat vtx_material(const BdptConnectArgs& p,
+                                            const Vtx& x) {
+  Hit h;
+  h.mat = x.mat;
+  h.u = x.u;
+  h.v = x.v;
+  return hit_material<kTex>(p.mats, p.tex, p.tex_offset, p.tex_w, p.tex_h, h);
+}
+
+// fr and the forward pdf at a vertex: its BSDF, or the phase function at
+// a medium vertex (bdpt_shade.py::_Round.surf_or_phase)
+__device__ __forceinline__ void surf_or_phase(const BdptConnectArgs& p,
+                                              const Vtx& x, const Mat& m,
+                                              V3 w_in, V3 w_out, V3* fr,
+                                              float* pdf) {
+  if (p.has_media && x.mat == -1) {
+    const float ph =
+        media::hg_phase(dot(w_in, w_out), __ldg(med_row(p.med_table, x.med) + 1));
+    *fr = mk(ph, ph, ph);
+    *pdf = ph;
+  } else {
+    eval_bsdf(m, w_in, w_out, x.nor, x.dpdu, fr, pdf);
+  }
+}
+
+// The roulette of a shadow round's G columns (bdpt_shade.py::_Round.run's
+// tail): pass 1 left each valid connection's credit L (MIS weighted) and
+// shadow ray in its slot, `ok` its columns and `msum` the sum of their
+// luminances in column order; a connection below the lane's mean is kept
+// with probability q = lum / mean, weighted 1 / q. Every slot of the round
+// gets its flag and tmax.
+__device__ __forceinline__ int roulette(const BdptConnectArgs& p, int i,
+                                        int j0, int g_n, int p_round,
+                                        uint32_t ok, float msum, int n_ok,
+                                        bool t1) {
+  const float mean = msum / (float)(n_ok > 1 ? n_ok : 1);
+  const uint32_t item0 = (uint32_t)((uint64_t)p.lanes[i] * 32u);
+  int live = 0;
+  for (int g = 0; g < g_n; ++g) {
+    const size_t slot = (size_t)(j0 + g) * p.n + i;
+    bool keep = false;
+    if (ok >> g & 1u) {
+      const V3 L = load3(p.q_L + 3 * slot);
+      const float q = tclamp(luminance(L) / tmax(kConnectRR * mean, 1e-30f),
+                             0.f, 1.f);
+      const uint4 w = philox(item0 + (uint32_t)g, (uint32_t)p_round,
+                             kConnectTag, 0u, p.seed, p.iteration);
+      if (bits_to_uniform(t1 ? w.w : w.x) < q) {
+        keep = true;
+        store3(p.q_L + 3 * slot, divs(L, tmax(q, 1e-30f)));
+      }
+    }
+    p.live[slot] = keep ? 1 : 0;
+    if (!keep) p.q_tmax[slot] = 0.f;
+    live += keep;
+  }
+  return live;
+}
+
+// a valid connection's slot: its credit (before the roulette) and shadow
+// ray
+__device__ __forceinline__ void queue_slot(const BdptConnectArgs& p,
+                                           size_t slot, V3 L, V3 o, V3 d,
+                                           float st, int med, int g,
+                                           uint32_t* ok, int* n_ok) {
+  store3(p.q_L + 3 * slot, L);
+  store3(p.q_o + 3 * slot, o);
+  store3(p.q_d + 3 * slot, d);
+  p.q_tmax[slot] = st;
+  if (p.q_med) p.q_med[slot] = med;
+  *ok |= 1u << g;
+  ++*n_ok;
+}
+
+// the lane mean's sum, column g's term: luminance of L, 0 where not ok
+__device__ __forceinline__ void mean_term(int g, bool ok, V3 L, float* msum) {
+  const float x = ok ? luminance(L) : 0.f;
+  *msum = g == 0 ? x : *msum + x;
+}
+
+template <bool kTex>
+__device__ void connect_lane(const BdptConnectArgs& p, int i, int* queued) {
+  const int k = p.k, g_n = k - 1, n = p.n;
+  // vertex m of the camera subpath (row i) and the light subpath (row
+  // N + i): slots m * 2N + i and m * 2N + N + i of the vertex-major tables
+  const size_t rows = 2 * (size_t)n;
+  auto cv = [&](int m) { return (size_t)m * rows + i; };
+  auto lv = [&](int m) { return (size_t)m * rows + n + i; };
+  const int cc = p.count[i], lc = p.count[n + i];
+  const V3 zero = mk(0.f, 0.f, 0.f);
+  const float nanf_ = __int_as_float(0x7fc00000);
+  Side cam, lit;
+  mis_tables(p, i, cc, true, &cam);
+  mis_tables(p, n + i, lc, false, &lit);
+  const Cam camera = load_camera(p.cam);
+  const uint32_t item0 = (uint32_t)((uint64_t)p.lanes[i] * 32u);
+  int live = 0;
+
+  // ---- s1: light vertex t - 1 to the camera, t = column + 2 ---------
+  {
+    uint32_t ok = 0;
+    float msum = 0.f;
+    int n_ok = 0;
+    for (int g = 0; g < g_n; ++g) {
+      const int t = g + 2;
+      V3 L = zero;
+      bool okg = false;
+      if (t <= lc) {
+        const Vtx l1 = load_vtx(p, lv(g + 1)), l2 = load_vtx(p, lv(g));
+        const bool l1_med = l1.mat == -1;
+        const Mat m1 = vtx_material<kTex>(p, l1);
+        const V3 in_l1 = normalize(sub(l2.pos, l1.pos));
+        V3 sd;
+        float st, we, cpdf;
+        int rx, ry;
+        sample_camera(camera, l1.pos, p.eps, &sd, &st, &we, &cpdf, &rx, &ry);
+        V3 fr;
+        float next_pdf, rev_pdf;
+        surf_or_phase(p, l1, m1, in_l1, sd, &fr, &next_pdf);
+        const float cos2 = l1_med ? 1.f : fabsf(dot(sd, l1.nor));
+        L = scl(mul(l1.beta, fr), we * cos2 / tmax(cpdf, 1e-30f));
+        const float cam_pdfw = pdf_camera_w(camera, neg(sd));
+        V3 unused;
+        surf_or_phase(p, l1, m1, sd, in_l1, &unused, &rev_pdf);
+        const bool case_valid = cpdf != 0.f && !(!l1_med && l1.delta) &&
+                                !is_black(L);
+        const float l1_rev = convert_pdf(cam_pdfw, camera.pos, l1.pos, l1.nor);
+        const float l2_rev = convert_pdf(rev_pdf, l1.pos, l2.pos, l2.nor);
+        L = scl(L, mis_weight(cam, lit, k, 1, t, nanf_, nanf_, l1_rev, l2_rev,
+                              nanf_, false));
+        okg = case_valid && finite3(L) && !is_black(L);
+        if (okg) {
+          const size_t slot = (size_t)g * n + i;
+          queue_slot(p, slot, L, l1.pos, sd, st, l1.med, g, &ok, &n_ok);
+          p.q_pix[slot] = rx + ry * p.width;
+        }
+      }
+      mean_term(g, okg, L, &msum);
+    }
+    live += roulette(p, i, 0, g_n, 1, ok, msum, n_ok, false);
+  }
+
+  // ---- t0: camera vertex s - 1 on a light, s = column + 2 -----------
+  {
+    V3 acc = zero;
+    for (int g = 0; g < g_n; ++g) {
+      const int s = g + 2;
+      V3 L = zero;
+      if (s <= cc) {
+        const Vtx c1 = load_vtx(p, cv(g + 1)), c2 = load_vtx(p, cv(g));
+        const int lidx = p.light_idx[cv(g + 1)];
+        const V3 in_c1 = normalize(sub(c2.pos, c1.pos));
+        const float* la = light_row(p.lights, lidx, p.n_rows);
+        L = mul(c1.beta, area_light_le(la, c1.nor, in_c1));
+        const float choice0 =
+            light_choice_pdf(p.cdf, lidx < 0 ? 0 : lidx, p.n_rows);
+        float pdf_a0, pdf_w0;
+        area_light_pdf(la, in_c1, c1.nor, &pdf_a0, &pdf_w0);
+        const bool case_valid = lidx >= 0 && !is_black(L);
+        const float c1_rev = pdf_a0 * choice0;
+        const float c2_rev = convert_pdf(pdf_w0, c1.pos, c2.pos, c2.nor);
+        L = scl(L, mis_weight(cam, lit, k, s, 0, c1_rev, c2_rev, nanf_, nanf_,
+                              nanf_, false));
+        if (!(case_valid && finite3(L) && !is_black(L))) L = zero;
+      }
+      acc = g == 0 ? L : add(acc, L);
+    }
+    store3(p.li_out + 3 * i, add(zero, acc));
+  }
+
+  // ---- t1: camera vertex s - 1 to a light sample, s = column + 2 ----
+  {
+    uint32_t ok = 0;
+    float msum = 0.f;
+    int n_ok = 0;
+    const int j0 = g_n;
+    for (int g = 0; g < g_n; ++g) {
+      const int s = g + 2;
+      V3 L = zero;
+      bool okg = false;
+      if (s <= cc && lc >= 1) {
+        const Vtx c1 = load_vtx(p, cv(g + 1)), c2 = load_vtx(p, cv(g));
+        const bool c1_med = c1.mat == -1;
+        const Mat m1 = vtx_material<kTex>(p, c1);
+        const V3 in_c1 = normalize(sub(c2.pos, c1.pos));
+        const uint4 w = philox(item0 + (uint32_t)g, 3u, kConnectTag, 0u,
+                               p.seed, p.iteration);
+        const int idx = pick_light(p.cdf, p.n_rows, bits_to_uniform(w.x));
+        const float choice = light_choice_pdf(p.cdf, idx, p.n_rows);
+        const int last = p.n_lights - 1 > 0 ? p.n_lights - 1 : 0;
+        const float* la = light_row(p.lights, idx < last ? idx : last,
+                                    p.n_rows);
+        V3 rad, sd, lnor;
+        float st, lpdf;
+        sample_area_light(la, c1.pos, bits_to_uniform(w.y),
+                          bits_to_uniform(w.z), p.eps, &rad, &sd, &st, &lnor,
+                          &lpdf);
+        const V3 light_pos = add(c1.pos, scl(sd, st + p.eps));
+        V3 fr;
+        float next_pdf, rev_pdf;
+        surf_or_phase(p, c1, m1, in_c1, sd, &fr, &next_pdf);
+        const float g1 = c1_med ? 1.f : fabsf(dot(c1.nor, sd));
+        L = scl(mul(mul(c1.beta, fr), rad), g1 / tmax(lpdf * choice, 1e-30f));
+        float pdf_a1, pdf_w1;
+        area_light_pdf(la, sd, lnor, &pdf_a1, &pdf_w1);
+        V3 unused;
+        surf_or_phase(p, c1, m1, sd, in_c1, &unused, &rev_pdf);
+        const bool case_valid = !is_black(rad) && lpdf > 0.f &&
+                                !(!c1_med && c1.delta) && !is_black(L);
+        const float l0_fwd = pdf_a1 * choice;
+        const float l1_rev = convert_pdf(next_pdf, c1.pos, light_pos, lnor);
+        const float c1_rev = convert_pdf(pdf_w1, light_pos, c1.pos, c1.nor);
+        const float c2_rev = convert_pdf(rev_pdf, c1.pos, c2.pos, c2.nor);
+        L = scl(L, mis_weight(cam, lit, k, s, 1, c1_rev, c2_rev, l1_rev,
+                              nanf_, l0_fwd, true));
+        okg = case_valid && finite3(L) && !is_black(L);
+        if (okg) {
+          queue_slot(p, (size_t)(j0 + g) * n + i, L, c1.pos, sd, st, c1.med,
+                     g, &ok, &n_ok);
+        }
+      }
+      mean_term(g, okg, L, &msum);
+    }
+    live += roulette(p, i, j0, g_n, 3, ok, msum, n_ok, true);
+  }
+
+  // ---- the general rounds: s = 2 .. K, t = column + 2 ----------------
+  for (int s = 2; s <= k; ++s) {
+    uint32_t ok = 0;
+    float msum = 0.f;
+    int n_ok = 0;
+    const int j0 = 2 * g_n + (s - 2) * g_n;
+    if (s <= cc) {
+      const Vtx c1 = load_vtx(p, cv(s - 1)), c2 = load_vtx(p, cv(s - 2));
+      const bool c1_med = c1.mat == -1;
+      const Mat m1 = vtx_material<kTex>(p, c1);
+      const V3 in_c1 = normalize(sub(c2.pos, c1.pos));
+      for (int g = 0; g < g_n; ++g) {
+        const int t = g + 2;
+        V3 L = zero;
+        bool okg = false;
+        if (t <= lc) {
+          const Vtx l1 = load_vtx(p, lv(g + 1)), l2 = load_vtx(p, lv(g));
+          const bool l1_med = l1.mat == -1;
+          const Mat ml = vtx_material<kTex>(p, l1);
+          const V3 in_l1 = normalize(sub(l2.pos, l1.pos));
+          const V3 conn = sub(c1.pos, l1.pos);
+          const float d2g = tmax(dot(conn, conn), 1e-30f);
+          const V3 l1_to_c1 = divs(conn, sqrtf(d2g));
+          const V3 c1_to_l1 = neg(l1_to_c1);
+          V3 fr_c1, fr_l1, unused;
+          float pdf_to_l1, pdf_to_c1, pdf_to_l2, pdf_to_c2;
+          surf_or_phase(p, c1, m1, in_c1, c1_to_l1, &fr_c1, &pdf_to_l1);
+          surf_or_phase(p, l1, ml, in_l1, l1_to_c1, &fr_l1, &pdf_to_c1);
+          const float cos_l = l1_med ? 1.f : fabsf(dot(l1_to_c1, l1.nor));
+          const float cos_c = c1_med ? 1.f : fabsf(dot(c1_to_l1, c1.nor));
+          const float g3 = cos_l * cos_c / d2g;
+          L = scl(mul(mul(mul(c1.beta, fr_c1), fr_l1), l1.beta), g3);
+          surf_or_phase(p, l1, ml, l1_to_c1, in_l1, &unused, &pdf_to_l2);
+          surf_or_phase(p, c1, m1, c1_to_l1, in_c1, &unused, &pdf_to_c2);
+          const bool case_valid = !(!c1_med && c1.delta) &&
+                                  !(!l1_med && l1.delta) && !is_black(L);
+          const float c1_rev = convert_pdf(pdf_to_c1, l1.pos, c1.pos, c1.nor);
+          const float l1_rev = convert_pdf(pdf_to_l1, c1.pos, l1.pos, l1.nor);
+          const float l2_rev = convert_pdf(pdf_to_l2, l1.pos, l2.pos, l2.nor);
+          const float c2_rev = convert_pdf(pdf_to_c2, c1.pos, c2.pos, c2.nor);
+          L = scl(L, mis_weight(cam, lit, k, s, t, c1_rev, c2_rev, l1_rev,
+                                l2_rev, nanf_, false));
+          okg = case_valid && finite3(L) && !is_black(L);
+          if (okg) {
+            queue_slot(p, (size_t)(j0 + g) * n + i, L, c1.pos, c1_to_l1,
+                       sqrtf(d2g) - p.eps, c1.med, g, &ok, &n_ok);
+          }
+        }
+        mean_term(g, okg, L, &msum);
+      }
+    }
+    live += roulette(p, i, j0, g_n, 4 + s - 2, ok, msum, n_ok, false);
+  }
+  *queued = live;
+}
+
+template <bool kTex>
+__global__ void __launch_bounds__(kThreads)
+    bdpt_connect_kernel(BdptConnectArgs p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int queued = 0;
+  if (i < p.n) connect_lane<kTex>(p, i, &queued);
+  if (p.has_media) return;   // the walk counts its own rays
+  // the block's queued shadow rays, one atomic a block
+  __shared__ int block_sum;
+  if (threadIdx.x == 0) block_sum = 0;
+  __syncthreads();
+  if (queued) atomicAdd(&block_sum, queued);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_sum)
+    atomicAdd(p.rays, (unsigned long long)block_sum);
+}
+
+// ---------------------------------------------------------------------------
+// bdpt_finish
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ V3 credit(const BdptFinishArgs& p, size_t slot) {
+  if (!p.live[slot]) return mk(0.f, 0.f, 0.f);
+  const V3 L = load3(p.q_L + 3 * slot);
+  if (p.occluded) {
+    const float f = p.occluded[slot] ? 0.f : 1.f;
+    return mk(L.x * f, L.y * f, L.z * f);
+  }
+  return mul(L, load3(p.tr + 3 * slot));
+}
+
+__global__ void __launch_bounds__(kThreads) bdpt_finish_kernel(
+    BdptFinishArgs p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const int s_n = p.g * (p.g + 2);
+  // s1: splat at the raster pixel
+  for (int g = 0; g < p.g; ++g) {
+    const size_t slot = (size_t)g * p.n + i;
+    if (!p.live[slot]) continue;
+    const V3 c = credit(p, slot);
+    float* f = p.film + 3 * (size_t)p.q_pix[slot];
+    atomicAdd(f, c.x);
+    atomicAdd(f + 1, c.y);
+    atomicAdd(f + 2, c.z);
+  }
+  // t1, then the general rounds: each round's columns in column order
+  V3 li = load3(p.li + 3 * i);
+  for (int j0 = p.g; j0 < s_n; j0 += p.g) {
+    V3 acc = credit(p, (size_t)j0 * p.n + i);
+    for (int g = 1; g < p.g; ++g)
+      acc = add(acc, credit(p, (size_t)(j0 + g) * p.n + i));
+    li = add(li, acc);
+  }
+  // NaN/Inf guard: poisoned lanes are zeroed
+  store3(p.li_out + 3 * i, finite3(li) ? li : mk(0.f, 0.f, 0.f));
+}
+
+int blocks_of(int n) { return (n + kThreads - 1) / kThreads; }
+
+template <bool kTex, bool kAll>
+int launch_step(const BdptStepArgs& a, bool het, cudaStream_t s) {
+  if (het) {
+    bdpt_step_kernel<kTex, kAll, true><<<blocks_of(2 * a.n), kThreads, 0, s>>>(
+        a);
+  } else {
+    bdpt_step_kernel<kTex, kAll, false>
+        <<<blocks_of(2 * a.n), kThreads, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kTex>
+int launch_step_kinds(const BdptStepArgs& a, bool het, cudaStream_t s) {
+  return a.all_kinds ? launch_step<kTex, true>(a, het, s)
+                     : launch_step<kTex, false>(a, het, s);
+}
+
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError()
+// (0 = launched); n == 0 launches nothing.
+//
+// Vertex 0 and the first ray of the 2N subpath rows; l_medium NULL: no
+// media, med_sample NULL: no heterogeneous medium.
+extern "C" int bdpt_start(const BdptStartArgs* a, void* stream) {
+  if (a->n == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  bdpt_start_kernel<<<blocks_of(2 * a->n), kThreads, 0, s>>>(*a);
+  return (int)cudaGetLastError();
+}
+//
+// One step of the 2N subpath rows; tex NULL: no textures, found_t NULL:
+// no heterogeneous medium.
+extern "C" int bdpt_step(const BdptStepArgs* a, void* stream) {
+  if (a->n == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool het = a->found_t != nullptr;
+  return a->tex ? launch_step_kinds<true>(*a, het, s)
+                : launch_step_kinds<false>(*a, het, s);
+}
+
+// Every connection round of N lanes.
+extern "C" int bdpt_connect(const BdptConnectArgs* a, void* stream) {
+  if (a->n == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a->tex) {
+    bdpt_connect_kernel<true><<<blocks_of(a->n), kThreads, 0, s>>>(*a);
+  } else {
+    bdpt_connect_kernel<false><<<blocks_of(a->n), kThreads, 0, s>>>(*a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The queued credits after their shadow rays, and the NaN guard.
+extern "C" int bdpt_finish(const BdptFinishArgs* a, void* stream) {
+  if (a->n == 0) return 0;
+  bdpt_finish_kernel<<<blocks_of(a->n), kThreads, 0, (cudaStream_t)stream>>>(
+      *a);
+  return (int)cudaGetLastError();
+}

@@ -4,7 +4,8 @@
 // entry points on the H100 and what their design does about it is in
 // its header): the packed medium record, the density-box clip, the
 // supervoxel frame of a ray's segments and the per-segment majorant step,
-// and the trilinear density of the bf16-pair oct table. Each is written
+// and the trilinear density of the bf16-pair oct table; and the phase
+// function of the VPT and BDPT kernels. Each is written
 // in the operation order of its plain PyTorch version in shade/media.py
 // (built with -fmad=false, no fast math), so the kernel and the plain
 // version agree bit for bit.
@@ -177,6 +178,46 @@ __device__ __forceinline__ float density_oct(const uint4* __restrict__ oct4,
 __device__ __forceinline__ float tr_out(bool residual, float tr, float ln,
                                         float ce, float sigma) {
   return residual ? tr * expf(-ln * ce * sigma) : tr;
+}
+
+// ---------------------------------------------------------------------------
+// The phase function (shade/media.py::phase, sample_phase; core/
+// sampling.py::hg_phase, hg_sample), shared by the VPT step (vpt_shade.cu)
+// and the BDPT step and connections (bdpt.cu).
+// ---------------------------------------------------------------------------
+constexpr float kInvFourPi = (float)(1.0 / (4.0 * 3.14159265358979323846));
+
+// core/sampling.py::hg_phase
+__device__ __forceinline__ float hg_phase(float c, float g) {
+  if (g == 0.f) return kInvFourPi;
+  const float cubic = 1.f + g * g - 2.f * g * c;
+  return kInvFourPi * (1.f - g * g) /
+         sqrtf(tmax(cubic * cubic * cubic, 1e-30f));
+}
+
+// hg_sample's cosine about wi: the uniform sphere's below |g| 1e-3
+__device__ __forceinline__ float hg_costheta(float g, float u1) {
+  const float ct_iso = 1.f - 2.f * u1;
+  float costheta = ct_iso;
+  if (!(fabsf(g) < 1e-3f)) {
+    const float sqrt_term = (1.f - g * g) / (1.f - g + 2.f * g * u1);
+    costheta = (1.f + g * g - sqrt_term * sqrt_term) / (2.f * g);
+  }
+  return costheta;
+}
+
+// shade/media.py::sample_phase: the HG direction about wi (its pdf, the
+// phase value, is hg_phase(hg_costheta(g, u1), g))
+__device__ __forceinline__ V3 sample_phase(float g, V3 wi, float u1,
+                                           float u2) {
+  const float costheta = hg_costheta(g, u1);
+  const float sintheta = sqrtf(tmax(1.f - costheta * costheta, 0.f));
+  float cphi, sphi;
+  sincos_2pi(u2, &cphi, &sphi);
+  const V3 d = mk(sintheta * cphi, costheta, sintheta * sphi);
+  V3 w;
+  const V3 u = make_coordinate(wi, &w);
+  return to_world(d, u, wi, w);
 }
 
 }  // namespace media

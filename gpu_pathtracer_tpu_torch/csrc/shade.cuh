@@ -11,7 +11,12 @@
 //
 // The VPT wavefront's step kernel (vpt_shade.cu) shares it too: the
 // light pick (pick_light), the material with its texel (hit_material)
-// and the light sample (sample_light).
+// and the light sample (sample_light). BDPT's kernels (bdpt.cu) share the
+// hit record, the material, the BSDFs (sample_bsdf_mode in importance
+// transport on the light subpaths) and the light pick, and add the
+// camera's primary ray and importance, the area light's emission, pdf,
+// Le and sample with its normal, and ConvertPdf (the last section), none
+// of which the other kernels call.
 //
 // Four steps of a bounce exist twice. K2's bounce() (pt_fused.cu) writes
 // them inline; hit_material and sample_light here, and nee_contrib and
@@ -113,22 +118,6 @@ __device__ __forceinline__ V3 refract(V3 wi, V3 n, float etai, float etat) {
   const float cost = sqrtf(tmax(1.f - sint2, 0.f));
   const float sign = enter ? -1.f : 1.f;
   return normalize(add(scl(sub(scl(n, cosi), wi), eta), scl(n, sign * cost)));
-}
-// make_coordinate(n) -> u (w is returned through *w)
-__device__ __forceinline__ V3 make_coordinate(V3 n, V3* w_out) {
-  const bool use_x = fabsf(n.x) > fabsf(n.y);
-  const float inv_x = 1.f / sqrtf(n.x * n.x + n.z * n.z + 1e-30f);
-  const float inv_y = 1.f / sqrtf(n.y * n.y + n.z * n.z + 1e-30f);
-  const V3 w = use_x ? mk(n.z * inv_x, 0.f, -n.x * inv_x)
-                     : mk(0.f, n.z * inv_y, -n.y * inv_y);
-  *w_out = w;
-  return cross(w, n);
-}
-// (cos, sin) of 2 pi u from one transcendental
-__device__ __forceinline__ void sincos_2pi(float u, float* c, float* s) {
-  *c = cosf(kTwoPi * u);
-  const float r = sqrtf(tmax(1.f - *c * *c, 0.f));
-  *s = u <= 0.5f ? r : -r;
 }
 __device__ __forceinline__ V3 cosine_hemisphere(float u1, float u2,
                                                 float* pdf) {
@@ -302,7 +291,10 @@ __device__ __forceinline__ void substrate_fr_pdf(const Mat& m, V3 wi, V3 wo,
                                    (4.f * (fabsf(dwh) > 1e-12f ? dwh : 1e-12f)));
 }
 
-// reflection / refraction scale and pdf of the rough dielectric
+// reflection / refraction scale and pdf of the rough dielectric;
+// kImportance: light transport (bsdf.py's IMPORTANCE mode), whose
+// refraction leaves out radiance's 1 / eta^2
+template <bool kImportance = false>
 __device__ __forceinline__ void rough_dielectric_lobes(
     const Mat& m, V3 wi_in, V3 wo, V3 n, V3 wh, V3 dpdu, float ei, float et,
     float eta, float fresnel, float f_refl, float* s_refl, float* pdf_refl,
@@ -318,7 +310,7 @@ __device__ __forceinline__ void rough_dielectric_lobes(
   const float c2 = tmax(c * c, 1e-12f);
   float sr = ei * ei * D * G * (1.f - fresnel) * fabsf(dot(wi_in, wh)) *
              fabsf(dot(wo, wh)) / tmax(abs_out_n * abs_in_n * c2, 1e-12f);
-  *s_refr = sr * (1.f / tmax(eta * eta, 1e-12f));
+  *s_refr = kImportance ? sr : sr * (1.f / tmax(eta * eta, 1e-12f));
   *pdf_refr = (1.f - fresnel) * D * fabsf(dot(wh, n)) * et * et *
               fabsf(dot(wo, wh)) / c2;
 }
@@ -370,10 +362,13 @@ __device__ void eval_bsdf(const Mat& m, V3 wi, V3 wo, V3 nor, V3 dpdu,
   }
 }
 
-// SampleBSDF dispatch (sample_bsdf) -> wo, fr, pdf
-__device__ void sample_bsdf(const Mat& m, V3 wi, V3 nor, V3 dpdu, float u1,
-                            float u2, float u3, bool aniso, V3* wo, V3* fr,
-                            float* pdf) {
+// SampleBSDF dispatch (sample_bsdf) -> wo, fr, pdf; kImportance: light
+// transport, whose refraction does not pick up radiance's eta^2
+template <bool kImportance>
+__device__ __forceinline__ void sample_bsdf_mode(const Mat& m, V3 wi, V3 nor,
+                                                 V3 dpdu, float u1, float u2,
+                                                 float u3, bool aniso, V3* wo,
+                                                 V3* fr, float* pdf) {
   const V3 zero = mk(0.f, 0.f, 0.f);
   *wo = zero;
   *fr = zero;
@@ -403,7 +398,8 @@ __device__ void sample_bsdf(const Mat& m, V3 wi, V3 nor, V3 dpdu, float u1,
     *wo = refr ? refract(wi, nor, m.outside, m.inside) : reflect(wi, n);
     const float abs_cos = tmax(fabsf(dot(*wo, n)), 1e-12f);
     const V3 base = divs(m.specular, abs_cos);
-    *fr = refr ? scl(scl(base, 1.f - fresnel), eta * eta)
+    *fr = refr ? (kImportance ? scl(base, 1.f - fresnel)
+                              : scl(scl(base, 1.f - fresnel), eta * eta))
                : scl(base, tir ? 1.f : fresnel);
     *pdf = tir ? 1.f : (refr ? 1.f - fresnel : fresnel);
   } else if (m.type == ROUGHCONDUCTOR) {
@@ -458,12 +454,20 @@ __device__ void sample_bsdf(const Mat& m, V3 wi, V3 nor, V3 dpdu, float u1,
       *wo = reflect(wi_in, wh);
     }
     float s_refl, pdf_refl, s_refr, pdf_refr;
-    rough_dielectric_lobes(m, wi_in, *wo, n, wh, dpdu, ei, et, eta, fresnel,
-                           tir ? 1.f : fresnel, &s_refl, &pdf_refl, &s_refr,
-                           &pdf_refr);
+    rough_dielectric_lobes<kImportance>(m, wi_in, *wo, n, wh, dpdu, ei, et,
+                                        eta, fresnel, tir ? 1.f : fresnel,
+                                        &s_refl, &pdf_refl, &s_refr,
+                                        &pdf_refr);
     *fr = scl(m.specular, refr ? s_refr : s_refl);
     *pdf = refr ? pdf_refr : pdf_refl;
   }
+}
+
+// radiance transport (every kernel but bdpt.cu's light subpaths)
+__device__ void sample_bsdf(const Mat& m, V3 wi, V3 nor, V3 dpdu, float u1,
+                            float u2, float u3, bool aniso, V3* wo, V3* fr,
+                            float* pdf) {
+  sample_bsdf_mode<false>(m, wi, nor, dpdu, u1, u2, u3, aniso, wo, fr, pdf);
 }
 
 // ---------------------------------------------------------------------------
@@ -739,6 +743,181 @@ __device__ __forceinline__ void sample_light(const float* lights,
     *rad = *light_pdf != 0.f ? ldg3(la + 18) : mk(0.f, 0.f, 0.f);
     *st = sqrtf(tmax(dist2 - eps, 0.f));
   }
+}
+
+// ---------------------------------------------------------------------------
+// BDPT (bdpt.cu): the camera's primary ray and importance, the area
+// light's emission, pdf, Le and sample with its normal, ConvertPdf
+// ---------------------------------------------------------------------------
+// the camera fields of integrators/bdpt_shade.py::camera_record
+struct Cam {
+  V3 pos, u, v, w;
+  float res_x, res_y, distance, half_w, half_h, area;
+  float p2s_x, p2s_y, ratio, focal, aperture;
+};
+
+__device__ __forceinline__ Cam load_camera(const float* c) {
+  Cam k;
+  k.pos = ldg3(c);
+  k.u = ldg3(c + 3);
+  k.v = ldg3(c + 6);
+  k.w = ldg3(c + 9);
+  k.res_x = __ldg(c + 12);
+  k.res_y = __ldg(c + 13);
+  k.distance = __ldg(c + 14);
+  k.half_w = __ldg(c + 15);
+  k.half_h = __ldg(c + 16);
+  k.area = __ldg(c + 17);
+  k.p2s_x = __ldg(c + 18);
+  k.p2s_y = __ldg(c + 19);
+  k.ratio = __ldg(c + 20);
+  k.focal = __ldg(c + 21);
+  k.aperture = __ldg(c + 22);
+  return k;
+}
+
+// shade/camera.py::generate_primary_ray at continuous pixel (x, y) with
+// no aperture sample (BDPT has no depth of field): the pinhole, the thin
+// lens at the lens centre where the camera has an aperture, or the
+// environment camera's sphere of directions
+__device__ __forceinline__ void primary_ray(const Cam& c, float x, float y,
+                                            bool environment, V3* o, V3* d) {
+  if (environment) {
+    const float theta = kPi * (1.f - y / c.res_y);
+    const float phi = kTwoPi * (1.f - x / c.res_x);
+    const float st = sinf(theta);
+    const V3 l = mk(st * cosf(phi), cosf(theta), st * sinf(phi));
+    *o = c.pos;
+    *d = normalize(sub(add(scl(c.u, l.x), scl(c.v, l.y)), scl(c.w, l.z)));
+    return;
+  }
+  const float xx = x * c.p2s_x - c.half_w;
+  const float yy = y * c.p2s_y - c.half_h;
+  if (c.aperture > 1e-5f) {   // the thin lens (camera.h:63-73)
+    const float ax = 0.f * c.aperture, ay = 0.f * c.aperture;
+    const float dx = c.ratio * xx - ax, dy = c.ratio * yy - ay;
+    *d = normalize(add(add(scl(c.u, dx), scl(c.v, dy)), scl(c.w, -c.focal)));
+    *o = add(add(c.pos, scl(c.u, ax)), scl(c.v, ay));
+  } else {
+    *d = normalize(sub(add(scl(c.u, xx), scl(c.v, yy)), scl(c.w, c.distance)));
+    *o = c.pos;
+  }
+}
+
+// shade/camera.py::sample_camera (camera.h:86-114): the pinhole seen from
+// `pos`: the direction, the shadow ray's tmax, the importance we, the pdf
+// (0: behind the camera or off the screen) and the raster pixel
+__device__ __forceinline__ void sample_camera(const Cam& c, V3 pos, float eps,
+                                              V3* nd, float* st, float* we,
+                                              float* pdf, int* rx, int* ry) {
+  const V3 d = sub(c.pos, pos);
+  *nd = normalize(d);
+  *st = length(d) - eps;
+  const V3 m = neg(*nd);
+  const V3 cn = mk(dot(m, c.u), dot(m, c.v), dot(m, c.w));
+  bool ok = cn.z < 0.f;
+  const float costheta = -cn.z;
+  const float scale = -c.distance / (ok ? cn.z : -1.f);
+  const float px = cn.x * scale / c.half_w;
+  const float py = cn.y * scale / c.half_h;
+  ok = ok && fabsf(px) <= 1.f && fabsf(py) <= 1.f;
+  const float sx = px * 0.5f + 0.5f;
+  const float sy = py * 0.5f + 0.5f;
+  *rx = (int)floorf(sx * (c.res_x - 1.f) + 0.5f);
+  *ry = (int)floorf(sy * (c.res_y - 1.f) + 0.5f);
+  *pdf = ok ? dot(d, d) / tmax(costheta, 1e-30f) : 0.f;
+  const float c4 = powf(costheta, 4.f);   // torch's costheta ** 4
+  *we = c.distance * c.distance / tmax(c.area * c4, 1e-30f);
+}
+
+// shade/camera.py::pdf_camera's pdfW (camera.h:117-121) along d
+__device__ __forceinline__ float pdf_camera_w(const Cam& c, V3 d) {
+  const float costheta = dot(d, neg(c.w));
+  return c.distance * c.distance /
+         tmax(c.area * (costheta * costheta * costheta), 1e-30f);
+}
+
+// the light_attrs row of light `idx`, clamped into the table's n_rows
+__device__ __forceinline__ const float* light_row(const float* lights,
+                                                  int idx, int n_rows) {
+  const int i = idx < 0 ? 0 : (idx > n_rows - 1 ? n_rows - 1 : idx);
+  return lights + (size_t)i * kLightAttrs;
+}
+
+// shade/lights.py::sample_area_light_emission (area.h:21-26): a uniform
+// point of the light's triangle, a cosine-weighted direction about its
+// normal: the point, the direction, the normal, pdfA = 1 / area, pdfW
+__device__ __forceinline__ void area_light_emission(const float* la, float u1,
+                                                    float u2, float u3,
+                                                    float u4, V3* p, V3* d,
+                                                    V3* nor, float* pdf_a,
+                                                    float* pdf_w) {
+  const V3 v0 = ldg3(la), v1 = ldg3(la + 3), v2 = ldg3(la + 6);
+  const float su1 = sqrtf(tmax(u1, 0.f));
+  const float bu = 1.f - su1;
+  const float bv = u2 * su1;
+  const float bw = 1.f - bu - bv;
+  *p = add(add(scl(v0, bu), scl(v1, bv)), scl(v2, bw));
+  *nor = normalize(add(add(scl(ldg3(la + 9), bu), scl(ldg3(la + 12), bv)),
+                       scl(ldg3(la + 15), bw)));
+  const V3 local = cosine_hemisphere(u3, u4, pdf_w);
+  V3 ww;
+  const V3 uu = make_coordinate(*nor, &ww);
+  *d = to_world(local, uu, *nor, ww);
+  *pdf_a = 1.f / tmax(tri_area(v0, v1, v2), 1e-30f);
+}
+
+// shade/lights.py::area_light_pdf (area.h:28-32): pdfA = 1 / area and
+// pdfW = |cos| / pi
+__device__ __forceinline__ void area_light_pdf(const float* la, V3 ray_d,
+                                               V3 nor, float* pdf_a,
+                                               float* pdf_w) {
+  *pdf_a = 1.f / tmax(tri_area(ldg3(la), ldg3(la + 3), ldg3(la + 6)), 1e-30f);
+  *pdf_w = fabsf(dot(ray_d, nor)) * kInvPi;
+}
+
+// shade/lights.py::area_light_le (area.h:38-41): one-sided emission
+__device__ __forceinline__ V3 area_light_le(const float* la, V3 nor,
+                                            V3 dir_out) {
+  return dot(nor, dir_out) > 0.f ? ldg3(la + 18) : mk(0.f, 0.f, 0.f);
+}
+
+// shade/lights.py::sample_area_light (area.h:14-19): a uniform point of
+// the light's triangle seen from `pos`; the area branch of sample_light
+// with the light's normal at the point too
+__device__ __forceinline__ void sample_area_light(const float* la, V3 pos,
+                                                  float u1, float u2,
+                                                  float eps, V3* rad, V3* nd,
+                                                  float* st, V3* lnor,
+                                                  float* pdf) {
+  const V3 v0 = ldg3(la), v1 = ldg3(la + 3), v2 = ldg3(la + 6);
+  const float su1 = sqrtf(tmax(u1, 0.f));
+  const float bu = 1.f - su1;
+  const float bv = u2 * su1;
+  const float bw = 1.f - bu - bv;
+  const V3 lp = add(add(scl(v0, bu), scl(v1, bv)), scl(v2, bw));
+  *lnor = normalize(add(add(scl(ldg3(la + 9), bu), scl(ldg3(la + 12), bv)),
+                        scl(ldg3(la + 15), bw)));
+  const V3 d = sub(lp, pos);
+  const float dist2 = dot(d, d);
+  *nd = normalize(d);
+  const float cos_l = fabsf(dot(*lnor, *nd));
+  *pdf = dist2 / tmax(tri_area(v0, v1, v2) * cos_l, 1e-30f);
+  if (dot(*lnor, d) >= 0.f) *pdf = 0.f;
+  *rad = *pdf != 0.f ? ldg3(la + 18) : mk(0.f, 0.f, 0.f);
+  *st = sqrtf(tmax(dist2 - eps, 0.f));
+}
+
+// integrators/bdpt_shade.py::_convert_pdf (pathtracer.cu:1405-1414): a
+// solid-angle pdf at `from` as an area pdf at `to` (no cosine at a medium
+// vertex: zero normal)
+__device__ __forceinline__ float convert_pdf(float pdf, V3 from, V3 to,
+                                             V3 to_nor) {
+  const V3 d = sub(from, to);
+  const float d2 = tmax(dot(d, d), 1e-30f);
+  const float ret = pdf / d2;
+  const float c = fabsf(dot(divs(d, sqrtf(d2)), to_nor));
+  return dot(to_nor, to_nor) > 0.f ? ret * c : ret;
 }
 
 }  // namespace

@@ -91,3 +91,21 @@ __device__ __forceinline__ void store3(float* p, V3 v) {
   p[1] = v.y;
   p[2] = v.z;
 }
+
+// core/vecmath.py::make_coordinate(n) -> u (w is returned through *w)
+__device__ __forceinline__ V3 make_coordinate(V3 n, V3* w_out) {
+  const bool use_x = fabsf(n.x) > fabsf(n.y);
+  const float inv_x = 1.f / sqrtf(n.x * n.x + n.z * n.z + 1e-30f);
+  const float inv_y = 1.f / sqrtf(n.y * n.y + n.z * n.z + 1e-30f);
+  const V3 w = use_x ? mk(n.z * inv_x, 0.f, -n.x * inv_x)
+                     : mk(0.f, n.z * inv_y, -n.y * inv_y);
+  *w_out = w;
+  return cross(w, n);
+}
+// core/sampling.py::sincos_2pi: (cos, sin) of 2 pi u from one
+// transcendental
+__device__ __forceinline__ void sincos_2pi(float u, float* c, float* s) {
+  *c = cosf((float)(2.0 * 3.14159265358979323846) * u);
+  const float r = sqrtf(tmax(1.f - *c * *c, 0.f));
+  *s = u <= 0.5f ? r : -r;
+}

@@ -211,32 +211,6 @@ __device__ __forceinline__ void step_draws(StepDraws* d, int step,
   }
 }
 
-// core/sampling.py::hg_phase
-__device__ __forceinline__ float hg_phase(float c, float g) {
-  if (g == 0.f) return kInvFourPi;
-  const float cubic = 1.f + g * g - 2.f * g * c;
-  return kInvFourPi * (1.f - g * g) /
-         sqrtf(tmax(cubic * cubic * cubic, 1e-30f));
-}
-
-// shade/media.py::sample_phase: the HG direction about wi
-__device__ __forceinline__ V3 sample_phase(float g, V3 wi, float u1,
-                                           float u2) {
-  const float ct_iso = 1.f - 2.f * u1;
-  float costheta = ct_iso;
-  if (!(fabsf(g) < 1e-3f)) {
-    const float sqrt_term = (1.f - g * g) / (1.f - g + 2.f * g * u1);
-    costheta = (1.f + g * g - sqrt_term * sqrt_term) / (2.f * g);
-  }
-  const float sintheta = sqrtf(tmax(1.f - costheta * costheta, 0.f));
-  float cphi, sphi;
-  sincos_2pi(u2, &cphi, &sphi);
-  const V3 d = mk(sintheta * cphi, costheta, sintheta * sphi);
-  V3 w;
-  const V3 u = make_coordinate(wi, &w);
-  return to_world(d, u, wi, w);
-}
-
 __device__ __forceinline__ const float* med_row(const float* table, int k) {
   return table + (size_t)k * media::kMedCols;
 }
@@ -342,7 +316,7 @@ __device__ __forceinline__ void shade_lane(const VptShadeArgs& p, int i,
     sample_light<kEnv>(p.lights, p.n_lights, env, p.env_tmax, p.eps, idx,
                        pos, pos, u.u[2], u.u[3], &rad, &nd, &light_pdf, &st);
     if (!is_black(rad) && light_pdf > 0.f) {
-      const float ph = hg_phase(dot(neg(rd), nd), g);
+      const float ph = media::hg_phase(dot(neg(rd), nd), g);
       const float denom = tmax(light_pdf * choice_pdf, 1e-30f);
       pend[0] = beta.x, pend[1] = beta.y, pend[2] = beta.z;
       pend[3] = rad.x, pend[4] = rad.y, pend[5] = rad.z;
@@ -354,7 +328,7 @@ __device__ __forceinline__ void shade_lane(const VptShadeArgs& p, int i,
       wrem = st;
       wmed = med;
     }
-    rd = sample_phase(g, neg(rd), u.u[4], u.u[5]);
+    rd = media::sample_phase(g, neg(rd), u.u[4], u.u[5]);
     ro = pos;
     specular = from_surf = false;
   }

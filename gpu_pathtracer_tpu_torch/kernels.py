@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels (csrc/*.cu) and count their launches.
 
 Each kernel source (csrc/<name>.cu: dense, pt_fused, blocked,
-bvh8_walk, track, rng, pt_shade, vpt_shade) is compiled by `nvcc` into its own
-shared library with a plain C interface, loaded with ctypes (no PyTorch
-headers, so a build takes seconds). The build runs at first use, into `build/` at the root
+bvh8_walk, track, rng, pt_shade, vpt_shade, bdpt) is compiled by `nvcc`
+into its own shared library with a plain C interface, loaded with ctypes
+(no PyTorch headers, so a build takes seconds). The build runs at first use, into `build/` at the root
 of the checkout, keyed by a hash of the csrc/ sources and the flags, so
 a changed source is rebuilt and an unchanged one is reused; `build`
 compiles several sources at once, one nvcc process each. There is no
@@ -18,8 +18,8 @@ blocked.cu (K3), bvh8_walk.cu (K4) and pt_fused.cu's prim loops (K2)
 write their fused multiply-adds out (fmaf, in csrc/intersect.cuh's
 tri_cross routines only) and are held to their plain versions within
 the hit limits, K2 within the radiance limits (PERF.md section 2),
-pt_shade.cu and vpt_shade.cu (which share csrc/shade.cuh with K2)
-bit for bit; their
+pt_shade.cu, vpt_shade.cu and bdpt.cu (which share csrc/shade.cuh
+with K2) bit for bit; their
 sphere, line and box tests and the shading stay unfused. No fast-math flag is given, so
 division and sqrt are IEEE-rounded.
 """

@@ -116,7 +116,9 @@ ROWS = (
         ("integ_ao",)),
     Row("lt", "cornell_port/scene.json", "lt", ("dense_hit", "rng"),
         ("integ_lt",), sliced=True),
-    Row("bdpt", "cornell_port/scene.json", "bdpt", ("dense_hit", "rng"),
+    Row("bdpt", "cornell_port/scene.json", "bdpt",
+        ("dense_hit", "bdpt_start", "bdpt_step", "bdpt_connect",
+         "bdpt_finish"),
         ("integ_bdpt",), sliced=True),
     Row("ir", "cornell_port/scene.json", "ir", ("dense_hit", "rng"),
         ("integ_ir",)),
@@ -512,7 +514,7 @@ def main(argv=None) -> int:
     if cuda:   # every kernel once, one nvcc each at once, before the rows
         from gpu_pathtracer_tpu_torch import kernels
         kernels.build(["dense", "pt_fused", "blocked", "bvh8_walk", "track",
-                       "rng", "pt_shade", "vpt_shade"])
+                       "rng", "pt_shade", "vpt_shade", "bdpt"])
     for name in names:
         row = ROW_BY_NAME[name]
         left = opts.budget - (time.time() - t_start)

@@ -28,13 +28,17 @@ def kernel_stats() -> dict:
     (the Philox draws, csrc/rng.cu), "pt_shade" (the PT wavefront's
     shading, csrc/pt_shade.cu), and "vpt_shade" (the VPT step's
     shading), "vpt_tr_round" (its Tr walk's rounds) and "vpt_finish"
-    (the last credit and the NaN guard), all three in csrc/vpt_shade.cu."""
+    (the last credit and the NaN guard), all three in csrc/vpt_shade.cu,
+    and BDPT's "bdpt_start" (vertex 0 and the first ray of both
+    subpaths), "bdpt_step" (a subpath step), "bdpt_connect" (the
+    connection rounds) and "bdpt_finish" (the queued credits), all four
+    in csrc/bdpt.cu."""
     from gpu_pathtracer_tpu_torch.core import rng_cuda
     from gpu_pathtracer_tpu_torch.geom import (
         blocked_cuda, dense_cuda, packet_cuda,
     )
     from gpu_pathtracer_tpu_torch.integrators import (
-        pt_fused, pt_shade, vpt_shade,
+        bdpt_shade, pt_fused, pt_shade, vpt_shade,
     )
     from gpu_pathtracer_tpu_torch.shade import media_cuda
     return {"dense_hit": dense_cuda.STATS, "pt_fused": pt_fused.STATS,
@@ -42,7 +46,11 @@ def kernel_stats() -> dict:
             "track": media_cuda.STATS, "rng": rng_cuda.STATS,
             "pt_shade": pt_shade.STATS, "vpt_shade": vpt_shade.STATS,
             "vpt_tr_round": vpt_shade.TR_STATS,
-            "vpt_finish": vpt_shade.FINISH_STATS}
+            "vpt_finish": vpt_shade.FINISH_STATS,
+            "bdpt_start": bdpt_shade.START_STATS,
+            "bdpt_step": bdpt_shade.STATS,
+            "bdpt_connect": bdpt_shade.CONNECT_STATS,
+            "bdpt_finish": bdpt_shade.FINISH_STATS}
 
 
 def reset_counts(*stats) -> None:

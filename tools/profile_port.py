@@ -20,8 +20,9 @@ untraced spp, the --top device operations that take the most time,
 the launches a spp and time of PyTorch's masked elementwise kernels and
 of its row gathers (all of them, not only the top ones), every
 kernel of the port's own CUDA sources (the __global__ functions of
-gpu_pathtracer_tpu_torch/csrc/*.cu) with its share, and the longest
-idle gaps. A "spp" of SPPM is one iteration (eye pass, grid, photon
+gpu_pathtracer_tpu_torch/csrc/*.cu, BDPT's bdpt_step_kernel,
+bdpt_connect_kernel and bdpt_finish_kernel among them) with its share,
+and the longest idle gaps. A "spp" of SPPM is one iteration (eye pass, grid, photon
 pass), of MLT one mutation of every chain (the bootstrap is made with
 the renderer, before the window). Needs a CUDA device; prints the
 card's name and power limit first.
