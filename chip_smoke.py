@@ -9,7 +9,8 @@
     python3 chip_smoke.py --phases T    # build, BDPT's steps and rounds
     python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
-    python3 chip_smoke.py --baseline DIR  # also time DIR's K1 and K3
+    python3 chip_smoke.py --baseline DIR  # also time DIR's K1-K4, K2 (E)
+                                          # and bdpt_connect (T)
 
 Builds the port's nine CUDA kernel sources from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
@@ -77,8 +78,11 @@ Phases:
      cornell_port/bssrdf.json (dipole BSSRDFs: the wavefront's
      subsurface hook), light tracing and BDPT on smoke_port (the Tr walks
      of track.cu; BDPT over bdpt.cu's kernels), BDPT on knot_port (K4,
-     its any-hit serving the queue) and on cornell_port at depth 17 (323
-     queue slots a lane), with the run's peak device memory; a splat
+     its any-hit serving the queue), on knot_port/blocked.json (K3, whose
+     any-hit skips the queue's empty tmax-0 slots) and at depth 17 (323
+     queue slots a lane) on cornell_port and on smoke_port (the Tr walks
+     over the live slots), with the run's seconds and peak device
+     memory; a splat
      film and the per-lane radiance are held to the radiance limits
      apart (the film on the pixels either run touched); BDPT at depth 17
      over the kernels on the 1M-lane tile, its lanes in queue-sized
@@ -132,10 +136,12 @@ Phases:
   T  (after V) bdpt.cu vs its plain versions (integrators/bdpt_shade.py::
      start_torch, step_torch, connect_torch, finish_torch) on the same
      inputs: one
-     BDPT sample over the kernels at 1024^2 depth 5 (BDPT_CASES:
-     cornell_port, the bench row's shape; smoke_port, with smoke, fog,
-     interfaces, sample walks and Tr walks; materials.json's six BSDFs,
-     lines and spheres; textured.json), each kernel call held against its
+     BDPT sample over the kernels at 1024^2 depth 5 on 1M lanes
+     (BDPT_CASES: cornell_port, the bench row's shape; smoke_port, with
+     smoke, fog, interfaces, sample walks and Tr walks; materials.json's
+     six BSDFs, lines and spheres; textured.json) and at depth 17 on
+     cornell_port's first 65,536 lanes (K = 18: one lane a warp in
+     bdpt_connect), each kernel call held against its
      plain version on a copy of its input (the table slots at and above
      a row's count, which the kernels leave unwritten, set to the plain
      tables' empty values): bdpt_start's and bdpt_step's vertex tables
@@ -146,7 +152,13 @@ Phases:
      queue's one Tr walk against a walk per round, bit for bit; then
      each kernel, its plain version and its byte bound in turns on
      cornell_port's inputs (the start, step 1, the connection rounds,
-     the finish)
+     the finish); bdpt_connect's bound also by operations (the
+     instructions of its staged vertices, items by round and kept slots,
+     CONNECT_OPS, at the issue peak), its registers,
+     stack frame and launch shape (the occupancy API) at K = 6 and 18;
+     with --baseline DIR, DIR's bdpt.cu built here and its bdpt_connect
+     held bit for bit against this checkout's and timed in turns with it
+     on the same inputs
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after, then timed from where its
      render stands by the bench's windows (run/bench.py: D_WINDOWS
@@ -277,9 +289,12 @@ MLT_SLIT = "scenes/cornell_port/mlt_slit.json"   # a room lit through a slit
 # meshes lie outside the repository): cornell_port runs BDPT at it
 DEEP = 17
 # BDPT beyond the bench row's shape in phase C, over the kernels against
-# all-plain: (scene, depth, its hit kernel): through K4, whose any-hit
-# then serves the queue too, and at depth 17 (323 queue slots a lane)
-BDPT_C = ((KNOT["scene"], 5, "bvh8_walk"), (SCENES[0], DEEP, "dense_hit"))
+# all-plain: (scene, depth, its hit kernel): through K4 and K3, whose
+# any-hit then serves the queue too (K3 skipping its empty tmax-0 slots),
+# and at depth 17 (323 queue slots a lane) without and with media (the
+# Tr walks over the live slots)
+BDPT_C = ((KNOT["scene"], 5, "bvh8_walk"), (KNOT["blocked"], 5, "blocked"),
+          (SCENES[0], DEEP, "dense_hit"), (SMOKE, DEEP, "dense_hit"))
 # the programs that couple all pixels, as whole images in phase C:
 # (integrator, scene)
 COUPLED_C = (("sppm", SCENES[0]), ("mlt", SCENES[0]), ("mlt", MLT_SLIT))
@@ -398,11 +413,11 @@ BDPT_FLAGS = {"bdpt_step_kernel": ("tex", "all kinds", "heterogeneous"),
               "bdpt_connect_kernel": ("tex",)}
 
 
-def ptxas_summary(report: str) -> str:
+def ptxas_summary(report: str, only: str = "") -> str:
     """nvcc's -Xptxas -v report, one "registers, stack frame, spills"
-    entry per kernel entry point, template variants named by their flags
-    (K2: sky, textures, all prim kinds; K1, K3, K4: all prim kinds;
-    BDPT_FLAGS for bdpt.cu's)."""
+    entry per kernel entry point (those named `only`, where given),
+    template variants named by their flags (K2: sky, textures, all prim
+    kinds; K1, K3, K4: all prim kinds; BDPT_FLAGS for bdpt.cu's)."""
     import re
     out, label, frame = [], "?", ""
     for ln in report.splitlines():
@@ -426,7 +441,8 @@ def ptxas_summary(report: str) -> str:
             frame = ln.strip()
         elif "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out.append(f"{label}: {regs} registers, {frame}")
+            if label.startswith(only):
+                out.append(f"{label}: {regs} registers, {frame}")
     return " | ".join(out)
 
 
@@ -2268,22 +2284,25 @@ def phase_v(dev, card, records):
     print(f"[V] done in {time.time() - t0:.1f} s")
 
 
-BDPT_CASES = (
-    ("cornell_port (the bench row's shape)", SCENES[0]),
-    ("smoke_port (smoke, fog, interfaces, sample and Tr walks)", SMOKE),
-    ("materials.json (six BSDFs, lines, spheres)", SCENES[1]),
-    ("textured.json (textures)", K2_VARIANTS["textured"]))
+BDPT_CASES = (   # label, scene, depth, lanes
+    ("cornell_port (the bench row's shape)", SCENES[0], 5, N_RAYS),
+    ("smoke_port (smoke, fog, interfaces, sample and Tr walks)", SMOKE, 5,
+     N_RAYS),
+    ("materials.json (six BSDFs, lines, spheres)", SCENES[1], 5, N_RAYS),
+    ("textured.json (textures)", K2_VARIANTS["textured"], 5, N_RAYS),
+    ("cornell_port at depth 17 (K = 18: 17 columns, one lane a warp)",
+     SCENES[0], DEEP, 65536))
 WALKER_FIELDS = ("ro", "rd", "beta", "forward", "med", "alive", "tmax",
                  "med_sample")
 
 
-def bdpt_scene(path, dev):
-    """The scene at repo path `path` at 1024^2, set to BDPT at depth 5."""
+def bdpt_scene(path, dev, depth=5):
+    """The scene at repo path `path` at 1024^2, set to BDPT at `depth`."""
     import dataclasses
     from gpu_pathtracer_tpu_torch.scene.model import IntegratorType
     sc, st = scene_1024(path, dev)
     return sc, dataclasses.replace(st, integrator=IntegratorType.BDPT,
-                                   max_depth=5)
+                                   max_depth=depth)
 
 
 def record_differ(k, p, fields, mask=None) -> dict:
@@ -2436,32 +2455,99 @@ def bdpt_step_bound(static, before, after, prim) -> dict:
     return b
 
 
-def bdpt_connect_bound(scene, v, q, n) -> dict:
-    """bdpt_connect's least time on one call, bytes over 3.35 TB/s: per
-    lane its id, both counts, both subpaths' fwd, rev and delta (the MIS
-    tables, 9 B a column), their vertices below the count (69 B each) and
-    the t0 radiance; per slot its flag and tmax; per live slot its shadow
-    ray and credit (and medium, and s1's pixel). Its float work, a few
-    hundred operations a valid item (two to four BSDF or phase
-    evaluations, four ConvertPdfs, the MIS weight), stays below: the
-    valid items are printed beside it."""
+# bdpt_connect's instructions at least, counted from csrc/bdpt.cu on a
+# Lambertian vertex pair without media (cornell_port's): a float add,
+# multiply, compare or select, an integer operation, a load, a store or a
+# shuffle is one (-fmad=false: no fused multiply-add; a negation or |x|
+# is an operand modifier, powf one); an IEEE division or square root is
+# DIV_INSTR, its fast path without fast math (a division: MUFU.RCP, FCHK,
+# five FFMAs and the branch around the slow path; a square root:
+# MUFU.RSQ, the range check, two FMULs, two FFMAs and the branch), the
+# slow path not counted. CONNECT_OPS: (instructions, divisions, square
+# roots) of each part: a staged vertex (23 loads of its record and
+# segment, 17 of its material, 22 operations, 43 stores of its shared
+# record, 9 addressing), a column of its MIS walk, an item of each round
+# (plus CONNECT_COL_OPS a column: its share of the round's column sums by
+# shuffles, three sums in t0), an item valid before its roulette (the
+# mean, q and the draw's test), a kept slot (L / q, its ray, credit and
+# medium stored); a valid item of s1 or the general rounds draws
+# PHILOX_INSTR more before its test (t1's draw, the light sample's, is in
+# t1's count).
+CONNECT_OPS = {"stage": (114, 3, 1), "walk": (15, 1, 0),
+               "s1": (277, 18, 3), "t0": (139, 4, 1), "t1": (453, 21, 8),
+               "gen": (267, 12, 1), "ok": (22, 2, 0), "kept": (13, 3, 0)}
+CONNECT_COL_OPS = {"s1": 3, "t0": 9, "t1": 3, "gen": 3}
+DIV_INSTR = 10
+PHILOX_INSTR = 100   # ten rounds of 2 mul.lo, 2 mul.hi, 4 xor, 2 key adds
+
+
+def bdpt_connect_bound(scene, static, v, q, ok, n) -> dict:
+    """bdpt_connect's least time on one call, the larger of: bytes over
+    3.35 TB/s, each read once (per lane its id and both counts; per
+    subpath of c >= 2 vertices its MIS columns below the count, 9 B each
+    (fwd, rev, delta), vertex 0's position and normal (the first
+    segment's far end), vertices 1 .. c - 1 at 52 B (position, normal,
+    dpdu, beta, material; their uv with textures, their medium with
+    media; a camera vertex's light index); the light side's delta at
+    vertex 0 where it has no other vertex; the t0 radiance; per slot its
+    flag and tmax; per live slot its shadow ray and credit (and medium,
+    and s1's pixel); the scene's material and light tables), and the
+    instructions (CONNECT_OPS by part: the staged vertices, their walks'
+    columns, the items by round, the items valid before the roulette
+    (`ok`: connect_valid's flags), the kept slots; a Philox draw a valid
+    s1 or general item) over the 33.45 T/s issue peak."""
     k = v.pos.shape[1]
+    g = k - 1
     live = q.live
-    n_bytes = n * (8 + 8 + 2 * 9 * k + 12) + int(v.count.sum()) * 69
-    n_bytes += live.numel() * 5 + int(live.sum()) * (36 + (4 if q.med is not
-                                                           None else 0))
-    n_bytes += int(live[:q.pix.shape[0]].sum()) * 4
+    med = 4 if q.med is not None else 0
+    cc, lc = v.count[:n].long(), v.count[n:].long()
+    rec = 52 + (8 if static.has_textures else 0) + med
+    n_bytes = n * (8 + 8 + 12)
+    for c, extra in ((cc, 4), (lc, 0)):
+        two = c >= 2
+        n_bytes += int((c * two).sum()) * 9 + int(two.sum()) * 24
+        n_bytes += int(torch.clamp_min(c - 1, 0).sum()) * (rec + extra)
+    n_bytes += int(((lc == 1) & (cc >= 2)).sum())
+    n_bytes += live.numel() * 5 + int(live.sum()) * (36 + med)
+    n_bytes += int(live[:g].sum()) * 4
     n_bytes += _tensor_bytes(scene.mat_attrs, scene.light_attrs,
                              scene.light_cdf)
-    cc, lc = v.count[:n].long(), v.count[n:].long()
     below_c = torch.clamp_min(cc - 1, 0)   # s1, t0 and t1's columns
     below_l = torch.clamp_min(lc - 1, 0)
-    items = int(below_l.sum()) + int(below_c.sum()) \
-        + int((below_c * (lc >= 1)).sum()) \
-        + sum(int(((cc >= s) * below_l).sum()) for s in range(2, k + 1))
-    b = bound(n_bytes, 0)
-    b["bytes"], b["items"] = n_bytes, items
-    return b
+    items = {"s1": int(below_l.sum()), "t0": int(below_c.sum()),
+             "t1": int((below_c * (lc >= 1)).sum()),
+             "gen": sum(int(((cc >= s) * below_l).sum())
+                        for s in range(2, k + 1))}
+    # vertex m's walk reads columns 0 .. m
+    walk = sum(int((torch.clamp_min(c - 1, 0) * (c + 2) // 2).sum())
+               for c in (cc, lc))
+    n_ok = int(ok.sum())
+    parts = {"stage": int((below_c + below_l).sum()), "walk": walk,
+             **items, "ok": n_ok, "kept": int(live.sum())}
+    instr = sum(x * (CONNECT_OPS[r][0] + CONNECT_COL_OPS.get(r, 0) * g
+                     + DIV_INSTR * (CONNECT_OPS[r][1] + CONNECT_OPS[r][2]))
+                for r, x in parts.items())
+    instr += PHILOX_INSTR * (n_ok - int(ok[g:2 * g].sum()))
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = instr / INT_OPS * 1e3
+    return {"bound_ms": max(tb, to), "bound_by":
+            "bytes" if tb >= to else "operations", "bytes": n_bytes,
+            "items": sum(items.values()), "items_by_round": items,
+            "valid": n_ok, "instructions": instr, "bytes_ms": tb,
+            "operations_ms": to}
+
+
+def connect_valid(kw) -> torch.Tensor:
+    """The queue's flags of connect_torch on the arguments kw with the
+    shadow roulette off: the items valid before it, which take its mean
+    and draw."""
+    from gpu_pathtracer_tpu_torch.integrators import bdpt_shade as bs
+    rr = bs.CONNECT_RR
+    bs.CONNECT_RR = 0.0
+    try:
+        return bs.connect_torch(**{**kw, "rays": None, "plain": True})[1].live
+    finally:
+        bs.CONNECT_RR = rr
 
 
 def bdpt_finish_bound(q, shadow, n_pix) -> dict:
@@ -2529,14 +2615,14 @@ def phase_t(dev, card, records):
     orig = {k: getattr(bs, k) for k in ("start", "step", "connect",
                                         "finish")}
     sigs = {k: inspect.signature(f) for k, f in orig.items()}
-    for label, path in BDPT_CASES:
-        sc, st = bdpt_scene(path, dev)
-        ids = torch.arange(N_RAYS, device=dev)
+    for label, path, depth, n_lanes in BDPT_CASES:
+        sc, st = bdpt_scene(path, dev, depth)
+        ids = torch.arange(n_lanes, device=dev)
         px, py = ids % st.width, ids // st.width
         lanes = (py.long() * st.width + px.long())
         n_pix = st.width * st.height
         seen = {"steps": 0, "differ": {}}
-        keep = path == SCENES[0]
+        keep = path == SCENES[0] and depth == 5
 
         def bound_args(name, args, kwargs):
             a = sigs[name].bind(*args, **kwargs)
@@ -2638,7 +2724,7 @@ def phase_t(dev, card, records):
                                   else 0)
         counts = (bs.START_STATS, bs.STATS, bs.CONNECT_STATS,
                   bs.FINISH_STATS)
-        print(f"[T] {label}: {seen['steps']} steps of {2 * N_RAYS} rows, "
+        print(f"[T] {label}: {seen['steps']} steps of {2 * n_lanes} rows, "
               f"{seen['live']} live of {seen['slots']} queue slots, rays "
               f"{int(rays)}; launches {[c.launches for c in counts]}, plain "
               f"calls {[c.plain_cuda for c in counts]}; not bit-equal: "
@@ -2682,7 +2768,8 @@ def phase_t(dev, card, records):
     bounds = {"start": bdpt_start_bound(*bs.start_cuda(**sk), sk["lanes"],
                                         sc),
               "step": bdpt_step_bound(st, (v0, w0), after, kw["prim"]),
-              "connect": bdpt_connect_bound(sc, ck["v"], q, N_RAYS),
+              "connect": bdpt_connect_bound(sc, st, ck["v"], q,
+                                            connect_valid(ck_plain), N_RAYS),
               "finish": bdpt_finish_bound(fk["q"], fk["shadow"],
                                           fk["n_pix"])}
     where = {"start": "the start", "step": "step 1",
@@ -2696,13 +2783,89 @@ def phase_t(dev, card, records):
               f"{min(kt):.4f}-{max(kt):.4f}), plain {ms[name + ' plain']:.4f} "
               f"ms (turns {min(pt_):.4f}-{max(pt_):.4f}); bound "
               f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} bytes"
-              + (f", {b['items']} valid items" if "items" in b else "")
+              + (f", {b['items']} items {b['items_by_round']}, "
+                 f"{b['valid']} valid before the roulette: bytes "
+                 f"{b['bytes_ms']:.4f} ms, {b['instructions']} "
+                 f"instructions {b['operations_ms']:.4f} ms"
+                 if "items" in b else "")
               + f") ({card})")
         records[f"bdpt_{name}"].update(
             max_abs_err=err[f"bdpt_{name}"], ms=ms[name + " kernel"],
             plain_ms=ms[name + " plain"], bound_ms=b["bound_ms"],
             bound_by=b["bound_by"], library_ms=None, bound_bytes=b["bytes"])
+    b = bounds["connect"]
+    occ = {f"k{k}": bs.connect_occupancy(k) for k in (6, DEEP + 1)}
+    print(f"[T] bdpt_connect's launch shape (occupancy API) at K = 6 and "
+          f"K = {DEEP + 1}: {occ}; ncu does not run on this machine")
+    records["bdpt_connect"].update(
+        bound_bytes_ms=b["bytes_ms"], bound_operations_ms=b["operations_ms"],
+        bound_instructions=b["instructions"], occupancy=occ,
+        ptxas=ptxas_summary(kernels.BUILDS["bdpt"].ptxas,
+                            "bdpt_connect_kernel"))
+    if BASELINE:
+        baseline_connect(ck, card, records)
     print(f"[T] done in {time.time() - t0:.1f} s")
+
+
+def baseline_library(name: str):
+    """csrc/<name>.cu of the checkout at BASELINE, built with this
+    checkout's nvcc flags into build/ and loaded: (the library, its
+    ptxas report). Its entry points take the same argument structures."""
+    import ctypes
+    import hashlib
+    from gpu_pathtracer_tpu_torch import kernels
+    src = os.path.join(BASELINE, "gpu_pathtracer_tpu_torch", "csrc",
+                       f"{name}.cu")
+    check(os.path.exists(src), f"--baseline: no {src}")
+    h = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    so = os.path.join(REPO, "build", f"baseline_{name}-{h}.so")
+    p = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, src],
+                       capture_output=True, text=True)
+    check(p.returncode == 0, f"nvcc failed on {src}:\n{p.stderr[-3000:]}")
+    return ctypes.CDLL(so), p.stderr
+
+
+def baseline_connect(ck, card, records):
+    """bdpt_connect of the checkout at BASELINE (its bdpt.cu, built here,
+    launched through this checkout's wrapper: the argument structure is
+    the same) against this checkout's on phase T's cornell_port inputs:
+    the t0 radiance and the queue bit for bit, then both timed in turns
+    (parent, this, this, parent, twice)."""
+    from gpu_pathtracer_tpu_torch import kernels
+    from gpu_pathtracer_tpu_torch.integrators import bdpt_shade as bs
+    lib, ptxas = baseline_library("bdpt")
+    print(f"[T] bdpt_connect of {BASELINE}: "
+          f"{ptxas_summary(ptxas, 'bdpt_connect_kernel')}")
+    ours = kernels._LIBS["bdpt"]
+
+    def parent():
+        kernels._LIBS["bdpt"] = lib
+        try:
+            return bs.connect_cuda(**ck)
+        finally:
+            kernels._LIBS["bdpt"] = ours
+
+    li_p, q_p = parent()
+    li_k, q_k = bs.connect_cuda(**ck)
+    d = {"li": int((bits(li_k) != bits(li_p)).any(1).sum()),
+         **queue_differ(q_k, q_p)}
+    print(f"[T] bdpt_connect of {BASELINE} vs this checkout on "
+          f"cornell_port's {N_RAYS} lanes, not bit-equal: "
+          f"{ {f: x for f, x in d.items() if x} or 'none'}")
+    check(not any(d.values()), f"bdpt_connect differs from {BASELINE}'s")
+    del li_p, q_p, li_k, q_k
+    t = {"parent": [], "this": []}
+    for _ in range(2):
+        for k_, x in timed_windows({"parent": parent, "this": lambda:
+                                    bs.connect_cuda(**ck)}).items():
+            t[k_] += x
+    for k_, x in t.items():
+        print(f"[T] bdpt_connect of {BASELINE if k_ == 'parent' else REPO} "
+              f"on cornell_port's {N_RAYS} lanes: {sum(x) / len(x):.4f} ms "
+              f"(windows {', '.join(f'{y:.4f}' for y in x)}) ({card})")
+    records["bdpt_connect"].update(
+        baseline_ms=sum(t["parent"]) / len(t["parent"]),
+        ms_in_turns=sum(t["this"]) / len(t["this"]))
 
 
 def phase_d(dev, card, records):
@@ -3471,22 +3634,27 @@ def phase_c_program(dev, records, integ, path, n_lanes=65536, depth=5,
     n_pix = static.width * static.height
     ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
                        dtype=torch.int32)[:n_lanes]
+    if integ == "bdpt":   # its seconds are a second run's, the builds done
+        run_program(integ, scene, static, ids, SEED)
     stats = kernel_stats()
     reset_counts(*stats.values())
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
     li_k, film_k, r_k = run_program(integ, scene, static, ids, SEED)
     torch.cuda.synchronize()
+    sec = time.time() - t0
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     counts = {k: st.launches for k, st in stats.items()}
     li_p, film_p, r_p = run_program(integ, scene, static, ids, SEED,
                                     plain=True)
     label = f"C {integ} {path}"
     print(f"[C] {integ} on {path} at depth {depth}: {ids.numel()} lanes, "
-          f"rays {int(r_k)} vs {int(r_p)}, peak device memory of the run "
-          f"over the kernels {peak:.3f} GiB above what was held, launches "
-          f"{counts}")
+          f"rays {int(r_k)} vs {int(r_p)}, the run over the kernels "
+          f"{sec:.4f} s{' (its second)' if integ == 'bdpt' else ''}, its "
+          f"peak device memory {peak:.3f} GiB above what "
+          f"was held, launches {counts}")
     for what, a, b in (("radiance", li_k, li_p), ("film", film_k, film_p)):
         if a is not None:
             hold_radiance(label, what, a, b)
@@ -3496,10 +3664,16 @@ def phase_c_program(dev, records, integ, path, n_lanes=65536, depth=5,
         | (set(BDPT_KERNELS) if integ == "bdpt" else {"rng"})
     check(only(counts, *want), f"{label}: launches {counts}")
     name = f"launches_c_{integ}_{os.path.basename(os.path.dirname(path))}"
+    stem = os.path.splitext(os.path.basename(path))[0]
+    if stem != "scene":
+        name += f"_{stem}"
     if depth != 5:
         name += f"_depth{depth}"
     for k in want:
         records[k][name] = counts[k]
+    if integ == "bdpt":
+        records["bdpt_connect"][name.replace("launches", "peak_gib")] = peak
+        records["bdpt_connect"][name.replace("launches", "s")] = sec
 
 
 def phase_c_bdpt_tile(dev, records):
@@ -4580,7 +4754,8 @@ def main() -> None:
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="another checkout of the port (e.g. a git archive "
                     "of the parent commit): phase E also times its K1, K2, "
-                    "K3 and K4 beside this checkout's on the same inputs")
+                    "K3 and K4 and phase T its bdpt_connect beside this "
+                    "checkout's on the same inputs")
     ap.add_argument("--time-hits", nargs=2, metavar=("INPUTS", "ROOT"),
                     help=argparse.SUPPRESS)   # --baseline's child processes
     ap.add_argument("--cards", type=int, default=1,
@@ -4604,7 +4779,8 @@ def main() -> None:
         return
     if args.baseline:
         BASELINE = os.path.abspath(args.baseline)
-        check("E" in phases, "--baseline times in phase E")
+        check("E" in phases or "T" in phases,
+              "--baseline times in phases E and T")
     card = card_line()
     print(card, flush=True)
     sys.path.insert(0, REPO)

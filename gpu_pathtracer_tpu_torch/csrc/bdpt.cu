@@ -40,16 +40,14 @@
 // and the connect kernel's threads read vertex m of neighbouring lanes
 // side by side.
 //
-// bdpt_connect, per lane: the MIS suffix tables of both subpaths; then in
-// order the rounds s1, t0, t1 and general s = 2 .. K, each over the G = K -
-// 1 columns: the case's contribution with its pdf overrides, the MIS
-// weight, and (but t0) the roulette against the lane's mean over the
-// round's valid items. t0's columns add to li at once, in column order.
-// (A thread a (lane, round), each rebuilding the MIS tables, was slower
-// on cornell's 1M lanes: 5.37 against 4.97 ms, at 168 registers.)
-// A connection that survives its roulette gets its queue slot (shadow ray,
-// credit, medium, s1's raster pixel); the others get an empty slot (tmax
-// 0, which the hit kernels skip).
+// bdpt_connect, per lane: in order the rounds s1, t0, t1 and general s =
+// 2 .. K, each over the G = K - 1 columns: the case's contribution with
+// its pdf overrides, the MIS weight, and (but t0) the roulette against
+// the lane's mean over the round's valid items. t0's columns add to li at
+// once, in column order. A connection that survives its roulette gets its
+// queue slot (shadow ray, credit, medium, s1's raster pixel); the others
+// get an empty slot (tmax 0, which the hit kernels skip). G threads of a
+// warp run a lane, one a column (the design note above the kernel).
 //
 // bdpt_finish, per lane: L x tr of each live slot (tr 0 or 1 from the
 // any-hit call, or the walk's transmittance); the s1 credits atomically
@@ -62,16 +60,27 @@
 // (t1: words 0-2 the light sample, 3 the roulette; s1 and general: word
 // 0 the roulette).
 //
-// What bounds them on an H100: the bytes a row or a lane moves.
-// bdpt_step reads about 60 B of row state and a vertex (the previous) and
-// writes one vertex (77 B) and the row state; bdpt_connect reads both
-// subpaths' vertices below their counts (at most 2 K, about 0.9 KB a
-// lane at K = 6) and writes the queue: a byte and a float a slot, 40 B
-// more a live slot (35 slots a lane at K = 6); bdpt_finish reads a
-// slot's flag, and its credit and verdict where live. The connections'
-// arithmetic (up to four BSDF or phase evaluations and a MIS weight an
-// item) runs from registers; the MIS tables of a lane sit in local
-// memory. Every intermediate stays out of device memory, the scene
+// What bounds them on an H100: the bytes a row or a lane moves, and for
+// bdpt_connect its instructions as much. bdpt_step reads about
+// 60 B of row state and a vertex (the previous) and writes one vertex
+// (77 B) and the row state; bdpt_connect reads both subpaths' vertices
+// below their counts (at most 2 K, about 0.7 KB a lane at K = 6) and
+// writes the queue: a byte and a float a slot, 40 B more a live slot (35
+// slots a lane at K = 6); bdpt_finish reads a slot's flag, and its credit
+// and verdict where live. The connections' arithmetic (up to four BSDF or
+// phase evaluations, four ConvertPdfs and a MIS weight an item, with
+// IEEE divisions and square roots of about 10 instructions each:
+// chip_smoke.py's CONNECT_OPS) takes about as long at the issue peak as
+// the bytes do, and each item is a long chain of dependent loads,
+// divisions and square roots. bdpt_connect's design
+// therefore loads each vertex and looks up its material once, into shared
+// memory, reuses a segment's length and cosines across the ConvertPdfs
+// that share them, keeps no table indexed at run time (no local memory)
+// and, with 91 registers and 41 KB of shared memory a block, keeps 20
+// warps an SM in flight (12 for the earlier design of a thread a lane,
+// at 153 registers and a 768-byte frame of MIS tables); 2.74 against 4.95
+// ms on cornell_port's 1M lanes (PERF.md). Every intermediate stays out
+// of device memory, the scene
 // tables are read through __ldg, and the traced rays are counted with
 // one atomic a block.
 //
@@ -216,7 +225,6 @@ struct BdptFinishArgs {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxK = 32;   // bdpt_shade.py ITEM_LANES: vertices a subpath
 constexpr int kEmitDims = 8, kStepDims = 8;   // bdpt_shade.py EMIT/STEP_DIMS
 constexpr uint32_t kLightTag = 2, kConnectTag = 3;   // core/rng.py
 constexpr float kConnectRR = 1.f;   // bdpt_shade.py CONNECT_RR
@@ -519,380 +527,441 @@ __global__ void __launch_bounds__(kThreads) bdpt_step_kernel(BdptStepArgs p) {
 // ---------------------------------------------------------------------------
 // bdpt_connect
 // ---------------------------------------------------------------------------
-// One subpath's MIS suffix tables (bdpt_shade.py::_mis_tables): its fwd,
-// ok = not delta here and at the vertex before (0 at the camera's vertex
-// 0), and A[m] = r_m (ok_m + A[m - 1]) with r = remap(rev) / remap(fwd),
-// over the subpath's `count` vertices (a valid item's weight reads no
-// column at or above them).
-struct Side {
-  float fwd[kMaxK], ok[kMaxK], A[kMaxK];
-};
+// G = K - 1 threads of one warp run one lane, thread g its column g of
+// every round: 32 / G lanes a warp (6 lanes on 30 threads at K = 6; one
+// lane from K = 18). Thread g first stages, in shared memory, the lane's
+// light vertex g + 1 (s1's and the general rounds' l1 in column g) and
+// camera vertex g + 1 (t0's and t1's c1 in column g, and every column's
+// c1 in the general round s = g + 2), each looked up once: its record,
+// material, direction toward the vertex before and that segment's
+// squared length and cosine there (which ConvertPdf toward the vertex
+// before reuses), and its subpath's MIS columns (fwd and ok here and one
+// vertex back, A two back: a walk of the suffix table in registers, no
+// table indexed at run time, so no local memory at any K). Each round
+// then reads its vertices from shared memory, the fields its BSDF takes.
+// A round's column sums (t0's radiance, the roulette's mean) read each
+// column's term from its thread by shuffles, in column order; the
+// roulette's verdict stays in the thread, which writes its slot's flag
+// and tmax once, and its ray, credit, medium and pixel where kept.
+// Blocks of 4 warps take at most 44 KB of shared memory (2 G records a
+// lane, 32 / G lanes a warp); 5 fit an SM at K = 6 (2, 3 and 8 warps a
+// block were slower: PERF.md).
+constexpr int kConnectWarps = 4;
+constexpr int kConnectThreads = 32 * kConnectWarps;
+constexpr unsigned kWarp = 0xffffffffu;
 
 __device__ __forceinline__ float remap(float x) { return x == 0.f ? 1.f : x; }
 
-__device__ __forceinline__ void mis_tables(const BdptConnectArgs& p,
-                                           size_t row, int count,
-                                           bool camera, Side* s) {
-  const size_t rows = 2 * (size_t)p.n;
-  float acc = 0.f;
-  bool dprev = count > 0 && p.delta[row] != 0;
-  for (int m = 0; m < count; ++m) {
-    const size_t at = m * rows + row;
-    const bool dm = p.delta[at] != 0;
-    const float f = p.fwd[at];
-    const float r = remap(p.rev[at]) / remap(f);
-    const float okm = (camera && m == 0) || dm || dprev ? 0.f : 1.f;
-    acc = r * (okm + acc);
-    s->fwd[m] = f;
-    s->ok[m] = okm;
-    s->A[m] = acc;
-    dprev = dm;
-  }
+// lanes a warp of bdpt_connect_kernel runs at G columns (G <= 31)
+__host__ __device__ __forceinline__ int connect_lanes(int g_n) {
+  return 32 / g_n;
 }
 
-// bdpt_shade.py::_mis_weight for one item of strategy (s, t): c1 / c2
-// replace the camera side's rev at s - 1 / s - 2, l1 / l2 the light side's
-// at t - 1 / t - 2, l0_fwd its fwd[0] in the t1 round (`t1`)
-__device__ __forceinline__ float mis_weight(const Side& cam, const Side& lit,
-                                            int k, int s, int t, float c1_rev,
-                                            float c2_rev, float l1_rev,
-                                            float l2_rev, float l0_fwd,
-                                            bool t1) {
-  auto col = [k](int i) { return i < 0 ? 0 : (i > k - 1 ? k - 1 : i); };
+// A vertex of a lane's subpath as a round reads it, staged in shared
+// memory: the table record, its material, `in` toward the vertex before
+// (normalize(prev - pos)) with d2 = max(|prev - pos|^2, 1e-30) and cos2 =
+// |dot(in, nor_prev)| (nz2: nor_prev nonzero), and the subpath's MIS
+// columns at this vertex m: f1 / ok1 fwd and ok at m, f2 / ok2 at m - 1,
+// a3 = A[m - 2] (bdpt_shade.py::_mis_tables: r = remap(rev) /
+// remap(fwd), ok = not delta here and at the vertex before (0 at the
+// camera's vertex 0), A[m] = r_m (ok_m + A[m - 1])).
+struct VtxRec {
+  V3 pos, nor, dpdu, beta;
+  int mat, med, delta;
+  Mat m;
+  V3 in;
+  float d2, cos2;
+  int nz2;
+  float f1, f2, ok1, ok2, a3;
+};
+
+// a warp's records: [lane][2][G] (camera, light), 4-byte words
+__host__ __device__ __forceinline__ int connect_warp_words(int g_n) {
+  return connect_lanes(g_n) * 2 * g_n * (int)(sizeof(VtxRec) / 4);
+}
+
+// ConvertPdf (bdpt_shade.py::_convert_pdf) of a solid-angle pdf toward a
+// vertex `to` along a segment whose clamped squared length d2 and |cos|
+// at `to` (c; nz: to's normal nonzero) are known: its operations in its
+// order
+__device__ __forceinline__ float convert_seg(float pdf, float d2, float c,
+                                             bool nz) {
+  const float ret = pdf / d2;
+  return nz ? ret * c : ret;
+}
+
+// Vertex m of a subpath (table row `row`) into *r, with vertex m - 1 and
+// the subpath's MIS columns walked from column 0 (m >= 1, m below the
+// count)
+template <bool kTex>
+__device__ __forceinline__ void stage_vertex(const BdptConnectArgs& p,
+                                             size_t row, int m, bool camera,
+                                             VtxRec* r) {
+  const size_t rows = 2 * (size_t)p.n;
+  const size_t at = (size_t)m * rows + row, prev = at - rows;
+  V3 pos = ldg3(p.pos + 3 * at);
+  r->pos = pos;
+  r->nor = ldg3(p.nor + 3 * at);
+  r->dpdu = ldg3(p.dpdu + 3 * at);
+  r->beta = ldg3(p.vbeta + 3 * at);
+  Hit h;
+  h.mat = __ldg(p.mat_idx + at);
+  h.u = __ldg(p.uv + 2 * at);
+  h.v = __ldg(p.uv + 2 * at + 1);
+  r->mat = h.mat;
+  r->med = __ldg(p.medium + at);
+  r->delta = __ldg(p.delta + at) != 0;
+  r->m = hit_material<kTex>(p.mats, p.tex, p.tex_offset, p.tex_w, p.tex_h, h);
+  // normalize(prev - pos), its clamped squared length kept
+  const V3 v = sub(ldg3(p.pos + 3 * prev), pos);
+  const float d2 = tmax(dot(v, v), 1e-30f);
+  const V3 in = divs(v, sqrtf(d2));
+  const V3 nor2 = ldg3(p.nor + 3 * prev);
+  r->in = in;
+  r->d2 = d2;
+  r->cos2 = fabsf(dot(in, nor2));
+  r->nz2 = dot(nor2, nor2) > 0.f;
+  // the MIS suffix table's walk over columns 0 .. m
+  float f1 = 0.f, f2 = 0.f, ok1 = 0.f, ok2 = 0.f, a2 = 0.f, a3 = 0.f;
+  float acc = 0.f;
+  bool dprev = false;   // at column 0 the vertex before is the vertex
+  for (int c = 0; c <= m; ++c) {
+    const size_t ac = (size_t)c * rows + row;
+    const bool dm = __ldg(p.delta + ac) != 0;
+    const float f = __ldg(p.fwd + ac);
+    const float rr = remap(__ldg(p.rev + ac)) / remap(f);
+    const float okm = (camera && c == 0) || dm || dprev ? 0.f : 1.f;
+    a3 = a2;
+    a2 = acc;
+    acc = rr * (okm + acc);
+    f2 = f1;
+    ok2 = ok1;
+    f1 = f;
+    ok1 = okm;
+    dprev = dm;
+  }
+  r->f1 = f1;
+  r->f2 = f2;
+  r->ok1 = ok1;
+  r->ok2 = ok2;
+  r->a3 = a3;
+}
+
+// bdpt_shade.py::_mis_weight for one item of strategy (s, t) from the
+// camera side's MIS columns at vertex s - 1 (cam) and the light side's at
+// t - 1 (lit; in the t1 round lit_ok0, its ok[0]): c1 / c2 replace the
+// camera side's rev at s - 1 / s - 2, l1 / l2 the light side's at t - 1 /
+// t - 2, l0_fwd its fwd[0] in the t1 round (`t1`)
+__device__ __forceinline__ float mis_weight(int s, int t, const VtxRec* cam,
+                                            const VtxRec* lit, float lit_ok0,
+                                            float c1_rev, float c2_rev,
+                                            float l1_rev, float l2_rev,
+                                            float l0_fwd, bool t1) {
   // the camera side: terms exist for i in [1, s - 1]
-  const float r_e =
-      s - 1 >= 1 ? remap(c1_rev) / remap(cam.fwd[col(s - 1)]) : 0.f;
-  const float r_e1 =
-      s - 2 >= 1 ? remap(c2_rev) / remap(cam.fwd[col(s - 2)]) : 0.f;
-  const float pc1 = s - 1 >= 1 ? cam.ok[col(s - 1)] : 0.f;
-  const float pc2 = s - 2 >= 1 ? cam.ok[col(s - 2)] : 0.f;
-  const float pca = s - 3 >= 1 ? cam.A[col(s - 3)] : 0.f;
+  const float r_e = s - 1 >= 1 ? remap(c1_rev) / remap(cam->f1) : 0.f;
+  const float r_e1 = s - 2 >= 1 ? remap(c2_rev) / remap(cam->f2) : 0.f;
+  const float pc1 = s - 1 >= 1 ? cam->ok1 : 0.f;
+  const float pc2 = s - 2 >= 1 ? cam->ok2 : 0.f;
+  const float pca = s - 3 >= 1 ? cam->a3 : 0.f;
   float sum_w = r_e * (pc1 + r_e1 * (pc2 + pca));
   // the light side: terms exist for i in [0, t - 1]
-  const float f_e = t1 ? l0_fwd : lit.fwd[col(t - 1)];
-  const float r_le = t - 1 >= 0 ? remap(l1_rev) / remap(f_e) : 0.f;
-  const float r_le1 =
-      t - 2 >= 0 ? remap(l2_rev) / remap(lit.fwd[col(t - 2)]) : 0.f;
-  const float pl1 = t - 1 >= 0 ? lit.ok[col(t - 1)] : 0.f;
-  const float pl2 = t - 2 >= 0 ? lit.ok[col(t - 2)] : 0.f;
-  const float pla = t - 3 >= 0 ? lit.A[col(t - 3)] : 0.f;
+  const float r_le =
+      t - 1 >= 0 ? remap(l1_rev) / remap(t1 ? l0_fwd : lit->f1) : 0.f;
+  const float r_le1 = t - 2 >= 0 ? remap(l2_rev) / remap(lit->f2) : 0.f;
+  const float pl1 = t - 1 >= 0 ? (t1 ? lit_ok0 : lit->ok1) : 0.f;
+  const float pl2 = t - 2 >= 0 ? lit->ok2 : 0.f;
+  const float pla = t - 3 >= 0 ? lit->a3 : 0.f;
   sum_w = sum_w + r_le * (pl1 + r_le1 * (pl2 + pla));
   const float w = 1.f / (1.f + sum_w);
   return s + t == 2 ? 1.f : w;
 }
 
-// a vertex record of the tables
-struct Vtx {
-  V3 pos, nor, dpdu, beta;
-  float u, v;
-  int mat, med;
-  bool delta;
-};
-
-__device__ __forceinline__ Vtx load_vtx(const BdptConnectArgs& p, size_t at) {
-  Vtx x;
-  x.pos = load3(p.pos + 3 * at);
-  x.nor = load3(p.nor + 3 * at);
-  x.dpdu = load3(p.dpdu + 3 * at);
-  x.beta = load3(p.vbeta + 3 * at);
-  x.u = p.uv[2 * at];
-  x.v = p.uv[2 * at + 1];
-  x.mat = p.mat_idx[at];
-  x.med = p.medium[at];
-  x.delta = p.delta[at] != 0;
-  return x;
-}
-
-// the material at a vertex (bsdf.py::gather_materials at its uv)
-template <bool kTex>
-__device__ __forceinline__ Mat vtx_material(const BdptConnectArgs& p,
-                                            const Vtx& x) {
-  Hit h;
-  h.mat = x.mat;
-  h.u = x.u;
-  h.v = x.v;
-  return hit_material<kTex>(p.mats, p.tex, p.tex_offset, p.tex_w, p.tex_h, h);
-}
-
-// fr and the forward pdf at a vertex: its BSDF, or the phase function at
-// a medium vertex (bdpt_shade.py::_Round.surf_or_phase)
+// fr and the forward pdf at a staged vertex: its BSDF, or the phase
+// function at a medium vertex (bdpt_shade.py::_Round.surf_or_phase)
 __device__ __forceinline__ void surf_or_phase(const BdptConnectArgs& p,
-                                              const Vtx& x, const Mat& m,
-                                              V3 w_in, V3 w_out, V3* fr,
-                                              float* pdf) {
-  if (p.has_media && x.mat == -1) {
-    const float ph =
-        media::hg_phase(dot(w_in, w_out), __ldg(med_row(p.med_table, x.med) + 1));
+                                              const VtxRec* x, V3 w_in,
+                                              V3 w_out, V3* fr, float* pdf) {
+  if (p.has_media && x->mat == -1) {
+    const float ph = media::hg_phase(dot(w_in, w_out),
+                                     __ldg(med_row(p.med_table, x->med) + 1));
     *fr = mk(ph, ph, ph);
     *pdf = ph;
   } else {
-    eval_bsdf(m, w_in, w_out, x.nor, x.dpdu, fr, pdf);
+    eval_bsdf(x->m, w_in, w_out, x->nor, x->dpdu, fr, pdf);
   }
 }
 
-// The roulette of a shadow round's G columns (bdpt_shade.py::_Round.run's
-// tail): pass 1 left each valid connection's credit L (MIS weighted) and
-// shadow ray in its slot, `ok` its columns and `msum` the sum of their
-// luminances in column order; a connection below the lane's mean is kept
-// with probability q = lum / mean, weighted 1 / q. Every slot of the round
-// gets its flag and tmax.
-__device__ __forceinline__ int roulette(const BdptConnectArgs& p, int i,
-                                        int j0, int g_n, int p_round,
-                                        uint32_t ok, float msum, int n_ok,
-                                        bool t1) {
+// x of the warp's threads base .. base + G - 1 (a lane's columns) summed
+// in column order; every thread of the warp calls it
+__device__ __forceinline__ float cols_sum(float x, int base, int g_n) {
+  float sum = 0.f;
+  for (int c = 0; c < g_n; ++c) {
+    const float y = __shfl_sync(kWarp, x, base + c);
+    sum = c == 0 ? y : sum + y;
+  }
+  return sum;
+}
+
+// The roulette of a shadow round (bdpt_shade.py::_Round.run's tail) for
+// column g's connection (ok, its credit *L, MIS weighted): the lane's mean
+// is the sum of its ok columns' luminances in column order over their
+// number; a connection below it is kept with probability q = lum / mean,
+// weighted 1 / q. Its draw: word 3 of `w` in t1 (the light sample's
+// block), else word 0 of the round's block p_round. Every thread of the
+// warp calls it. Returns whether the connection is kept.
+__device__ __forceinline__ bool roulette(const BdptConnectArgs& p,
+                                         uint32_t item, int p_round, int base,
+                                         int g_n, bool ok, V3* L, bool t1,
+                                         uint4 w) {
+  const float lum = ok ? luminance(*L) : 0.f;
+  const float msum = cols_sum(lum, base, g_n);
+  const uint32_t oks = __ballot_sync(kWarp, ok) >> base;
+  if (!ok) return false;
+  const int n_ok = __popc(oks & ((2u << (g_n - 1)) - 1u));
   const float mean = msum / (float)(n_ok > 1 ? n_ok : 1);
-  const uint32_t item0 = (uint32_t)((uint64_t)p.lanes[i] * 32u);
+  const float q = tclamp(lum / tmax(kConnectRR * mean, 1e-30f), 0.f, 1.f);
+  if (!t1)
+    w = philox(item, (uint32_t)p_round, kConnectTag, 0u, p.seed, p.iteration);
+  if (!(bits_to_uniform(t1 ? w.w : w.x) < q)) return false;
+  *L = divs(*L, tmax(q, 1e-30f));
+  return true;
+}
+
+// A slot's flag and tmax (0: empty), and where kept its shadow ray, credit
+// and medium. Returns 1 where kept.
+__device__ __forceinline__ int put_slot(const BdptConnectArgs& p, size_t slot,
+                                        bool keep, V3 L, V3 o, V3 d, float st,
+                                        int med) {
+  p.live[slot] = keep ? 1 : 0;
+  p.q_tmax[slot] = keep ? st : 0.f;
+  if (keep) {
+    store3(p.q_L + 3 * slot, L);
+    store3(p.q_o + 3 * slot, o);
+    store3(p.q_d + 3 * slot, d);
+    if (p.q_med) p.q_med[slot] = med;
+  }
+  return keep ? 1 : 0;
+}
+
+// Column g of lane i (`on`: a lane's column; the warp's other threads
+// run the rounds' shuffles only) in every round: s1, t0, t1, then the
+// general rounds s = 2 .. K, each with its overrides, MIS weight and (but
+// t0) roulette. base: the warp thread of the lane's column 0; cam / lit:
+// the lane's staged camera and light vertices 1 .. G. Returns the slots
+// it queued.
+template <bool kTex>
+__device__ __forceinline__ int connect_column(const BdptConnectArgs& p, int i,
+                                              int g, int base, bool on,
+                                              VtxRec* cam, VtxRec* lit) {
+  const int k = p.k, g_n = k - 1, n = p.n;
+  const size_t rows = 2 * (size_t)n;
+  const size_t crow = on ? (size_t)i : 0, lrow = crow + n;
+  const int cc = on ? __ldg(p.count + i) : 0;
+  const int lc = on ? __ldg(p.count + n + i) : 0;
+  const V3 zero = mk(0.f, 0.f, 0.f);
+  const uint4 no_draw = make_uint4(0u, 0u, 0u, 0u);
+  const float nanf_ = __int_as_float(0x7fc00000);
+  const uint32_t item =
+      on ? (uint32_t)((uint64_t)__ldg((const long long*)p.lanes + i) * 32u) +
+               (uint32_t)g
+         : 0u;
+  const int t = g + 2;   // s1 and the general rounds: light vertices t - 1, t - 2
+  const int s = g + 2;   // t0 and t1: camera vertices s - 1, s - 2
+  const bool lit_on = t <= lc, cam_on = s <= cc;
+  // this column's light and camera vertex g + 1, staged for the lane
+  if (lit_on) stage_vertex<kTex>(p, lrow, g + 1, false, lit + g);
+  if (cam_on) stage_vertex<kTex>(p, crow, g + 1, true, cam + g);
+  __syncwarp();
+  const VtxRec* l1 = lit + g;
+  const VtxRec* c1 = cam + g;
   int live = 0;
-  for (int g = 0; g < g_n; ++g) {
-    const size_t slot = (size_t)(j0 + g) * p.n + i;
-    bool keep = false;
-    if (ok >> g & 1u) {
-      const V3 L = load3(p.q_L + 3 * slot);
-      const float q = tclamp(luminance(L) / tmax(kConnectRR * mean, 1e-30f),
-                             0.f, 1.f);
-      const uint4 w = philox(item0 + (uint32_t)g, (uint32_t)p_round,
-                             kConnectTag, 0u, p.seed, p.iteration);
-      if (bits_to_uniform(t1 ? w.w : w.x) < q) {
-        keep = true;
-        store3(p.q_L + 3 * slot, divs(L, tmax(q, 1e-30f)));
-      }
+
+  // ---- s1: light vertex t - 1 to the camera ---------------------------
+  {
+    V3 L = zero, sd = zero, o = zero;
+    float st = 0.f;
+    int pix = 0, med = 0;
+    bool okg = false;
+    if (lit_on) {
+      const Cam camera = load_camera(p.cam);
+      const bool l1_med = l1->mat == -1;
+      o = l1->pos;
+      med = l1->med;
+      float we, cpdf;
+      int rx, ry;
+      sample_camera(camera, o, p.eps, &sd, &st, &we, &cpdf, &rx, &ry);
+      V3 fr;
+      float next_pdf, rev_pdf;
+      surf_or_phase(p, l1, l1->in, sd, &fr, &next_pdf);
+      const float cos2 = l1_med ? 1.f : fabsf(dot(sd, l1->nor));
+      L = scl(mul(l1->beta, fr), we * cos2 / tmax(cpdf, 1e-30f));
+      const float cam_pdfw = pdf_camera_w(camera, neg(sd));
+      V3 unused;
+      surf_or_phase(p, l1, sd, l1->in, &unused, &rev_pdf);
+      const bool case_valid = cpdf != 0.f && !(!l1_med && l1->delta) &&
+                              !is_black(L);
+      const float l1_rev = convert_pdf(cam_pdfw, camera.pos, o, l1->nor);
+      const float l2_rev = convert_seg(rev_pdf, l1->d2, l1->cos2, l1->nz2);
+      L = scl(L, mis_weight(1, t, nullptr, l1, 0.f, nanf_, nanf_, l1_rev,
+                            l2_rev, nanf_, false));
+      okg = case_valid && finite3(L) && !is_black(L);
+      pix = rx + ry * p.width;
     }
-    p.live[slot] = keep ? 1 : 0;
-    if (!keep) p.q_tmax[slot] = 0.f;
-    live += keep;
+    const bool keep = roulette(p, item, 1, base, g_n, okg, &L, false,
+                               no_draw);
+    if (on) {
+      const size_t slot = (size_t)g * n + i;
+      live += put_slot(p, slot, keep, L, o, sd, st, med);
+      if (keep) p.q_pix[slot] = pix;
+    }
+  }
+
+  // ---- t0: camera vertex s - 1 on a light ------------------------------
+  {
+    V3 L = zero;
+    if (cam_on) {
+      const int lidx = __ldg(p.light_idx + (size_t)(g + 1) * rows + crow);
+      const float* la = light_row(p.lights, lidx, p.n_rows);
+      L = mul(c1->beta, area_light_le(la, c1->nor, c1->in));
+      const float choice0 =
+          light_choice_pdf(p.cdf, lidx < 0 ? 0 : lidx, p.n_rows);
+      float pdf_a0, pdf_w0;
+      area_light_pdf(la, c1->in, c1->nor, &pdf_a0, &pdf_w0);
+      const bool case_valid = lidx >= 0 && !is_black(L);
+      const float c1_rev = pdf_a0 * choice0;
+      const float c2_rev = convert_seg(pdf_w0, c1->d2, c1->cos2, c1->nz2);
+      L = scl(L, mis_weight(s, 0, c1, nullptr, 0.f, c1_rev, c2_rev, nanf_,
+                            nanf_, nanf_, false));
+      if (!(case_valid && finite3(L) && !is_black(L))) L = zero;
+    }
+    // the columns in column order, added to a zero li
+    const V3 acc = mk(cols_sum(L.x, base, g_n), cols_sum(L.y, base, g_n),
+                      cols_sum(L.z, base, g_n));
+    if (on && g == 0) store3(p.li_out + 3 * i, add(zero, acc));
+  }
+
+  // ---- t1: camera vertex s - 1 to a light sample -----------------------
+  {
+    V3 L = zero, sd = zero, o = zero;
+    float st = 0.f;
+    int med = 0;
+    bool okg = false;
+    uint4 w = no_draw;
+    if (cam_on && lc >= 1) {
+      const bool c1_med = c1->mat == -1;
+      o = c1->pos;
+      med = c1->med;
+      w = philox(item, 3u, kConnectTag, 0u, p.seed, p.iteration);
+      const int idx = pick_light(p.cdf, p.n_rows, bits_to_uniform(w.x));
+      const float choice = light_choice_pdf(p.cdf, idx, p.n_rows);
+      const int last = p.n_lights - 1 > 0 ? p.n_lights - 1 : 0;
+      const float* la = light_row(p.lights, idx < last ? idx : last,
+                                  p.n_rows);
+      V3 rad, lnor;
+      float lpdf;
+      sample_area_light(la, o, bits_to_uniform(w.y), bits_to_uniform(w.z),
+                        p.eps, &rad, &sd, &st, &lnor, &lpdf);
+      const V3 light_pos = add(o, scl(sd, st + p.eps));
+      V3 fr;
+      float next_pdf, rev_pdf;
+      surf_or_phase(p, c1, c1->in, sd, &fr, &next_pdf);
+      const float g1 = c1_med ? 1.f : fabsf(dot(c1->nor, sd));
+      L = scl(mul(mul(c1->beta, fr), rad), g1 / tmax(lpdf * choice, 1e-30f));
+      float pdf_a1, pdf_w1;
+      area_light_pdf(la, sd, lnor, &pdf_a1, &pdf_w1);
+      V3 unused;
+      surf_or_phase(p, c1, sd, c1->in, &unused, &rev_pdf);
+      const bool case_valid = !is_black(rad) && lpdf > 0.f &&
+                              !(!c1_med && c1->delta) && !is_black(L);
+      const float l0_fwd = pdf_a1 * choice;
+      const float l1_rev = convert_pdf(next_pdf, o, light_pos, lnor);
+      const float c1_rev = convert_pdf(pdf_w1, light_pos, o, c1->nor);
+      const float c2_rev = convert_seg(rev_pdf, c1->d2, c1->cos2, c1->nz2);
+      // the light side's ok[0]: not delta at its vertex 0
+      const float ok0 = __ldg(p.delta + lrow) != 0 ? 0.f : 1.f;
+      L = scl(L, mis_weight(s, 1, c1, nullptr, ok0, c1_rev, c2_rev, l1_rev,
+                            nanf_, l0_fwd, true));
+      okg = case_valid && finite3(L) && !is_black(L);
+    }
+    const bool keep = roulette(p, item, 3, base, g_n, okg, &L, true, w);
+    if (on) {
+      live += put_slot(p, (size_t)(g_n + g) * n + i, keep, L, o, sd, st,
+                       med);
+    }
+  }
+
+  // ---- the general rounds: camera vertex sg - 1, light vertex t - 1 ----
+  for (int sg = 2; sg <= k; ++sg) {
+    V3 L = zero, o = zero, d = zero;
+    float st = 0.f;
+    int med = 0;
+    bool okg = false;
+    if (sg <= cc && lit_on) {
+      const VtxRec* gc1 = cam + (sg - 2);
+      const bool c1_med = gc1->mat == -1, l1_med = l1->mat == -1;
+      o = gc1->pos;
+      med = gc1->med;
+      const V3 lpos = l1->pos, lnor = l1->nor, cnor = gc1->nor;
+      const V3 conn = sub(o, lpos);
+      const float d2g = tmax(dot(conn, conn), 1e-30f);
+      const V3 l1_to_c1 = divs(conn, sqrtf(d2g));
+      const V3 c1_to_l1 = neg(l1_to_c1);
+      V3 fr_c1, fr_l1, unused;
+      float pdf_to_l1, pdf_to_c1, pdf_to_l2, pdf_to_c2;
+      surf_or_phase(p, gc1, gc1->in, c1_to_l1, &fr_c1, &pdf_to_l1);
+      surf_or_phase(p, l1, l1->in, l1_to_c1, &fr_l1, &pdf_to_c1);
+      // |cos| at each end; ConvertPdf across the connection reuses them
+      const float abs_l = fabsf(dot(l1_to_c1, lnor));
+      const float abs_c = fabsf(dot(c1_to_l1, cnor));
+      const float cos_l = l1_med ? 1.f : abs_l;
+      const float cos_c = c1_med ? 1.f : abs_c;
+      const float g3 = cos_l * cos_c / d2g;
+      L = scl(mul(mul(mul(gc1->beta, fr_c1), fr_l1), l1->beta), g3);
+      surf_or_phase(p, l1, l1_to_c1, l1->in, &unused, &pdf_to_l2);
+      surf_or_phase(p, gc1, c1_to_l1, gc1->in, &unused, &pdf_to_c2);
+      const bool case_valid = !(!c1_med && gc1->delta) &&
+                              !(!l1_med && l1->delta) && !is_black(L);
+      const float c1_rev =
+          convert_seg(pdf_to_c1, d2g, abs_c, dot(cnor, cnor) > 0.f);
+      const float l1_rev =
+          convert_seg(pdf_to_l1, d2g, abs_l, dot(lnor, lnor) > 0.f);
+      const float l2_rev = convert_seg(pdf_to_l2, l1->d2, l1->cos2, l1->nz2);
+      const float c2_rev =
+          convert_seg(pdf_to_c2, gc1->d2, gc1->cos2, gc1->nz2);
+      L = scl(L, mis_weight(sg, t, gc1, l1, 0.f, c1_rev, c2_rev, l1_rev,
+                            l2_rev, nanf_, false));
+      okg = case_valid && finite3(L) && !is_black(L);
+      d = c1_to_l1;
+      st = sqrtf(d2g) - p.eps;
+    }
+    const bool keep = roulette(p, item, 4 + sg - 2, base, g_n, okg, &L, false,
+                               no_draw);
+    if (on) {
+      live += put_slot(p, (size_t)(2 * g_n + (sg - 2) * g_n + g) * n + i,
+                       keep, L, o, d, st, med);
+    }
   }
   return live;
 }
 
-// a valid connection's slot: its credit (before the roulette) and shadow
-// ray
-__device__ __forceinline__ void queue_slot(const BdptConnectArgs& p,
-                                           size_t slot, V3 L, V3 o, V3 d,
-                                           float st, int med, int g,
-                                           uint32_t* ok, int* n_ok) {
-  store3(p.q_L + 3 * slot, L);
-  store3(p.q_o + 3 * slot, o);
-  store3(p.q_d + 3 * slot, d);
-  p.q_tmax[slot] = st;
-  if (p.q_med) p.q_med[slot] = med;
-  *ok |= 1u << g;
-  ++*n_ok;
-}
-
-// the lane mean's sum, column g's term: luminance of L, 0 where not ok
-__device__ __forceinline__ void mean_term(int g, bool ok, V3 L, float* msum) {
-  const float x = ok ? luminance(L) : 0.f;
-  *msum = g == 0 ? x : *msum + x;
-}
-
 template <bool kTex>
-__device__ void connect_lane(const BdptConnectArgs& p, int i, int* queued) {
-  const int k = p.k, g_n = k - 1, n = p.n;
-  // vertex m of the camera subpath (row i) and the light subpath (row
-  // N + i): slots m * 2N + i and m * 2N + N + i of the vertex-major tables
-  const size_t rows = 2 * (size_t)n;
-  auto cv = [&](int m) { return (size_t)m * rows + i; };
-  auto lv = [&](int m) { return (size_t)m * rows + n + i; };
-  const int cc = p.count[i], lc = p.count[n + i];
-  const V3 zero = mk(0.f, 0.f, 0.f);
-  const float nanf_ = __int_as_float(0x7fc00000);
-  Side cam, lit;
-  mis_tables(p, i, cc, true, &cam);
-  mis_tables(p, n + i, lc, false, &lit);
-  const Cam camera = load_camera(p.cam);
-  const uint32_t item0 = (uint32_t)((uint64_t)p.lanes[i] * 32u);
-  int live = 0;
-
-  // ---- s1: light vertex t - 1 to the camera, t = column + 2 ---------
-  {
-    uint32_t ok = 0;
-    float msum = 0.f;
-    int n_ok = 0;
-    for (int g = 0; g < g_n; ++g) {
-      const int t = g + 2;
-      V3 L = zero;
-      bool okg = false;
-      if (t <= lc) {
-        const Vtx l1 = load_vtx(p, lv(g + 1)), l2 = load_vtx(p, lv(g));
-        const bool l1_med = l1.mat == -1;
-        const Mat m1 = vtx_material<kTex>(p, l1);
-        const V3 in_l1 = normalize(sub(l2.pos, l1.pos));
-        V3 sd;
-        float st, we, cpdf;
-        int rx, ry;
-        sample_camera(camera, l1.pos, p.eps, &sd, &st, &we, &cpdf, &rx, &ry);
-        V3 fr;
-        float next_pdf, rev_pdf;
-        surf_or_phase(p, l1, m1, in_l1, sd, &fr, &next_pdf);
-        const float cos2 = l1_med ? 1.f : fabsf(dot(sd, l1.nor));
-        L = scl(mul(l1.beta, fr), we * cos2 / tmax(cpdf, 1e-30f));
-        const float cam_pdfw = pdf_camera_w(camera, neg(sd));
-        V3 unused;
-        surf_or_phase(p, l1, m1, sd, in_l1, &unused, &rev_pdf);
-        const bool case_valid = cpdf != 0.f && !(!l1_med && l1.delta) &&
-                                !is_black(L);
-        const float l1_rev = convert_pdf(cam_pdfw, camera.pos, l1.pos, l1.nor);
-        const float l2_rev = convert_pdf(rev_pdf, l1.pos, l2.pos, l2.nor);
-        L = scl(L, mis_weight(cam, lit, k, 1, t, nanf_, nanf_, l1_rev, l2_rev,
-                              nanf_, false));
-        okg = case_valid && finite3(L) && !is_black(L);
-        if (okg) {
-          const size_t slot = (size_t)g * n + i;
-          queue_slot(p, slot, L, l1.pos, sd, st, l1.med, g, &ok, &n_ok);
-          p.q_pix[slot] = rx + ry * p.width;
-        }
-      }
-      mean_term(g, okg, L, &msum);
-    }
-    live += roulette(p, i, 0, g_n, 1, ok, msum, n_ok, false);
-  }
-
-  // ---- t0: camera vertex s - 1 on a light, s = column + 2 -----------
-  {
-    V3 acc = zero;
-    for (int g = 0; g < g_n; ++g) {
-      const int s = g + 2;
-      V3 L = zero;
-      if (s <= cc) {
-        const Vtx c1 = load_vtx(p, cv(g + 1)), c2 = load_vtx(p, cv(g));
-        const int lidx = p.light_idx[cv(g + 1)];
-        const V3 in_c1 = normalize(sub(c2.pos, c1.pos));
-        const float* la = light_row(p.lights, lidx, p.n_rows);
-        L = mul(c1.beta, area_light_le(la, c1.nor, in_c1));
-        const float choice0 =
-            light_choice_pdf(p.cdf, lidx < 0 ? 0 : lidx, p.n_rows);
-        float pdf_a0, pdf_w0;
-        area_light_pdf(la, in_c1, c1.nor, &pdf_a0, &pdf_w0);
-        const bool case_valid = lidx >= 0 && !is_black(L);
-        const float c1_rev = pdf_a0 * choice0;
-        const float c2_rev = convert_pdf(pdf_w0, c1.pos, c2.pos, c2.nor);
-        L = scl(L, mis_weight(cam, lit, k, s, 0, c1_rev, c2_rev, nanf_, nanf_,
-                              nanf_, false));
-        if (!(case_valid && finite3(L) && !is_black(L))) L = zero;
-      }
-      acc = g == 0 ? L : add(acc, L);
-    }
-    store3(p.li_out + 3 * i, add(zero, acc));
-  }
-
-  // ---- t1: camera vertex s - 1 to a light sample, s = column + 2 ----
-  {
-    uint32_t ok = 0;
-    float msum = 0.f;
-    int n_ok = 0;
-    const int j0 = g_n;
-    for (int g = 0; g < g_n; ++g) {
-      const int s = g + 2;
-      V3 L = zero;
-      bool okg = false;
-      if (s <= cc && lc >= 1) {
-        const Vtx c1 = load_vtx(p, cv(g + 1)), c2 = load_vtx(p, cv(g));
-        const bool c1_med = c1.mat == -1;
-        const Mat m1 = vtx_material<kTex>(p, c1);
-        const V3 in_c1 = normalize(sub(c2.pos, c1.pos));
-        const uint4 w = philox(item0 + (uint32_t)g, 3u, kConnectTag, 0u,
-                               p.seed, p.iteration);
-        const int idx = pick_light(p.cdf, p.n_rows, bits_to_uniform(w.x));
-        const float choice = light_choice_pdf(p.cdf, idx, p.n_rows);
-        const int last = p.n_lights - 1 > 0 ? p.n_lights - 1 : 0;
-        const float* la = light_row(p.lights, idx < last ? idx : last,
-                                    p.n_rows);
-        V3 rad, sd, lnor;
-        float st, lpdf;
-        sample_area_light(la, c1.pos, bits_to_uniform(w.y),
-                          bits_to_uniform(w.z), p.eps, &rad, &sd, &st, &lnor,
-                          &lpdf);
-        const V3 light_pos = add(c1.pos, scl(sd, st + p.eps));
-        V3 fr;
-        float next_pdf, rev_pdf;
-        surf_or_phase(p, c1, m1, in_c1, sd, &fr, &next_pdf);
-        const float g1 = c1_med ? 1.f : fabsf(dot(c1.nor, sd));
-        L = scl(mul(mul(c1.beta, fr), rad), g1 / tmax(lpdf * choice, 1e-30f));
-        float pdf_a1, pdf_w1;
-        area_light_pdf(la, sd, lnor, &pdf_a1, &pdf_w1);
-        V3 unused;
-        surf_or_phase(p, c1, m1, sd, in_c1, &unused, &rev_pdf);
-        const bool case_valid = !is_black(rad) && lpdf > 0.f &&
-                                !(!c1_med && c1.delta) && !is_black(L);
-        const float l0_fwd = pdf_a1 * choice;
-        const float l1_rev = convert_pdf(next_pdf, c1.pos, light_pos, lnor);
-        const float c1_rev = convert_pdf(pdf_w1, light_pos, c1.pos, c1.nor);
-        const float c2_rev = convert_pdf(rev_pdf, c1.pos, c2.pos, c2.nor);
-        L = scl(L, mis_weight(cam, lit, k, s, 1, c1_rev, c2_rev, l1_rev,
-                              nanf_, l0_fwd, true));
-        okg = case_valid && finite3(L) && !is_black(L);
-        if (okg) {
-          queue_slot(p, (size_t)(j0 + g) * n + i, L, c1.pos, sd, st, c1.med,
-                     g, &ok, &n_ok);
-        }
-      }
-      mean_term(g, okg, L, &msum);
-    }
-    live += roulette(p, i, j0, g_n, 3, ok, msum, n_ok, true);
-  }
-
-  // ---- the general rounds: s = 2 .. K, t = column + 2 ----------------
-  for (int s = 2; s <= k; ++s) {
-    uint32_t ok = 0;
-    float msum = 0.f;
-    int n_ok = 0;
-    const int j0 = 2 * g_n + (s - 2) * g_n;
-    if (s <= cc) {
-      const Vtx c1 = load_vtx(p, cv(s - 1)), c2 = load_vtx(p, cv(s - 2));
-      const bool c1_med = c1.mat == -1;
-      const Mat m1 = vtx_material<kTex>(p, c1);
-      const V3 in_c1 = normalize(sub(c2.pos, c1.pos));
-      for (int g = 0; g < g_n; ++g) {
-        const int t = g + 2;
-        V3 L = zero;
-        bool okg = false;
-        if (t <= lc) {
-          const Vtx l1 = load_vtx(p, lv(g + 1)), l2 = load_vtx(p, lv(g));
-          const bool l1_med = l1.mat == -1;
-          const Mat ml = vtx_material<kTex>(p, l1);
-          const V3 in_l1 = normalize(sub(l2.pos, l1.pos));
-          const V3 conn = sub(c1.pos, l1.pos);
-          const float d2g = tmax(dot(conn, conn), 1e-30f);
-          const V3 l1_to_c1 = divs(conn, sqrtf(d2g));
-          const V3 c1_to_l1 = neg(l1_to_c1);
-          V3 fr_c1, fr_l1, unused;
-          float pdf_to_l1, pdf_to_c1, pdf_to_l2, pdf_to_c2;
-          surf_or_phase(p, c1, m1, in_c1, c1_to_l1, &fr_c1, &pdf_to_l1);
-          surf_or_phase(p, l1, ml, in_l1, l1_to_c1, &fr_l1, &pdf_to_c1);
-          const float cos_l = l1_med ? 1.f : fabsf(dot(l1_to_c1, l1.nor));
-          const float cos_c = c1_med ? 1.f : fabsf(dot(c1_to_l1, c1.nor));
-          const float g3 = cos_l * cos_c / d2g;
-          L = scl(mul(mul(mul(c1.beta, fr_c1), fr_l1), l1.beta), g3);
-          surf_or_phase(p, l1, ml, l1_to_c1, in_l1, &unused, &pdf_to_l2);
-          surf_or_phase(p, c1, m1, c1_to_l1, in_c1, &unused, &pdf_to_c2);
-          const bool case_valid = !(!c1_med && c1.delta) &&
-                                  !(!l1_med && l1.delta) && !is_black(L);
-          const float c1_rev = convert_pdf(pdf_to_c1, l1.pos, c1.pos, c1.nor);
-          const float l1_rev = convert_pdf(pdf_to_l1, c1.pos, l1.pos, l1.nor);
-          const float l2_rev = convert_pdf(pdf_to_l2, l1.pos, l2.pos, l2.nor);
-          const float c2_rev = convert_pdf(pdf_to_c2, c1.pos, c2.pos, c2.nor);
-          L = scl(L, mis_weight(cam, lit, k, s, t, c1_rev, c2_rev, l1_rev,
-                                l2_rev, nanf_, false));
-          okg = case_valid && finite3(L) && !is_black(L);
-          if (okg) {
-            queue_slot(p, (size_t)(j0 + g) * n + i, L, c1.pos, c1_to_l1,
-                       sqrtf(d2g) - p.eps, c1.med, g, &ok, &n_ok);
-          }
-        }
-        mean_term(g, okg, L, &msum);
-      }
-    }
-    live += roulette(p, i, j0, g_n, 4 + s - 2, ok, msum, n_ok, false);
-  }
-  *queued = live;
-}
-
-template <bool kTex>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kConnectThreads)
     bdpt_connect_kernel(BdptConnectArgs p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int queued = 0;
-  if (i < p.n) connect_lane<kTex>(p, i, &queued);
+  extern __shared__ float smem[];
+  // the warp's lanes: 32 / G groups of G threads (the rest idle)
+  const int g_n = p.k - 1;
+  const int per_warp = connect_lanes(g_n);
+  const int wl = threadIdx.x & 31;
+  const int sub = wl / g_n;
+  const int g = wl - sub * g_n;
+  const int i =
+      (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5) * per_warp + sub;
+  const bool on = sub < per_warp && i < p.n;
+  VtxRec* cam = (VtxRec*)(smem + (size_t)(threadIdx.x >> 5) *
+                                     connect_warp_words(g_n)) +
+                (size_t)(on ? sub : 0) * 2 * g_n;
+  const int queued =
+      connect_column<kTex>(p, i, g, sub * g_n, on, cam, cam + g_n);
   if (p.has_media) return;   // the walk counts its own rays
   // the block's queued shadow rays, one atomic a block
   __shared__ int block_sum;
@@ -902,6 +971,16 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (threadIdx.x == 0 && block_sum)
     atomicAdd(p.rays, (unsigned long long)block_sum);
+}
+
+// bdpt_connect_kernel's blocks and shared memory over n lanes of k
+// vertices
+int connect_blocks(int n, int k) {
+  const int lanes = kConnectWarps * connect_lanes(k - 1);
+  return (n + lanes - 1) / lanes;
+}
+size_t connect_smem(int k) {
+  return (size_t)kConnectWarps * connect_warp_words(k - 1) * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
@@ -964,6 +1043,22 @@ int launch_step_kinds(const BdptStepArgs& a, bool het, cudaStream_t s) {
                      : launch_step<kTex, false>(a, het, s);
 }
 
+template <bool kTex>
+int launch_connect(const BdptConnectArgs& a, cudaStream_t s) {
+  bdpt_connect_kernel<kTex>
+      <<<connect_blocks(a.n, a.k), kConnectThreads, connect_smem(a.k), s>>>(
+          a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kTex>
+int connect_occupancy(int k, int* out) {
+  out[0] = kConnectThreads;
+  out[2] = (int)connect_smem(k);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], bdpt_connect_kernel<kTex>, kConnectThreads, connect_smem(k));
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
@@ -992,12 +1087,15 @@ extern "C" int bdpt_step(const BdptStepArgs* a, void* stream) {
 extern "C" int bdpt_connect(const BdptConnectArgs* a, void* stream) {
   if (a->n == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (a->tex) {
-    bdpt_connect_kernel<true><<<blocks_of(a->n), kThreads, 0, s>>>(*a);
-  } else {
-    bdpt_connect_kernel<false><<<blocks_of(a->n), kThreads, 0, s>>>(*a);
-  }
-  return (int)cudaGetLastError();
+  return a->tex ? launch_connect<true>(*a, s) : launch_connect<false>(*a, s);
+}
+
+// bdpt_connect's launch shape for k vertices: out[0] threads a block,
+// out[1] blocks an SM (the occupancy API), out[2] dynamic shared-memory
+// bytes a block. Returns a CUDA error code.
+extern "C" int bdpt_connect_occupancy(int k, int tex, int* out) {
+  return tex ? connect_occupancy<true>(k, out)
+             : connect_occupancy<false>(k, out);
 }
 
 // The queued credits after their shadow rays, and the NaN guard.

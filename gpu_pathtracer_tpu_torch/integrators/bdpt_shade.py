@@ -1126,6 +1126,18 @@ def connect_cuda(scene, static, seed, iteration, lanes, v: Vertices,
     return li, q
 
 
+def connect_occupancy(k: int, textures: bool = False) -> dict:
+    """bdpt_connect's launch shape on the current card for subpaths of k
+    vertices: threads a block, blocks an SM (the occupancy API) and
+    dynamic shared-memory bytes a block."""
+    fn = _lib().bdpt_connect_occupancy
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int, _P]
+    out = (ctypes.c_int * 3)()
+    check_launch(fn(k, int(textures), out), "bdpt_connect_occupancy")
+    return {"threads": out[0], "blocks_per_sm": out[1],
+            "smem_bytes": out[2]}
+
+
 def finish_cuda(li, q: Queue, shadow, n_pix: int):
     """Launch csrc/bdpt.cu's bdpt_finish: `finish`'s contract on CUDA
     tensors."""

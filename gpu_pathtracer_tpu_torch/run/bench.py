@@ -42,7 +42,8 @@ As in bench.py, every row runs in its own subprocess, limited by what
 is left of --budget seconds (1500); after each row one JSON line holding
 the whole result so far is printed, so the last line is always
 complete. A failed row prints -1.0 as its value, a row skipped for the
-budget or for want of cards -2.0. The bench exits non-zero when a row
+budget (none left, or its timeout cut to what was left ran out) or for
+want of cards -2.0. The bench exits non-zero when a row
 failed or was not correct; the last line lists flagged rows apart.
 """
 
@@ -448,7 +449,9 @@ def _row_args(opts) -> list:
 
 def _spawn(row: Row, opts, timeout: float) -> dict:
     """Run `row` in a subprocess (under torchrun for more than one card)
-    within `timeout` seconds: its result, or -1.0 with the reason."""
+    within `timeout` seconds: its result, or -1.0 with the reason. A
+    timeout below ROW_TIMEOUT_S is what was left of the budget: the row
+    is then skipped (-2.0) when it expires."""
     cmd = [sys.executable]
     if row.cards > 1:
         cmd += ["-m", "torch.distributed.run", "--standalone",
@@ -466,6 +469,9 @@ def _spawn(row: Row, opts, timeout: float) -> dict:
         os.killpg(p.pid, signal.SIGKILL)
         out, err = p.communicate()
         sys.stderr.write(err[-4000:])
+        if timeout < ROW_TIMEOUT_S:
+            return {"value": -2.0, "why": f"budget: timed out after the "
+                    f"{timeout:.0f} s left"}
         return {"value": -1.0, "why": f"timed out after {timeout:.0f} s"}
     sys.stderr.write(err[-4000:])
     found = [ln[4:] for ln in out.splitlines() if ln.startswith("ROW ")]

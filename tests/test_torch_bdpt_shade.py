@@ -611,6 +611,43 @@ def test_rounds_are_the_reference_rounds(scene, monkeypatch):
     assert checked > 0
 
 
+def test_connect_bound_counts_the_plain_items(scene, monkeypatch):
+    """chip_smoke.py's bound of bdpt_connect counts, round by round, the
+    items the plain version treats as valid (their vertices exist), and
+    the valid ones before the roulette hold every kept slot; its least
+    time is the larger of its bytes' and its instructions' times."""
+    import chip_smoke
+    sc, st, name = scene
+    px, py = _pixels(st)
+    seen = dict.fromkeys(("s1", "t0", "t1", "gen"), 0)
+    got = {}
+    run, connect = bs._Round.run, bs.connect
+
+    def run_spy(self, case, p, s, t, c1, c2, l1, l2, valid2):
+        seen[case] += int(valid2.sum())
+        return run(self, case, p, s, t, c1, c2, l1, l2, valid2)
+
+    def connect_spy(scene_, static, seed, iteration, lanes, v, *args, **kw):
+        li, q = connect(scene_, static, seed, iteration, lanes, v, *args,
+                        **kw)
+        got.update(kw=dict(scene=scene_, static=static, seed=seed,
+                           iteration=iteration, lanes=lanes, v=v),
+                   q=q, n=lanes.shape[0])
+        return li, q
+
+    monkeypatch.setattr(bs._Round, "run", run_spy)
+    monkeypatch.setattr(bs, "connect", connect_spy)
+    bdpt.render_lanes(sc, st, SEED, 1, px, py, True)
+    monkeypatch.undo()
+    ok = chip_smoke.connect_valid(got["kw"]).bool()
+    b = chip_smoke.bdpt_connect_bound(sc, st, got["kw"]["v"], got["q"], ok,
+                                      got["n"])
+    assert b["items_by_round"] == seen and sum(seen.values()) > 0, name
+    assert not (got["q"].live.bool() & ~ok).any(), name
+    assert 0 < b["valid"] <= b["items"] - seen["t0"], name
+    assert b["bound_ms"] == max(b["bytes_ms"], b["operations_ms"])
+
+
 def test_render_lanes_is_the_reference(scene):
     """A whole sample: per-lane radiance and film within the summation
     order's bound of the loop before, the rays equal; on CPU tensors the

@@ -144,6 +144,27 @@ def test_row_not_run(tmp_path, args, value, rc, why):
     assert lines[-1]["failed"] == ([] if rc == 0 else ["cornell"])
 
 
+@pytest.mark.parametrize("budget, row_timeout, value, rc, why", [
+    ("0.5", None, -2.0, 0, "budget: timed out"),
+    ("1500", 0.5, -1.0, 1, "timed out after"),
+], ids=["budget-cut", "row-limit"])
+def test_row_timed_out(monkeypatch, capsys, budget, row_timeout, value, rc,
+                       why):
+    """A row whose timeout was cut to what was left of the budget, and
+    expired, is skipped (-2.0) and no failure; a row that runs past its
+    own limit, ROW_TIMEOUT_S, fails (-1.0) and the bench exits non-zero.
+    Neither row can finish within half a second."""
+    monkeypatch.setattr(bench, "MIN_ROW_S", 0)
+    if row_timeout is not None:
+        monkeypatch.setattr(bench, "ROW_TIMEOUT_S", row_timeout)
+    assert bench.main([*SMALL, "--rows", "cornell", "--budget", budget]) == rc
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    (res,) = lines[-1]["rows"].values()
+    assert res["value"] == value and why in res["why"]
+    assert lines[-1]["failed"] == ([] if rc == 0 else ["cornell"])
+
+
 class _FakeRenderer:
     """What `bench.windows` reads of a renderer: 7 rays a spp."""
     device = torch.device("cpu")
