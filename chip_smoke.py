@@ -9,8 +9,9 @@
     python3 chip_smoke.py --phases T    # build, BDPT's steps and rounds
     python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
-    python3 chip_smoke.py --baseline DIR  # also time DIR's K1-K4, K2 (E)
-                                          # and bdpt_connect (T)
+    python3 chip_smoke.py --baseline DIR  # also time DIR's K1-K4, K2 (E),
+                                          # vpt_shade.cu (V) and
+                                          # bdpt_connect (T)
 
 Builds the port's nine CUDA kernel sources from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
@@ -128,11 +129,26 @@ Phases:
      smoke, whose camera rays reach the light through it (emitter
      walks); smoke_port/sky.json; cornell_port without media;
      materials.json's lines and spheres; textured.json; bssrdf.json):
-     vpt_shade at the step, vpt_tr_round at its rounds 0 and 1 and
-     vpt_finish after the last step, every output bit for bit (float32
-     compared as int32 bits) and the ray counts; each kernel, its plain
-     version and its byte bound in turns on smoke_port's inputs (step 1,
-     its round 1, the finish after the last step)
+     vpt_shade at the step, vpt_tr_round at its rounds 0 and 1 (each on
+     a copy of its inputs, which it updates in place) and vpt_finish
+     after the last step, every output bit for bit on every lane (float32
+     compared as int32 bits; the walk as later launches read it,
+     vpt_shade.live_walk) and the ray counts, and the lists each kernel
+     read and appended against the plain helpers' (shade_list,
+     round_list) as sets; the launch shapes (occupancy API); each kernel
+     alone (its entry point on the wrapper's argument structure, the
+     state put back before each launch), its plain version and its
+     recounted bound (the bytes the listed lanes must read, a word
+     written where its value changes, and the lists) in turns on
+     smoke_port's inputs (step 1, its round 1, the finish after the
+     last step), and each wrapper's host microseconds a call; one
+     spp of smoke_port under torch.profiler: each step's and round's
+     kernel ms, list length and bound, and their sums a spp; with
+     --baseline DIR, DIR's vpt_shade.cu built here and driven by DIR's
+     vpt_shade.py and vpt.py: a whole spp of smoke_port bit-equal to
+     this checkout's, both kernels alone in turns with this checkout's
+     at steps 1 and 6 (against the recounted bounds), and DIR's spp by
+     launch
   T  (after V) bdpt.cu vs its plain versions (integrators/bdpt_shade.py::
      start_torch, step_torch, connect_torch, finish_torch) on the same
      inputs: one
@@ -1995,33 +2011,68 @@ def vpt_edit_scene(kind: str) -> str:
     return path
 
 
+VPT_RECORDS = ("Lanes", "Walk", "Lists")   # vpt_shade.py's state records
+
+
 def _cloned(v):
-    """v with its tensors cloned: a tensor, or a Lanes / Walk record of
-    integrators/vpt_shade.py; anything else (the scene) as it is."""
+    """v with its tensors cloned: a tensor, or a Lanes / Walk / Lists
+    record of integrators/vpt_shade.py (of this checkout or of
+    --baseline's); anything else (the scene, an int) as it is."""
     import dataclasses
-    from gpu_pathtracer_tpu_torch.integrators.vpt_shade import Lanes, Walk
     if torch.is_tensor(v):
         return v.clone()
-    if isinstance(v, (Lanes, Walk)):
+    if type(v).__name__ in VPT_RECORDS and dataclasses.is_dataclass(v):
         return dataclasses.replace(v, **{
             f.name: _cloned(getattr(v, f.name))
             for f in dataclasses.fields(v)})
     return v
 
 
-def vpt_inputs(dev, path, step) -> dict:
+def _restore(dst, src) -> None:
+    """Copy record src's tensors (and a Lists record's cursors) into
+    record dst's, field by field, in place: the state an in-place kernel
+    changed put back."""
+    import dataclasses
+    for f in dataclasses.fields(dst):
+        a, b = getattr(dst, f.name), getattr(src, f.name)
+        if torch.is_tensor(a):
+            a.copy_(b)
+        elif dataclasses.is_dataclass(a):
+            _restore(a, b)
+        elif isinstance(a, int):
+            setattr(dst, f.name, b)
+
+
+def restorer_of(kw):
+    """A function that puts the state records and the ray count of the
+    arguments `kw` back as they are now."""
+    saved = {k: _cloned(v) for k, v in kw.items()
+             if k in ("lane", "walk", "rays") and v is not None}
+
+    def restore():
+        for k, v in saved.items():
+            if torch.is_tensor(v):
+                kw[k].copy_(v)
+            else:
+                _restore(kw[k], v)
+    return restore
+
+
+def vpt_inputs(dev, path, step, vs=None, vpt=None, rounds=(0, 1)) -> dict:
     """The arguments, by parameter name, of vpt_shade.shade at `step`, of
-    vpt_shade.tr_round at that step's rounds 0 and 1, and of
-    vpt_shade.finish, from one VPT spp over the kernels of the scene at
-    `path` at 1024^2, lanes in pixel order: {"shade": ..., "tr": [r0,
-    r1], "finish": ...} (without `plain`)."""
+    vpt_shade.tr_round at that step's `rounds`, and of vpt_shade.finish,
+    copied as each call found them in one VPT spp over the kernels of the
+    scene at `path` at 1024^2, lanes in pixel order: {"shade": ...,
+    "tr": [...], "finish": ...} (without `plain`). `vs` and `vpt`: the
+    modules to drive (--baseline's; default this checkout's)."""
     import inspect
-    from gpu_pathtracer_tpu_torch.integrators import vpt, vpt_shade
+    if vs is None:
+        from gpu_pathtracer_tpu_torch.integrators import vpt, vpt_shade as vs
     sc, st = scene_1024(path, dev)
     ids = torch.arange(N_RAYS, device=dev)
     got = {"shade": None, "tr": [], "finish": None}
     at = {"step": -1, "round": 0}
-    orig = {k: getattr(vpt_shade, k) for k in ("shade", "tr_round", "finish")}
+    orig = {k: getattr(vs, k) for k in ("shade", "tr_round", "finish")}
 
     def wrap(name):
         sig = inspect.signature(orig[name])
@@ -2038,7 +2089,7 @@ def vpt_inputs(dev, path, step) -> dict:
                 if a["step"] == step:
                     got["shade"] = keep()
             elif name == "tr_round":
-                if at["step"] == step and at["round"] < 2:
+                if at["step"] == step and at["round"] in rounds:
                     got["tr"].append(keep())
                 at["round"] += 1
             else:
@@ -2047,31 +2098,185 @@ def vpt_inputs(dev, path, step) -> dict:
         return fn
 
     for k in orig:
-        setattr(vpt_shade, k, wrap(k))
+        setattr(vs, k, wrap(k))
     try:
         vpt.render_lanes(sc, st, SEED, 1, ids % st.width, ids // st.width)
     finally:
         for k, f in orig.items():
-            setattr(vpt_shade, k, f)
-    check(got["shade"] is not None and len(got["tr"]) == 2
+            setattr(vs, k, f)
+    check(got["shade"] is not None and len(got["tr"]) == len(rounds)
           and got["finish"] is not None, f"{path}: no step {step} captured")
     return got
 
 
-def vpt_differ(tag, k, p) -> dict:
-    """{field: lanes not bit-equal} of two Lanes / Walk records."""
+WALK_CORE = ("o", "d", "rem", "med", "tr", "flags", "sites", "pending",
+             "tmax")
+
+
+def vpt_differ(tag, k, p, fields=None) -> dict:
+    """{field: lanes not bit-equal} of two Lanes / Walk records, over
+    `fields` (default every tensor field of `k`)."""
     import dataclasses
     out = {}
-    for f in dataclasses.fields(k):
-        a, b = getattr(k, f.name), getattr(p, f.name)
-        if a is None or b is None:
-            check(a is None and b is None, f"{tag}: {f.name} written by one "
-                  "side only")
+    for f in fields or [f.name for f in dataclasses.fields(k)]:
+        a, b = getattr(k, f), getattr(p, f)
+        if not torch.is_tensor(a) and not torch.is_tensor(b):
             continue
+        check(a is not None and b is not None, f"{tag}: {f} written by one "
+              "side only")
         check(a.shape == b.shape and a.dtype == b.dtype,
-              f"{tag}: {f.name} {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+              f"{tag}: {f} {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
         ne = bits(a) != bits(b)
-        out[f.name] = int(ne.reshape(ne.shape[0], -1).any(1).sum())
+        out[f] = int(ne.reshape(ne.shape[0], -1).any(1).sum())
+    return out
+
+
+def list_differ(rows, count, expect) -> tuple:
+    """(rows listed that `expect` [N] bool does not hold, or holds that
+    are not listed, or listed twice; the list's length): a kernel's list
+    `rows[:count]` against its plain helper's set."""
+    c = int(count)
+    ids = rows[:c].long()
+    got = torch.zeros_like(expect)
+    got[ids] = True
+    return int((got != expect).sum()) + c - int(got.sum()), c
+
+
+def vpt_shade_case(tag, kw) -> dict:
+    """vpt_shade on a copy of `kw` (in place) against shade_torch on kw:
+    the lane state on every lane and the walk as later launches read it
+    (`live_walk`) bit for bit, the rays, and the lists the kernel read
+    and appended against `shade_list` and `round_list` as sets. Returns
+    {what: lanes that differ} and the kernel's and plain lane states."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    s = kw["step"]
+    kk = {k: _cloned(v) for k, v in kw.items()}
+    rp = kw["rays"].clone()
+    lane_k, walk_k = vs.shade_cuda(**kk)
+    lane_p, walk_p = vs.shade_torch(**{**kw, "rays": rp}, plain=True)
+    torch.cuda.synchronize()
+    differ = vpt_differ(tag, lane_k, lane_p)
+    differ.update({f"walk {f}": v for f, v in vpt_differ(
+        tag, vs.live_walk(walk_k), vs.live_walk(walk_p), WALK_CORE).items()})
+    differ["rays"] = int(kk["rays"] != rp)
+    lists = walk_k.lists
+    sizes = {}
+    if kw["walk"] is not None:
+        differ["list read"], sizes["read"] = list_differ(
+            lists.shade[s % 2], lists.counts[s, 0],
+            vs.shade_list(kw["lane"], kw["walk"]))
+    differ["next list"], sizes["next"] = list_differ(
+        lists.shade[(s + 1) % 2], lists.counts[s + 1, 0],
+        vs.shade_list(lane_p, walk_p))
+    differ["walk list"], sizes["walk"] = list_differ(
+        lists.walk[0], lists.counts[s, 1], vs.round_list(walk_p))
+    return differ, sizes, lane_k, lane_p
+
+
+def vpt_round_case(tag, tkw) -> tuple:
+    """vpt_tr_round on a copy of `tkw` (in place) against tr_round_torch
+    on tkw: every walk field on every lane bit for bit (the track call's
+    origin where it walks), the rays, the lists read and appended against
+    `round_list`. Returns ({what: lanes that differ}, list lengths, the
+    kernel's walk)."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    kk = {k: _cloned(v) for k, v in tkw.items()}
+    rp = tkw["rays"].clone()
+    lists = kk["walk"].lists
+    s, r = lists.step, lists.round
+    k = vs.tr_round_cuda(**kk)
+    p = vs.tr_round_torch(**{**tkw, "rays": rp})
+    torch.cuda.synchronize()
+    differ = vpt_differ(tag, k, p, WALK_CORE + ("track_med", "track_t"))
+    walks = p.track_med >= 0
+    differ["track_o"] = int((bits(k.track_o[walks]) != bits(
+        p.track_o[walks])).any(1).sum())
+    differ["rays"] = int(kk["rays"] != rp)
+    sizes = {}
+    differ["list read"], sizes["read"] = list_differ(
+        lists.walk[r % 2], lists.counts[s, 1 + r], vs.round_list(tkw["walk"]))
+    differ["next list"], sizes["next"] = list_differ(
+        lists.walk[(r + 1) % 2], lists.counts[s, 2 + r], vs.round_list(p))
+    return differ, sizes, k, p
+
+
+def bare_entry(module, entry, call):
+    """Run call() with `module`'s library (its `_lib()`) answering through
+    a recorder; return (call's result, run), run() calling the library's
+    `entry` again on the argument structure and stream that call() gave
+    it: the kernel's launch alone, without the wrapper's checks,
+    allocations and structure (run(args): on another structure;
+    run.args: the recorded one)."""
+    import ctypes
+    lib = module._lib()
+    seen = {}
+
+    class Recorder:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+    rec = Recorder()
+
+    def record(a, stream):
+        seen["a"], seen["stream"] = a, stream
+        return getattr(lib, entry)(a, stream)
+    setattr(rec, entry, record)
+    orig = module._lib
+    module._lib = lambda: rec
+    try:
+        out = call()
+    finally:
+        module._lib = orig
+    fn = getattr(lib, entry)
+
+    def run(args=None):
+        rc = fn(seen["a"] if args is None else ctypes.byref(args),
+                seen["stream"])
+        check(rc == 0, f"{entry}: launch failed with CUDA error {rc}")
+    run.args = seen["a"]._obj
+    return out, run
+
+
+def host_us(fn, restore, reps: int = 20) -> float:
+    """The median host microseconds of one fn() call (a wrapper: its
+    checks, allocations and launch, not waiting for the card), restore()
+    and a synchronize before each."""
+    ts = []
+    for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    restore()
+    return sorted(ts)[len(ts) // 2] * 1e6
+
+
+def timed_alone(fns: dict, reps: int = 20) -> dict:
+    """Each (run, restore) of `fns` timed with CUDA events around run()
+    alone, restore() before every run, in turns a, b, ..., b, a -> {name:
+    [ms per run, one value per turn]}. A spin of about half a millisecond
+    on the card (torch.cuda._sleep) comes between restore() and the first
+    event, so the card is still busy while the host enqueues the launch:
+    the interval holds the kernel, not the host's call."""
+    out = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        run, restore = fns[k]
+        restore()
+        run()   # warm-up
+        ts = []
+        for _ in range(reps):
+            restore()
+            torch.cuda._sleep(1_000_000)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            run()
+            e.record()
+            ts.append((s, e))
+        torch.cuda.synchronize()
+        out[k].append(sum(s.elapsed_time(e) for s, e in ts) / reps)
     return out
 
 
@@ -2088,108 +2293,340 @@ def _tensor_bytes(*xs) -> int:
     return n
 
 
-def _lane_bytes(mask, *xs) -> int:
-    """The bytes of the rows of the tensors among xs that the lanes of
-    `mask` read (each tensor's first dimension is the lane)."""
-    k = int(mask.sum())
-    return sum(k * (x.numel() // x.shape[0]) * x.element_size()
-               for x in xs if x is not None)
-
-
-def _settle_bytes(walk, walk_out) -> int:
-    """The bytes settle() (csrc/vpt_shade.cu) reads of the previous walk:
-    its flags on every lane; its tr and the pending factors it uses on
-    the lanes with credit (scatter 7, emitter 6, surface 12 floats); the
-    last track result on the credit lanes that fold it."""
+def _pend_floats(flags):
+    """The pending factors settle() reads a lane by its credit."""
     from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
-    if walk is None:
-        return 0
-    f = walk.flags
-    credit = (f & vs.CREDIT) != 0
-    n = _tensor_bytes(f) + _lane_bytes(credit, walk.tr)
-    for bit, floats in ((vs.SCATTER, 7), (vs.EMITTER, 6), (vs.SURFACE, 12)):
-        n += int(((f & bit) != 0).sum()) * floats * 4
-    if walk_out is not None:
-        n += _lane_bytes(credit & ((f & vs.FOLD) != 0), walk_out)
+    return (((flags & vs.SCATTER) != 0) * 7 + ((flags & vs.EMITTER) != 0) * 6
+            + ((flags & vs.SURFACE) != 0) * 12)
+
+
+LANE_WRITES = ("ro", "rd", "li", "beta", "prev_pdf", "depth", "med", "flags",
+               "tmax", "med_sample")   # the lane fields vpt_shade writes
+WALK_WRITES = ("o", "d", "rem", "med", "tr", "flags", "sites", "pending",
+               "tmax", "track_med", "track_t")   # the walk's
+ROUND_WRITES = ("o", "rem", "med", "tr", "flags", "tmax", "track_med",
+                "track_t", "track_o")   # vpt_tr_round's
+
+
+def _changed_bytes(before, after, fields) -> int:
+    """The bytes of record `after`'s `fields` whose 4-byte words differ
+    from `before`'s: what a launch must write, a word where its value
+    changes and nowhere else."""
+    n = 0
+    for f in fields:
+        a, b = getattr(before, f), getattr(after, f)
+        if a is not None and b is not None:
+            n += int((bits(a) != bits(b)).sum()) * 4
     return n
 
 
-def vpt_shade_bound(kw, out) -> dict:
-    """vpt_shade's least time on one call: the bytes each lane must read
-    and write, over 3.35 TB/s (bytes-bound: its float work, a few hundred
-    operations a live lane, is some ten times below). Every lane reads its
-    state and its (t, prim) and writes every output; the lanes alive with
-    a hit read their lane id, their prim row and, in a heterogeneous
-    medium, found_t; the previous walk as settle() reads it; and the
-    material, light, CDF and media tables once."""
-    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+def _heterogeneous(scene, med):
+    """[N] bool: med names a heterogeneous medium."""
     from gpu_pathtracer_tpu_torch.shade.media import HETEROGENEOUS
-    scene, lane = kw["scene"], kw["lane"]
-    prim = kw["prim"]
-    hit = ((lane.flags & vs.ALIVE) != 0) & (prim >= 0)
-    n_bytes = _tensor_bytes(kw["t"], prim, lane.ro, lane.rd, lane.li,
-                            lane.beta, lane.prev_pdf, lane.depth, lane.med,
-                            lane.flags, *out)
-    n_bytes += _lane_bytes(hit, kw["lanes"])
-    n_bytes += int(torch.unique(prim[hit]).numel()) * 40 * 4
-    if kw["found_t"] is not None:
-        med = lane.med
-        het = torch.zeros_like(hit)
-        inside = med >= 0
-        het[inside] = (scene.med_table[med[inside].long(), 0].to(torch.int32)
-                       == HETEROGENEOUS)
-        n_bytes += _lane_bytes(hit & het, kw["found_t"])
-    n_bytes += _settle_bytes(kw["walk"], kw["walk_out"])
-    n_bytes += _tensor_bytes(scene.mat_attrs, scene.light_attrs,
-                             scene.light_cdf, scene.med_table)
-    b = bound(n_bytes, 0)
-    b["bytes"] = n_bytes
-    return b
+    out = torch.zeros_like(med, dtype=torch.bool)
+    inside = med >= 0
+    out[inside] = (scene.med_table[med[inside].long(), 0]
+                   .to(torch.int32) == HETEROGENEOUS)
+    return out
 
 
-def vpt_tr_bound(kw, out) -> dict:
-    """vpt_tr_round's least time on one call: the bytes each lane must
-    read and write, over 3.35 TB/s (bytes-bound: a walking lane's hit
-    record is some tens of operations). Every lane reads its walk's o,
-    rem, med, tr and flags and writes every output; the walking lanes
-    read their (t, prim), direction and hit prim row; the folding lanes
-    the last track result."""
+def vpt_shade_before(kw) -> dict:
+    """What vpt_shade_work needs of a step's inputs, copied before the
+    kernel changes them in place: the list, the lane state and the walk
+    (at step 0 the walk the kernel starts from)."""
     from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
-    walk = kw["walk"]
-    walking = (walk.flags & vs.WALKING) != 0
-    n_bytes = _tensor_bytes(walk.o, walk.rem, walk.med, walk.tr, walk.flags,
-                            out.o, out.rem, out.med, out.tr, out.flags,
-                            out.tmax, out.track_med, out.track_t)
-    n_bytes += _lane_bytes(walking, kw["t"], kw["prim"], walk.d)
+    lane, walk = kw["lane"], kw["walk"]
+    n = lane.ro.shape[0]
+    return {"on": vs.shade_list(lane, walk), "lane": _cloned(lane),
+            "walk": _cloned(walk) if walk is not None else vs._new_walk(
+                n, lane.ro.device, vs.n_steps(kw["static"])),
+            "listed": walk is not None}
+
+
+def vpt_shade_work(kw, before, lane_after, walk_after, n_next,
+                   n_walk) -> dict:
+    """vpt_shade's least time on one step: the bytes the function must
+    move for the lanes of its list, over 3.35 TB/s (bytes-bound: its float
+    work, a few hundred operations a live lane, is some ten times below).
+    A field is read where the step needs it and written where its value
+    changes (`_changed_bytes`).
+    - The list (after step 0) and the two lists it appends, 4 B a row.
+    - A listed lane reads its flags, the walk's flags and beta (a dead
+      lane's li takes beta * 0); li is read where it changes.
+    - A lane alive at the step's start reads ro, rd, depth, med, t and
+      prim, prev_pdf where an MIS weight changed li; with a hit its lane
+      id, found_t in a heterogeneous medium, and each prim row hit once.
+    - A credit owed reads tr, the pending factors it uses and, folding,
+      the last track result.
+    - The material, light, CDF and media tables once."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    scene = kw["scene"]
+    on, lane, walk = before["on"], before["lane"], before["walk"]
+    flags, wflags = lane.flags, walk.flags
+    alive = on & ((flags & vs.ALIVE) != 0)
     prim = kw["prim"]
-    n_bytes += int(torch.unique(prim[walking & (prim >= 0)]).numel()) * 40 * 4
+    hit = alive & (prim >= 0)
+    li_changed = (bits(lane.li) != bits(lane_after.li)).any(1)
+    mis = alive & li_changed & ((flags & vs.FROM_SURF) != 0) \
+        & ((flags & vs.SPECULAR) == 0) & (lane.depth > 0)
+    n_on = int(on.sum())
+    b = (4 * n_on + 4 if before["listed"] else 0) \
+        + 4 * (n_next + n_walk) + 8
+    b += n_on * (4 + (4 if before["listed"] else 0) + 12)
+    b += int(li_changed.sum()) * 12
+    b += int(alive.sum()) * (12 + 12 + 4 + 4 + 4 + 4) + int(mis.sum()) * 4
+    b += int(hit.sum()) * 8 + int(torch.unique(prim[hit]).numel()) * 40 * 4
+    if kw["found_t"] is not None:
+        b += int((hit & _heterogeneous(scene, lane.med)).sum()) * 4
+    credit = (wflags & vs.CREDIT) != 0
+    b += int(credit.sum()) * 12 + int(_pend_floats(wflags).sum()) * 4
     if kw["walk_out"] is not None:
-        n_bytes += _lane_bytes((walk.flags & vs.FOLD) != 0, kw["walk_out"])
-    b = bound(n_bytes, 0)
-    b["bytes"] = n_bytes
-    return b
+        b += int((credit & ((wflags & vs.FOLD) != 0)).sum()) * 4
+    b += _changed_bytes(lane, lane_after, LANE_WRITES)
+    b += _changed_bytes(walk, walk_after, WALK_WRITES)
+    b += _tensor_bytes(scene.mat_attrs, scene.light_attrs, scene.light_cdf,
+                       scene.med_table)
+    out = bound(b, 0)
+    out["bytes"] = b
+    return out
+
+
+def vpt_round_before(tkw) -> dict:
+    """What vpt_tr_work needs of a round's inputs, copied before the
+    kernel changes them in place."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    walk = tkw["walk"]
+    return {"on": vs.round_list(walk), "walk": _cloned(walk)}
+
+
+def vpt_tr_work(tkw, before, walk_after, n_next) -> dict:
+    """vpt_tr_round's least time on one round: the bytes the function must
+    move for the lanes of its list, over 3.35 TB/s (bytes-bound: a walking
+    lane's hit record is some tens of operations). A field is read where
+    the round needs it and written where its value changes
+    (`_changed_bytes`).
+    - The list and the list it appends, 4 B a row.
+    - A listed lane reads its flags; a folding one its tr and the last
+      track result.
+    - A walking lane reads its (t, prim) and each prim row hit once; one
+      that a real material does not block reads rem and med, as does an
+      emitter lane; a homogeneous segment reads tr (where no fold did).
+    - A lane that crosses reads its origin and direction; one whose
+      segment the track call walks its origin.
+    - The media table once."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    scene = tkw["scene"]
+    on, walk = before["on"], before["walk"]
+    flags = walk.flags
+    walking = (flags & vs.WALKING) != 0
+    fold = (flags & vs.FOLD) != 0
+    emit = (flags & vs.EMIT) != 0
+    prim = tkw["prim"]
+    valid = walking & (prim >= 0)
+    blocked = torch.zeros_like(valid)
+    blocked[valid] = scene.prim_attrs[prim[valid].long(), 30] != -1
+    seg = walking & ~blocked
+    homogeneous = seg & (walk.med >= 0) & ~_heterogeneous(scene, walk.med)
+    crossed = (walk_after.flags & vs.WALKING) != 0
+    folds = (walk_after.flags & vs.FOLD) != 0
+    n_on = int(on.sum())
+    b = 4 * n_on + 4 + 4 * n_next + 4
+    b += n_on * 4
+    b += int(fold.sum()) * (12 + (4 if tkw["walk_out"] is not None else 0))
+    b += int(walking.sum()) * 8
+    b += int(torch.unique(prim[valid]).numel()) * 40 * 4
+    b += int((seg | emit).sum()) * 8
+    b += int((homogeneous & ~fold).sum()) * 12
+    b += int((crossed | folds).sum()) * 12 + int(crossed.sum()) * 12
+    b += _changed_bytes(walk, walk_after, ROUND_WRITES)
+    b += _tensor_bytes(scene.med_table)
+    out = bound(b, 0)
+    out["bytes"] = b
+    return out
 
 
 def vpt_finish_bound(kw, out) -> dict:
     """vpt_finish's least time on one call: li read and li_out written on
-    every lane, the walk as settle() reads it, over 3.35 TB/s."""
-    n_bytes = _tensor_bytes(kw["li"], out)
-    n_bytes += _settle_bytes(kw["walk"], kw["walk_out"])
+    every lane, the walk's flags on every lane and, where a credit is
+    owed, its tr, the pending factors it uses and, folding, the last
+    track result, over 3.35 TB/s."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    walk = kw["walk"]
+    f = walk.flags
+    credit = (f & vs.CREDIT) != 0
+    n_bytes = _tensor_bytes(kw["li"], out, f) + int(credit.sum()) * 12 \
+        + int(_pend_floats(f).sum()) * 4
+    if kw["walk_out"] is not None:
+        n_bytes += int((credit & ((f & vs.FOLD) != 0)).sum()) * 4
     b = bound(n_bytes, 0)
     b["bytes"] = n_bytes
     return b
+
+
+def kernel_spans(fn, names) -> dict:
+    """fn() (ending in a synchronize) under torch.profiler: {name: [the
+    device ms of each launch of the kernel `name`, in launch order]}
+    (CUPTI's kernel records)."""
+    import re
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {k: [] for k in names}
+    for e in sorted((e for e in events if e.get("ph") == "X"
+                     and str(e.get("cat", "")).lower() == "kernel"),
+                    key=lambda e: e["ts"]):
+        for k in names:
+            if re.search(rf"\b{k}\b", e["name"]):
+                out[k].append(e["dur"] / 1e3)
+    return out
+
+
+def vpt_spp(dev, vs=None, vpt=None, bounds=False) -> dict:
+    """One VPT spp of smoke_port at 1024^2 over the kernels (`vs`, `vpt`:
+    --baseline's modules; default this checkout's), under torch.profiler:
+    each launch's device ms of vpt_shade (a step) and vpt_tr_round (a
+    round), in order, and, on this checkout, each list's length (the
+    spp's counts) and, with `bounds`, each launch's recounted bound (a
+    second spp, the same lists, each launch's inputs read before it)."""
+    if vs is None:
+        from gpu_pathtracer_tpu_torch.integrators import vpt, vpt_shade as vs
+    sc, st = scene_1024(SMOKE, dev)
+    ids = torch.arange(N_RAYS, device=dev)
+    seen = {}
+    shade = vs.shade
+
+    def keep_lists(*args, **kwargs):
+        out = shade(*args, **kwargs)
+        seen.setdefault("lists", getattr(out[1], "lists", None))
+        return out
+
+    def render():
+        return vpt.render_lanes(sc, st, SEED, 1, ids % st.width,
+                                ids // st.width)
+    vs.shade = keep_lists
+    try:
+        spans = kernel_spans(render, ("vpt_shade_kernel",
+                                      "vpt_tr_round_kernel"))
+    finally:
+        vs.shade = shade
+    out = {"shade_ms": spans["vpt_shade_kernel"],
+           "round_ms": spans["vpt_tr_round_kernel"]}
+    lists = seen.get("lists")
+    if lists is not None:
+        c = lists.counts.cpu()
+        n_steps = len(out["shade_ms"])
+        out["shade_rows"] = [N_RAYS] + [int(c[s, 0])
+                                        for s in range(1, n_steps)]
+        out["round_rows"] = [int(c[s, 1 + r]) for s in range(n_steps)
+                             for r in range(len(out["round_ms"])
+                                            // n_steps)]
+    if bounds:
+        out.update(vpt_spp_bounds(sc, st, ids, render))
+    return out
+
+
+def vpt_spp_bounds(sc, st, ids, render) -> dict:
+    """Each vpt_shade's and vpt_tr_round's recounted bound (vpt_shade_work,
+    vpt_tr_work) over one spp of render(), in launch order."""
+    import inspect
+    from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    out = {"shade_bound": [], "round_bound": []}
+    orig = {"shade": vs.shade, "tr_round": vs.tr_round}
+    sigs = {k: inspect.signature(f) for k, f in orig.items()}
+
+    def shade(*args, **kwargs):
+        kw = sigs["shade"].bind(*args, **kwargs)
+        kw.apply_defaults()
+        kw = kw.arguments
+        before = vpt_shade_before(kw)
+        lane, walk = orig["shade"](*args, **kwargs)
+        s = kw["step"]
+        c = walk.lists.counts
+        out["shade_bound"].append(vpt_shade_work(
+            kw, before, lane, walk, int(c[s + 1, 0]), int(c[s, 1])))
+        return lane, walk
+
+    def tr_round(*args, **kwargs):
+        kw = sigs["tr_round"].bind(*args, **kwargs)
+        kw.apply_defaults()
+        kw = kw.arguments
+        lists = kw["walk"].lists
+        s, r = lists.step, lists.round
+        before = vpt_round_before(kw)
+        walk = orig["tr_round"](*args, **kwargs)
+        out["round_bound"].append(vpt_tr_work(
+            kw, before, walk, int(lists.counts[s, 2 + r])))
+        return walk
+
+    vs.shade, vs.tr_round = shade, tr_round
+    try:
+        render()
+    finally:
+        vs.shade, vs.tr_round = orig["shade"], orig["tr_round"]
+    return out
+
+
+def spp_line(label, spp, card) -> str:
+    """One spp's kernel times (and bounds) a launch and in all."""
+    s, r = spp["shade_ms"], spp["round_ms"]
+    line = (f"{label}: vpt_shade {sum(s):.4f} ms a spp in {len(s)} "
+            f"launches, vpt_tr_round {sum(r):.4f} ms in {len(r)}")
+    if "shade_bound" in spp:
+        bs, br = (sum(b["bound_ms"] for b in spp[k])
+                  for k in ("shade_bound", "round_bound"))
+        line += f"; bounds a spp {bs:.4f} and {br:.4f} ms"
+    return line + f" ({card})"
+
+
+def vpt_spp_report(spp, card, records) -> None:
+    """Print one spp's per-step and per-round kernel ms, list lengths and
+    bounds (vpt_spp of this checkout) and keep the sums."""
+    per = len(spp["round_ms"]) // len(spp["shade_ms"])
+    for s, ms in enumerate(spp["shade_ms"]):
+        rounds = spp["round_ms"][s * per:(s + 1) * per]
+        rows = spp["round_rows"][s * per:(s + 1) * per]
+        rb = spp["round_bound"][s * per:(s + 1) * per]
+        print(f"[V]   step {s}: vpt_shade {ms:.4f} ms over "
+              f"{spp['shade_rows'][s]} rows (bound "
+              f"{spp['shade_bound'][s]['bound_ms']:.4f} ms); rounds "
+              + ", ".join(f"{x:.4f} ({n}, {b['bound_ms']:.4f})"
+                          for x, n, b in zip(rounds, rows, rb)))
+    print(f"[V] {spp_line('smoke_port, one spp of this checkout', spp, card)}")
+    for name, ms, bd in (("vpt_shade", "shade_ms", "shade_bound"),
+                         ("vpt_tr_round", "round_ms", "round_bound")):
+        records[name].update(
+            ms_spp=sum(spp[ms]), launches_spp=len(spp[ms]),
+            bound_ms_spp=sum(b["bound_ms"] for b in spp[bd]))
 
 
 def phase_v(dev, card, records):
     """csrc/vpt_shade.cu against its plain versions on the same inputs, for
     each VPT_CASES case at 1M lanes: vpt_shade at the step, vpt_tr_round
-    at its rounds 0 and 1, vpt_finish after the last step, every output
-    bit for bit; the kernels, the plain versions and the bounds in turns
-    on smoke_port's inputs (step 1, its round 1, the finish)."""
+    at its rounds 0 and 1 (each on a copy of its inputs, in place),
+    vpt_finish after the last step, every output bit for bit and the
+    lists as sets; on smoke_port's inputs (step 1, its round 1, the
+    finish) the kernels alone (their entry points on the wrappers'
+    argument structures), the plain versions and the recounted bounds in
+    turns, and the wrappers' host time; one spp's launches by step and
+    round (CUPTI); with --baseline DIR, DIR's kernels beside these."""
     from gpu_pathtracer_tpu_torch import kernels
     from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
     from gpu_pathtracer_tpu_torch.run.reference import reset_counts
     print(f"[V] vpt_shade.cu: {ptxas_summary(kernels.BUILDS['vpt_shade'].ptxas)}")
+    occ = vs.occupancy()
+    for name, o in occ.items():
+        if name.startswith("vpt_tr_round") or "heterogeneous 1" in name \
+                and "env 0, tex 0, all kinds 0" in name:
+            print(f"[V] {name}: {o}")
     t0 = time.time()
     err = {"vpt_shade": 0.0, "vpt_tr_round": 0.0, "vpt_finish": 0.0}
     timed = None
@@ -2200,44 +2637,30 @@ def phase_v(dev, card, records):
         tag = f"{label} step {step}"
         kw = got["shade"]
         reset_counts(vs.STATS, vs.TR_STATS, vs.FINISH_STATS)
-        rk, rp = kw["rays"].clone(), kw["rays"].clone()
-        k = vs.shade_cuda(**{**kw, "rays": rk})
-        p = vs.shade_torch(**{**kw, "rays": rp}, plain=True)
-        torch.cuda.synchronize()
+        differ, sizes, lane_k, lane_p = vpt_shade_case(tag, kw)
         check(vs.STATS.launches == 1 and vs.STATS.plain_cuda == 1,
               f"{tag}: launches {vs.STATS}")
-        differ = {**vpt_differ(tag, k[0], p[0]),
-                  **{f"walk {f}": v for f, v in
-                     vpt_differ(tag, k[1], p[1]).items()},
-                  "rays": int(rk != rp)}
-        walk = k[1]
-        sites = {int(s): int(((walk.sites == s) & (walk.flags != 0)).sum())
-                 for s in (1, 2, 3)}
         alive = int(((kw["lane"].flags & vs.ALIVE) != 0).sum())
-        print(f"[V] {tag}: {alive} of {N_RAYS} lanes alive, rays "
-              f"{int(rk)} vs {int(rp)}, walks by call site (scatter, "
-              f"surface, emitter) {sites}; lanes not bit-equal: "
+        print(f"[V] {tag}: {alive} of {N_RAYS} lanes alive, lists {sizes}, "
+              "lanes not bit-equal (lists: rows off): "
               + ", ".join(f"{f} {v}" for f, v in differ.items()))
         check(not any(differ.values()), f"{tag}: vpt_shade and its plain "
               f"version differ: {differ}")
         err["vpt_shade"] = max(err["vpt_shade"],
-                               (k[0].li - p[0].li).abs().max().item())
+                               (lane_k.li - lane_p.li).abs().max().item())
+        del lane_k, lane_p
         for r, tkw in enumerate(got["tr"]):
-            rk, rp = tkw["rays"].clone(), tkw["rays"].clone()
-            k = vs.tr_round_cuda(**{**tkw, "rays": rk})
-            p = vs.tr_round_torch(**{**tkw, "rays": rp})
-            torch.cuda.synchronize()
-            differ = {**vpt_differ(f"{tag} round {r}", k, p),
-                      "rays": int(rk != rp)}
+            differ, sizes, k, p = vpt_round_case(f"{tag} round {r}", tkw)
             walking = int(((tkw["walk"].flags & vs.WALKING) != 0).sum())
             print(f"[V] {tag} round {r}: {walking} lanes walking, folds "
-                  f"{int(((k.flags & vs.FOLD) != 0).sum())}; lanes not "
-                  "bit-equal: " + ", ".join(f"{f} {v}"
-                                            for f, v in differ.items()))
+                  f"{int(((k.flags & vs.FOLD) != 0).sum())}, lists {sizes}; "
+                  "lanes not bit-equal: " + ", ".join(
+                      f"{f} {v}" for f, v in differ.items()))
             check(not any(differ.values()), f"{tag} round {r}: vpt_tr_round "
                   f"and its plain version differ: {differ}")
             err["vpt_tr_round"] = max(err["vpt_tr_round"],
                                       (k.tr - p.tr).abs().max().item())
+            del k, p
         fkw = got["finish"]
         k = vs.finish_cuda(**fkw)
         p = vs.finish_torch(**fkw)
@@ -2253,35 +2676,179 @@ def phase_v(dev, card, records):
             timed = got
         del got, k, p, kw, fkw
 
+    # smoke_port's step 1, its round 1 and the finish: each kernel alone
+    # on the wrapper's argument structure (its state put back before each
+    # launch), its plain version, its bound; the wrappers' host time
     kw, tkw, fkw = timed["shade"], timed["tr"][1], timed["finish"]
+    kb, tb = vpt_shade_before(kw), vpt_round_before(tkw)
+    restore_s, restore_r = restorer_of(kw), restorer_of(tkw)
+    s = kw["step"]
+    (lane_s, walk_s), run_s = bare_entry(vs, "vpt_shade",
+                                         lambda: vs.shade_cuda(**kw))
+    c = walk_s.lists.counts
+    b_shade = vpt_shade_work(kw, kb, lane_s, walk_s, int(c[s + 1, 0]),
+                             int(c[s, 1]))
+    restore_s()
+    r = tkw["walk"].lists.round
+    walk_r, run_r = bare_entry(vs, "vpt_tr_round",
+                               lambda: vs.tr_round_cuda(**tkw))
+    b_round = vpt_tr_work(tkw, tb, walk_r, int(c[s, 2 + r]))
+    restore_r()
+    f_out, run_f = bare_entry(vs, "vpt_finish", lambda: vs.finish_cuda(**fkw))
+    b_finish = vpt_finish_bound(fkw, f_out)
+    hold = {k: _cloned(v) for k, v in kw.items()}
+    hold_t = {k: _cloned(v) for k, v in tkw.items()}
+    host = {"shade": host_us(lambda: vs.shade_cuda(**kw), restore_s),
+            "round": host_us(lambda: vs.tr_round_cuda(**tkw), restore_r),
+            "finish": host_us(lambda: vs.finish_cuda(**fkw), lambda: None)}
+    kern = timed_alone({"shade": (run_s, restore_s),
+                        "round": (run_r, restore_r),
+                        "finish": (run_f, lambda: None)})
+    restore_s()
+    restore_r()
     t = timed_windows({
-        "shade kernel": lambda: vs.shade_cuda(**kw),
-        "shade plain": lambda: vs.shade_torch(**kw, plain=True),
-        "round kernel": lambda: vs.tr_round_cuda(**tkw),
-        "round plain": lambda: vs.tr_round_torch(**tkw),
-        "finish kernel": lambda: vs.finish_cuda(**fkw),
+        "shade plain": lambda: vs.shade_torch(**hold, plain=True),
+        "round plain": lambda: vs.tr_round_torch(**hold_t),
         "finish plain": lambda: vs.finish_torch(**fkw)})
-    ms = {k: sum(v) / len(v) for k, v in t.items()}
     where = {"shade": "step 1", "round": "step 1, round 1",
              "finish": "after the last step"}
-    for name, kern, b in (
-            ("vpt_shade", "shade", vpt_shade_bound(kw, vs.shade_cuda(**kw))),
-            ("vpt_tr_round", "round",
-             vpt_tr_bound(tkw, vs.tr_round_cuda(**tkw))),
-            ("vpt_finish", "finish",
-             vpt_finish_bound(fkw, vs.finish_cuda(**fkw)))):
-        kt, pt_ = t[f"{kern} kernel"], t[f"{kern} plain"]
-        print(f"[V] {name} on smoke_port ({N_RAYS} lanes, {where[kern]}): "
-              "kernel "
-              f"{ms[kern + ' kernel']:.4f} ms (windows {min(kt):.4f}-"
-              f"{max(kt):.4f}), plain {ms[kern + ' plain']:.4f} ms (windows "
-              f"{min(pt_):.4f}-{max(pt_):.4f}); bound {b['bound_ms']:.4f} ms "
-              f"by {b['bound_by']} ({b['bytes']} bytes) ({card})")
+    print(f"[V] the wrappers' host time a call (median of 20, not waiting "
+          f"for the card): shade_cuda {host['shade']:.1f} us, tr_round_cuda "
+          f"{host['round']:.1f} us, finish_cuda {host['finish']:.1f} us")
+    for name, k, b in (("vpt_shade", "shade", b_shade),
+                       ("vpt_tr_round", "round", b_round),
+                       ("vpt_finish", "finish", b_finish)):
+        kt, pt_ = kern[k], t[f"{k} plain"]
+        ms, plain_ms = sum(kt) / len(kt), sum(pt_) / len(pt_)
+        print(f"[V] {name} on smoke_port ({N_RAYS} lanes, {where[k]}): "
+              f"kernel alone {ms:.4f} ms (turns {min(kt):.4f}-{max(kt):.4f}),"
+              f" plain {plain_ms:.4f} ms (windows {min(pt_):.4f}-"
+              f"{max(pt_):.4f}); bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({b['bytes']} bytes) ({card})")
         records[name].update(
-            max_abs_err=err[name], ms=ms[kern + " kernel"],
-            plain_ms=ms[kern + " plain"], bound_ms=b["bound_ms"],
-            bound_by=b["bound_by"], library_ms=None, bound_bytes=b["bytes"])
+            max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None,
+            bound_bytes=b["bytes"], host_us=host[k])
+    records["vpt_shade"]["occupancy"] = occ
+    del hold, hold_t
+
+    spp = vpt_spp(dev, bounds=True)
+    vpt_spp_report(spp, card, records)
+    if BASELINE:
+        baseline_vpt(dev, card, records)
     print(f"[V] done in {time.time() - t0:.1f} s")
+
+
+def baseline_modules(name_lib: str = "vpt_shade"):
+    """--baseline's integrators/vpt_shade.py and vpt.py, loaded beside
+    this checkout's (as baseline_vpt_shade, baseline_vpt) over its
+    csrc/vpt_shade.cu built here: ({name: module}, its ptxas report)."""
+    import importlib.util
+    lib, ptxas = baseline_library(name_lib)
+    mods = {}
+    for name in ("vpt_shade", "vpt"):
+        path = os.path.join(BASELINE, "gpu_pathtracer_tpu_torch",
+                            "integrators", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(f"baseline_{name}",
+                                                      path)
+        m = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = m
+        spec.loader.exec_module(m)
+        mods[name] = m
+    mods["vpt_shade"].load_library = lambda _: lib
+    mods["vpt"].vpt_shade = mods["vpt_shade"]
+    return mods, ptxas
+
+
+VPT_ALONE_STEPS = (1, 6)   # --baseline's steps: dense, and past half alive
+
+
+def vpt_alone(dev, step, vs=None, vpt=None) -> dict:
+    """vpt_shade at smoke_port's `step` and vpt_tr_round at that step's
+    round 1 on the inputs one spp gave them (`vs`, `vpt`: --baseline's
+    modules; default this checkout's, with this design's recounted
+    bounds): {"shade": (run, restore), "round": (run, restore),
+    "outputs", and "shade_bound", "round_bound" on this checkout}, run()
+    the kernel's entry point alone, restore() its state put back (the
+    parent's kernels write fresh outputs, so theirs copies as many bytes
+    of their own inputs back onto themselves)."""
+    got = vpt_inputs(dev, SMOKE, step, vs, vpt, rounds=(1,))
+    ours = vs is None
+    if ours:
+        from gpu_pathtracer_tpu_torch.integrators import vpt_shade as vs
+    kw, tkw = got["shade"], got["tr"][0]
+    out = {}
+    if ours:
+        kb, tb = vpt_shade_before(kw), vpt_round_before(tkw)
+        r = tkw["walk"].lists.round
+    restore_s, restore_r = restorer_of(kw), restorer_of(tkw)
+    (lane, walk), run_s = bare_entry(vs, "vpt_shade",
+                                     lambda: vs.shade_cuda(**kw))
+    w, run_r = bare_entry(vs, "vpt_tr_round", lambda: vs.tr_round_cuda(**tkw))
+    if ours:
+        c = walk.lists.counts
+        out["shade_bound"] = vpt_shade_work(kw, kb, lane, walk,
+                                            int(c[step + 1, 0]),
+                                            int(c[step, 1]))
+        out["round_bound"] = vpt_tr_work(tkw, tb, w, int(c[step, 2 + r]))
+    restore_s()
+    restore_r()
+    # the parent's kernels write into the outputs its wrappers allocated:
+    # kept alive, so that no later allocation takes their memory
+    out.update(shade=(run_s, restore_s), round=(run_r, restore_r),
+               outputs=(lane, walk, w))
+    return out
+
+
+def baseline_vpt(dev, card, records):
+    """vpt_shade and vpt_tr_round of the checkout at BASELINE (its
+    vpt_shade.cu built here, driven by its own vpt_shade.py and vpt.py)
+    against this checkout's: a whole VPT spp of smoke_port bit for bit
+    (radiance and rays); each kernel alone on smoke_port's VPT_ALONE_STEPS
+    and their round 1 (each checkout on its own captured inputs, the same
+    values), in turns (parent, this, this, parent), against this
+    checkout's recounted bounds; one spp's launches of both."""
+    from gpu_pathtracer_tpu_torch.integrators import vpt
+    mods, ptxas = baseline_modules()
+    pvs, pvpt = mods["vpt_shade"], mods["vpt"]
+    print(f"[V] vpt_shade.cu of {BASELINE}: {ptxas_summary(ptxas)}")
+    sc, st = scene_1024(SMOKE, dev)
+    ids = torch.arange(N_RAYS, device=dev)
+    px, py = ids % st.width, ids // st.width
+    li_k, rays_k = vpt.render_lanes(sc, st, SEED, 1, px, py, True)
+    li_p, rays_p = pvpt.render_lanes(sc, st, SEED, 1, px, py, True)
+    ne = int((bits(li_k) != bits(li_p)).any(1).sum())
+    print(f"[V] a VPT spp of smoke_port ({N_RAYS} lanes) through this "
+          f"checkout's kernels vs {BASELINE}'s: lanes not bit-equal {ne}, "
+          f"rays {int(rays_k)} vs {int(rays_p)}")
+    check(ne == 0 and int(rays_k) == int(rays_p),
+          f"the VPT spp differs from {BASELINE}'s")
+    del li_k, li_p
+    for step in VPT_ALONE_STEPS:
+        ours = vpt_alone(dev, step)
+        theirs = vpt_alone(dev, step, pvs, pvpt)
+        for name, k, bd in (("vpt_shade", "shade", "shade_bound"),
+                            ("vpt_tr_round", "round", "round_bound")):
+            t = timed_alone({"parent": theirs[k], "this": ours[k]})
+            ms = {side: sum(x) / len(x) for side, x in t.items()}
+            b = ours[bd]["bound_ms"]
+            print(f"[V] {name} alone on smoke_port's step {step}"
+                  f"{', round 1' if k == 'round' else ''}, in turns: "
+                  f"{BASELINE} {ms['parent']:.4f} ms ({ms['parent'] / b:.2f}"
+                  f"x the recounted bound {b:.4f} ms), this checkout "
+                  f"{ms['this']:.4f} ms ({ms['this'] / b:.2f}x) ({card})")
+            records[name].setdefault("in_turns", {})[f"step {step}"] = {
+                "baseline_ms": ms["parent"], "ms": ms["this"],
+                "bound_ms": b}
+        del ours, theirs
+    pspp = vpt_spp(dev, pvs, pvpt)
+    per = len(pspp["round_ms"]) // len(pspp["shade_ms"])
+    print(f"[V] {BASELINE} by step (vpt_shade ms; its rounds' sum): " + ", ".join(
+        f"{s}: {x:.4f}; {sum(pspp['round_ms'][s * per:(s + 1) * per]):.4f}"
+        for s, x in enumerate(pspp["shade_ms"])))
+    print(f"[V] {spp_line(f'smoke_port, one spp of {BASELINE}', pspp, card)}")
+    for name, key in (("vpt_shade", "shade_ms"), ("vpt_tr_round", "round_ms")):
+        records[name]["baseline_ms_spp"] = sum(pspp[key])
 
 
 BDPT_CASES = (   # label, scene, depth, lanes
@@ -4754,8 +5321,9 @@ def main() -> None:
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="another checkout of the port (e.g. a git archive "
                     "of the parent commit): phase E also times its K1, K2, "
-                    "K3 and K4 and phase T its bdpt_connect beside this "
-                    "checkout's on the same inputs")
+                    "K3 and K4, phase V its vpt_shade and vpt_tr_round and "
+                    "phase T its bdpt_connect beside this checkout's on "
+                    "the same inputs")
     ap.add_argument("--time-hits", nargs=2, metavar=("INPUTS", "ROOT"),
                     help=argparse.SUPPRESS)   # --baseline's child processes
     ap.add_argument("--cards", type=int, default=1,
@@ -4779,8 +5347,8 @@ def main() -> None:
         return
     if args.baseline:
         BASELINE = os.path.abspath(args.baseline)
-        check("E" in phases or "T" in phases,
-              "--baseline times in phases E and T")
+        check(any(p in phases for p in "ETV"),
+              "--baseline times in phases E, T and V")
     card = card_line()
     print(card, flush=True)
     sys.path.insert(0, REPO)

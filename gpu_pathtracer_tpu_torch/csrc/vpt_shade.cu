@@ -1,6 +1,6 @@
-// The VPT wavefront's step: one thread shades one lane (vpt_shade), one
-// thread takes one lane's transmittance walk across one segment
-// (vpt_tr_round), and one thread settles one lane's last credit
+// The VPT wavefront's step: one thread shades one listed lane (vpt_shade),
+// one thread takes one listed lane's transmittance walk across one
+// segment (vpt_tr_round), and one thread settles one lane's last credit
 // (vpt_finish).
 //
 // Replaces no Pallas kernel: the JAX package runs a VPT step
@@ -38,14 +38,42 @@
 // Draws: the step's 13 sites (core/rng.py: 4 + 16 s + k) from Philox
 // (philox.cuh), four counter blocks a lane; the walks draw in track.cu.
 //
-// What bounds it on an H100: the bytes a lane moves. vpt_shade reads
-// about 140 B of lane state and of the previous walk (with its 48 B of
-// pending factors) and writes about 190 B (the next lane state and the
-// new walk); vpt_tr_round reads about 70 B and writes about 60 B. The
-// table rows (prim_attrs, materials, lights, media) are shared between
-// lanes and mostly hit the cache. Each launch is one pass over the lanes,
-// every intermediate in registers, the tables read through __ldg, the
-// traced rays counted with one atomic a block.
+// The design. The lane state lives in one Lanes and one Walk for
+// the whole spp, each row read and written in place, and each launch
+// covers a list of lane rows that the launch before it built on the card:
+// - vpt_shade runs over the step's list: the lanes alive at its start,
+//   those owed the credit of the previous step's walk (a lane that died
+//   with a credit pending stays listed until the credit is settled) and
+//   the dead ones whose beta is not finite (the plain step adds beta x 0
+//   to their li). It appends the next step's list and round 0's list
+//   (the lanes that start a walk: WALKING or EMIT).
+// - Each vpt_tr_round runs over its round's list and appends the lanes
+//   still walking or folding a Tr to the next round's (two buffers).
+// - A lane off a list is never read or written by that launch, so what
+//   K1, track.cu and the next launch read of it is written once, when it
+//   leaves: tmax 0 and med_sample -1 at its death, walk flags and tmax 0
+//   when a credit ends with none new, track_med -1 and track_t 0 where
+//   the last round folded (track_med >= 0 exactly where FOLD is set). The
+//   walk's other fields (origin, direction, length, medium, Tr, call site,
+//   the pending factors, as three 16-byte vectors) are written only where
+//   a credit starts and read only while it is held; vpt_tr_round writes a
+//   field only where it changes.
+// - List order comes from the atomics and varies from run to run; no
+//   result depends on it (each lane is bit-equal to its plain version,
+//   the ray count is an integer sum).
+// - vpt_shade: a block for every 256 rows of the list's capacity (those
+//   past its length, read on the card, leave at once); each block appends
+//   its rows, in thread order, with one atomicAdd a list. vpt_tr_round: a
+//   persistent grid (the blocks that fit on the card, the occupancy API),
+//   each warp a run of the list's 32-entry chunks, its appends staged in
+//   shared memory and flushed with one atomicAdd, so an empty round costs
+//   about 2 us and no host sync.
+// What bounds them on an H100: not the bytes of the listed lanes (PERF.md
+// section 6 counts them) but each lane's chain of dependent loads (the
+// hit record, the tables, the light CDF) and its branches, at 16 warps an
+// SM for vpt_shade (111 registers); an update that covers part of a
+// 32-byte sector costs a sector read and write, so the lists' order and
+// the fields a launch writes set its memory traffic.
 //
 // Variants (template flags): vpt_shade kEnv (a sky), kTex (textures),
 // kAll (spheres or lines) and kHet (heterogeneous media: the sample
@@ -62,21 +90,34 @@ struct VptShadeArgs {
   const int32_t* prim;
   const float* found_t;
   const int64_t* lanes;
-  // the lane state
-  const float* ro;
-  const float* rd;
-  const float* li;
-  const float* beta;
-  const float* prev_pdf;
-  const int32_t* depth;
-  const int32_t* med;
-  const int32_t* flags;
-  // the previous step's walk (w_flags NULL at step 0; w_out NULL when
-  // no track call ran)
-  const float* w_tr;
-  const int32_t* w_flags;
-  const float* w_pend;
-  const float* w_out;
+  // the step's list of lane rows and its length on the device (list NULL:
+  // rows 0 .. n - 1)
+  const int32_t* list;
+  const int32_t* count;
+  // the lane state, read and written in place
+  float* ro;
+  float* rd;
+  float* li;
+  float* beta;
+  float* prev_pdf;
+  int32_t* depth;
+  int32_t* med;
+  int32_t* flags;
+  float* tmax;          // the next closest hit's tmax
+  int32_t* med_sample;  // the next sample walk's medium (kHet)
+  // the walk: the previous step's read, this step's written, in place
+  float* w_o;
+  float* w_d;
+  float* w_rem;
+  int32_t* w_med;
+  float* w_tr;
+  int32_t* w_flags;
+  int32_t* w_sites;
+  float* w_pend;
+  float* w_tmax;        // its first segment's hit tmax
+  int32_t* track_med;   // the last round's track call, reset where it
+  float* track_t;       // folded and no walk starts
+  const float* w_out;   // the previous walk's last track result (NULL: none)
   // the scene's tables
   const float* prim_attrs;
   const float* mats;
@@ -91,28 +132,12 @@ struct VptShadeArgs {
   const int32_t* tex_offset;
   const int32_t* tex_w;
   const int32_t* tex_h;
-  // the next lane state
-  float* ro_out;
-  float* rd_out;
-  float* li_out;
-  float* beta_out;
-  float* pdf_out;
-  int32_t* depth_out;
-  int32_t* med_out;
-  int32_t* flags_out;
-  float* tmax_out;          // the next closest hit's tmax
-  int32_t* med_sample_out;  // the next sample walk's medium (kHet)
-  // the new walk
-  float* wo_out;
-  float* wd_out;
-  float* wrem_out;
-  int32_t* wmed_out;
-  float* wtr_out;
-  int32_t* wflags_out;
-  int32_t* sites_out;
-  float* pend_out;
-  float* wtmax_out;         // its first segment's hit tmax
-  unsigned long long* rays;  // += the lanes alive at the step's start
+  // the lists it appends to: the next step's and round 0's
+  int32_t* next_list;
+  int32_t* next_count;
+  int32_t* walk_list;
+  int32_t* walk_count;
+  unsigned long long* rays;  // += the listed lanes alive at the step's start
   int n, step, max_depth, n_lights, n_rows, all_kinds, env_w, env_h, aniso,
       has_media;
   uint32_t seed, iteration;
@@ -122,24 +147,24 @@ struct VptShadeArgs {
 struct VptTrArgs {
   const float* t;   // the round's closest hit
   const int32_t* prim;
-  const float* o;   // the walk
+  const int32_t* list;   // the round's list and its length on the device
+  const int32_t* count;  // (list NULL: rows 0 .. n - 1)
+  float* o;   // the walk, read and written in place
   const float* d;
-  const float* rem;
-  const int32_t* med;
-  const float* tr;
-  const int32_t* flags;
-  const float* out;   // the previous round's track call (NULL: none)
+  float* rem;
+  int32_t* med;
+  float* tr;
+  int32_t* flags;
+  float* tmax;         // the next round's hit tmax
+  int32_t* track_med;  // this round's track call: medium (-1: none),
+  float* track_t;      // segment length
+  float* track_o;      // and origin
+  const float* out;    // the previous round's track call (NULL: none)
   const float* prim_attrs;
   const float* med_table;
-  float* o_out;
-  float* rem_out;
-  int32_t* med_out;
-  float* tr_out;
-  int32_t* flags_out;
-  float* tmax_out;         // the next round's hit tmax
-  int32_t* track_med_out;  // this round's track call: medium (-1: none)
-  float* track_t_out;      // and segment length
-  unsigned long long* rays;  // += the lanes walking at the round's start
+  int32_t* next_list;  // the next round's list
+  int32_t* next_count;
+  unsigned long long* rays;  // += the listed lanes walking at its start
   int n, all_kinds;
 };
 
@@ -155,36 +180,92 @@ struct VptFinishArgs {
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;        // vpt_tr_round, vpt_finish
+constexpr int kShadeThreads = 256;   // vpt_shade
+constexpr int kStage = 256;   // ids a warp stages for one list
 // lane flags (integrators/vpt_shade.py)
 constexpr int kSpecular = 1, kAlive = 2, kFromSurf = 4;
 // walk flags: what the walk does next, and the credit that waits for it
 constexpr int kWalking = 1, kEmit = 2, kFold = 4;
 constexpr int kScatter = 8, kSurface = 16, kEmitter = 32;
 constexpr int kCredit = kScatter | kSurface | kEmitter;
-constexpr int kPend = 12;   // pending factors a lane
+constexpr int kPend = 12;   // pending factors a lane: three float4
 // the walk's call sites (core/rng.py TRACK_*)
 constexpr int kSiteScatter = 1, kSiteSurface = 2, kSiteEmitter = 3;
 
+// A warp's rows for one list, staged in shared memory and appended with
+// one atomicAdd a flush: runs of up to kStage ids in the order the warp
+// met them.
+struct Staged {
+  int32_t* buf;   // the warp's kStage slots
+  int n;          // ids staged (the same on every lane of the warp)
+};
+
+// Stages row i where `pred` holds. Every thread of the warp calls it.
+__device__ __forceinline__ void stage(Staged& s, bool pred, int i) {
+  const unsigned m = __ballot_sync(0xFFFFFFFFu, pred);
+  if (pred) s.buf[s.n + __popc(m & ((1u << (threadIdx.x & 31)) - 1u))] = i;
+  s.n += __popc(m);
+}
+
+// Appends the staged ids to `list` (length *count) when `all` or when the
+// next chunk might not fit. Every thread of the warp calls it.
+__device__ __forceinline__ void flush(Staged& s, int32_t* list,
+                                      int32_t* count, bool all) {
+  if (s.n == 0 || (!all && s.n <= kStage - 32)) return;
+  __syncwarp();
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(count, s.n);
+  base = __shfl_sync(0xFFFFFFFFu, base, 0);
+  for (int k = threadIdx.x & 31; k < s.n; k += 32) list[base + k] = s.buf[k];
+  __syncwarp();
+  s.n = 0;
+}
+
+// Appends row i where `pred` holds, the block's rows in thread order,
+// with one atomicAdd a block. Every thread of the block calls it.
+__device__ __forceinline__ void block_append(bool pred, int i, int32_t* list,
+                                             int32_t* count) {
+  __shared__ int warp_at[kShadeThreads / 32];
+  __shared__ int base;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const unsigned m = __ballot_sync(0xFFFFFFFFu, pred);
+  if (lane == 0) warp_at[w] = __popc(m);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int k = 0; k < kShadeThreads / 32; ++k) {
+      const int c = warp_at[k];
+      warp_at[k] = total;
+      total += c;
+    }
+    base = total ? atomicAdd(count, total) : 0;
+  }
+  __syncthreads();
+  if (pred) list[base + warp_at[w] + __popc(m & ((1u << lane) - 1u))] = i;
+  __syncthreads();
+}
+
 // The credit that waited for the walk (vpt_shade.py::_settle): the last
 // heterogeneous segment's Tr folded in where it is owed, then the credit
-// in the order the plain step forms it.
-__device__ __forceinline__ V3 settle(const float* w_tr, const int32_t* w_flags,
+// in the order the plain step forms it. f: the walk's flags.
+__device__ __forceinline__ V3 settle(const float* w_tr, int f,
                                      const float* w_pend, const float* w_out,
                                      int i, V3 li) {
-  const int f = w_flags[i];
   if (!(f & kCredit)) return li;
   V3 tr = load3(w_tr + 3 * i);
   if (f & kFold) tr = scl(tr, w_out[i]);
-  const float* p = w_pend + (size_t)kPend * i;
-  const V3 a = load3(p), b = load3(p + 3);
+  // a [3], b [3], c [3], s, cos, denom
+  const float4* p = reinterpret_cast<const float4*>(w_pend + (size_t)kPend * i);
+  const float4 v0 = p[0], v1 = p[1], v2 = p[2];
+  const V3 a = mk(v0.x, v0.y, v0.z), b = mk(v0.w, v1.x, v1.y);
   if (f & kScatter) {   // tr * beta * (ph / denom) * rad
-    return add(li, mul(scl(mul(tr, a), p[9]), b));
+    return add(li, mul(scl(mul(tr, a), v2.y), b));
   }
   if (f & kEmitter) return add(li, mul(mul(tr, a), b));   // tr * beta * le
   // beta * (weight * tr * fr * rad * |cos| / denom)
-  const V3 x = divs(scl(mul(mul(scl(tr, p[9]), a), b), p[10]), p[11]);
-  return add(li, mul(load3(p + 6), x));
+  const V3 x = divs(scl(mul(mul(scl(tr, v2.y), a), b), v2.z), v2.w);
+  return add(li, mul(mk(v1.z, v1.w, v2.x), x));
 }
 
 // The 13 sites of step s: k = 0 the homogeneous distance sample, 1-3 the
@@ -225,19 +306,24 @@ __device__ __forceinline__ V3 beer(V3 sigma_t, float len) {
             expf(sigma_t.z * -len));
 }
 
+// Shades row i. *traced: alive at the step's start; *next: on the next
+// step's list; *walks: on round 0's.
 template <bool kEnv, bool kTex, bool kAll, bool kHet>
 __device__ __forceinline__ void shade_lane(const VptShadeArgs& p, int i,
-                                           bool* traced) {
+                                           bool* traced, bool* next,
+                                           bool* walks) {
   const V3 zero = mk(0.f, 0.f, 0.f), one = mk(1.f, 1.f, 1.f);
   const int f = p.flags[i];
+  const int wf_prev = p.w_flags[i];
   bool alive = (f & kAlive) != 0;
+  const bool alive0 = alive;
   bool specular = (f & kSpecular) != 0;
   bool from_surf = (f & kFromSurf) != 0;
   V3 ro = load3(p.ro + 3 * i), rd = load3(p.rd + 3 * i);
   V3 li = load3(p.li + 3 * i), beta = load3(p.beta + 3 * i);
   float prev_pdf = p.prev_pdf[i];
   int depth = p.depth[i], med = p.med[i];
-  if (p.w_flags) li = settle(p.w_tr, p.w_flags, p.w_pend, p.w_out, i, li);
+  li = settle(p.w_tr, wf_prev, p.w_pend, p.w_out, i, li);
   *traced = alive;
 
   // the new walk and the credit that waits for it
@@ -457,54 +543,117 @@ __device__ __forceinline__ void shade_lane(const VptShadeArgs& p, int i,
     }
   }
 
-  store3(p.ro_out + 3 * i, ro);
-  store3(p.rd_out + 3 * i, rd);
-  store3(p.li_out + 3 * i, li);
-  store3(p.beta_out + 3 * i, beta);
-  p.pdf_out[i] = prev_pdf;
-  p.depth_out[i] = depth;
-  p.med_out[i] = med;
-  p.flags_out[i] = (specular ? kSpecular : 0) | (alive ? kAlive : 0) |
-                   (from_surf ? kFromSurf : 0);
-  p.tmax_out[i] = alive ? INFINITY : 0.f;
-  if (kHet) {
-    p.med_sample_out[i] =
-        alive && med >= 0 && heterogeneous(p.med_table, med) ? med : -1;
+  // the lane's row: a lane dead at the step's start changes li alone
+  store3(p.li + 3 * i, li);
+  if (alive0) {
+    store3(p.ro + 3 * i, ro);
+    store3(p.rd + 3 * i, rd);
+    store3(p.beta + 3 * i, beta);
+    p.prev_pdf[i] = prev_pdf;
+    p.depth[i] = depth;
+    p.med[i] = med;
+    p.flags[i] = (specular ? kSpecular : 0) | (alive ? kAlive : 0) |
+                 (from_surf ? kFromSurf : 0);
+    p.tmax[i] = alive ? INFINITY : 0.f;
+    if (kHet) {
+      p.med_sample[i] =
+          alive && med >= 0 && heterogeneous(p.med_table, med) ? med : -1;
+    }
   }
-  store3(p.wo_out + 3 * i, w_org);
-  store3(p.wd_out + 3 * i, w_dir);
-  p.wrem_out[i] = wrem;
-  p.wmed_out[i] = wmed;
-  store3(p.wtr_out + 3 * i, wtr);
-  p.wflags_out[i] = wf;
-  p.sites_out[i] = site;
-  float* po = p.pend_out + (size_t)kPend * i;
-#pragma unroll
-  for (int k = 0; k < kPend; ++k) po[k] = pend[k];
-  p.wtmax_out[i] = (wf & kWalking) ? wrem : 0.f;
+  // the walk's row where a credit starts, and flags and tmax where one
+  // starts or ends; the last round's track call reset where it folded
+  if (wf) {
+    store3(p.w_o + 3 * i, w_org);
+    store3(p.w_d + 3 * i, w_dir);
+    p.w_rem[i] = wrem;
+    p.w_med[i] = wmed;
+    store3(p.w_tr + 3 * i, wtr);
+    p.w_sites[i] = site;
+    float4* po = reinterpret_cast<float4*>(p.w_pend + (size_t)kPend * i);
+    po[0] = make_float4(pend[0], pend[1], pend[2], pend[3]);
+    po[1] = make_float4(pend[4], pend[5], pend[6], pend[7]);
+    po[2] = make_float4(pend[8], pend[9], pend[10], pend[11]);
+  }
+  if (wf || wf_prev) {
+    p.w_flags[i] = wf;
+    p.w_tmax[i] = (wf & kWalking) ? wrem : 0.f;
+  }
+  if (wf_prev & kFold) {
+    p.track_med[i] = -1;
+    p.track_t[i] = 0.f;
+  }
+  *walks = (wf & (kWalking | kEmit)) != 0;
+  *next = alive || wf != 0 || !finite3(beta);
 }
 
+// Warp w of the grid's W takes the list's chunks of 32 entries [c, c1):
+// the w-th of W runs of about equal length, on its own (no block-wide
+// barrier, so a warp whose lanes take long holds up no other). Its
+// appends keep the run's order.
+__device__ __forceinline__ void warp_chunks(int n, int* c, int* c1) {
+  const int w = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int n_warps = (int)((gridDim.x * blockDim.x) >> 5);
+  const int chunks = (n + 31) >> 5;
+  const int per = (chunks + n_warps - 1) / n_warps;
+  *c = min(w * per, chunks);
+  *c1 = min(*c + per, chunks);
+}
+
+// Adds the warp's count to *rays, one atomicAdd a warp.
+__device__ __forceinline__ void add_rays(unsigned n, unsigned long long* rays) {
+  n = __reduce_add_sync(0xFFFFFFFFu, n);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(rays, (unsigned long long)n);
+}
+
+// A block for each kShadeThreads rows of the list's capacity; the blocks
+// past its length, read on the card, leave at once.
 template <bool kEnv, bool kTex, bool kAll, bool kHet>
-__global__ void __launch_bounds__(kThreads) vpt_shade_kernel(VptShadeArgs p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool traced = false;
-  if (i < p.n) shade_lane<kEnv, kTex, kAll, kHet>(p, i, &traced);
+__global__ void __launch_bounds__(kShadeThreads, 1)
+    vpt_shade_kernel(VptShadeArgs p) {
+  const int n = p.count ? *p.count : p.n;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if ((int)(blockIdx.x * blockDim.x) >= n) return;
+  bool traced = false, next = false, walks = false;
+  int i = 0;
+  if (j < n) {
+    i = p.list ? p.list[j] : j;
+    shade_lane<kEnv, kTex, kAll, kHet>(p, i, &traced, &next, &walks);
+  }
+  block_append(next, i, p.next_list, p.next_count);
+  block_append(walks, i, p.walk_list, p.walk_count);
   const int n_traced = __syncthreads_count(traced);
   if (threadIdx.x == 0 && n_traced)
     atomicAdd(p.rays, (unsigned long long)n_traced);
 }
 
+// One round of row i's walk. *traced: walking at the round's start;
+// *next: on the next round's list. A field is read where the round needs
+// it and written where it changes: Tr where a fold, a block or a
+// homogeneous segment acts on it, flags where they change, tmax where the
+// lane walked or walks, the track call where it walks a segment or walked
+// one (track_med >= 0 exactly where FOLD is set), o, rem and med where the
+// lane crosses.
 template <bool kAll>
 __device__ __forceinline__ void tr_lane(const VptTrArgs& p, int i,
-                                        bool* traced) {
-  int f = p.flags[i];
-  V3 tr = load3(p.tr + 3 * i);
-  if (f & kFold) tr = scl(tr, p.out[i]);
-  V3 o = load3(p.o + 3 * i);
-  float rem = p.rem[i];
-  int med = p.med[i];
-  bool walking = (f & kWalking) != 0;
+                                        bool* traced, bool* next) {
+  const int f = p.flags[i];
+  const bool walking0 = (f & kWalking) != 0;
+  bool walking = walking0;
   *traced = walking;
+  bool tr_set = false;
+  V3 tr;
+  if (f & kFold) {
+    tr = scl(load3(p.tr + 3 * i), p.out[i]);
+    tr_set = true;
+  }
+  V3 o0;
+  float rem = 0.f;
+  int med = -1;
+  if (walking || (f & kEmit)) {
+    o0 = load3(p.o + 3 * i);
+    rem = p.rem[i];
+    med = p.med[i];
+  }
   int track_med = -1;
   float track_t = 0.f;
   bool fold = false;
@@ -520,6 +669,7 @@ __device__ __forceinline__ void tr_lane(const VptTrArgs& p, int i,
     const float* pa = p.prim_attrs + (size_t)(valid ? prim : 0) * kPrimAttrs;
     if (valid && (int)__ldg(pa + 30) != -1) {   // a real material blocks
       tr = mk(0.f, 0.f, 0.f);
+      tr_set = true;
       walking = false;
     }
     const float seg_len = valid ? t : rem;
@@ -530,66 +680,145 @@ __device__ __forceinline__ void tr_lane(const VptTrArgs& p, int i,
         track_t = seg_len;
         fold = true;
       } else {
+        if (!tr_set) tr = load3(p.tr + 3 * i);
         tr = mul(tr, beer(media::load_optics(row).sigma_t, seg_len));
+        tr_set = true;
       }
     }
     walking = walking && valid;
     if (walking) {   // cross the interface: the medium by crossing side
       const V3 d = load3(p.d + 3 * i);
-      const Hit h = hit_attributes<false, kAll>(p.prim_attrs, prim, o, d, t);
+      const Hit h = hit_attributes<false, kAll>(p.prim_attrs, prim, o0, d, t);
       med = (int)__ldg(pa + (dot(d, h.nor) > 0.f ? 34 : 33));
       rem = rem - t;
-      o = h.pos;
+      store3(p.o + 3 * i, h.pos);
+      p.rem[i] = rem;
+      p.med[i] = med;
     }
   }
-  store3(p.o_out + 3 * i, o);
-  p.rem_out[i] = rem;
-  p.med_out[i] = med;
-  store3(p.tr_out + 3 * i, tr);
-  p.flags_out[i] =
-      (f & kCredit) | (walking ? kWalking : 0) | (fold ? kFold : 0);
-  p.tmax_out[i] = walking ? rem : 0.f;
-  p.track_med_out[i] = track_med;
-  p.track_t_out[i] = track_t;
+  if (tr_set) store3(p.tr + 3 * i, tr);
+  const int nf = (f & kCredit) | (walking ? kWalking : 0) | (fold ? kFold : 0);
+  if (nf != f) p.flags[i] = nf;
+  if (walking0) p.tmax[i] = walking ? rem : 0.f;
+  if (fold || (f & kFold)) {
+    p.track_med[i] = track_med;
+    p.track_t[i] = track_t;
+  }
+  if (fold) store3(p.track_o + 3 * i, o0);
+  *next = walking || fold;
 }
 
+// The persistent grid: each warp a run of the list's chunks, its appends
+// staged in shared memory.
 template <bool kAll>
 __global__ void __launch_bounds__(kThreads) vpt_tr_round_kernel(VptTrArgs p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool traced = false;
-  if (i < p.n) tr_lane<kAll>(p, i, &traced);
-  const int n_traced = __syncthreads_count(traced);
-  if (threadIdx.x == 0 && n_traced)
-    atomicAdd(p.rays, (unsigned long long)n_traced);
+  __shared__ int32_t buf[kThreads / 32][kStage];
+  Staged next_s = {buf[threadIdx.x >> 5], 0};
+  const int n = p.count ? *p.count : p.n;
+  int c = 0, c1 = 0;
+  warp_chunks(n, &c, &c1);
+  unsigned n_traced = 0;
+  for (; c < c1; ++c) {
+    const int j = 32 * c + (threadIdx.x & 31);
+    bool traced = false, next = false;
+    int i = 0;
+    if (j < n) {
+      i = p.list ? p.list[j] : j;
+      tr_lane<kAll>(p, i, &traced, &next);
+    }
+    stage(next_s, next, i);
+    flush(next_s, p.next_list, p.next_count, false);
+    n_traced += traced;
+  }
+  flush(next_s, p.next_list, p.next_count, true);
+  add_rays(n_traced, p.rays);
 }
 
 __global__ void __launch_bounds__(kThreads) vpt_finish_kernel(VptFinishArgs p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
   V3 li = load3(p.li + 3 * i);
-  if (p.w_flags) li = settle(p.w_tr, p.w_flags, p.w_pend, p.w_out, i, li);
+  if (p.w_flags) li = settle(p.w_tr, p.w_flags[i], p.w_pend, p.w_out, i, li);
   // NaN/Inf guard: poisoned lanes are zeroed
   store3(p.li_out + 3 * i, finite3(li) ? li : mk(0.f, 0.f, 0.f));
 }
 
 int blocks_of(int n) { return (n + kThreads - 1) / kThreads; }
 
-template <bool kEnv, bool kTex, bool kAll>
-int launch_shade(const VptShadeArgs& a, bool het, cudaStream_t s) {
-  if (het) {
-    vpt_shade_kernel<kEnv, kTex, kAll, true>
-        <<<blocks_of(a.n), kThreads, 0, s>>>(a);
-  } else {
-    vpt_shade_kernel<kEnv, kTex, kAll, false>
-        <<<blocks_of(a.n), kThreads, 0, s>>>(a);
+// The persistent grid of a kernel over a list of at most n rows: the
+// blocks of `threads` threads that fit on the card at once (the occupancy
+// API; asked once a kernel, cached in *per_card), at most one per
+// `threads` rows. 0 with the CUDA error in *rc on a failure.
+template <typename Kernel>
+int grid_of(Kernel kernel, int threads, int n, int* per_card, int* rc) {
+  if (*per_card == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0) !=
+            cudaSuccess) {
+      *rc = (int)cudaGetLastError();
+      return 0;
+    }
+    if (per_sm == 0) {
+      *rc = (int)cudaErrorInvalidConfiguration;
+      return 0;
+    }
+    *per_card = per_sm * sms;
   }
+  const int needed = (n + threads - 1) / threads;
+  return needed < *per_card ? needed : *per_card;
+}
+
+template <bool kEnv, bool kTex, bool kAll, bool kHet>
+int launch_shade(const VptShadeArgs& a, cudaStream_t s) {
+  const int blocks = (a.n + kShadeThreads - 1) / kShadeThreads;
+  vpt_shade_kernel<kEnv, kTex, kAll, kHet><<<blocks, kShadeThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool kEnv, bool kTex>
 int launch_kinds(const VptShadeArgs& a, bool het, cudaStream_t s) {
-  return a.all_kinds ? launch_shade<kEnv, kTex, true>(a, het, s)
-                     : launch_shade<kEnv, kTex, false>(a, het, s);
+  if (a.all_kinds) {
+    return het ? launch_shade<kEnv, kTex, true, true>(a, s)
+               : launch_shade<kEnv, kTex, true, false>(a, s);
+  }
+  return het ? launch_shade<kEnv, kTex, false, true>(a, s)
+             : launch_shade<kEnv, kTex, false, false>(a, s);
+}
+
+template <bool kAll>
+int launch_round(const VptTrArgs& a, cudaStream_t s) {
+  static int per_card = 0;
+  int rc = 0;
+  const int blocks =
+      grid_of(vpt_tr_round_kernel<kAll>, kThreads, a.n, &per_card, &rc);
+  if (blocks == 0) return rc;
+  vpt_tr_round_kernel<kAll><<<blocks, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// out[0..4]: threads a block, blocks an SM (the occupancy API), registers,
+// local (stack frame) bytes and blocks a launch on the current card
+template <typename Kernel>
+int describe(Kernel kernel, int threads, int* out) {
+  cudaFuncAttributes attr;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0) != cudaSuccess)
+    return (int)cudaGetLastError();
+  out[0] = threads;
+  out[1] = per_sm;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = per_sm * sms;
+  return 0;
 }
 
 }  // namespace
@@ -597,8 +826,8 @@ int launch_kinds(const VptShadeArgs& a, bool het, cudaStream_t s) {
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // (0 = launched); n == 0 launches nothing.
 //
-// One step's shading; env_data NULL: no sky, tex NULL: no textures,
-// found_t NULL: no heterogeneous medium, w_flags NULL: no walk before.
+// One step's shading over its list; env_data NULL: no sky, tex NULL: no
+// textures, found_t NULL: no heterogeneous medium.
 extern "C" int vpt_shade(const VptShadeArgs* a, void* stream) {
   if (a->n == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -610,16 +839,11 @@ extern "C" int vpt_shade(const VptShadeArgs* a, void* stream) {
   return launch_kinds<false, false>(*a, het, s);
 }
 
-// One round of the step's transmittance walk.
+// One round of the step's transmittance walk over its list.
 extern "C" int vpt_tr_round(const VptTrArgs* a, void* stream) {
   if (a->n == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (a->all_kinds) {
-    vpt_tr_round_kernel<true><<<blocks_of(a->n), kThreads, 0, s>>>(*a);
-  } else {
-    vpt_tr_round_kernel<false><<<blocks_of(a->n), kThreads, 0, s>>>(*a);
-  }
-  return (int)cudaGetLastError();
+  return a->all_kinds ? launch_round<true>(*a, s) : launch_round<false>(*a, s);
 }
 
 // The last step's credit and the NaN guard.
@@ -628,4 +852,35 @@ extern "C" int vpt_finish(const VptFinishArgs* a, void* stream) {
   vpt_finish_kernel<<<blocks_of(a->n), kThreads, 0, (cudaStream_t)stream>>>(
       *a);
   return (int)cudaGetLastError();
+}
+
+// The launch shapes, five ints each (describe's): out[0..79] vpt_shade's
+// 16 variants, variant k = 8 env + 4 tex + 2 all kinds + heterogeneous;
+// out[80..89] vpt_tr_round's two (all kinds 0, 1). Returns a CUDA error
+// code.
+extern "C" int vpt_occupancy(int* out) {
+  int rc = 0;
+#define VPT_DESCRIBE(k, e, t, a, h)                                         \
+  if (!rc) rc = describe(vpt_shade_kernel<e, t, a, h>, kShadeThreads,      \
+                         out + 5 * (k));
+  VPT_DESCRIBE(0, false, false, false, false)
+  VPT_DESCRIBE(1, false, false, false, true)
+  VPT_DESCRIBE(2, false, false, true, false)
+  VPT_DESCRIBE(3, false, false, true, true)
+  VPT_DESCRIBE(4, false, true, false, false)
+  VPT_DESCRIBE(5, false, true, false, true)
+  VPT_DESCRIBE(6, false, true, true, false)
+  VPT_DESCRIBE(7, false, true, true, true)
+  VPT_DESCRIBE(8, true, false, false, false)
+  VPT_DESCRIBE(9, true, false, false, true)
+  VPT_DESCRIBE(10, true, false, true, false)
+  VPT_DESCRIBE(11, true, false, true, true)
+  VPT_DESCRIBE(12, true, true, false, false)
+  VPT_DESCRIBE(13, true, true, false, true)
+  VPT_DESCRIBE(14, true, true, true, false)
+  VPT_DESCRIBE(15, true, true, true, true)
+#undef VPT_DESCRIBE
+  if (!rc) rc = describe(vpt_tr_round_kernel<false>, kThreads, out + 80);
+  if (!rc) rc = describe(vpt_tr_round_kernel<true>, kThreads, out + 85);
+  return rc;
 }

@@ -46,9 +46,11 @@ On CUDA tensors a step launches the scene's intersection kernel
 kernels (csrc/vpt_shade.cu), never the megakernel, and no masked
 PyTorch op runs between them; every step and every round runs: lanes that finished get
 an empty interval, so no host sync gates the loop (the JAX package's
-`lax.cond(jnp.any(...))` skips). On CPU tensors, or with `plain`, the
-plain versions run and the loops stop once no lane is alive or walking,
-which changes no result.
+`lax.cond(jnp.any(...))` skips). The step's kernels update one lane state
+and one walk in place, each launch over a list of lane rows that the
+launch before it built on the device (vpt_shade.py). On CPU tensors, or
+with `plain`, the plain versions run and the loops stop once no lane is
+alive or walking, which changes no result.
 """
 
 from __future__ import annotations
@@ -65,8 +67,7 @@ from gpu_pathtracer_tpu_torch.integrators.pt import lane_ids_of
 from gpu_pathtracer_tpu_torch.shade import media as media_mod
 from gpu_pathtracer_tpu_torch.shade.media import TrackKey
 
-INTERFACE_BUDGET = 8   # extra steps for interface crossings
-
+INTERFACE_BUDGET = vpt_shade.INTERFACE_BUDGET   # extra steps for interfaces
 
 def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
                  with_stats: bool = False, plain: bool = False):
@@ -86,8 +87,7 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
     rays = torch.zeros((), dtype=torch.int64, device=ro.device)
     gate = plain or not ro.is_cuda
     walk = walk_out = None
-    # +1: the final bounce's continuation still owes its arrival credit
-    for it in range(static.max_depth + INTERFACE_BUDGET + 1):
+    for it in range(vpt_shade.n_steps(static)):
         if gate and not bool(((lane.flags & vpt_shade.ALIVE) != 0).any()):
             break
         # finished lanes get an empty interval (tmax 0 < eps): the hit
@@ -117,8 +117,8 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
                                      rays, plain)
             if static.has_hetero:
                 walk_out, _ = media_mod.track(
-                    scene, static, media_mod.MODE_TR, nxt.track_med, walk.o,
-                    walk.d, nxt.track_t,
+                    scene, static, media_mod.MODE_TR, nxt.track_med,
+                    nxt.track_o, walk.d, nxt.track_t,
                     TrackKey(seed, iteration, lanes, track_tag(it, 0, seg),
                              walk.sites), plain)
             walk = nxt

@@ -40,6 +40,16 @@ on what the kernel does not take and has no fallback. `shade_torch`,
 tensors and under `plain=True`, and count their calls on CUDA tensors in
 `plain_cuda`.
 
+The kernels update the lane state in place: `shade` and `tr_round` on
+CUDA tensors return the `Lanes` and `Walk` they were given, changed. The
+first step's `shade` (walk None) allocates the spp's one `Walk` with its
+device lists (`Lists`); after that no call allocates a per-lane tensor.
+Each launch covers a list of lane rows that the launch before it built
+on the device: a step the rows of `shade_list`, a round those of
+`round_list`. A row off a launch's list is neither read nor written by
+it; the plain versions leave it bit-unchanged too, apart from the walk
+fields that only a lane holding a credit reads (`live_walk`).
+
 Lane flags (int32): SPECULAR, ALIVE, FROM_SURF. Walk flags: WALKING (the
 next round traces a segment), EMIT (round 0's track call walks the
 emitter segment), FOLD (tr waits for the last track call's result) and
@@ -72,6 +82,7 @@ from gpu_pathtracer_tpu_torch.shade import bsdf as bsdf_mod
 from gpu_pathtracer_tpu_torch.shade import lights as lights_mod
 from gpu_pathtracer_tpu_torch.shade import media as media_mod
 from gpu_pathtracer_tpu_torch.shade.lights import n_light_rows
+from gpu_pathtracer_tpu_torch.shade.media import TR_MAX_SEGMENTS
 
 STATS = KernelStats()          # vpt_shade
 TR_STATS = KernelStats()       # vpt_tr_round
@@ -82,6 +93,14 @@ WALKING, EMIT, FOLD = 1, 2, 4                      # walk flags
 SCATTER, SURFACE, EMITTER = 8, 16, 32              # the credit that waits
 CREDIT = SCATTER | SURFACE | EMITTER
 PEND = 12   # pending factors a lane: a [3], b [3], c [3], s, cos, denom
+INTERFACE_BUDGET = 8   # extra steps for interface crossings
+
+
+def n_steps(static) -> int:
+    """The steps of a path: max_depth bounces, INTERFACE_BUDGET interface
+    crossings and one more, whose arrival credits the last bounce's
+    continuation."""
+    return static.max_depth + INTERFACE_BUDGET + 1
 
 
 @dataclass
@@ -115,7 +134,22 @@ class Walk:
     pending: torch.Tensor     # [N, PEND] the credit's factors (0: none)
     tmax: torch.Tensor        # [N] the next round's hit tmax (rem or 0)
     track_med: torch.Tensor | None = None   # [N] int32: the round's track
-    track_t: torch.Tensor | None = None     # call, medium (-1) and length
+    track_t: torch.Tensor | None = None     # call, medium (-1), length
+    track_o: torch.Tensor | None = None     # [N, 3] and origin
+    lists: Lists | None = None   # the CUDA route's device lists
+
+
+@dataclass
+class Lists:
+    """The device lists of lane rows that csrc/vpt_shade.cu's launches
+    cover and append (the CUDA route; one set a spp)."""
+    shade: torch.Tensor    # [2, N] int32: step s's rows in row s % 2
+    walk: torch.Tensor     # [2, N] int32: round r's rows in row r % 2
+    counts: torch.Tensor   # [n_steps + 1, TR_MAX_SEGMENTS + 2] int32, 0 at
+    #                        first: [s, 0] step s's length, [s, 1 + r]
+    #                        round r's (step 0 covers every row, unlisted)
+    step: int = 0          # the step the last shade ran
+    round: int = 0         # that step's next round
 
 
 def start(scene, static, ro, rd) -> Lanes:
@@ -452,7 +486,7 @@ def tr_round_torch(scene, static, t, prim, walk: Walk, walk_out=None,
     flags = (f & CREDIT) | walking.to(torch.int32) * WALKING \
         | fold.to(torch.int32) * FOLD
     return Walk(o, walk.d, rem, med, tr, flags, walk.sites, walk.pending,
-                torch.where(walking, rem, 0.0), track_med, track_t)
+                torch.where(walking, rem, 0.0), track_med, track_t, walk.o)
 
 
 def finish_torch(li, walk: Walk | None, walk_out=None):
@@ -464,6 +498,43 @@ def finish_torch(li, walk: Walk | None, walk_out=None):
     # NaN/Inf guard: poisoned lanes are zeroed
     bad = ~torch.isfinite(li).all(dim=-1)
     return torch.where(bad[:, None], 0.0, li)
+
+
+def shade_list(lane: Lanes, walk: Walk | None = None) -> torch.Tensor:
+    """[N] bool: the lanes a step's `shade` changes, from the state before
+    it: alive, owed the credit of the previous step's walk (a lane that
+    died with a credit pending), or dead with a beta that is not finite
+    (the step adds beta * 0 to its li). `shade_torch` leaves every other
+    lane as it was; vpt_shade covers exactly these rows."""
+    on = ((lane.flags & ALIVE) != 0) | ~torch.isfinite(lane.beta).all(1)
+    if walk is not None:
+        on = on | ((walk.flags & CREDIT) != 0)
+    return on
+
+
+def round_list(walk: Walk) -> torch.Tensor:
+    """[N] bool: the lanes a `tr_round` changes: walking, with the emitter
+    segment to walk (EMIT) or a segment's Tr to fold in (FOLD). The others
+    keep every field, with track_med -1 and track_t 0; vpt_tr_round covers
+    exactly these rows."""
+    return (walk.flags & (WALKING | EMIT | FOLD)) != 0
+
+
+def live_walk(walk: Walk) -> Walk:
+    """`walk` with the fields that no later launch reads set to the plain
+    step's values, to compare two walks: the segment, Tr, call site and
+    pending factors of a lane that holds no credit (the kernels write them
+    only for a lane that starts one)."""
+    import dataclasses
+    idle = walk.flags == 0
+    col = idle[:, None]
+    return dataclasses.replace(
+        walk, o=torch.where(col, 0.0, walk.o), d=torch.where(col, 0.0, walk.d),
+        rem=torch.where(idle, 0.0, walk.rem),
+        med=torch.where(idle, -1, walk.med),
+        tr=torch.where(col, 1.0, walk.tr),
+        sites=torch.where(idle, 0, walk.sites),
+        pending=torch.where(col, 0.0, walk.pending))
 
 
 # ---------------------------------------------------------------------------
@@ -481,20 +552,19 @@ def _fields(ptrs, ints="", u32="", f32=""):
 
 class _ShadeArgs(ctypes.Structure):   # VptShadeArgs
     _fields_ = _fields(
-        "t prim found_t lanes ro rd li beta prev_pdf depth med flags w_tr "
-        "w_flags w_pend w_out prim_attrs mats lights cdf med_table env_data "
-        "env_u env_v env_wa tex tex_offset tex_w tex_h ro_out rd_out li_out "
-        "beta_out pdf_out depth_out med_out flags_out tmax_out "
-        "med_sample_out wo_out wd_out wrem_out wmed_out wtr_out wflags_out "
-        "sites_out pend_out wtmax_out rays",
+        "t prim found_t lanes list count ro rd li beta prev_pdf depth med "
+        "flags tmax med_sample w_o w_d w_rem w_med w_tr w_flags w_sites "
+        "w_pend w_tmax track_med track_t w_out prim_attrs mats lights cdf "
+        "med_table env_data env_u env_v env_wa tex tex_offset tex_w tex_h "
+        "next_list next_count walk_list walk_count rays",
         "n step max_depth n_lights n_rows all_kinds env_w env_h aniso "
         "has_media", "seed iteration", "eps env_tmax")
 
 
 class _TrArgs(ctypes.Structure):   # VptTrArgs
     _fields_ = _fields(
-        "t prim o d rem med tr flags out prim_attrs med_table o_out rem_out "
-        "med_out tr_out flags_out tmax_out track_med_out track_t_out rays",
+        "t prim list count o d rem med tr flags tmax track_med track_t "
+        "track_o out prim_attrs med_table next_list next_count rays",
         "n all_kinds")
 
 
@@ -510,6 +580,8 @@ def _lib():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(args), _P]
+        lib.vpt_occupancy.restype = ctypes.c_int
+        lib.vpt_occupancy.argtypes = [_P]
     return lib
 
 
@@ -552,11 +624,59 @@ def _tables(scene, static, dev):
     check_cuda_f32("med_table", scene.med_table, (None, MED_COLS), dev)
 
 
+def _new_walk(n, dev, steps) -> Walk:
+    """The spp's one walk of the CUDA route, as the plain step leaves a
+    lane without a walk, with its device lists (every count 0)."""
+    f32 = dict(dtype=F32, device=dev)
+    i32 = dict(dtype=I32, device=dev)
+    return Walk(torch.zeros((n, 3), **f32), torch.zeros((n, 3), **f32),
+                torch.zeros(n, **f32), torch.full((n,), -1, **i32),
+                torch.ones((n, 3), **f32), torch.zeros(n, **i32),
+                torch.zeros(n, **i32), torch.zeros((n, PEND), **f32),
+                torch.zeros(n, **f32), torch.full((n,), -1, **i32),
+                torch.zeros(n, **f32), torch.zeros((n, 3), **f32),
+                Lists(torch.empty((2, n), **i32), torch.empty((2, n), **i32),
+                      torch.zeros((steps + 1, TR_MAX_SEGMENTS + 2), **i32)))
+
+
+def _count(lists: Lists, step, col):
+    """The address of counts[step, col]."""
+    if not 0 <= step < lists.counts.shape[0]:
+        raise ValueError(f"step {step} is past the lists' "
+                         f"{lists.counts.shape[0] - 1} steps")
+    return lists.counts[step, col].data_ptr()
+
+
+def _walk_state_specs(walk: Walk):
+    return (("walk o", walk.o, 3, F32), ("walk d", walk.d, 3, F32),
+            ("walk rem", walk.rem, None, F32),
+            ("walk med", walk.med, None, I32),
+            ("walk sites", walk.sites, None, I32),
+            ("walk tmax", walk.tmax, None, F32),
+            ("walk track_med", walk.track_med, None, I32),
+            ("walk track_t", walk.track_t, None, F32),
+            ("walk track_o", walk.track_o, 3, F32))
+
+
+def _lists_of(walk: Walk, dev, n) -> Lists:
+    if walk.lists is None or walk.track_med is None or walk.track_o is None:
+        raise ValueError("the walk has no device lists: the CUDA route's "
+                         "walk is the one its first shade_cuda made")
+    lists = walk.lists
+    for name, x in (("lists shade", lists.shade), ("lists walk", lists.walk)):
+        check_cuda_f32(name, x, (2, n), dev, I32)
+    check_cuda_f32("lists counts", lists.counts, (None, TR_MAX_SEGMENTS + 2),
+                   dev, I32)
+    return lists
+
+
 def shade_cuda(scene, static, step, seed, iteration, lanes, t, prim,
                lane: Lanes, found_t=None, walk: Walk | None = None,
                walk_out=None, rays=None):
     """Launch csrc/vpt_shade.cu's vpt_shade: `shade`'s contract on CUDA
-    tensors (`rays` required)."""
+    tensors (`rays` required), over the step's list (walk None: every
+    lane, and a new walk with its lists), updating `lane` and the walk in
+    place; returns them."""
     dev = lane.ro.device
     n = lane.ro.shape[0]
     _check(dev, n, ("t", t, None, F32), ("prim", prim, None, I32),
@@ -564,11 +684,17 @@ def shade_cuda(scene, static, step, seed, iteration, lanes, t, prim,
            ("rd", lane.rd, 3, F32), ("li", lane.li, 3, F32),
            ("beta", lane.beta, 3, F32), ("prev_pdf", lane.prev_pdf, None, F32),
            ("depth", lane.depth, None, I32), ("med", lane.med, None, I32),
-           ("flags", lane.flags, None, I32), ("found_t", found_t, None, F32),
-           *(_walk_specs(walk, walk_out) if walk is not None else ()))
+           ("flags", lane.flags, None, I32), ("tmax", lane.tmax, None, F32),
+           ("med_sample", lane.med_sample, None, I32),
+           ("found_t", found_t, None, F32),
+           *(_walk_specs(walk, walk_out) + _walk_state_specs(walk)
+             if walk is not None else ()))
     if static.has_hetero != (found_t is not None):
         raise ValueError("found_t is the sample walk's result: given with "
                          "heterogeneous media, and only then")
+    if static.has_hetero != (lane.med_sample is not None):
+        raise ValueError("med_sample is kept with heterogeneous media, and "
+                         "only then")
     _check_rays(rays, dev)
     _tables(scene, static, dev)
     a = _ShadeArgs()
@@ -595,43 +721,33 @@ def shade_cuda(scene, static, step, seed, iteration, lanes, t, prim,
     for k, v in env.items():
         setattr(a, k, v)
 
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = Lanes(*(torch.empty((n, 3), **f32) for _ in range(4)),
-                torch.empty(n, **f32), torch.empty(n, **i32),
-                torch.empty(n, **i32), torch.empty(n, **i32),
-                torch.empty(n, **f32),
-                torch.empty(n, **i32) if static.has_hetero else None)
-    w = Walk(torch.empty((n, 3), **f32), torch.empty((n, 3), **f32),
-             torch.empty(n, **f32), torch.empty(n, **i32),
-             torch.empty((n, 3), **f32), torch.empty(n, **i32),
-             torch.empty(n, **i32), torch.empty((n, PEND), **f32),
-             torch.empty(n, **f32))
+    if walk is None:   # every lane, unlisted
+        walk = _new_walk(n, dev, n_steps(static))
+        lists = walk.lists
+    else:
+        lists = _lists_of(walk, dev, n)
+        a.list = lists.shade[step % 2].data_ptr()
+        a.count = _count(lists, step, 0)
+    a.next_list = lists.shade[(step + 1) % 2].data_ptr()
+    a.next_count = _count(lists, step + 1, 0)
+    a.walk_list = lists.walk[0].data_ptr()
+    a.walk_count = _count(lists, step, 1)
     a.t, a.prim, a.found_t, a.lanes = (_ptr(x) for x in (t, prim, found_t,
                                                         lanes))
-    a.ro, a.rd, a.li, a.beta, a.prev_pdf, a.depth, a.med, a.flags = (
-        x.data_ptr() for x in (lane.ro, lane.rd, lane.li, lane.beta,
-                               lane.prev_pdf, lane.depth, lane.med,
-                               lane.flags))
-    if walk is not None:
-        a.w_tr, a.w_flags, a.w_pend = (walk.tr.data_ptr(),
-                                       walk.flags.data_ptr(),
-                                       walk.pending.data_ptr())
-        a.w_out = _ptr(walk_out)
+    (a.ro, a.rd, a.li, a.beta, a.prev_pdf, a.depth, a.med, a.flags,
+     a.tmax) = (x.data_ptr() for x in (
+         lane.ro, lane.rd, lane.li, lane.beta, lane.prev_pdf, lane.depth,
+         lane.med, lane.flags, lane.tmax))
+    a.med_sample = _ptr(lane.med_sample)
+    (a.w_o, a.w_d, a.w_rem, a.w_med, a.w_tr, a.w_flags, a.w_sites, a.w_pend,
+     a.w_tmax, a.track_med, a.track_t) = (x.data_ptr() for x in (
+         walk.o, walk.d, walk.rem, walk.med, walk.tr, walk.flags, walk.sites,
+         walk.pending, walk.tmax, walk.track_med, walk.track_t))
+    a.w_out = _ptr(walk_out)
     a.prim_attrs, a.mats, a.lights, a.cdf, a.med_table = (
         x.data_ptr() for x in (scene.prim_attrs, scene.mat_attrs,
                                scene.light_attrs, scene.light_cdf,
                                scene.med_table))
-    (a.ro_out, a.rd_out, a.li_out, a.beta_out, a.pdf_out, a.depth_out,
-     a.med_out, a.flags_out, a.tmax_out) = (
-        x.data_ptr() for x in (out.ro, out.rd, out.li, out.beta,
-                               out.prev_pdf, out.depth, out.med, out.flags,
-                               out.tmax))
-    a.med_sample_out = _ptr(out.med_sample)
-    (a.wo_out, a.wd_out, a.wrem_out, a.wmed_out, a.wtr_out, a.wflags_out,
-     a.sites_out, a.pend_out, a.wtmax_out) = (
-        x.data_ptr() for x in (w.o, w.d, w.rem, w.med, w.tr, w.flags,
-                               w.sites, w.pending, w.tmax))
     a.rays = rays.data_ptr()
     a.n, a.step, a.max_depth = n, step, static.max_depth
     a.n_lights, a.n_rows = static.n_lights, n_light_rows(static)
@@ -643,39 +759,37 @@ def shade_cuda(scene, static, step, seed, iteration, lanes, t, prim,
                           torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "vpt_shade")
     STATS.launches += 1
-    return out, w
+    lists.step, lists.round = step, 0
+    return lane, walk
 
 
 def tr_round_cuda(scene, static, t, prim, walk: Walk, walk_out=None,
                   rays=None) -> Walk:
     """Launch csrc/vpt_shade.cu's vpt_tr_round: `tr_round`'s contract on
-    CUDA tensors (`rays` required)."""
+    CUDA tensors (`rays` required), over the round's list, updating the
+    walk in place; returns it."""
     dev = walk.o.device
     n = walk.o.shape[0]
     _check(dev, n, ("t", t, None, F32), ("prim", prim, None, I32),
-           ("walk o", walk.o, 3, F32), ("walk d", walk.d, 3, F32),
-           ("walk rem", walk.rem, None, F32), ("walk med", walk.med, None, I32),
-           *_walk_specs(walk, walk_out))
+           *_walk_specs(walk, walk_out), *_walk_state_specs(walk))
     _check_rays(rays, dev)
     _tables(scene, static, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    w = Walk(torch.empty((n, 3), **f32), walk.d, torch.empty(n, **f32),
-             torch.empty(n, **i32), torch.empty((n, 3), **f32),
-             torch.empty(n, **i32), walk.sites, walk.pending,
-             torch.empty(n, **f32), torch.empty(n, **i32),
-             torch.empty(n, **f32))
+    lists = _lists_of(walk, dev, n)
+    r = lists.round
+    if r >= TR_MAX_SEGMENTS:
+        raise ValueError(f"round {r}: a step's walk has {TR_MAX_SEGMENTS}")
     a = _TrArgs()
-    a.t, a.prim, a.o, a.d, a.rem, a.med, a.tr, a.flags = (
+    a.list, a.next_list = (lists.walk[k % 2].data_ptr() for k in (r, r + 1))
+    a.count = _count(lists, lists.step, 1 + r)
+    a.next_count = _count(lists, lists.step, 2 + r)
+    a.t, a.prim, a.o, a.d, a.rem, a.med, a.tr, a.flags, a.tmax = (
         x.data_ptr() for x in (t, prim, walk.o, walk.d, walk.rem, walk.med,
-                               walk.tr, walk.flags))
+                               walk.tr, walk.flags, walk.tmax))
+    a.track_med, a.track_t, a.track_o = (
+        x.data_ptr() for x in (walk.track_med, walk.track_t, walk.track_o))
     a.out = _ptr(walk_out)
     a.prim_attrs = scene.prim_attrs.data_ptr()
     a.med_table = scene.med_table.data_ptr()
-    (a.o_out, a.rem_out, a.med_out, a.tr_out, a.flags_out, a.tmax_out,
-     a.track_med_out, a.track_t_out) = (
-        x.data_ptr() for x in (w.o, w.rem, w.med, w.tr, w.flags, w.tmax,
-                               w.track_med, w.track_t))
     a.rays = rays.data_ptr()
     a.n = n
     a.all_kinds = int(kernels.all_kinds(kinds_of(static)))
@@ -683,7 +797,23 @@ def tr_round_cuda(scene, static, t, prim, walk: Walk, walk_out=None,
                              torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "vpt_tr_round")
     TR_STATS.launches += 1
-    return w
+    lists.round = r + 1
+    return walk
+
+
+def occupancy() -> dict:
+    """The kernels' launch shapes on this card (csrc/vpt_shade.cu's
+    vpt_occupancy): {"vpt_shade (env e, tex t, all kinds a, heterogeneous
+    h)" or "vpt_tr_round (all kinds a)": {threads, blocks_per_sm,
+    registers, local_bytes, blocks}}."""
+    out = (ctypes.c_int * 90)()
+    check_launch(_lib().vpt_occupancy(out), "vpt_occupancy")
+    keys = ("threads", "blocks_per_sm", "registers", "local_bytes", "blocks")
+    names = [f"vpt_shade (env {k >> 3 & 1}, tex {k >> 2 & 1}, all kinds "
+             f"{k >> 1 & 1}, heterogeneous {k & 1})" for k in range(16)]
+    names += [f"vpt_tr_round (all kinds {k})" for k in range(2)]
+    return {name: dict(zip(keys, out[5 * j:5 * j + 5]))
+            for j, name in enumerate(names)}
 
 
 def finish_cuda(li, walk: Walk | None, walk_out=None):

@@ -402,3 +402,218 @@ def test_vpt_shade_refuses_cpu_tensors(scene):
         vpt_shade.tr_round_cuda(sc, st, t, prim, walk, rays=rays)
     with pytest.raises(ValueError, match="CUDA"):
         vpt_shade.finish_cuda(lane.li, walk)
+
+
+# ---------------------------------------------------------------------------
+# The lists the kernels cover (vpt_shade.shade_list, round_list): the plain
+# versions leave every lane off a launch's list as it was, so a kernel that
+# reads and writes only the listed rows, in place, gives the same paths.
+# ---------------------------------------------------------------------------
+LANE_FIELDS = ("ro", "rd", "li", "beta", "prev_pdf", "depth", "med", "flags",
+               "tmax", "med_sample")
+WALK_FIELDS = ("o", "d", "rem", "med", "tr", "flags", "sites", "pending",
+               "tmax", "track_med", "track_t")
+
+
+@pytest.fixture(scope="module")
+def path_calls(scene):
+    """One whole path of every lane through the plain versions, with the
+    arguments and results of each shade, tr_round and finish call."""
+    sc, st, name = scene
+    px, py = _pixels(st)
+    calls = []
+    orig = {k: getattr(vpt_shade, k) for k in ("shade", "tr_round", "finish")}
+
+    def shade(*args, **kw):
+        out = orig["shade"](*args, **kw)
+        calls.append(("shade", args[8], args[10], args[11], out))
+        return out
+
+    def tr_round(*args, **kw):
+        out = orig["tr_round"](*args, **kw)
+        calls.append(("round", args[4], args[5], None, out))
+        return out
+
+    def finish(li, walk, walk_out=None, plain=False):
+        out = orig["finish"](li, walk, walk_out, plain)
+        calls.append(("finish", li, walk, walk_out, out))
+        return out
+
+    for k, fn in (("shade", shade), ("tr_round", tr_round),
+                  ("finish", finish)):
+        setattr(vpt_shade, k, fn)
+    try:
+        li, rays = vpt.render_lanes(sc, st, 7, 1, px, py, True)
+    finally:
+        for k, fn in orig.items():
+            setattr(vpt_shade, k, fn)
+    return name, calls, li, rays
+
+
+def _rows_equal(a, b, rows):
+    """Whether tensors a and b are bit-equal on the lanes of `rows`."""
+    if a is None or b is None:
+        return a is None and b is None
+    return _bitwise(a[rows], b[rows])
+
+
+def test_shade_leaves_lanes_off_its_list_unchanged(path_calls):
+    """Every step of a whole path: the lanes outside `shade_list` (dead,
+    owed no credit, beta finite) leave `shade_torch` with every lane field
+    and, after the first step, every walk field bit-unchanged (their
+    tmax 0 and med_sample -1 were written when they died)."""
+    name, calls, _, _ = path_calls
+    off_any = 0
+    for s, (kind, lane, walk, _, (lane2, walk2)) in enumerate(
+            c for c in calls if c[0] == "shade"):
+        off = ~vpt_shade.shade_list(lane, walk)
+        off_any += int(off.sum())
+        for f in LANE_FIELDS:
+            assert _rows_equal(getattr(lane, f), getattr(lane2, f), off), \
+                (name, s, f)
+        if walk is not None:
+            for f in WALK_FIELDS[:9]:
+                assert _rows_equal(getattr(walk, f), getattr(walk2, f), off), \
+                    (name, s, "walk", f)
+    assert off_any > 0, name
+
+
+def test_round_leaves_lanes_off_its_list_unchanged(path_calls):
+    """Every round of every step: the lanes outside `round_list` (neither
+    walking, nor with an emitter segment to walk, nor a Tr to fold) leave
+    `tr_round_torch` with every walk field bit-unchanged, their track call
+    empty (track_med -1, track_t 0); the rounds' lists shrink."""
+    name, calls, _, _ = path_calls
+    sizes = []
+    for kind, walk, _, _, walk2 in (c for c in calls if c[0] == "round"):
+        on = vpt_shade.round_list(walk)
+        sizes.append(int(on.sum()))
+        for f in WALK_FIELDS[:9]:
+            assert _rows_equal(getattr(walk, f), getattr(walk2, f), ~on), \
+                (name, f)
+        assert bool((walk2.track_med[~on] == -1).all()), name
+        assert bool((walk2.track_t[~on] == 0.0).all()), name
+        if walk.track_med is not None:
+            for f in ("track_med", "track_t"):
+                assert _rows_equal(getattr(walk, f), getattr(walk2, f), ~on)
+        # the next round's list: the lanes still walking or folding
+        assert bool((vpt_shade.round_list(walk2) <= on).all()), name
+    assert sizes and max(sizes) < walk.flags.numel(), (name, sizes)
+
+
+def test_dead_lanes_with_credit_stay_listed(path_calls):
+    """A lane that dies in step s with the credit of step s's walk pending
+    is on step s + 1's list (`shade_list` of the state after the walk),
+    or, after the last step, settled by `finish_torch`; some of those
+    credits add radiance, so a list of the alive lanes alone would lose
+    it."""
+    name, calls, _, _ = path_calls
+    steps = [c for c in calls if c[0] == "shade"]
+    fin = next(c for c in calls if c[0] == "finish")
+    died_total, added = 0, 0
+    for s, (_, lane, _, _, (lane2, walk2)) in enumerate(steps):
+        died = ((lane.flags & vpt_shade.ALIVE) != 0) \
+            & ((lane2.flags & vpt_shade.ALIVE) == 0) \
+            & ((walk2.flags & vpt_shade.CREDIT) != 0)
+        died_total += int(died.sum())
+        if s + 1 < len(steps):   # step s + 1 settles it
+            _, lane_n, walk_n, walk_out_n, (lane_n2, _) = steps[s + 1]
+            assert bool(vpt_shade.shade_list(lane_n, walk_n)[died].all()), \
+                (name, s)
+            li = lane_n.li
+            settled = vpt_shade._settle(walk_n, walk_out_n, li)
+        else:   # finish settles it
+            _, li, walk_f, walk_out_f, out = fin
+            assert walk_f is walk2 or bool(
+                (walk_f.flags[died] & vpt_shade.CREDIT != 0).all()), name
+            settled = vpt_shade._settle(walk_f, walk_out_f, li)
+            assert _rows_equal(vpt_shade.finish_torch(li, walk_f, walk_out_f),
+                               out, torch.ones_like(died))
+        added += int((settled[died] != li[died]).any(1).sum())
+    assert died_total > 0 and added > 0, (name, died_total, added)
+
+
+def _listed(fn_list, new, old, fields):
+    """`new` with the lanes off the boolean list `fn_list` taken from
+    `old`, field by field (a field `old` lacks is kept)."""
+    import dataclasses
+    keep = {}
+    for f in fields:
+        a, b = getattr(new, f), getattr(old, f)
+        if a is None or b is None:
+            continue
+        m = fn_list if a.dim() == 1 else fn_list[:, None]
+        keep[f] = torch.where(m, a, b)
+    return dataclasses.replace(new, **keep)
+
+
+def test_listed_steps_give_the_same_paths(scene, monkeypatch):
+    """The kernels' contract, modelled on the CPU: each step changes only
+    the rows of `shade_list` and each round only those of `round_list`,
+    in place; of a lane dead at the step's start only li; a walk row
+    whole only where a credit starts, its flags and tmax where one starts
+    or ends; the last round's track call reset where it folded, its
+    origin written only where it walks (the rows off the lists, and the
+    walk fields no credit holds, keep what an older launch left). After
+    each step the walk equals the plain step's under `live_walk`, and
+    whole paths through this model give `render_lanes`' radiance and rays
+    bit for bit."""
+    import dataclasses
+    sc, st, name = scene
+    px, py = _pixels(st)
+    ref, rays_ref = vpt.render_lanes(sc, st, 3, 1, px, py, True)
+    shade, tr_round = vpt_shade.shade, vpt_shade.tr_round
+    state = {}
+
+    def shade_listed(scene_, static, step, seed, iteration, lanes, t, prim,
+                     lane, found_t=None, walk=None, walk_out=None, rays=None,
+                     plain=False):
+        on = vpt_shade.shade_list(lane, walk)
+        lane2, walk2 = shade(scene_, static, step, seed, iteration, lanes, t,
+                             prim, lane, found_t, walk, walk_out, rays, plain)
+        # a lane dead at the step's start changes li alone
+        lane2 = _listed(on, lane2, lane, ("li",))
+        lane2 = _listed(on & ((lane.flags & vpt_shade.ALIVE) != 0), lane2,
+                        lane, LANE_FIELDS[:2] + LANE_FIELDS[3:])
+        n = on.numel()
+        prev = walk if walk is not None else vpt_shade.Walk(
+            torch.full((n, 3), 7.0), torch.full((n, 3), -7.0),
+            torch.full((n,), 7.0), torch.zeros(n, dtype=torch.int32),
+            torch.full((n, 3), 7.0), torch.zeros(n, dtype=torch.int32),
+            torch.full((n,), 9, dtype=torch.int32),
+            torch.full((n, vpt_shade.PEND), 7.0), torch.zeros(n),
+            torch.full((n,), -1, dtype=torch.int32), torch.zeros(n),
+            torch.full((n, 3), 7.0))
+        # the walk's row where a credit starts, its flags and tmax where one
+        # starts or ends; the last round's track call reset where it folded
+        full = walk2
+        credit = (walk2.flags & vpt_shade.CREDIT) != 0
+        walk2 = _listed(on & ((walk2.flags != 0) | (prev.flags != 0)), walk2,
+                        prev, ("flags", "tmax"))
+        walk2 = _listed(credit, walk2, prev, ("o", "d", "rem", "med", "tr",
+                                              "sites", "pending"))
+        # the walk as later launches read it is the plain step's
+        live, live_full = vpt_shade.live_walk(walk2), vpt_shade.live_walk(full)
+        for f in WALK_FIELDS[:9]:
+            assert _bitwise(getattr(live, f), getattr(live_full, f)), (step, f)
+        reset = (prev.flags & vpt_shade.FOLD) != 0
+        walk2 = dataclasses.replace(
+            walk2, track_med=torch.where(reset, -1, prev.track_med),
+            track_t=torch.where(reset, 0.0, prev.track_t),
+            track_o=prev.track_o)
+        return lane2, walk2
+
+    def round_listed(scene_, static, t, prim, walk, walk_out=None, rays=None,
+                     plain=False):
+        on = vpt_shade.round_list(walk)
+        walk2 = tr_round(scene_, static, t, prim, walk, walk_out, rays, plain)
+        walk2 = _listed(on, walk2, walk, WALK_FIELDS)
+        folds = walk2.track_med >= 0
+        return dataclasses.replace(walk2, track_o=torch.where(
+            folds[:, None], walk.o, walk.track_o))
+
+    monkeypatch.setattr(vpt_shade, "shade", shade_listed)
+    monkeypatch.setattr(vpt_shade, "tr_round", round_listed)
+    got, rays = vpt.render_lanes(sc, st, 3, 1, px, py, True)
+    assert _bitwise(got, ref), name
+    assert int(rays) == int(rays_ref), name
