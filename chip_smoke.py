@@ -10,8 +10,8 @@
     python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
     python3 chip_smoke.py --baseline DIR  # also time DIR's K1-K4, K2 (E),
-                                          # vpt_shade.cu (V) and
-                                          # bdpt_connect (T)
+                                          # pt_shade (S), vpt_shade.cu (V),
+                                          # bdpt_step and bdpt_connect (T)
 
 Builds the port's nine CUDA kernel sources from csrc/, holds each against its
 plain PyTorch version on the card, drives the main paths (the CLI's
@@ -108,19 +108,26 @@ Phases:
      SASS instructions at the issue peak) in turns at the camera's shape
      (1M lanes x 4 rows) and MLT's
   S  (after R) pt_shade.cu vs its plain version (integrators/pt_shade.py::
-     shade_torch) on the same inputs: one bounce of 1,048,576 lanes
-     captured from a wavefront spp over the kernels (SHADE_CASES: knot
-     scene.json bounces 0, 1 and the epilogue, bounce 1 from a psample,
-     knot sky.json, many_lights.json's 72 lights (also with its light
-     picks at the CDF's steps), textured.json,
-     env_port's scene.json and mixed.json, materials.json's lines,
-     spheres and six models, bssrdf.json's subsurface lanes), every
-     output bit for bit (`SHADE_FIELDS`: the next ray, li, beta, pdf,
-     flags, the pending NEE credit, the shadow ray, the keys, the ray
-     counts); one spp of knot scene.json, forest.json,
+     shade_wave_torch over shade_torch) on copies of the same state (a
+     pt_shade.Wave: the lane records, the next ray, the shadow ray, the
+     keys, the counts and the list of the sorted rows, the radiance by
+     slot): one bounce of 1,048,576 lanes captured from a wavefront spp
+     over the kernels (SHADE_CASES: knot scene.json bounces 0, 1 and the
+     epilogue, bounce 1 from a psample, knot sky.json, many_lights.json's
+     72 lights (also with its light picks at the CDF's steps),
+     textured.json, env_port's scene.json and mixed.json, materials.json's
+     lines, spheres and six models, bssrdf.json's subsurface lanes), every
+     word of the state bit for bit (the appended list as a set) and the
+     ray counts; one spp of knot scene.json, forest.json,
      many_lights.json and bssrdf.json at 1024^2 depth 5 over the kernels
-     vs all-plain (`SHADE_FILMS`); the kernel, the plain version and the
-     bound in turns at knot scene.json's bounce 1
+     vs all-plain (`SHADE_FILMS`), and all but forest's also with the shading
+     kernel over the plain hit queries, bit for bit; the kernel alone (its
+     entry point on the wrapper's structure, the state put back) at each
+     bounce of knot scene.json's spp against its recounted bound
+     (`shade_work`: a field where a lane reads it, a word where its value
+     changes), with --baseline DIR also DIR's pt_shade.cu alone on the
+     same states in its own layout, in turns; the plain version at
+     bounce 1; registers and blocks an SM
   V  (after S) vpt_shade.cu vs its plain versions (integrators/
      vpt_shade.py::shade_torch, tr_round_torch, finish_torch) on the same
      inputs, captured by name from a VPT spp over the kernels at 1024^2
@@ -172,9 +179,14 @@ Phases:
      instructions of its staged vertices, items by round and kept slots,
      CONNECT_OPS, at the issue peak), its registers,
      stack frame and launch shape (the occupancy API) at K = 6 and 18;
-     with --baseline DIR, DIR's bdpt.cu built here and its bdpt_connect
-     held bit for bit against this checkout's and timed in turns with it
-     on the same inputs
+     bdpt_step alone (its entry point on the wrapper's structure, the
+     rows' state put back) at each step of cornell_port's sample against
+     its recounted bound (`bdpt_step_bound`: every row's flag, the live
+     rows' fields where read, a word where its value changes), its
+     registers and blocks an SM; with --baseline DIR, DIR's bdpt.cu built
+     here: its bdpt_step alone at each step in turns with this
+     checkout's, and its bdpt_connect held bit for bit against this
+     checkout's and timed in turns with it on the same inputs
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after, then timed from where its
      render stands by the bench's windows (run/bench.py: D_WINDOWS
@@ -1774,11 +1786,6 @@ SHADE_CASES = (
     ("bssrdf.json (subsurface lanes)", BSSRDF, 0, False))
 # and its films: one spp at 1024^2 depth 5 over the kernels vs all-plain
 SHADE_FILMS = (KNOT["scene"], KNOT["forest"], MANY_LIGHTS, BSSRDF)
-# every output of integrators/pt_shade.py::Shaded, held bit for bit (the
-# keys are None on both sides where the wavefront does not sort)
-SHADE_FIELDS = ("ro", "rd", "li", "beta", "prev_pdf", "flags", "pending",
-                "shadow_o", "shadow_d", "shadow_t", "key", "shadow_key",
-                "rays")
 SHADE_FLOPS = 600   # float operations of one shaded lane (an estimate:
 #                     hit record ~80, BSDF sample + eval ~300, light
 #                     sample ~80, credits and keys ~140)
@@ -1792,13 +1799,20 @@ def scene_1024(path, dev):
     return sc, st
 
 
-def shade_inputs(dev, rng, path, bounce, psample):
-    """The arguments of integrators/pt_shade.py::shade at `bounce` of one
-    wavefront spp (over the kernels) of the scene at `path`, 1024^2,
-    lanes in pixel order, from Philox or from a random psample (its
-    light-pick rows set to the light CDF's entries, below 1, lane by
-    lane, when `psample` is "steps"): a dict by parameter name, without
-    `key`, `shadow_key` and `plain`."""
+def bits(x):
+    """x's bits: float32 viewed as int32 (so -0 differs from 0 and a NaN
+    equals only its own bits), integers as they are."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def shade_states(dev, rng, path, bounces, psample=None):
+    """The arguments of integrators/pt_shade.py::shade at each of
+    `bounces` of one wavefront spp of the scene at `path`, 1024^2, lanes
+    in pixel order, from Philox or from a random psample (its light-pick
+    rows set to the light CDF's entries, below 1, lane by lane, when
+    `psample` is "steps"): {bounce: dict by parameter name, the Wave a
+    copy of the state before the call, without `plain`}. The spp runs
+    over the kernels."""
     import inspect
     from gpu_pathtracer_tpu_torch.core.rng import (
         PSS_BOUNCE_DIMS, PSS_CAM_DIMS,
@@ -1815,17 +1829,18 @@ def shade_inputs(dev, rng, path, bounce, psample):
         if psample == "steps":
             steps = sc.light_cdf[sc.light_cdf < 1.0]
             ps[PSS_CAM_DIMS::PSS_BOUNCE_DIMS] = steps[ids % steps.numel()]
-    got = []
+    got = {}
     shade = pt_shade.shade
     sig = inspect.signature(shade)
 
     def capture(*args, **kwargs):
         kw = sig.bind(*args, **kwargs)
         kw.apply_defaults()
-        if kw.arguments["b"] == bounce and not got:
-            got.append({k: v.clone() if torch.is_tensor(v) else v
-                        for k, v in kw.arguments.items()
-                        if k not in ("key", "shadow_key", "plain")})
+        b = kw.arguments["b"]
+        if b in bounces:
+            got[b] = {k: wave_copy(v) if k == "w" else
+                      v.clone() if torch.is_tensor(v) else v
+                      for k, v in kw.arguments.items() if k != "plain"}
         return shade(*args, **kwargs)
 
     pt_shade.shade = capture
@@ -1834,90 +1849,211 @@ def shade_inputs(dev, rng, path, bounce, psample):
                      psample=ps)
     finally:
         pt_shade.shade = shade
-    check(len(got) == 1, f"{path}: no shading step at bounce {bounce}")
-    return got[0]
+    check(sorted(got) == sorted(bounces),
+          f"{path}: shading steps {sorted(got)} of {bounces}")
+    return got
 
 
-def shade_bound(kw, out) -> dict:
-    """pt_shade.cu's least time on one call: the lane state it reads and
-    writes, each once, the prim_attrs rows the lanes hit, the material,
-    light and CDF tables and the sky and texel bytes, over 3.35 TB/s; or
-    SHADE_FLOPS a live lane over 67 TFLOP/s."""
-    scene, static = kw["scene"], kw["static"]
-    lane = sum(kw[f].numel() * kw[f].element_size()
-               for f in ("lanes", "t", "prim", "ro", "rd", "li", "beta",
-                         "prev_pdf", "flags", "pending", "psample")
-               if kw[f] is not None)
-    lane += sum(getattr(out, f).numel() * getattr(out, f).element_size()
-                for f in SHADE_FIELDS if getattr(out, f) is not None)
+def wave_copy(w):
+    """A Wave with its tensors cloned."""
+    import dataclasses
+    return dataclasses.replace(w, **{
+        f.name: getattr(w, f.name).clone() for f in dataclasses.fields(w)
+        if torch.is_tensor(getattr(w, f.name))})
+
+
+def wave_put(dst, src) -> None:
+    """src's tensors copied into dst's, in place (the same pointers)."""
+    import dataclasses
+    for f in dataclasses.fields(src):
+        x = getattr(src, f.name)
+        if torch.is_tensor(x):
+            getattr(dst, f.name).copy_(x)
+
+
+def wave_differ(k, p, b) -> dict:
+    """{field: words not bit-equal} of two Waves after bounce b; the list
+    bounce b appended (its order is the kernel's) compared as a set."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(p):
+        a, c = getattr(k, f.name), getattr(p, f.name)
+        if not torch.is_tensor(c):
+            continue
+        check(a.shape == c.shape and a.dtype == c.dtype,
+              f"{f.name}: {a.shape} {a.dtype} vs {c.shape} {c.dtype}")
+        if f.name == "lists":
+            r = (b + 1) % 2
+            n = int(p.counts[b + 1, 1])
+            out["list"] = int((torch.sort(a[r, :n]).values
+                               != torch.sort(c[r, :n]).values).sum())
+            a, c = a.clone(), c.clone()
+            a[r, :n] = c[r, :n] = 0
+        out[f.name] = int((bits(a) != bits(c)).sum())
+    return out
+
+
+def shade_alone(pt_shade_mod, kw):
+    """(run, restore) of csrc/pt_shade.cu's entry point alone on the state
+    of `kw` (shade_states' bounce): run() the launch the wrapper recorded,
+    restore() the Wave copied back."""
+    w = wave_copy(kw["w"])
+    _, run = bare_entry(pt_shade_mod, "pt_shade", lambda: pt_shade_mod
+                        .shade_cuda(**{**kw, "w": w}))
+    return run, lambda: wave_put(w, kw["w"])
+
+
+def parent_shade_alone(ppt, kw):
+    """(run, restore) of BASELINE's pt_shade.cu alone on the state of
+    `kw` in its own layout: every lane's [N] fields at the positions
+    (finished lanes dead, their state zero), int64 keys asked where this
+    checkout sorts; its wrapper writes fresh outputs, so restore() is
+    empty."""
+    from gpu_pathtracer_tpu_torch.integrators import pt_shade
+    w, b = kw["w"], kw["b"]
+    last = b == kw["static"].max_depth
+    src, front, visit = pt_shade.visits(w, b)
+    f = pt_shade.fields(w.rec[src])
+    occ = kw["occ"][src] if kw["occ"] is not None else \
+        torch.zeros_like(visit)
+    alive = front & ((f["flags"] & pt_shade.ALIVE) != 0)
+    flags = torch.where(visit, (f["flags"] & pt_shade.SPECULAR)
+                        | (alive.to(torch.int32) << 1)
+                        | (occ.to(torch.int32) << 2), 0)
+    pend = visit & ((f["flags"] & pt_shade.PENDING) != 0)
+
+    def z(x):
+        return torch.where(visit.view(-1, *([1] * (x.dim() - 1))), x,
+                           0).contiguous()
+    args = dict(
+        scene=kw["scene"], static=kw["static"], b=b, seed=kw["seed"],
+        iteration=kw["iteration"], lanes=z(f["lanes"]), t=kw["t"],
+        prim=kw["prim"], ro=w.ro.clone(), rd=w.rd.clone(), li=z(f["li"]),
+        beta=z(f["beta"]), prev_pdf=z(f["prev_pdf"]), flags=flags.contiguous(),
+        pending=torch.where(pend[:, None], f["pending"], 0.0).contiguous()
+        if b else None, psample=kw["psample"], key=w.sorted and not last,
+        shadow_key=w.shadow_key is not None and not last)
+    out, run = bare_entry(ppt, "pt_shade", lambda: ppt.shade_cuda(**args))
+    run.keep = (args, out)
+    return run, lambda: None
+
+
+def shade_work(kw, after, done) -> dict:
+    """pt_shade.cu's least time on one call (`kw`: shade_states' bounce,
+    `after`: the Wave the plain version left, `done`: the positions whose
+    lane finished): bytes over 3.35 TB/s, a
+    field where a lane reads it and a word where its value changes, or
+    SHADE_FLOPS a live lane over 67 TFLOP/s. Reads: a visited lane's flags
+    and li (and its slot if it finishes), a live lane's hit (t, prim),
+    ray, beta, prev_pdf and lane id, a pending credit and its verdict,
+    the sort's order (8 B) or the list's entry; writes: the lane's record
+    words that change, its radiance at its slot when it finishes, the
+    next ray's, tmax's, the shadow ray's and the keys' words that change,
+    the list's entries; the tables: the prim rows hit, the material,
+    light and CDF tables, the sky and the texels."""
+    from gpu_pathtracer_tpu_torch.integrators import pt_shade as ps
+    scene, static, w0, b = kw["scene"], kw["static"], kw["w"], kw["b"]
+    last = b == static.max_depth
+    src, front, visit = ps.visits(w0, b)
+    f = ps.fields(w0.rec[src])
+    alive = front & ((f["flags"] & ps.ALIVE) != 0)
+    pend = visit & ((f["flags"] & ps.PENDING) != 0)
+    n_vis, n_alive, n_pend = (int(x.sum()) for x in (visit, alive, pend))
+    read = n_vis * 16 + n_alive * (8 + 24 + 12 + 4 + 4) + n_pend * 13
+    if w0.sorted and b > 0:
+        n_front = int(front.sum())
+        read += n_front * 8 + (n_vis - n_front) * 4
+    # the lanes' record words, by lane: before at src, after where kept
+    kept = visit & ~done
+    new = after.spare if w0.sorted else after.rec
+    changed = (bits(w0.rec[src][:, :ps.SLOT]) != bits(new[:, :ps.SLOT])) \
+        & kept[:, None]
+    read += int(done.sum()) * 4
+    write = int(changed.sum()) * 4 + int(done.sum()) * 12
+    for name in ("ray", "tmax", "shadow_o", "shadow_d", "shadow_t",
+                 "shadow_key", "key"):
+        a, c = getattr(w0, name), getattr(after, name)
+        if a is not None and not last:
+            write += int((bits(a) != bits(c)).sum()) * 4
+    if w0.sorted and not last:
+        write += int(after.counts[b + 1, 1]) * 4
     prim = kw["prim"]
-    rows = int(torch.unique(prim[prim >= 0]).numel()) * 40 * 4
+    rows = int(torch.unique(prim[alive & (prim >= 0)]).numel()) * 40 * 4
     tables = sum(t.numel() * t.element_size() for t in (
         scene.mat_attrs, scene.light_attrs, scene.light_cdf))
     if static.has_infinite:
         tables += scene.env_data.numel() * 4
     if static.has_textures:
         tables += scene.tex_data.numel()
-    live = int(((kw["flags"] & 2) != 0).sum())
-    b = bound(lane + rows + tables, live * SHADE_FLOPS)
-    b["bytes"] = lane + rows + tables
-    return b
+    n_bytes = read + write + rows + tables
+    out = bound(n_bytes, n_alive * SHADE_FLOPS)
+    out.update(bytes=n_bytes, read=read, write=write, visited=n_vis,
+               alive=n_alive)
+    return out
 
 
-def bits(x):
-    """x's bits: float32 viewed as int32 (so -0 differs from 0 and a NaN
-    equals only its own bits), integers as they are."""
-    return x.view(torch.int32) if x.dtype == torch.float32 else x
+def occupancy(regs: int, threads: int = 128) -> int:
+    """Blocks of `threads` an H100 SM holds at `regs` registers a thread
+    (registers allocated 256 a warp; 65,536 an SM, 64 warps, 32 blocks)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    warps = threads // 32
+    return min(65536 // (per_warp * warps), 64 // warps, 32)
+
+
+def ptxas_regs(report: str, kernel: str) -> list:
+    """The register counts of `kernel`'s variants in a ptxas report."""
+    import re
+    return [int(r) for r in re.findall(
+        r"Used (\d+) registers", "\n".join(
+            seg for seg in report.split("Compiling entry function")
+            if f"{kernel}" in seg.split("\n")[0]))]
 
 
 def phase_s(dev, rng, card, records):
-    """csrc/pt_shade.cu against shade_torch on the same inputs, one bounce
-    at 1M lanes for each SHADE_CASES case, every SHADE_FIELDS output bit
-    for bit; one spp of each SHADE_FILMS scene over the kernels against
-    all-plain; the kernel, the plain version and the bound in turns at
-    knot's bounce 1."""
+    """csrc/pt_shade.cu against shade_wave_torch on copies of the same
+    Wave, one bounce at 1M lanes for each SHADE_CASES case, every word of
+    the state bit for bit (the list as a set); one spp of each
+    SHADE_FILMS scene over the kernels against all-plain, and knot's,
+    many_lights' and bssrdf.json's with the shading kernel over the plain
+    hit queries bit for bit; the kernel alone at each bounce of knot's
+    spp (its entry point on the wrapper's structure, the state put back)
+    against its recounted bound, and with --baseline the parent's kernel
+    alone on the same states in its own layout, in turns; the plain
+    version at bounce 1."""
     from gpu_pathtracer_tpu_torch.run.reference import (
         kernel_stats, reset_counts)
+    from gpu_pathtracer_tpu_torch.geom import traverse
     from gpu_pathtracer_tpu_torch.integrators import pt, pt_shade
     from gpu_pathtracer_tpu_torch import kernels
-    print(f"[S] pt_shade: {ptxas_summary(kernels.BUILDS['pt_shade'].ptxas)}")
+    report = kernels.BUILDS["pt_shade"].ptxas
+    regs = ptxas_regs(report, "pt_shade_kernel")
+    print(f"[S] pt_shade: {ptxas_summary(report)}; blocks of 128 an SM: "
+          f"{sorted({occupancy(r) for r in regs})}")
     max_err = 0.0
-    timed = None
     for label, path, bounce, psample in SHADE_CASES:
-        kw = shade_inputs(dev, rng, path, bounce, psample)
-        last = bounce == kw["static"].max_depth
+        kw = shade_states(dev, rng, path, (bounce,), psample)[bounce]
+        wk, wp = wave_copy(kw["w"]), wave_copy(kw["w"])
         reset_counts(pt_shade.STATS)
-        k = pt_shade.shade_cuda(**kw, key=not last, shadow_key=not last)
-        p = pt_shade.shade_torch(**kw, key=not last, shadow_key=not last,
-                                 plain=True)
+        pt_shade.shade_cuda(**{**kw, "w": wk})
+        pt_shade.shade_wave_torch(**{**kw, "w": wp}, plain=True)
         torch.cuda.synchronize()
         check(pt_shade.STATS.launches == 1 and pt_shade.STATS.plain_cuda == 1,
               f"{label}: launches {pt_shade.STATS}")
         tag = f"{label} bounce {bounce}"
-        alive_in = int(((kw["flags"] & pt_shade.ALIVE) != 0).sum())
-        print(f"[S] {tag}: {alive_in} of {N_RAYS} lanes alive, rays "
-              f"{k.rays.tolist()} vs {p.rays.tolist()}, shadow rays "
-              f"{int((k.shadow_t > 0.0).sum())}")
-        max_err = max(max_err, (k.li - p.li).abs().max().item())
-        differ = {}
-        for f in SHADE_FIELDS:
-            a, b = getattr(k, f), getattr(p, f)
-            if a is None or b is None:
-                check(a is None and b is None, f"{tag}: {f} written by one "
-                      "side only")
-                continue
-            check(a.shape == b.shape and a.dtype == b.dtype,
-                  f"{tag}: {f} {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
-            ne = bits(a) != bits(b)
-            differ[f] = int(ne.reshape(ne.shape[0], -1).any(1).sum()) \
-                if f != "rays" else int(ne.any())
-        print(f"[S] {tag}: lanes not bit-equal by field " + ", ".join(
+        src, front, visit = pt_shade.visits(kw["w"], bounce)
+        print(f"[S] {tag}: {int(visit.sum())} of {N_RAYS} lanes visited, "
+              f"{int(front.sum())} alive, "
+              f"{'sorted' if wk.sorted else 'in place'}"
+              f", rays {wk.rays.tolist()} vs {wp.rays.tolist()}, shadow rays "
+              f"{int((wk.shadow_t > 0.0).sum())}")
+        max_err = max(max_err, (wk.out - wp.out).nan_to_num().abs().max()
+                      .item())
+        differ = wave_differ(wk, wp, bounce)
+        print(f"[S] {tag}: words not bit-equal by field " + ", ".join(
             f"{f} {v}" for f, v in differ.items()))
         check(not any(differ.values()), f"{tag}: kernel and plain version "
               f"differ: {differ}")
-        if path == KNOT["scene"] and bounce == 1 and not psample:
-            timed = kw
-        del k, p, kw
+        del wk, wp, kw
 
     stats = kernel_stats()
     for path in SHADE_FILMS:
@@ -1938,26 +2074,122 @@ def phase_s(dev, rng, card, records):
               f"plain calls {plain}")
         records["pt_shade"][f"launches_film_{os.path.basename(path)}"] = \
             counts["pt_shade"]
+        if path != KNOT["forest"]:   # the kernel over the plain hits
+            with plain_hits(traverse):
+                li_h, r_h = pt.render_lanes(sc, st, SEED, 1, px, py, True)
+            ne = int((bits(li_h) != bits(li_p)).any(1).sum())
+            print(f"[S] film {path}, pt_shade.cu over the plain hit queries "
+                  f"vs all-plain: lanes not bit-equal {ne}, rays {int(r_h)} "
+                  f"vs {int(r_p)}")
+            check(ne == 0 and int(r_h) == int(r_p), f"film {path}: the "
+                  "shading kernel's wavefront differs from the plain one")
+            del li_h
         del li_k, li_p
 
-    kw = timed
-    t = timed_windows({
-        "kernel": lambda: pt_shade.shade_cuda(**kw, key=True,
-                                              shadow_key=True),
-        "plain": lambda: pt_shade.shade_torch(**kw, key=True,
-                                              shadow_key=True, plain=True)})
-    ms = {k: sum(v) / len(v) for k, v in t.items()}
-    b = shade_bound(kw, pt_shade.shade_cuda(**kw, key=True, shadow_key=True))
-    print(f"[S] pt_shade at knot scene.json's bounce 1 ({N_RAYS} lanes): "
-          f"kernel {ms['kernel']:.4f} ms (windows {min(t['kernel']):.4f}-"
-          f"{max(t['kernel']):.4f}), plain {ms['plain']:.4f} ms (windows "
-          f"{min(t['plain']):.4f}-{max(t['plain']):.4f}); bound "
-          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} bytes) "
-          f"({card})")
+    # alone at every bounce of knot's spp (the sorted rows) and of
+    # many_lights' (the records in place), against the recounted bounds
+    ppt = baseline_module("pt_shade", "S") if BASELINE else None
+    unsorted = shade_alone_spp(dev, rng, MANY_LIGHTS, ppt, card)
+    states = shade_states(dev, rng, KNOT["scene"], range(6))
+    per = {}
+    for b, kw in states.items():
+        after = wave_copy(kw["w"])
+        done = pt_shade.shade_wave_torch(**{**kw, "w": after}, plain=True)
+        bd = shade_work(kw, after, done)
+        del after
+        fns = {"this": shade_alone(pt_shade, kw)}
+        if ppt is not None:
+            fns = {"parent": parent_shade_alone(ppt, kw), **fns}
+        t = timed_alone(fns)
+        ms = {k: sum(x) / len(x) for k, x in t.items()}
+        per[b] = {"ms": ms["this"], "bound_ms": bd["bound_ms"],
+                  "bytes": bd["bytes"], "visited": bd["visited"],
+                  "alive": bd["alive"], **({"baseline_ms": ms["parent"]}
+                                           if ppt is not None else {})}
+        print(f"[S] pt_shade alone at knot scene.json's bounce {b} "
+              f"({bd['visited']} lanes visited, {bd['alive']} alive): "
+              f"{ms['this']:.4f} ms (turns "
+              f"{', '.join(f'{x:.4f}' for x in t['this'])})"
+              + (f", {BASELINE} {ms['parent']:.4f} ms (turns "
+                 f"{', '.join(f'{x:.4f}' for x in t['parent'])})"
+                 if ppt is not None else "")
+              + f"; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+              f"({bd['bytes']} bytes: read {bd['read']}, written "
+              f"{bd['write']}) ({card})")
+        del fns
+    spp = {k: sum(x[k] for x in per.values()) for k in ("ms", "bound_ms")}
+    line = (f"[S] pt_shade alone over knot's spp (6 launches): "
+            f"{spp['ms']:.4f} ms, bound {spp['bound_ms']:.4f} ms "
+            f"({spp['ms'] / spp['bound_ms']:.2f}x)")
+    if ppt is not None:
+        spp["baseline_ms"] = sum(x["baseline_ms"] for x in per.values())
+        line += f", {BASELINE} {spp['baseline_ms']:.4f} ms"
+    print(f"{line} ({card})")
+
+    kw = states[1]
+    wt = wave_copy(kw["w"])
+    t = timed_windows({"plain": lambda: pt_shade.shade_wave_torch(
+        **{**kw, "w": wt}, plain=True)})
+    plain_ms = sum(t["plain"]) / len(t["plain"])
+    print(f"[S] pt_shade's plain version at knot's bounce 1: "
+          f"{plain_ms:.4f} ms (windows {min(t['plain']):.4f}-"
+          f"{max(t['plain']):.4f}) ({card})")
     records["pt_shade"].update(
-        max_abs_err=max_err, ms=ms["kernel"], plain_ms=ms["plain"],
-        bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None,
-        bound_bytes=b["bytes"])
+        max_abs_err=max_err, ms=per[1]["ms"], plain_ms=plain_ms,
+        bound_ms=per[1]["bound_ms"], bound_by="bytes", library_ms=None,
+        bound_bytes=per[1]["bytes"], by_bounce=per, spp=spp, registers=regs,
+        spp_many_lights=unsorted)
+
+
+def shade_alone_spp(dev, rng, path, ppt, card) -> dict:
+    """pt_shade.cu alone at every bounce of one spp of the scene at
+    `path`, and with --baseline (`ppt`) the parent's in turns on the same
+    states: the sums over the spp, ms."""
+    from gpu_pathtracer_tpu_torch.integrators import pt_shade
+    out = {"ms": 0.0, "baseline_ms": 0.0}
+    for b, kw in shade_states(dev, rng, path, range(6)).items():
+        fns = {"this": shade_alone(pt_shade, kw)}
+        if ppt is not None:
+            fns = {"parent": parent_shade_alone(ppt, kw), **fns}
+        t = timed_alone(fns)
+        for k, side in (("ms", "this"), ("baseline_ms", "parent")):
+            if side in t:
+                out[k] += sum(t[side]) / len(t[side])
+        del fns, kw
+    print(f"[S] pt_shade alone over {os.path.basename(path)}'s spp (records "
+          f"in place): {out['ms']:.4f} ms"
+          + (f", {BASELINE} {out['baseline_ms']:.4f} ms" if ppt else "")
+          + f" ({card})")
+    return out
+
+
+@contextlib.contextmanager
+def plain_hits(traverse):
+    """traverse's closest-hit and any-hit queries forced to their plain
+    versions (the shading kernels stay)."""
+    orig = traverse.closest_prim, traverse.intersect_any
+    traverse.closest_prim = lambda *a, **k: orig[0](*a[:6], plain=True)
+    traverse.intersect_any = lambda *a, **k: orig[1](*a[:6], plain=True)
+    try:
+        yield
+    finally:
+        traverse.closest_prim, traverse.intersect_any = orig
+
+
+def baseline_module(name: str, tag: str):
+    """--baseline's integrators/<name>.py, loaded beside this checkout's
+    (as baseline_<name>) over its csrc/<name>.cu built here."""
+    import importlib.util
+    lib, ptxas = baseline_library(name)
+    print(f"[{tag}] {name}.cu of {BASELINE}: {ptxas_summary(ptxas)}")
+    path = os.path.join(BASELINE, "gpu_pathtracer_tpu_torch", "integrators",
+                        "bdpt_shade.py" if name == "bdpt" else f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"baseline_{name}", path)
+    m = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = m
+    spec.loader.exec_module(m)
+    m.load_library = lambda _: lib
+    return m
 
 
 # ---------------------------------------------------------------- phase V
@@ -2217,9 +2449,9 @@ def bare_entry(module, entry, call):
 
     rec = Recorder()
 
-    def record(a, stream):
-        seen["a"], seen["stream"] = a, stream
-        return getattr(lib, entry)(a, stream)
+    def record(*args):   # (structure, stream), or positional arguments
+        seen["args"] = args
+        return getattr(lib, entry)(*args)
     setattr(rec, entry, record)
     orig = module._lib
     module._lib = lambda: rec
@@ -2230,10 +2462,10 @@ def bare_entry(module, entry, call):
     fn = getattr(lib, entry)
 
     def run(args=None):
-        rc = fn(seen["a"] if args is None else ctypes.byref(args),
-                seen["stream"])
+        rc = fn(*seen["args"]) if args is None else fn(
+            ctypes.byref(args), seen["args"][-1])
         check(rc == 0, f"{entry}: launch failed with CUDA error {rc}")
-    run.args = seen["a"]._obj
+    run.args = getattr(seen["args"][0], "_obj", None)
     return out, run
 
 
@@ -2945,15 +3177,16 @@ def restorer(v, w):
     """What a step changes besides the vertex it writes at `count`: the
     rows' state and the counts. Putting copies of them back before a run
     repeats the same step (its vertex slots are written again with the
-    same values)."""
+    same values); in place, so a launch recorded by bare_entry sees
+    them."""
     saved = {f: getattr(w, f).clone() for f in WALKER_FIELDS
              if getattr(w, f) is not None}
     count = v.count.clone()
 
     def restore():
         for f, x in saved.items():
-            setattr(w, f, x.clone())
-        v.count = count.clone()
+            getattr(w, f).copy_(x)
+        v.count.copy_(count)
     return restore
 
 
@@ -3000,25 +3233,34 @@ def bdpt_start_bound(v, w, lanes, scene) -> dict:
 
 def bdpt_step_bound(static, before, after, prim) -> dict:
     """bdpt_step's least time on one call, bytes over 3.35 TB/s (a row's
-    float work is a BSDF sample, some hundreds of operations, well below):
-    every row's alive flag; a row alive at the start reads its hit (t,
-    prim; found_t in a heterogeneous medium), its state, its lane id, its
-    previous vertex's position and normal and its prim row, and writes its
-    state; a row that makes a vertex writes it (73 B) and the previous
-    vertex's reverse pdf."""
-    v0, w0 = before
-    v1, _ = after
+    float work is a BSDF sample, some hundreds of operations, well below),
+    a field where a row reads it and a word where its value changes: the
+    step reads every row's alive flag; its rows are those alive at its
+    start (`before`: (counts, Walker)), each reading its hit (t, prim;
+    found_t in a heterogeneous medium), its state (ro, rd, beta, forward, med,
+    count) and lane id, and, where it hit, its previous vertex's position
+    and normal and its prim row (each row hit once); a row writes the
+    words of its state that change (`after`: the plain step's (counts,
+    Walker)), its new vertex (73 B) and its previous vertex's reverse
+    pdf."""
+    (c0, w0), (c1, w1) = before, after
     alive = w0.alive
     a = int(alive.sum())
-    made = int((v1.count > v0.count).sum())
-    state = 12 * 3 + 4 * 4   # ro rd beta, forward med count tmax
-    n_bytes = alive.numel() + a * (8 + state + 1 + 8 + 24 + state + 1)
+    hit = alive & (prim >= 0)
+    n_bytes = alive.numel() + a * (8 + 36 + 12 + 8)
     if static.has_hetero:
-        n_bytes += a * 12
-    n_bytes += made * (73 + 4)
-    n_bytes += int(torch.unique(prim[alive & (prim >= 0)]).numel()) * 160
+        n_bytes += a * 4
+    n_bytes += int(hit.sum()) * 24
+    n_bytes += int(torch.unique(prim[hit]).numel()) * 160
+    for f in WALKER_FIELDS:
+        x0, x1 = getattr(w0, f), getattr(w1, f)
+        if x0 is not None:
+            ne = bits(x0) != bits(x1)
+            n_bytes += int(ne.sum()) * x0.element_size()
+    made = int((c1 > c0).sum())
+    n_bytes += int((c1 != c0).sum()) * 4 + made * (73 + 4)
     b = bound(n_bytes, 0)
-    b["bytes"] = n_bytes
+    b.update(bytes=n_bytes, rows=a)
     return b
 
 
@@ -3159,6 +3401,65 @@ def per_round_walks(scene, static, lanes, q, tr) -> int:
     return bad
 
 
+def step_alone(steps, card, records) -> dict:
+    """bdpt_step's kernel alone (its entry point on the wrapper's
+    structure, the rows' state and counts put back before each launch)
+    at each step of cornell_port's sample (`steps`: phase T's {step:
+    (arguments, counts, Walker before; counts, Walker after the plain
+    step)}), against its recounted bound (bdpt_step_bound); with
+    --baseline DIR, DIR's bdpt_step alone on the same states through its
+    own wrapper, in turns. Every step runs on the sample's final tables
+    with its own counts: a step reads only slots below them."""
+    from gpu_pathtracer_tpu_torch.integrators import bdpt_shade as bs
+    pbs = baseline_module("bdpt", "T") if BASELINE else None
+    out = {}
+    for s_, (a, c0, w0, c1, w1) in sorted(steps.items()):
+        v = a["v"]
+        kw = {k: x for k, x in a.items() if k not in ("v", "w", "plain")}
+        fns = {}
+        for side, mod in (("parent", pbs), ("this", bs)):
+            if mod is None:
+                continue
+            w = copy_record(w0)
+            v.count.copy_(c0)
+            restore = restorer(v, w)
+            _, run = bare_entry(mod, "bdpt_step",
+                                lambda: mod.step_cuda(**kw, v=v, w=w))
+            fns[side] = (run, restore)
+        t = timed_alone(fns)
+        ms = {k: sum(x) / len(x) for k, x in t.items()}
+        bd = bdpt_step_bound(a["static"], (c0, w0), (c1, w1), a["prim"])
+        out[s_] = {"ms": ms["this"], "turns": t["this"], "bound": bd,
+                   **({"baseline_ms": ms["parent"]} if pbs else {})}
+        print(f"[T] bdpt_step alone at cornell_port's step {s_} "
+              f"({bd['rows']} rows of {2 * N_RAYS}): {ms['this']:.4f} ms "
+              f"(turns {', '.join(f'{x:.4f}' for x in t['this'])})"
+              + (f", {BASELINE} {ms['parent']:.4f} ms (turns "
+                 f"{', '.join(f'{x:.4f}' for x in t['parent'])})"
+                 if pbs else "")
+              + f"; bound {bd['bound_ms']:.4f} ms ({bd['bytes']} bytes) "
+              f"({card})")
+    spp = {"ms": sum(x["ms"] for x in out.values()),
+           "bound_ms": sum(x["bound"]["bound_ms"] for x in out.values())}
+    line = (f"[T] bdpt_step alone over cornell_port's sample "
+            f"({len(out)} steps): {spp['ms']:.4f} ms, bound "
+            f"{spp['bound_ms']:.4f} ms ({spp['ms'] / spp['bound_ms']:.2f}x)")
+    if pbs:
+        spp["baseline_ms"] = sum(x["baseline_ms"] for x in out.values())
+        line += f", {BASELINE} {spp['baseline_ms']:.4f} ms"
+    print(f"{line} ({card})")
+    from gpu_pathtracer_tpu_torch import kernels
+    regs = ptxas_regs(kernels.BUILDS["bdpt"].ptxas, "bdpt_step_kernel")
+    print(f"[T] bdpt_step: registers {regs}, blocks of 128 an SM "
+          f"{sorted({occupancy(r) for r in regs})}")
+    records["bdpt_step"].update(
+        spp=spp, registers=regs,
+        by_step={s_: {k: x[k] for k in ("ms", "baseline_ms") if k in x}
+                 | {"bound_ms": x["bound"]["bound_ms"],
+                    "rows": x["bound"]["rows"]} for s_, x in out.items()})
+    return out
+
+
 def phase_t(dev, card, records):
     """csrc/bdpt.cu against its plain versions on the same inputs, for each
     BDPT_CASES case at 1M lanes: one BDPT sample over the kernels, each
@@ -3215,14 +3516,17 @@ def phase_t(dev, card, records):
 
         def step_spy(*args, **kwargs):
             a = bound_args("step", args, kwargs)
-            v, w = a["v"], a["w"]
+            v, w, s_ = a["v"], a["w"], a["step_"]
             vp, wp = emptied(v), copy_record(w)
             rays_p = a["rays"].clone()
-            if keep and a["step_"] == 1:
-                timed["step"] = (a, copy_record(v), copy_record(w))
+            if keep:   # the state at the step's start, for its bound
+                timed.setdefault("steps", {})[s_] = (
+                    a, v.count.clone(), copy_record(w))
             orig["step"](*args, **kwargs)
             bs.step_torch(**{**a, "v": vp, "w": wp, "rays": rays_p,
                              "plain": True})
+            if keep:
+                timed["steps"][s_] += (vp.count.clone(), copy_record(wp))
             d = {**tables_differ(v, vp),
                  **{f"w.{f}": x for f, x in record_differ(
                      w, wp, WALKER_FIELDS).items()},
@@ -3306,16 +3610,15 @@ def phase_t(dev, card, records):
               and film.sum().item() > 0, f"{label}: radiance {li.mean()}")
         del li, film
 
-    a, v0, w0 = timed["step"]
-    fresh = {"v": copy_record(v0), "w": copy_record(w0)}
-    plain = {"v": emptied(v0), "w": copy_record(w0)}
+    steps = step_alone(timed["steps"], card, records)
+    a, c0, w0 = timed["steps"][1][:3]
+    plain = {"v": emptied(a["v"]), "w": copy_record(w0)}
+    plain["v"].count.copy_(c0)
     kw = {k: x for k, x in a.items() if k not in ("v", "w", "plain")}
     t = timed_restored({
-        "step kernel": (lambda: bs.step_cuda(**kw, **fresh),
-                        restorer(fresh["v"], fresh["w"])),
         "step plain": (lambda: bs.step_torch(**kw, **plain, plain=True),
                        restorer(plain["v"], plain["w"]))})
-    after = copy_record(fresh["v"]), None
+    t["step kernel"] = steps[1]["turns"]
     ck = {k: x for k, x in timed["connect"].items() if k != "plain"}
     ck_plain = {**ck, "v": emptied(ck["v"])}
     fk = timed["finish"]
@@ -3334,7 +3637,7 @@ def phase_t(dev, card, records):
     q = bs.connect_cuda(**ck)[1]
     bounds = {"start": bdpt_start_bound(*bs.start_cuda(**sk), sk["lanes"],
                                         sc),
-              "step": bdpt_step_bound(st, (v0, w0), after, kw["prim"]),
+              "step": steps[1]["bound"],
               "connect": bdpt_connect_bound(sc, st, ck["v"], q,
                                             connect_valid(ck_plain), N_RAYS),
               "finish": bdpt_finish_bound(fk["q"], fk["shadow"],
@@ -5321,9 +5624,10 @@ def main() -> None:
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="another checkout of the port (e.g. a git archive "
                     "of the parent commit): phase E also times its K1, K2, "
-                    "K3 and K4, phase V its vpt_shade and vpt_tr_round and "
-                    "phase T its bdpt_connect beside this checkout's on "
-                    "the same inputs")
+                    "K3 and K4, phase S its pt_shade, phase V its vpt_shade "
+                    "and vpt_tr_round and phase T its bdpt_step and "
+                    "bdpt_connect beside this checkout's on the same "
+                    "inputs")
     ap.add_argument("--time-hits", nargs=2, metavar=("INPUTS", "ROOT"),
                     help=argparse.SUPPRESS)   # --baseline's child processes
     ap.add_argument("--cards", type=int, default=1,
@@ -5347,8 +5651,8 @@ def main() -> None:
         return
     if args.baseline:
         BASELINE = os.path.abspath(args.baseline)
-        check(any(p in phases for p in "ETV"),
-              "--baseline times in phases E, T and V")
+        check(any(p in phases for p in "ESTV"),
+              "--baseline times in phases E, S, T and V")
     card = card_line()
     print(card, flush=True)
     sys.path.insert(0, REPO)

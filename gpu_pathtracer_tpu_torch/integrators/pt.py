@@ -9,8 +9,10 @@ diffuse colour read from the hit's texture where it has one), Russian
 roulette after bounce 3 -> the shadow rays' any-hit query, whose
 unoccluded credit the next bounce's shading step adds first; an
 epilogue intersection and shading step collect the last NEE and
-arrival credits. Lane state is a set of [N] / [N, 3] tensors and an
-int32 flag word; dead lanes are masked.
+arrival credits. Lane state is one 16-float record a lane
+(integrators/pt_shade.py::Wave) beside the next ray's [N, 3] ro and
+rd; a lane that finishes writes its radiance to the caller's slot at
+once and is not shaded again.
 
 Random numbers: site d of lane i (lane id = pixel index) comes from the
 Philox stream of core/rng.py, or from row d of an explicit
@@ -21,13 +23,14 @@ Coherence sorts (pt.py:80-98, 133-165, 238-256, 278-283): above
 DENSE_MAX prims, where the block-culled and BVH8 walks care how close
 neighbouring rays are, the primary rays are shuffled into pixel-morton
 order, the lanes are re-sorted after every bounce by the next ray's
-direction octant and origin cell (dead lanes last), and the radiance is
-scattered back to the caller's order at the end. Each sort is one stable
-torch.sort and one gather of the packed lane state. The lane ids travel
-with the lanes and key every draw, and every step is per lane, so the
-sorted estimator equals the unsorted one bit for bit, lane for lane. An
-explicit `psample` (rows indexed by position) runs unsorted, as in the
-JAX package.
+direction octant and origin cell (dead lanes last), and each lane's
+radiance lands at its caller's slot when it finishes. Each sort is one
+stable torch.sort of int32 keys and one gather of the next ray; the
+shading step reads each lane's record through the sort's order. The
+lane ids travel with the lanes and key every draw, and every step is
+per lane, so the sorted estimator equals the unsorted one bit for bit,
+lane for lane. An explicit `psample` (rows indexed by position) runs
+unsorted, as in the JAX package.
 
 Subsurface scattering (pt.py:190-198): a hit on a prim with a BSSRDF
 adds the dipole's single and multiple scattering estimates
@@ -55,8 +58,7 @@ from gpu_pathtracer_tpu_torch.core.vecmath import dot, is_black
 from gpu_pathtracer_tpu_torch.geom import traverse
 from gpu_pathtracer_tpu_torch.geom.dense import DENSE_MAX
 from gpu_pathtracer_tpu_torch.integrators.common import (
-    _occluded_sorted, morton_bits, permute_lanes, primary_rays,
-    sorts_shadows,
+    _occluded_sorted, morton_bits, primary_rays, sorts_shadows,
 )
 from gpu_pathtracer_tpu_torch.shade import lights as lights_mod
 
@@ -68,12 +70,14 @@ def lane_ids_of(static, pixel_x, pixel_y):
 
 def _sort_key(scene, ro, rd, alive):
     """Wavefront coherence key (pt.py:80-98): direction octant above a
-    4-bit-per-axis origin morton code; dead lanes sort last."""
+    4-bit-per-axis origin morton code; dead lanes sort last. int32 (the
+    values are below 2^21)."""
     q = torch.clamp(((ro - scene.world_center)
                      / (2.0 * max(scene.world_radius, 1e-6)) + 0.5)
-                    * 15.999, 0.0, 15.0).to(torch.int64)
-    octant = ((rd > 0.0).to(torch.int64)
-              << torch.arange(3, device=rd.device)).sum(-1)
+                    * 15.999, 0.0, 15.0).to(torch.int32)
+    octant = ((rd > 0.0).to(torch.int32)
+              << torch.arange(3, dtype=torch.int32, device=rd.device)).sum(
+                  -1, dtype=torch.int32)
     return torch.where(alive, (octant << 12) | morton_bits(q, 4), 1 << 20)
 
 
@@ -175,11 +179,12 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
     estimator that the megakernel (pt_fused.fused_call) replaces. Each
     bounce is a closest-hit query, the shading step
     (integrators/pt_shade.py: csrc/pt_shade.cu on CUDA tensors unless
-    `plain`), the BSSRDF hook, the shadow rays' any-hit query and the
-    coherence sort; the last NEE credit and arrival credit come from the
-    shading step at b = max_depth. Lanes are sorted for coherence above
-    DENSE_MAX prims unless `psample` is given; the radiance comes back in
-    the order of `lanes`."""
+    `plain`) over the lanes' records (`pt_shade.Wave`), the BSSRDF hook,
+    the shadow rays' any-hit query and the coherence sort; the last NEE
+    credit and arrival credit come from the shading step at b =
+    max_depth. Each lane's radiance lands in the caller's order when the
+    lane finishes. Lanes are sorted for coherence above DENSE_MAX prims
+    unless `psample` is given."""
     from gpu_pathtracer_tpu_torch.integrators import pt_shade
     n = ro.shape[0]
     dev = ro.device
@@ -189,62 +194,61 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
     slot = torch.arange(n, device=dev)   # the caller's order
     lanes = lanes.to(torch.int32)
     if sort:
-        order = torch.sort(_pixel_key(static, lanes), stable=True).indices
-        (ro, rd), (lanes, slot) = permute_lanes(order, (ro, rd),
-                                                (lanes, slot))
-        ro, rd, lanes = ro.contiguous(), rd.contiguous(), lanes.contiguous()
-
-    li = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    prev_pdf = torch.ones(n, dtype=torch.float32, device=dev)
-    flags = torch.full((n,), pt_shade.ALIVE, dtype=torch.int32, device=dev)
-    pending = None
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-
+        slot = torch.sort(_pixel_key(static, lanes), stable=True).indices
+        ro, rd, lanes = ro[slot], rd[slot], lanes[slot]
+    w = pt_shade.start(static, lanes, slot, ro, rd, sort, sort_shadows,
+                       static.max_depth)
+    if psample is not None and w.rec.shape[0] > n:   # the pad's columns
+        psample = torch.nn.functional.pad(psample,
+                                          (0, w.rec.shape[0] - n))
+    occ = None
     for b in range(static.max_depth + 1):
         last = b == static.max_depth
         # finished lanes get an empty interval (tmax 0 < eps): the hit
         # kernels leave them at once; nothing reads their miss
-        tmax = torch.where((flags & pt_shade.ALIVE) != 0, torch.inf, 0.0)
-        t, prim, _ = traverse.closest_prim(scene, static, ro, rd, eps, tmax,
-                                           plain)
-        s = pt_shade.shade(scene, static, b, seed, iteration, lanes, t, prim,
-                           ro, rd, li, beta, prev_pdf, flags, pending,
-                           psample, sort and not last,
-                           sort_shadows and not last, plain)
-        rays = rays + s.rays.sum()
-        li = s.li
+        t, prim, _ = traverse.closest_prim(scene, static, w.ro, w.rd, eps,
+                                           w.tmax, plain)
+        pt_shade.shade(scene, static, b, seed, iteration, w, t, prim, occ,
+                       psample, plain)
         if last:
             break
         if static.has_bssrdf:   # the lanes the shading step ended there
-            hit = traverse._hit_attributes(scene, static, ro, rd, t, prim,
-                                           prim >= 0)
-            li, r = _subsurface(scene, static, seed, iteration, lanes, b,
-                                hit, rd, li, s.beta,
-                                (s.flags & pt_shade.SSS) != 0, plain)
-            rays = rays + r
-        occ = _occluded_sorted(scene, static, s.shadow_o, s.shadow_d,
-                               s.shadow_t, s.shadow_t > 0.0, eps, plain,
-                               s.shadow_key)
-        flags = (s.flags & (pt_shade.SPECULAR | pt_shade.ALIVE)) \
-            | (occ.to(torch.int32) << 2)
-        ro, rd, beta, prev_pdf, pending = s.ro, s.rd, s.beta, s.prev_pdf, \
-            s.pending
+            _subsurface_hook(scene, static, seed, iteration, b, w, t, prim,
+                             plain)
+        occ = _occluded_sorted(scene, static, w.shadow_o, w.shadow_d,
+                               w.shadow_t, w.shadow_t > 0.0, eps, plain,
+                               w.shadow_key)
         if sort:   # re-sort by the next ray's coherence key
-            order = torch.sort(s.key, stable=True).indices
-            (ro, rd, li, beta, prev_pdf, pending), (lanes, slot, flags) = \
-                permute_lanes(order, (ro, rd, li, beta, prev_pdf, pending),
-                              (lanes, slot, flags))
-            ro, rd, li, beta, prev_pdf, pending, lanes, flags = (
-                x.contiguous() for x in (ro, rd, li, beta, prev_pdf, pending,
-                                         lanes, flags))
-
-    if sort:   # back to the caller's lane order
-        li = torch.empty_like(li).index_put_((slot.long(),), li)
+            pt_shade.advance(w)
 
     # NaN/Inf guard (pathtracer.cu:1019-1020): poisoned lanes are zeroed
+    li = w.out[:n]
     bad = ~torch.isfinite(li).all(dim=-1)
     li = torch.where(bad[:, None], 0.0, li)
     if with_stats:
-        return li, rays
+        return li, w.rays.sum()
     return li
+
+
+def _subsurface_hook(scene, static, seed, iteration, b, w, t, prim, plain):
+    """The BSSRDF hook on the records bounce b wrote: the lanes flagged
+    SSS gain beta x (single + multiple scattering) in their li (their ro,
+    rd are the bounce's: an SSS lane does not continue)."""
+    from gpu_pathtracer_tpu_torch.integrators import pt_shade
+    rec = w.written()
+    f = pt_shade.fields(rec)
+    sss = (f["flags"] & pt_shade.SSS) != 0
+    if w.sorted:   # the records this bounce wrote of dead lanes: its list
+        n = rec.shape[0]
+        listed = torch.where(torch.arange(n, device=rec.device)
+                             < w.counts[b + 1, 1], w.lists[(b + 1) % 2], n)
+        on = torch.zeros(n + 1, dtype=torch.bool, device=rec.device)
+        on[listed.long()] = True
+        sss = sss & on[:n]
+    hit = traverse._hit_attributes(scene, static, w.ro, w.rd, t, prim,
+                                   prim >= 0)
+    li, r = _subsurface(scene, static, seed, iteration, f["lanes"], b, hit,
+                        w.rd, f["li"], f["beta"], sss, plain)
+    rec[:, pt_shade.LI:pt_shade.LI + 3] = torch.where(sss[:, None], li,
+                                                      f["li"])
+    w.rays[0] += r

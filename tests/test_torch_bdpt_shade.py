@@ -27,8 +27,10 @@ Beside them: that no step or connection reads a slot at or above a
 row's count (the kernels leave those unwritten); that lanes run in
 chunks of QUEUE_SLOTS give each lane the result of one call; the
 connection roulette's random sites; the Tr walk of all rounds at once against a walk per round;
-the wrappers' refusal of CPU tensors; and the route of `render_lanes`
-through the kernel wrappers. `start_torch`, the plain version of the
+the wrappers' refusal of CPU tensors; the route of `render_lanes`
+through the kernel wrappers; and chip_smoke.py's recounted bound of
+bdpt_step, which charges a row beyond its flag only where it steps and
+a word only where its value changes. `start_torch`, the plain version of the
 start kernel, is the vertex 0 and first ray of both subpaths before the
 regrouping (the steps' tables are held from it on). The kernels
 themselves run only on the card (chip_smoke.py phase T holds them to
@@ -890,3 +892,62 @@ def test_render_lanes_routes_to_the_kernels(scene, monkeypatch):
     assert calls.count("step") == len(calls) - 3 >= 1
     assert not any(c.startswith("plain") for c in calls), calls
     assert all(_bitwise(a, b) for a, b in zip(got, ref))
+
+
+def _plain_steps(sc, st, monkeypatch):
+    """Every step of one sample over the plain versions: [(step, t, prim,
+    counts and Walker before, counts and Walker after)]."""
+    out = []
+    step = bs.step
+
+    def spy(scene_, static, step_, seed, iteration, lanes, t, prim, found_t,
+            v, w, rays=None, plain=False):
+        before = (v.count.clone(), dataclasses.replace(w))
+        step(scene_, static, step_, seed, iteration, lanes, t, prim, found_t,
+             v, w, rays, plain)
+        out.append((step_, t, prim, before,
+                    (v.count.clone(), dataclasses.replace(w))))
+
+    monkeypatch.setattr(bs, "step", spy)
+    px, py = _pixels(st)
+    bdpt.render_lanes(sc, st, SEED, 1, px, py)
+    monkeypatch.undo()
+    return out
+
+
+def test_step_bound_charges_no_dead_row(scene, monkeypatch):
+    """chip_smoke.py's recounted bound of bdpt_step charges a row beyond
+    its alive flag only where it steps: the bound over all 2N rows equals
+    the bound over the rows alive at the step's start, plus a byte for
+    each other row's flag; and a word only where its value changes: the
+    bound less the bound of a state left as it was is the changed words
+    of the rows' state, the counts that rose and the vertices made, no
+    row left as it was charged a written byte."""
+    import chip_smoke
+    sc, st, name = scene
+    steps = _plain_steps(sc, st, monkeypatch)
+    assert len(steps) > 1
+    for s, t, prim, (c0, w0), (c1, w1) in steps:
+        full = chip_smoke.bdpt_step_bound(st, (c0, w0), (c1, w1), prim)
+        on = w0.alive
+
+        def sub(w):
+            return dataclasses.replace(w, **{
+                f: getattr(w, f)[on] for f in chip_smoke.WALKER_FIELDS
+                if getattr(w, f) is not None})
+        part = chip_smoke.bdpt_step_bound(st, (c0[on], sub(w0)),
+                                          (c1[on], sub(w1)), prim[on])
+        assert full["bytes"] == part["bytes"] + int((~on).sum()) \
+            and full["rows"] == int(on.sum()) > 0, (name, s)
+        same = chip_smoke.bdpt_step_bound(st, (c0, w0), (c0, w0), prim)
+        changed = sum(
+            int((chip_smoke.bits(getattr(w0, f)) != chip_smoke.bits(
+                getattr(w1, f)))[on].sum()) * getattr(w0, f).element_size()
+            for f in chip_smoke.WALKER_FIELDS if getattr(w0, f) is not None)
+        for f in chip_smoke.WALKER_FIELDS:   # a row off the step: as it was
+            if getattr(w0, f) is not None:
+                assert _bitwise(getattr(w0, f)[~on], getattr(w1, f)[~on]), \
+                    (name, s, f)
+        made = int((c1 > c0).sum())
+        assert full["bytes"] - same["bytes"] == changed + int(
+            (c1 != c0).sum()) * 4 + made * 77, (name, s)

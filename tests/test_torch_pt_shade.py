@@ -10,10 +10,18 @@ bsdf.eval_bsdf with the any-hit query in between, bsdf.sample_bsdf, the
 roulette), bounce by bounce and over whole paths with the coherence
 sorts (`_reference_trace_paths`), on small scenes: cornell_port, its 72
 lights, a knot of 2,000 triangles at 64^2 (the sorted regime),
-bssrdf.json and a sky scene. The kernel's light pick, a binary search,
-is held to lights.pick_light at the CDF's steps. The kernel itself runs
-only on the card (chip_smoke.py phase S holds it to `shade_torch`).
+bssrdf.json and a sky scene. The wavefront's lane records
+(`pt_shade.Wave`): the sorted wavefront, its records read through the
+sort's order, equals the unsorted one lane for lane; the int32 keys
+sort as the int64 keys did; a lane that finishes writes its radiance to
+its caller's slot once; chip_smoke.py's recounted bound charges no lane
+the bounce does not visit and no word left as it was. The kernel's
+light pick, a binary search, is held to lights.pick_light at the CDF's
+steps. The kernel itself runs only on the card (chip_smoke.py phase S
+holds it to `shade_wave_torch`).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -310,8 +318,184 @@ def test_shade_cuda_refuses_cpu_tensors(scene):
     """The kernel's wrapper takes CUDA tensors only: no fallback."""
     sc, st = scene
     n = st.width * st.height
-    z3, z = torch.zeros((n, 3)), torch.zeros(n)
-    i32 = torch.zeros(n, dtype=torch.int32)
+    lanes = torch.arange(n, dtype=torch.int32)
+    w = pt_shade.start(st, lanes, lanes, torch.zeros((n, 3)),
+                       torch.zeros((n, 3)), False, False, st.max_depth)
     with pytest.raises(ValueError, match="CUDA"):
-        pt_shade.shade_cuda(sc, st, 0, 1, 1, i32, z, i32 - 1, z3, z3, z3,
-                            z3, z, i32)
+        pt_shade.shade_cuda(sc, st, 0, 1, 1, w, torch.zeros(n), lanes - 1)
+
+
+def _trace(sc, st, lanes, ro, rd, sort, monkeypatch):
+    """pt.trace_paths (with its ray count) with the coherence sort on or
+    off: pt.DENSE_MAX set below or at the scene's prim count."""
+    monkeypatch.setattr(pt, "DENSE_MAX", -1 if sort else st.n_primitives)
+    return pt.trace_paths(sc, st, 5, 3, lanes, ro, rd, True)
+
+
+@pytest.mark.parametrize("shadow_sort", [False, True])
+def test_sorted_wavefront_is_the_unsorted_one(scene, shadow_sort,
+                                              monkeypatch):
+    """The records moving with the coherence sort (read through the
+    sort's order, the dead lanes owed a credit through the list) give
+    the unsorted wavefront's radiance and rays bit for bit, lane for
+    lane, on every scene; at 30^2 the wave is padded to a multiple of 4
+    lanes."""
+    sc, st = scene
+    monkeypatch.setattr(common, "FORCE_SHADOW_SORT", shadow_sort)
+    for side in (st.width, 30):
+        n = side * side
+        ids = torch.arange(n)
+        px, py = ids % side, ids // side
+        lanes = pt.lane_ids_of(st, px, py)
+        rng0 = lane_stream(5, 3, lanes, None, 0, PSS_CAM_DIMS, plain=True)
+        ro, rd = common.primary_rays(sc, st, rng0, px, py)
+        got = {srt: _trace(sc, st, lanes, ro, rd, srt, monkeypatch)
+               for srt in (True, False)}
+        assert _bitwise(got[True][0], got[False][0])
+        assert int(got[True][1]) == int(got[False][1])
+        assert got[True][0].mean() > 0.0
+
+
+def _int64_sort_key(scene, ro, rd, alive):
+    """pt._sort_key as it was in int64."""
+    q = torch.clamp(((ro - scene.world_center)
+                     / (2.0 * max(scene.world_radius, 1e-6)) + 0.5)
+                    * 15.999, 0.0, 15.0).to(torch.int64)
+    octant = ((rd > 0.0).to(torch.int64) << torch.arange(3)).sum(-1)
+    return torch.where(alive, (octant << 12) | _int64_morton(q, 4), 1 << 20)
+
+
+def _int64_shadow_key(scene, pos, active):
+    """common._shadow_sort_key as it was in int64."""
+    q = torch.clamp(((pos - scene.world_center) / (2.0 * scene.world_radius)
+                     + 0.5) * 63.999, 0.0, 63.0).to(torch.int64)
+    return torch.where(active, _int64_morton(q, 6), 1 << 24)
+
+
+def _int64_morton(q, bits):
+    shift = torch.arange(q.shape[1])
+    m = torch.zeros(q.shape[0], dtype=torch.int64)
+    for b in range(bits):
+        m = m | (((q >> b) & 1) << (q.shape[1] * b + shift)).sum(-1)
+    return m
+
+
+def test_int32_keys_keep_the_int64_order(scene):
+    """The wavefront's keys are int32 with the int64 keys' values, so a
+    stable sort of either gives the same order (rays from inside and
+    outside the scene's sphere, a third of the lanes dead)."""
+    sc, st = scene
+    rng = np.random.default_rng(11)
+    n = 8192
+    r = 1.5 * sc.world_radius
+    pos = sc.world_center + torch.as_tensor(
+        rng.uniform(-r, r, (n, 3)), dtype=torch.float32)
+    rd = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32)
+    alive = torch.as_tensor(rng.random(n) < 0.67)
+    for got, want in ((pt._sort_key(sc, pos, rd, alive),
+                       _int64_sort_key(sc, pos, rd, alive)),
+                      (common._shadow_sort_key(sc, pos, alive),
+                       _int64_shadow_key(sc, pos, alive)),
+                      (pt._pixel_key(st, torch.arange(st.width * st.height,
+                                                      dtype=torch.int32)),
+                       _int64_morton(torch.stack(
+                           [torch.arange(st.width * st.height) % st.width,
+                            torch.arange(st.width * st.height) // st.width],
+                           -1), 10))):
+        assert got.dtype == torch.int32
+        assert torch.equal(got.long(), want)
+        assert torch.equal(torch.sort(got, stable=True).indices,
+                           torch.sort(want, stable=True).indices)
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_finished_lane_writes_its_slot_once(scene, sort, monkeypatch):
+    """A lane with nothing left to add writes its final radiance to its
+    caller's slot once, at the bounce it finishes: its slot is unwritten
+    (NaN on the CPU) before, holds the radiance the wave ends with after,
+    and no later bounce changes it; some lanes finish before the
+    epilogue."""
+    sc, st = scene
+    n = st.width * st.height
+    lanes, ro, rd = _primary(sc, st, 5, 3, None)
+    snaps = []
+    shade = pt_shade.shade
+
+    def spy(scene_, static, b, seed, it, w, *args, **kwargs):
+        shade(scene_, static, b, seed, it, w, *args, **kwargs)
+        snaps.append(w.out[:n].clone())
+    monkeypatch.setattr(pt_shade, "shade", spy)
+    _trace(sc, st, lanes, ro, rd, sort, monkeypatch)
+    final = snaps[-1]
+    assert len(snaps) == st.max_depth + 1
+    assert not torch.isnan(final).any()   # every lane wrote its slot
+    written = torch.zeros(n, dtype=torch.bool)
+    for snap in snaps:
+        now = ~torch.isnan(snap).all(-1)
+        assert (now | ~written).all() and _bitwise(snap[written],
+                                                   final[written])
+        written = now
+    early = ~torch.isnan(snaps[-2]).all(-1)
+    assert early.any() and not early.all()
+
+
+def _waves(sc, st, sort, monkeypatch):
+    """The arguments of every shading step of one spp, the Wave a copy of
+    the state before it: {bounce: kwargs}."""
+    import chip_smoke
+    n = st.width * st.height
+    lanes, ro, rd = _primary(sc, st, 5, 3, None)
+    got = {}
+    shade = pt_shade.shade
+
+    def spy(scene_, static, b, seed, it, w, t, prim, occ=None, psample=None,
+            plain=False):
+        got[b] = dict(scene=scene_, static=static, b=b, seed=seed,
+                      iteration=it, w=chip_smoke.wave_copy(w), t=t,
+                      prim=prim, occ=occ, psample=psample)
+        return shade(scene_, static, b, seed, it, w, t, prim, occ, psample,
+                     plain)
+    monkeypatch.setattr(pt_shade, "shade", spy)
+    _trace(sc, st, lanes, ro, rd, sort, monkeypatch)
+    monkeypatch.undo()
+    assert len(got) == st.max_depth + 1 and n > 0
+    return got
+
+
+def test_shade_bound_charges_no_dead_lane(scene, monkeypatch):
+    """chip_smoke.py's recounted bound of pt_shade charges a lane only
+    where the bounce visits it: at every bounce of the unsorted rows, the
+    bound over every lane equals the bound over a wave of the visited
+    lanes alone; and a word only where its value changes: with the state
+    left as it was, nothing is written but the finished lanes' radiance;
+    on the sorted rows, the lanes read are the visited ones."""
+    import chip_smoke
+    sc, st = scene
+    for b, kw in _waves(sc, st, False, monkeypatch).items():
+        after = chip_smoke.wave_copy(kw["w"])
+        done = pt_shade.shade_wave_torch(**{**kw, "w": after})
+        full = chip_smoke.shade_work(kw, after, done)
+        _, _, vis = pt_shade.visits(kw["w"], b)
+        w = kw["w"]
+        sub = dataclasses.replace(
+            w, rec=w.rec[vis], ray=w.ray[:, vis], tmax=w.tmax[vis],
+            shadow_o=w.shadow_o[vis], shadow_d=w.shadow_d[vis],
+            shadow_t=w.shadow_t[vis],
+            shadow_key=None if w.shadow_key is None else w.shadow_key[vis])
+        kws = {**kw, "w": sub, "t": kw["t"][vis], "prim": kw["prim"][vis],
+               "occ": None if kw["occ"] is None else kw["occ"][vis]}
+        after_s = chip_smoke.wave_copy(sub)
+        done_s = pt_shade.shade_wave_torch(**{**kws, "w": after_s})
+        part = chip_smoke.shade_work(kws, after_s, done_s)
+        assert (full["read"], full["write"], full["bytes"]) == (
+            part["read"], part["write"], part["bytes"]), b
+        assert full["visited"] == int(vis.sum()) > 0
+        same = chip_smoke.shade_work(kw, kw["w"], done)
+        assert same["write"] == int(done.sum()) * 12, b
+    for b, kw in _waves(sc, st, True, monkeypatch).items():
+        after = chip_smoke.wave_copy(kw["w"])
+        done = pt_shade.shade_wave_torch(**{**kw, "w": after})
+        work = chip_smoke.shade_work(kw, after, done)
+        _, front, vis = pt_shade.visits(kw["w"], b)
+        assert work["visited"] == int(vis.sum()) \
+            and work["alive"] == int(front.sum()), b

@@ -17,8 +17,9 @@ spp and profiles --spp more, with the bench's own measurement
 per scene: wall ms/spp untraced and traced, device ms/spp (the union
 of the device's intervals), the device's busy and idle shares of an
 untraced spp, the --top device operations that take the most time,
-the launches a spp and time of PyTorch's masked elementwise kernels and
-of its row gathers (all of them, not only the top ones), every
+the launches a spp and time of PyTorch's masked elementwise kernels, of
+its row gathers, of torch.cat's copies and of its sorts' radix passes
+(all of them, not only the top ones), every
 kernel of the port's own CUDA sources (the __global__ functions of
 gpu_pathtracer_tpu_torch/csrc/*.cu, BDPT's bdpt_step_kernel,
 bdpt_connect_kernel and bdpt_finish_kernel among them) with its share,
@@ -40,16 +41,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 # op families by name: PyTorch's row gathers (`index`:
-# `vectorized_gather_kernel`, `index_elementwise_kernel`) and its masked
-# elementwise work (where, mul, comparisons: the other
-# `elementwise_kernel`s)
+# `vectorized_gather_kernel`, `index_elementwise_kernel`; `index_select`:
+# `indexSelect*Index`), its masked elementwise work (where, mul,
+# comparisons: the other `elementwise_kernel`s), `torch.cat`'s copies
+# (`CatArrayBatchedCopy`) and its sorts' radix passes (cub's
+# `DeviceRadixSort*` kernels)
 def _gather(name: str) -> bool:
-    return "gather_kernel" in name or "index_elementwise_kernel" in name
+    return ("gather_kernel" in name or "index_elementwise_kernel" in name
+            or "indexSelect" in name)
 
 
 FAMILIES = (("masked elementwise",
              lambda n: "elementwise_kernel" in n and not _gather(n)),
-            ("gathers", _gather))
+            ("gathers", _gather),
+            ("cat", lambda n: "CatArrayBatchedCopy" in n),
+            ("radix sorts", lambda n: "RadixSort" in n))
 
 
 def _op(e) -> str:
