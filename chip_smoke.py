@@ -183,10 +183,14 @@ Phases:
      rows' state put back) at each step of cornell_port's sample against
      its recounted bound (`bdpt_step_bound`: every row's flag, the live
      rows' fields where read, a word where its value changes), its
-     registers and blocks an SM; with --baseline DIR, DIR's bdpt.cu built
-     here: its bdpt_step alone at each step in turns with this
-     checkout's, and its bdpt_connect held bit for bit against this
-     checkout's and timed in turns with it on the same inputs
+     registers and blocks an SM; bdpt_finish alone on cornell_port's
+     queue, its registers and blocks an SM; with --baseline DIR, DIR's
+     bdpt.cu built here: its bdpt_step alone at each step in turns with
+     this checkout's, its bdpt_finish (li bit for bit, the film within
+     the radiance limits) alone in turns with this checkout's, and its
+     bdpt_connect held bit for bit against this checkout's and timed in
+     turns with it on the same inputs. Phase C holds every bdpt_step and
+     bdpt_finish call of its BDPT runs the same way (bdpt_checked)
   D  the main paths through the CLI, each with every launch count set to
      0 just before it and read just after, then timed from where its
      render stands by the bench's windows (run/bench.py: D_WINDOWS
@@ -453,7 +457,10 @@ def ptxas_summary(report: str, only: str = "") -> str:
         if m:
             label = kernel_name(m.group(1))
             flags = re.findall(r"Lb(\d)E", m.group(1))
-            if label in BDPT_FLAGS:
+            lanes = re.findall(r"Li(\d+)E", m.group(1))
+            if label == "bdpt_finish_kernel" and lanes:
+                label += f" (lanes {lanes[0]}, verdicts {flags[0]})"
+            elif label in BDPT_FLAGS:
                 label += " (" + ", ".join(
                     f"{f} {x}" for f, x in zip(BDPT_FLAGS[label], flags)) \
                     + ")" if flags else ""
@@ -3362,7 +3369,9 @@ def connect_valid(kw) -> torch.Tensor:
 def bdpt_finish_bound(q, shadow, n_pix) -> dict:
     """bdpt_finish's least time on one call, bytes over 3.35 TB/s: every
     slot's flag, each live slot's credit and verdict (and s1's pixel),
-    the lane's radiance in and out, the film written once."""
+    the lane's radiance in and out, the film written once (the kernel
+    reads a slot's credit and verdict only where it is live, as whole
+    float4s and words of four lanes: the sectors it moves are more)."""
     live = q.live
     n = live.shape[1]
     nl = int(live.sum())
@@ -3399,6 +3408,96 @@ def per_round_walks(scene, static, lanes, q, tr) -> int:
             torch.ones(sel.shape[0], dtype=torch.bool, device=tr.device))
         bad += int((bits(tr[flat]) != bits(tr_p)).any(1).sum())
     return bad
+
+
+def bound_args(fn, args, kwargs) -> dict:
+    """The arguments of the call fn(*args, **kwargs) by name, defaults
+    filled in."""
+    import inspect
+    a = inspect.signature(fn).bind(*args, **kwargs)
+    a.apply_defaults()
+    return dict(a.arguments)
+
+
+def bdpt_step_check(step, a, seen, err) -> tuple:
+    """One bdpt_step call (`step` on the bound arguments `a`) against
+    step_torch on copies of its input (`emptied`): the tables below the
+    count, the rows' state and the rays bit for bit. Differences go to
+    seen["differ"], the largest error to err. Returns (counts and Walker
+    before; counts and Walker after the plain step)."""
+    from gpu_pathtracer_tpu_torch.integrators import bdpt_shade as bs
+    v, w, s_ = a["v"], a["w"], a["step_"]
+    vp, wp = emptied(v), copy_record(w)
+    rays_p = a["rays"].clone()
+    c0, w0 = v.count.clone(), copy_record(w)
+    step(**a)
+    bs.step_torch(**{**a, "v": vp, "w": wp, "rays": rays_p, "plain": True})
+    d = {**tables_differ(v, vp),
+         **{f"w.{f}": x for f, x in record_differ(
+             w, wp, WALKER_FIELDS).items()},
+         "rays": int(a["rays"] != rays_p)}
+    below = torch.arange(vp.pos.shape[1], device=v.count.device)[None, :] \
+        < vp.count[:, None]
+    err["bdpt_step"] = max(err["bdpt_step"], max(
+        (getattr(v, f)[below].float() - getattr(vp, f)[below].float())
+        .abs().max().item() for f in ("pos", "beta", "fwd", "rev")))
+    seen["steps"] += 1
+    for f, x in d.items():
+        if x:
+            seen["differ"][f"step {s_} {f}"] = x
+    return c0, w0, vp.count.clone(), copy_record(wp)
+
+
+def bdpt_finish_check(finish, a, seen, err, label) -> tuple:
+    """One bdpt_finish call (`finish` on the bound arguments `a`) against
+    finish_torch: the radiance bit for bit (differences to
+    seen["differ"]), the film within the radiance limits. Returns the
+    kernel's (li, film)."""
+    from gpu_pathtracer_tpu_torch.integrators import bdpt_shade as bs
+    li_k, film_k = finish(**a)
+    li_p, film_p = bs.finish_torch(a["li"], a["q"], a["shadow"], a["n_pix"])
+    ne = int((bits(li_k) != bits(li_p)).any(1).sum())
+    if ne:
+        seen["differ"]["finish li"] = ne
+    err["bdpt_finish"] = max(err["bdpt_finish"],
+                             (li_k - li_p).abs().max().item())
+    hold_radiance(label, "film", film_k, film_p)
+    return li_k, film_k
+
+
+def bdpt_checked(label, run) -> None:
+    """run() (a BDPT sample over the kernels) with each bdpt_step call held
+    to step_torch (bdpt_step_check) and bdpt_finish to finish_torch
+    (bdpt_finish_check); fails on any difference."""
+    from gpu_pathtracer_tpu_torch.integrators import bdpt_shade as bs
+    err = {k: 0.0 for k in BDPT_KERNELS}
+    seen = {"steps": 0, "differ": {}}
+    orig = {k: getattr(bs, k) for k in ("step", "finish")}
+
+    def step_spy(*args, **kwargs):
+        bdpt_step_check(orig["step"], bound_args(orig["step"], args, kwargs),
+                        seen, err)
+
+    def finish_spy(*args, **kwargs):
+        seen["finishes"] = seen.get("finishes", 0) + 1
+        return bdpt_finish_check(orig["finish"],
+                                 bound_args(orig["finish"], args, kwargs),
+                                 seen, err, f"C bdpt_finish {label}")
+
+    bs.step, bs.finish = step_spy, finish_spy
+    try:
+        run()
+    finally:
+        for k_, f in orig.items():
+            setattr(bs, k_, f)
+    torch.cuda.synchronize()
+    print(f"[C] {label}: {seen['steps']} bdpt_step and "
+          f"{seen.get('finishes', 0)} bdpt_finish calls held to step_torch "
+          f"and finish_torch; not bit-equal: {seen['differ'] or 'none'}")
+    check(seen["steps"] > 0 and seen.get("finishes", 0) > 0
+          and not seen["differ"],
+          f"{label}: bdpt.cu and its plain versions differ: "
+          f"{seen['differ']}")
 
 
 def step_alone(steps, card, records) -> dict:
@@ -3472,7 +3571,6 @@ def phase_t(dev, card, records):
     one Tr walk against a walk per round (bit for bit); then each kernel,
     its plain version and its bound in turns on cornell_port's inputs
     (step 1, the connections, the finish)."""
-    import inspect
     from gpu_pathtracer_tpu_torch import kernels
     from gpu_pathtracer_tpu_torch.integrators import bdpt, bdpt_shade as bs
     from gpu_pathtracer_tpu_torch.run.reference import reset_counts
@@ -3482,7 +3580,6 @@ def phase_t(dev, card, records):
     timed = {}
     orig = {k: getattr(bs, k) for k in ("start", "step", "connect",
                                         "finish")}
-    sigs = {k: inspect.signature(f) for k, f in orig.items()}
     for label, path, depth, n_lanes in BDPT_CASES:
         sc, st = bdpt_scene(path, dev, depth)
         ids = torch.arange(n_lanes, device=dev)
@@ -3492,13 +3589,8 @@ def phase_t(dev, card, records):
         seen = {"steps": 0, "differ": {}}
         keep = path == SCENES[0] and depth == 5
 
-        def bound_args(name, args, kwargs):
-            a = sigs[name].bind(*args, **kwargs)
-            a.apply_defaults()
-            return dict(a.arguments)
-
         def start_spy(*args, **kwargs):
-            a = bound_args("start", args, kwargs)
+            a = bound_args(orig["start"], args, kwargs)
             v, w = orig["start"](*args, **kwargs)
             vp, wp = bs.start_torch(**{**a, "plain": True})
             d = {**tables_differ(v, vp),
@@ -3515,34 +3607,13 @@ def phase_t(dev, card, records):
             return v, w
 
         def step_spy(*args, **kwargs):
-            a = bound_args("step", args, kwargs)
-            v, w, s_ = a["v"], a["w"], a["step_"]
-            vp, wp = emptied(v), copy_record(w)
-            rays_p = a["rays"].clone()
+            a = bound_args(orig["step"], args, kwargs)
+            got = bdpt_step_check(orig["step"], a, seen, err)
             if keep:   # the state at the step's start, for its bound
-                timed.setdefault("steps", {})[s_] = (
-                    a, v.count.clone(), copy_record(w))
-            orig["step"](*args, **kwargs)
-            bs.step_torch(**{**a, "v": vp, "w": wp, "rays": rays_p,
-                             "plain": True})
-            if keep:
-                timed["steps"][s_] += (vp.count.clone(), copy_record(wp))
-            d = {**tables_differ(v, vp),
-                 **{f"w.{f}": x for f, x in record_differ(
-                     w, wp, WALKER_FIELDS).items()},
-                 "rays": int(a["rays"] != rays_p)}
-            below = torch.arange(vp.pos.shape[1], device=dev)[None, :] \
-                < vp.count[:, None]
-            err["bdpt_step"] = max(err["bdpt_step"], max(
-                (getattr(v, f)[below].float() - getattr(vp, f)[below].float())
-                .abs().max().item() for f in ("pos", "beta", "fwd", "rev")))
-            seen["steps"] += 1
-            for f, x in d.items():
-                if x:
-                    seen["differ"][f"step {a['step_']} {f}"] = x
+                timed.setdefault("steps", {})[a["step_"]] = (a, *got)
 
         def connect_spy(*args, **kwargs):
-            a = bound_args("connect", args, kwargs)
+            a = bound_args(orig["connect"], args, kwargs)
             rays_p = a["rays"].clone()
             li_k, q_k = orig["connect"](*args, **kwargs)
             li_p, q_p = bs.connect_torch(**{**a, "v": emptied(a["v"]),
@@ -3561,16 +3632,9 @@ def phase_t(dev, card, records):
             return li_k, q_k
 
         def finish_spy(*args, **kwargs):
-            a = bound_args("finish", args, kwargs)
-            li_k, film_k = orig["finish"](*args, **kwargs)
-            li_p, film_p = bs.finish_torch(a["li"], a["q"], a["shadow"],
-                                           a["n_pix"])
-            ne = int((bits(li_k) != bits(li_p)).any(1).sum())
-            if ne:
-                seen["differ"]["finish li"] = ne
-            err["bdpt_finish"] = max(err["bdpt_finish"],
-                                     (li_k - li_p).abs().max().item())
-            hold_radiance(f"T bdpt_finish {label}", "film", film_k, film_p)
+            a = bound_args(orig["finish"], args, kwargs)
+            li_k, film_k = bdpt_finish_check(orig["finish"], a, seen, err,
+                                             f"T bdpt_finish {label}")
             if st.has_media:
                 bad = per_round_walks(sc, st, lanes, a["q"], a["shadow"])
                 print(f"[T] {label}: the queue's one Tr walk vs a walk per "
@@ -3672,9 +3736,65 @@ def phase_t(dev, card, records):
         bound_instructions=b["instructions"], occupancy=occ,
         ptxas=ptxas_summary(kernels.BUILDS["bdpt"].ptxas,
                             "bdpt_connect_kernel"))
+    fin = finish_alone(fk, card)
+    records["bdpt_finish"].update(wrapper_ms=ms["finish kernel"],
+                                  ms=fin["this"], registers=fin["registers"])
+    if "parent" in fin:
+        records["bdpt_finish"]["baseline_ms"] = fin["parent"]
     if BASELINE:
         baseline_connect(ck, card, records)
     print(f"[T] done in {time.time() - t0:.1f} s")
+
+
+def finish_alone(fk, card) -> dict:
+    """bdpt_finish's kernel alone (its entry point on the wrapper's
+    structure, the film zeroed before each launch: `timed_alone`) on
+    cornell_port's queue (`fk`: phase T's arguments); with --baseline
+    DIR, DIR's bdpt_finish (its bdpt.cu built here, launched through this
+    checkout's wrapper: the argument structure is the same) on the same
+    queue in turns, its radiance bit for bit and its film within the
+    radiance limits of this one's. Returns {side: ms} and the registers
+    of the variant that ran."""
+    import re
+    from gpu_pathtracer_tpu_torch import kernels
+    from gpu_pathtracer_tpu_torch.integrators import bdpt_shade as bs
+    args = (fk["li"], fk["q"], fk["shadow"], fk["n_pix"])
+    libs = {"this": kernels._LIBS["bdpt"]}
+    if BASELINE:
+        libs["parent"] = baseline_library("bdpt")[0]
+    fns, outs = {}, {}
+    for side, lib in libs.items():
+        kernels._LIBS["bdpt"] = lib
+        try:
+            outs[side], run = bare_entry(bs, "bdpt_finish",
+                                         lambda: bs.finish_cuda(*args))
+        finally:
+            kernels._LIBS["bdpt"] = libs["this"]
+        fns[side] = (run, outs[side][1].zero_)
+    if "parent" in outs:
+        (li_k, film_k), (li_p, film_p) = outs["this"], outs["parent"]
+        ne = int((bits(li_k) != bits(li_p)).any(1).sum())
+        print(f"[T] bdpt_finish of {BASELINE} vs this checkout on "
+              f"cornell_port's {N_RAYS} lanes: li lanes not bit-equal {ne}")
+        check(ne == 0, f"bdpt_finish's li differs from {BASELINE}'s")
+        hold_radiance("T bdpt_finish vs the baseline", "film", film_k,
+                      film_p)
+    t = timed_alone(fns)
+    ms = {k: sum(x) / len(x) for k, x in t.items()}
+    lanes = 4 if N_RAYS % 4 == 0 else 1
+    variant = (f"bdpt_finish_kernel (lanes {lanes}, verdicts "
+               f"{int(fk['shadow'].dtype == torch.bool)})")
+    rep = ptxas_summary(kernels.BUILDS["bdpt"].ptxas, variant)
+    regs = [int(x) for x in re.findall(r"(\d+) registers", rep)]
+    print(f"[T] bdpt_finish alone on cornell_port ({N_RAYS} lanes, "
+          f"{fk['q'].live.numel()} slots): {ms['this']:.4f} ms (turns "
+          f"{', '.join(f'{x:.4f}' for x in t['this'])})"
+          + (f", {BASELINE} {ms['parent']:.4f} ms (turns "
+             f"{', '.join(f'{x:.4f}' for x in t['parent'])})"
+             if "parent" in ms else "")
+          + f"; {rep}; a thread {lanes} lanes, blocks of 128 threads, "
+          f"{sorted({occupancy(r) for r in regs})} an SM ({card})")
+    return {**ms, "registers": regs}
 
 
 def baseline_library(name: str):
@@ -3684,6 +3804,9 @@ def baseline_library(name: str):
     import ctypes
     import hashlib
     from gpu_pathtracer_tpu_torch import kernels
+    if name in _BASELINE_LIBS:   # built: a fresh handle (its own argtypes)
+        so, report = _BASELINE_LIBS[name]
+        return ctypes.CDLL(so), report
     src = os.path.join(BASELINE, "gpu_pathtracer_tpu_torch", "csrc",
                        f"{name}.cu")
     check(os.path.exists(src), f"--baseline: no {src}")
@@ -3692,7 +3815,11 @@ def baseline_library(name: str):
     p = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, src],
                        capture_output=True, text=True)
     check(p.returncode == 0, f"nvcc failed on {src}:\n{p.stderr[-3000:]}")
+    _BASELINE_LIBS[name] = (so, p.stderr)
     return ctypes.CDLL(so), p.stderr
+
+
+_BASELINE_LIBS = {}   # name -> (library path, ptxas report): built once
 
 
 def baseline_connect(ck, card, records):
@@ -4505,7 +4632,8 @@ def phase_c_program(dev, records, integ, path, n_lanes=65536, depth=5,
     ids = torch.arange(0, n_pix, n_pix // n_lanes, device=dev,
                        dtype=torch.int32)[:n_lanes]
     if integ == "bdpt":   # its seconds are a second run's, the builds done
-        run_program(integ, scene, static, ids, SEED)
+        bdpt_checked(f"bdpt on {path} at depth {depth}",
+                     lambda: run_program(integ, scene, static, ids, SEED))
     stats = kernel_stats()
     reset_counts(*stats.values())
     torch.cuda.synchronize()
@@ -4564,7 +4692,9 @@ def phase_c_bdpt_tile(dev, records):
     px, py = ids % st.width, ids // st.width
     chunk = bdpt.QUEUE_SLOTS // bs.n_slots(st.max_depth)
     n_chunks = -(-N_RAYS // chunk)
-    bdpt.render_lanes(sc, st, SEED, 1, px, py)   # warm-up
+    bdpt_checked(f"bdpt on {SCENES[0]} at depth {DEEP}, {N_RAYS} lanes in "
+                 f"{n_chunks} chunks",   # the warm-up
+                 lambda: bdpt.render_lanes(sc, st, SEED, 1, px, py))
     stats = kernel_stats()
     reset_counts(*stats.values())
     torch.cuda.synchronize()
@@ -5625,9 +5755,9 @@ def main() -> None:
                     help="another checkout of the port (e.g. a git archive "
                     "of the parent commit): phase E also times its K1, K2, "
                     "K3 and K4, phase S its pt_shade, phase V its vpt_shade "
-                    "and vpt_tr_round and phase T its bdpt_step and "
-                    "bdpt_connect beside this checkout's on the same "
-                    "inputs")
+                    "and vpt_tr_round and phase T its bdpt_step, "
+                    "bdpt_connect and bdpt_finish beside this checkout's "
+                    "on the same inputs")
     ap.add_argument("--time-hits", nargs=2, metavar=("INPUTS", "ROOT"),
                     help=argparse.SUPPRESS)   # --baseline's child processes
     ap.add_argument("--cards", type=int, default=1,

@@ -1,7 +1,7 @@
 // BDPT's per-lane work: one thread starts one subpath row (bdpt_start) and
-// steps it (bdpt_step), one thread runs every connection round of one
-// lane (bdpt_connect), and one thread credits one lane's queued
-// connections (bdpt_finish).
+// steps it (bdpt_step), G threads run every connection round of one lane
+// (bdpt_connect), and one thread credits four lanes' queued connections
+// (bdpt_finish).
 //
 // Replaces no Pallas kernel: the JAX package runs BDPT
 // (gpu_pathtracer_tpu/integrators/bdpt.py:465 render_lanes) as traced XLA
@@ -38,7 +38,12 @@
 // m * 2N + r (bdpt_shade.py keeps [2N, K] views of [K, 2N] storage), so
 // a step's rows, which mostly add the same vertex, write side by side,
 // and the connect kernel's threads read vertex m of neighbouring lanes
-// side by side.
+// side by side. A step runs over all 2N rows, a finished row leaving at
+// its flag: launched over an order-kept list of the live rows (ascending,
+// the next list built by a second, light launch), the step took 0.27-0.29
+// ms at steps 1-4 on cornell_port's 1M lanes against 0.22-0.24 over all
+// rows, though its rows fell to half (H100 80GB HBM3, 700 W; PERF.md
+// section 6).
 //
 // bdpt_connect, per lane: in order the rounds s1, t0, t1 and general s =
 // 2 .. K, each over the G = K - 1 columns: the case's contribution with
@@ -52,7 +57,9 @@
 // bdpt_finish, per lane: L x tr of each live slot (tr 0 or 1 from the
 // any-hit call, or the walk's transmittance); the s1 credits atomically
 // into the film at their raster pixel; the other rounds' columns summed
-// in column order and added round by round to li; the NaN guard.
+// in column order and added round by round to li; the NaN guard. A
+// thread runs four neighbouring lanes and loads a slot's words of them
+// as vectors (the design note above the kernel).
 //
 // Draws (philox.cuh): a step's 7 sites at counter blocks 2 + 2 s and 3 +
 // 2 s of the row's lane under tag 0 or BDPT_LIGHT_TAG; a connection round
@@ -79,14 +86,16 @@
 // and, with 91 registers and 41 KB of shared memory a block, keeps 20
 // warps an SM in flight (12 for the earlier design of a thread a lane,
 // at 153 registers and a 768-byte frame of MIS tables); 2.74 against 4.95
-// ms on cornell_port's 1M lanes (PERF.md). Every intermediate stays out
-// of device memory, the scene
+// ms on cornell_port's 1M lanes (H100 80GB HBM3, 700 W; PERF.md). Every
+// intermediate stays out of device memory, the scene
 // tables are read through __ldg, and the traced rays are counted with
 // one atomic a block.
 //
 // Variants (template flags): bdpt_step kTex (textures), kAll (spheres or
 // lines) and kHet (heterogeneous media: the sample walk's result);
-// bdpt_connect kTex. bdpt_start has one.
+// bdpt_connect kTex; bdpt_finish the lanes a thread (4, or 1 where the
+// queue does not allow vectors) and kOcc (the any-hit verdicts, else
+// Tr). bdpt_start has one.
 #include "media.cuh"
 #include "shade.cuh"
 
@@ -986,41 +995,168 @@ size_t connect_smem(int k) {
 // ---------------------------------------------------------------------------
 // bdpt_finish
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ V3 credit(const BdptFinishArgs& p, size_t slot) {
-  if (!p.live[slot]) return mk(0.f, 0.f, 0.f);
-  const V3 L = load3(p.q_L + 3 * slot);
-  if (p.occluded) {
-    const float f = p.occluded[slot] ? 0.f : 1.f;
-    return mk(L.x * f, L.y * f, L.z * f);
+// A thread runs kFinishLanes neighbouring lanes through the queue's slots
+// in order (s1's G, then each round's G columns), as one thread a lane
+// did, and loads a slot's flags, credits, verdicts and pixels for its
+// lanes as vectors: one 4-byte word of flags, three float4s of credits
+// (each where one of its lanes is live), one word of verdicts or three
+// float4s of Tr, one int4 of pixels. The next slot's flags are loaded
+// before this slot's credits. It moves the same sectors as a thread a
+// lane in a quarter of the requests. Designs that put more loads in
+// flight at once instead (a thread a round of a lane with its columns'
+// loads batched; a thread a lane with a round's flags, then its
+// credits, batched) were slower than a thread a lane, 0.23-0.28 against
+// 0.22 ms on cornell_port's 1M lanes (H100 80GB HBM3, 700 W; PERF.md
+// section 6): the kernel is bound by how the card serves scattered
+// sectors, not by the chain of loads. A queue whose lanes or arrays do
+// not allow the vectors (N not a multiple of kFinishLanes, as a chunk of
+// lanes can be) runs the same loop a lane a thread.
+constexpr int kFinishLanes = 4;
+
+template <int kN> struct FinishVec;
+template <> struct FinishVec<1> { typedef uint8_t Flags; };
+template <> struct FinishVec<4> { typedef uint32_t Flags; };
+
+// kN floats x 3 of kN lanes at p (16-byte aligned where kN = 4), a float4
+// loaded where one of the lanes it holds is live
+template <int kN>
+__device__ __forceinline__ void load_lanes3(const float* p, const bool* f,
+                                            float* out) {
+  if (kN == 1) {
+    if (f[0]) {
+      out[0] = __ldg(p);
+      out[1] = __ldg(p + 1);
+      out[2] = __ldg(p + 2);
+    }
+    return;
   }
-  return mul(L, load3(p.tr + 3 * slot));
+#pragma unroll
+  for (int k = 0; k < 3 * kN / 4; ++k) {
+    bool any = false;
+#pragma unroll
+    for (int l = (4 * k) / 3; l <= (4 * k + 3) / 3; ++l) any = any || f[l];
+    if (any) {
+      const float4 x = __ldg((const float4*)p + k);
+      out[4 * k] = x.x;
+      out[4 * k + 1] = x.y;
+      out[4 * k + 2] = x.z;
+      out[4 * k + 3] = x.w;
+    }
+  }
 }
 
+// The credits L x tr of slot `slot` for lanes i0 .. i0 + kN - 1 (flags
+// fl), zero where not live; s1: their raster pixels too
+template <int kN, bool kOcc>
+__device__ __forceinline__ void slot_credits(
+    const BdptFinishArgs& p, size_t slot,
+    typename FinishVec<kN>::Flags fl, bool s1, V3* c, bool* f, int* pix) {
+  typedef typename FinishVec<kN>::Flags Flags;
+#pragma unroll
+  for (int l = 0; l < kN; ++l) f[l] = ((fl >> (8 * l)) & 0xffu) != 0;
+  float L[3 * kN], T[3 * kN];
+#pragma unroll
+  for (int k = 0; k < 3 * kN; ++k) L[k] = T[k] = 0.f;
+  Flags occ = 0;
+  if (fl) {
+    load_lanes3<kN>(p.q_L + 3 * slot, f, L);
+    if (kOcc) occ = __ldg((const Flags*)(p.occluded + slot));
+    else load_lanes3<kN>(p.tr + 3 * slot, f, T);
+    if (s1) {
+      if (kN == 1) {
+        pix[0] = __ldg(p.q_pix + slot);
+      } else {
+        const int4 q = __ldg((const int4*)(p.q_pix + slot));
+        pix[0] = q.x;
+        pix[1] = q.y;
+        pix[2] = q.z;
+        pix[3] = q.w;
+      }
+    }
+  }
+  // L x tr where live (the plain version's torch.where)
+#pragma unroll
+  for (int l = 0; l < kN; ++l) {
+    const V3 Ll = mk(L[3 * l], L[3 * l + 1], L[3 * l + 2]);
+    if (kOcc) {
+      const float o = ((occ >> (8 * l)) & 0xffu) ? 0.f : 1.f;
+      c[l] = f[l] ? mk(Ll.x * o, Ll.y * o, Ll.z * o) : mk(0.f, 0.f, 0.f);
+    } else {
+      c[l] = f[l] ? mul(Ll, mk(T[3 * l], T[3 * l + 1], T[3 * l + 2]))
+                  : mk(0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <int kN, bool kOcc>
 __global__ void __launch_bounds__(kThreads) bdpt_finish_kernel(
     BdptFinishArgs p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-  const int s_n = p.g * (p.g + 2);
-  // s1: splat at the raster pixel
-  for (int g = 0; g < p.g; ++g) {
-    const size_t slot = (size_t)g * p.n + i;
-    if (!p.live[slot]) continue;
-    const V3 c = credit(p, slot);
-    float* f = p.film + 3 * (size_t)p.q_pix[slot];
-    atomicAdd(f, c.x);
-    atomicAdd(f + 1, c.y);
-    atomicAdd(f + 2, c.z);
-  }
-  // t1, then the general rounds: each round's columns in column order
-  V3 li = load3(p.li + 3 * i);
-  for (int j0 = p.g; j0 < s_n; j0 += p.g) {
-    V3 acc = credit(p, (size_t)j0 * p.n + i);
-    for (int g = 1; g < p.g; ++g)
-      acc = add(acc, credit(p, (size_t)(j0 + g) * p.n + i));
-    li = add(li, acc);
+  typedef typename FinishVec<kN>::Flags Flags;
+  const int i0 = (blockIdx.x * kThreads + threadIdx.x) * kN;
+  if (i0 >= p.n) return;
+  const size_t n = (size_t)p.n;
+  const int g_n = p.g, s_n = g_n * (g_n + 2);
+  V3 c[kN], acc[kN], li[kN];
+  bool f[kN];
+  int pix[kN];
+  Flags next = __ldg((const Flags*)(p.live + i0));
+  for (int j = 0; j < s_n; ++j) {
+    const size_t slot = (size_t)j * n + i0;
+    const Flags fl = next;
+    if (j + 1 < s_n) next = __ldg((const Flags*)(p.live + slot + n));
+    if (j == g_n) {
+#pragma unroll
+      for (int l = 0; l < kN; ++l) li[l] = ldg3(p.li + 3 * (i0 + l));
+    }
+    slot_credits<kN, kOcc>(p, slot, fl, j < g_n, c, f, pix);
+    if (j < g_n) {   // s1: splat at the raster pixel
+#pragma unroll
+      for (int l = 0; l < kN; ++l) {
+        if (!f[l]) continue;
+        float* px = p.film + 3 * (size_t)pix[l];
+        atomicAdd(px, c[l].x);
+        atomicAdd(px + 1, c[l].y);
+        atomicAdd(px + 2, c[l].z);
+      }
+      continue;
+    }
+    // t1, then the general rounds: a round's columns in column order,
+    // then the round added to li
+    const int col = (j - g_n) % g_n;
+#pragma unroll
+    for (int l = 0; l < kN; ++l) acc[l] = col == 0 ? c[l] : add(acc[l], c[l]);
+    if (col == g_n - 1) {
+#pragma unroll
+      for (int l = 0; l < kN; ++l) li[l] = add(li[l], acc[l]);
+    }
   }
   // NaN/Inf guard: poisoned lanes are zeroed
-  store3(p.li_out + 3 * i, finite3(li) ? li : mk(0.f, 0.f, 0.f));
+#pragma unroll
+  for (int l = 0; l < kN; ++l)
+    store3(p.li_out + 3 * (i0 + l),
+           finite3(li[l]) ? li[l] : mk(0.f, 0.f, 0.f));
+}
+
+template <int kN>
+int launch_finish(const BdptFinishArgs& a, cudaStream_t s) {
+  const int blocks = (a.n / kN + kThreads - 1) / kThreads;
+  if (a.occluded) {
+    bdpt_finish_kernel<kN, true><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    bdpt_finish_kernel<kN, false><<<blocks, kThreads, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// whether bdpt_finish's vectors fit the queue: N a multiple of
+// kFinishLanes and every array aligned to its vector
+bool finish_vectors(const BdptFinishArgs& a) {
+  const auto off = [](const void* x, size_t to) {
+    return x && (size_t)x % to != 0;
+  };
+  return a.n % kFinishLanes == 0 && !off(a.live, kFinishLanes) &&
+         !off(a.occluded, kFinishLanes) && !off(a.q_L, 16) &&
+         !off(a.tr, 16) && !off(a.q_pix, 16);
 }
 
 int blocks_of(int n) { return (n + kThreads - 1) / kThreads; }
@@ -1101,7 +1237,7 @@ extern "C" int bdpt_connect_occupancy(int k, int tex, int* out) {
 // The queued credits after their shadow rays, and the NaN guard.
 extern "C" int bdpt_finish(const BdptFinishArgs* a, void* stream) {
   if (a->n == 0) return 0;
-  bdpt_finish_kernel<<<blocks_of(a->n), kThreads, 0, (cudaStream_t)stream>>>(
-      *a);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return finish_vectors(*a) ? launch_finish<kFinishLanes>(*a, s)
+                            : launch_finish<1>(*a, s);
 }

@@ -26,7 +26,9 @@ state between steps.
 - `finish`: after the queue's shadow rays, L x tr into the lane's
   radiance round by round (each round's columns summed in order, then
   added), the s1 credits splatted into the [W*H, 3] film at their raster
-  pixel, then the NaN guard.
+  pixel, then the NaN guard. The kernel walks the slots in that order, a
+  thread for four neighbouring lanes, each slot's flags, credits,
+  verdicts and pixels of the four loaded as vectors.
 
 On CUDA tensors `start`, `step`, `connect` and `finish` launch
 csrc/bdpt.cu and count the launch in `START_STATS` (bdpt_start), `STATS`

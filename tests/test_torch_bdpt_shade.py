@@ -951,3 +951,101 @@ def test_step_bound_charges_no_dead_row(scene, monkeypatch):
         made = int((c1 > c0).sum())
         assert full["bytes"] - same["bytes"] == changed + int(
             (c1 != c0).sum()) * 4 + made * 77, (name, s)
+
+
+# ---------------------------------------------------------------------------
+# bdpt_finish: the kernel's order and its bound
+# ---------------------------------------------------------------------------
+def _finish_args(sc, st, monkeypatch):
+    """The arguments of the one finish call of a sample: (li, q, shadow,
+    n_pix)."""
+    px, py = _pixels(st)
+    got = {}
+    finish = bs.finish
+
+    def spy(li, q, shadow, n_pix, plain=False):
+        got["args"] = (li, q, shadow, n_pix)
+        return finish(li, q, shadow, n_pix, plain)
+
+    monkeypatch.setattr(bs, "finish", spy)
+    bdpt.render_lanes(sc, st, SEED, 1, px, py)
+    monkeypatch.undo()
+    return got["args"]
+
+
+def _finish_in_slot_order(li, q, shadow, n_pix, lanes=4):
+    """bdpt_finish's loop (csrc/bdpt.cu) on the CPU: a thread `lanes`
+    neighbouring lanes, the slots in order; a slot's credit L x tr where
+    live, else 0; s1's slots splatted; a round's columns added as they
+    come (its first column the sum's start), the round added to li at its
+    last column; then the NaN guard."""
+    g = q.pix.shape[0]
+    s, n = q.live.shape
+    tr = torch.where(shadow[:, None], 0.0, 1.0).expand(s * n, 3) \
+        if shadow.dtype == torch.bool else shadow
+    tr = tr.reshape(s, n, 3)
+    out = torch.empty_like(li)
+    film = torch.zeros((n_pix, 3))
+    for i0 in range(0, n, lanes):
+        ln = slice(i0, min(i0 + lanes, n))
+        acc, lv = None, li[ln]
+        for j in range(s):
+            f = q.live[j, ln]
+            c = torch.where(f[:, None], q.L[j, ln] * tr[j, ln], 0.0)
+            if j < g:
+                film.index_put_((q.pix[j, ln][f].long(),), c[f],
+                                accumulate=True)
+                continue
+            col = (j - g) % g
+            acc = c if col == 0 else acc + c
+            if col == g - 1:
+                lv = lv + acc
+        out[ln] = torch.where(torch.isfinite(lv).all(-1)[:, None], lv, 0.0)
+    return out, film
+
+
+@pytest.mark.parametrize("poison", [False, True])
+def test_finish_in_slot_order_is_finish_torch(scene, monkeypatch, poison):
+    """finish_torch, the plain version, walked as bdpt_finish walks the
+    queue (a thread four lanes, the slots in order, each round's columns
+    summed as they come and the round added at its last column) gives
+    the same per-lane radiance bit for bit and the film within float32
+    summation order; with a live credit made infinite, the NaN guard
+    zeroes the same lane."""
+    sc, st, name = scene
+    li, q, shadow, n_pix = _finish_args(sc, st, monkeypatch)
+    g = q.pix.shape[0]
+    assert bool(q.live[g:].any()) and bool(q.live[:g].any()), name
+    if poison:
+        q = dataclasses.replace(q, L=q.L.clone())
+        j, i = q.live[g:].nonzero()[0].tolist()
+        q.L[g + j, i, 0] = float("inf")
+    li_p, film_p = bs.finish_torch(li, q, shadow, n_pix)
+    li_k, film_k = _finish_in_slot_order(li, q, shadow, n_pix)
+    assert _bitwise(li_k, li_p), name
+    _close(film_k, film_p)
+    if poison:
+        assert bool((li_p[i] == 0).all()) and bool(torch.isfinite(li[i]).all())
+
+
+def test_finish_bound_charges_live_slots_only(scene, monkeypatch):
+    """chip_smoke.py's bound of bdpt_finish charges every slot's flag, the
+    lanes' radiance in and out and the film once, and a slot's credit
+    (12 B), verdict (a byte, or Tr's 12 B with media) and, in s1, pixel
+    (4 B) only where the slot is live, whatever an empty slot holds."""
+    import chip_smoke
+    sc, st, name = scene
+    _, q, shadow, n_pix = _finish_args(sc, st, monkeypatch)
+    s, n = q.live.shape
+    g = q.pix.shape[0]
+    b = chip_smoke.bdpt_finish_bound(q, shadow, n_pix)
+    dead = chip_smoke.bdpt_finish_bound(
+        dataclasses.replace(q, live=torch.zeros_like(q.live)), shadow, n_pix)
+    assert dead["bytes"] == s * n + n * 24 + n_pix * 12, name
+    verdict = 1 if shadow.dtype == torch.bool else 12
+    assert b["bytes"] - dead["bytes"] == int(q.live.sum()) * (
+        12 + verdict) + int(q.live[:g].sum()) * 4 > 0, name
+    scribbled = dataclasses.replace(
+        q, L=torch.where(q.live[..., None], q.L, float("nan")))
+    assert chip_smoke.bdpt_finish_bound(scribbled, shadow, n_pix) == b
+    assert b["bound_ms"] == b["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
