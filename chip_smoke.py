@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases S    # build, the PT wavefront's shading
     python3 chip_smoke.py --phases V    # build, the VPT wavefront's step
     python3 chip_smoke.py --phases T    # build, BDPT's steps and rounds
+    python3 chip_smoke.py --phases G    # build, the golden runner
     python3 chip_smoke.py --cards 4     # F's sharding over 4 cards only
     python3 chip_smoke.py --out DIR     # write the PNGs and reports to DIR
     python3 chip_smoke.py --baseline DIR  # also time DIR's K1-K4, K2 (E),
@@ -275,6 +276,22 @@ Phases:
      killed after 120 s). Last, the CLI with --profile for 1 spp of cornell_port:
      the trace must name K2's pt_fused_kernel. Every path's launches must
      be its kernels' (> 0 each) and its plain-version calls on CUDA 0.
+  G  the golden suite's runner (run/golden.py) at its own settings, 256
+     high and 128 spp, over repo scenes whose goldens it writes itself
+     with run/reference.py's all-plain route at the same seed
+     (GOLDEN_G): cornell_port (PT through K2; golden at 256^2, 128
+     spp), smoke_port (VPT through K1, track and vpt_shade.cu, under
+     golden._smoke_mask; golden 1 spp at 1024^2, its radiance averaged
+     down by 4 before the tonemap) and env_port at 16:9 (K2's sky
+     variant at 455x256; golden at 1280x720, 32 spp, which run_one
+     resamples with its BOX); each golden.run_one with every launch
+     count set to 0 just before it and read just after: its RMSE under
+     its gate, its seconds, the kernels it launched (those of its route,
+     no other, no plain version on CUDA). Then, where
+     golden.RESULT exists, the five real goldens through
+     golden.main, each RMSE printed beside the JAX package's TPU RMSE in
+     GOLDEN_r5.json (a FAIL fails the phase); where it is absent, a line
+     says so
 
 Every check that fails exits non-zero before the last line. The last two
 lines are the kernels' JSON record and
@@ -5743,11 +5760,116 @@ def phase_f(dev, card) -> None:
           f"{time.time() - t2:.1f} s")
 
 
+# phase G: the golden suite's runner (run/golden.py) at the suite's own
+# settings over repo scenes whose goldens it writes all-plain
+# (reference.plain_image): (name, scene, integrator, the kernels its run
+# launches, golden height, golden spp, supersampling factor, the rest of
+# its GOLDENS entry; "mask": golden._smoke_mask)
+G_SIZE, G_SPP = 256, 128   # golden.main's defaults
+GOLDEN_G = (
+    # the same size, spp and seed: the run differs from its golden by the
+    # golden's 8-bit rounding and the lanes where K2 and plain part
+    ("cornell_port", SCENES[0], "pt", ("pt_fused",), G_SIZE, G_SPP, 1,
+     {"gate": 0.01}),
+    # the plain VPT's tracking walk syncs the host every round: one spp
+    # at 1024^2 took 19.7-21.7 s on the H100, and 128 at 256^2 did not
+    # end in 550 s (PERF.md §6). So one spp at 1024^2, averaged
+    # down by 4 before the tonemap: 16 samples a pixel. The
+    # RMSE is the two images' noise: 0.0909 on the H100 (PERF.md §6),
+    # gated with a 10% margin
+    ("smoke_port", SMOKE, "vpt", VPT_KERNELS, G_SIZE, 1, 4,
+     {"gate": 0.1, "mask": True}),
+    # written at 1280x720, so run_one's resample to 455x256 takes the BOX.
+    # The RMSE is mostly the run's own noise on the sky-lit ground: 0.1076
+    # with a 16-spp golden, 0.1004 with 64 spp on the H100 (PERF.md, PR
+    # 20), gated 7% above the larger
+    ("env_port", K2_VARIANTS["env"], "pt", ("pt_fused",), 720, 32, 1,
+     {"gate": 0.115, "aspect": (16, 9)}),
+)
+GOLDEN_TPU = "GOLDEN_r5.json"   # the JAX package's RMSEs, on its TPU
+
+
+def phase_g(dev, card, records) -> None:
+    """The golden runner: each stand-in of GOLDEN_G through golden.run_one
+    over the kernels, with every launch count set to 0 just before it and
+    read just after, against a golden written by run/reference.py's
+    all-plain route at the same seed; then the real suite where its
+    goldens exist."""
+    import tempfile
+    from gpu_pathtracer_tpu_torch.film.imageio import save_png
+    from gpu_pathtracer_tpu_torch.run import golden
+    from gpu_pathtracer_tpu_torch.run.reference import (
+        kernel_stats, plain_image, reset_counts)
+    from gpu_pathtracer_tpu_torch.scene.flatten import flatten_scene
+    from gpu_pathtracer_tpu_torch.scene.parse import load_scene
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="golden_", dir=OUT)
+    stats = kernel_stats()
+    for name, scene, integ, knames, g_h, g_spp, g_f, extra in GOLDEN_G:
+        path = os.path.join(REPO, scene)
+        aw, ah = extra.get("aspect", (1, 1))
+        host = load_scene(path)
+        host.width, host.height = g_f * g_h * aw // ah, g_f * g_h
+        sc, st = flatten_scene(host, dev)
+        t1 = time.time()
+        img = plain_image(integ, sc, st, 0, g_spp, g_f)
+        g_s = time.time() - t1
+        del sc, st
+        cfg = dict(extra, scene=path, integrator=integ,
+                   golden=os.path.join(tmp, f"{name}_golden.png"))
+        if extra.get("mask"):
+            cfg["mask"] = golden._smoke_mask
+        save_png(cfg["golden"], img)
+        reset_counts(*stats.values())
+        t1 = time.time()
+        rmse, ok = golden.run_one(name, cfg, G_SPP, G_SIZE, out=tmp)
+        run_s = time.time() - t1
+        counts = {k: s.launches for k, s in stats.items()}
+        plain = sum(s.plain_cuda for s in stats.values())
+        print(f"[G] {name} ({scene}, {integ}) at {G_SIZE * aw // ah}x"
+              f"{G_SIZE}, {G_SPP} spp: RMSE {rmse:.6f} against gate "
+              f"{cfg['gate']} ({'PASS' if ok else 'FAIL'}), run_one "
+              f"{run_s:.3f} s; golden all-plain at {g_h * aw // ah}x{g_h}, "
+              f"{g_spp} spp x {g_f * g_f} samples a pixel, in {g_s:.3f} s; "
+              f"launches {counts}, "
+              f"plain-version calls on CUDA {plain} ({card})", flush=True)
+        check(ok, f"golden stand-in {name}: RMSE {rmse} >= {cfg['gate']}")
+        check(only(counts, *knames),
+              f"golden stand-in {name} launched {counts}")
+        check(plain == 0, f"golden stand-in {name}: {plain} plain calls")
+        for k in knames:
+            records[k][f"launches_golden_{name}"] = counts[k]
+
+    if not os.path.isdir(golden.RESULT):
+        print(f"[G] {golden.RESULT} is absent: the five real goldens were "
+              f"not run")
+    else:
+        out = os.path.join(tmp, "golden.json")
+        code = 0
+        try:   # it writes the JSON before it exits 1 for a FAIL
+            golden.main(["--spp", str(G_SPP), "--size", str(G_SIZE),
+                         "--out", tmp, "--json", out])
+        except SystemExit as e:
+            code = e.code
+        with open(os.path.join(REPO, GOLDEN_TPU)) as f:
+            tpu = json.load(f)["results"]
+        with open(out) as f:
+            res = json.load(f)["results"]
+        for name, r in res.items():
+            print(f"[G] golden {name}: RMSE {r['rmse']} "
+                  f"({'PASS' if r['pass'] else 'FAIL'}) on this card "
+                  f"({card}), {tpu.get(name, {}).get('rmse')} on the JAX "
+                  f"package's TPU ({GOLDEN_TPU})")
+        check(code == 0, f"the golden suite failed (exit {code})")
+    print(f"[G] done in {time.time() - t0:.1f} s; renders and goldens in "
+          f"{tmp}")
+
+
 def main() -> None:
     global OUT, BASELINE
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFRSVT",
+    ap.add_argument("--phases", default="ABCDEFGRSVT",
                     help="phases to run after the build (default all)")
     ap.add_argument("--out", default=OUT,
                     help="directory for the PNGs and compiler reports")
@@ -5840,7 +5962,9 @@ def main() -> None:
         phase_e(dev, rng, card, records)
     if "F" in phases:
         phase_f(dev, card)
-    if set(phases) != set("ABCDEFRSVT"):
+    if "G" in phases:
+        phase_g(dev, card, records)
+    if set(phases) != set("ABCDEFGRSVT"):
         print(f"[{phases}] done: a partial run prints no result")
         sys.exit(0)
 

@@ -3,10 +3,10 @@
 The port's counterpart of gpu_pathtracer_tpu/film/imageio.py without PIL:
 - `decode_png` reads 8-bit, non-interlaced PNGs of colour types 0, 2, 3,
   4 and 6 with all five row filters; anything else raises;
-- `load_texture` flips V and converts sRGB -> linear with pow 2.2 in
-  float32, like the JAX package's (imageio.py:22-30, which reads through
-  PIL's convert("RGB"): grey is replicated, a palette is looked up, alpha
-  is dropped);
+- `read_png_rgb` gives what PIL's convert("RGB") gives: grey is
+  replicated, a palette is looked up, alpha is dropped;
+- `load_texture` reads through it, flips V and converts sRGB -> linear
+  with pow 2.2 in float32, like the JAX package's (imageio.py:22-30);
 - `save_png` clamps, converts to 8-bit and flips V exactly like the JAX
   package's `save_png` (imageio.py:33-39; the reference's SavePng,
   imageio.cpp:100-120), then encodes an RGB PNG with zlib;
@@ -114,14 +114,21 @@ def decode_png(data: bytes) -> np.ndarray:
     return img
 
 
+def read_png_rgb(path: str) -> np.ndarray:
+    """A PNG file -> uint8 [H, W, 3], top row first, as PIL's
+    convert("RGB") gives it: grey replicated, a palette looked up, alpha
+    dropped."""
+    with open(path, "rb") as f:
+        img = decode_png(f.read())
+    if img.shape[2] <= 2:   # grey (+ alpha)
+        img = np.repeat(img[..., :1], 3, axis=2)
+    return img[..., :3]
+
+
 def load_texture(path: str, gamma: bool = True) -> np.ndarray:
     """LDR texture -> linear float32 [H, W, 3], V flipped so row 0 is the
     bottom (the reference's stbi flip + pow 2.2, imageio.cpp:11-44)."""
-    with open(path, "rb") as f:
-        img = decode_png(f.read())
-    if img.shape[2] <= 2:   # grey (+ alpha): replicated, like convert("RGB")
-        img = np.repeat(img[..., :1], 3, axis=2)
-    arr = img[..., :3].astype(np.float32) / 255.0
+    arr = read_png_rgb(path).astype(np.float32) / 255.0
     arr = arr[::-1]
     if gamma:
         arr = arr ** 2.2

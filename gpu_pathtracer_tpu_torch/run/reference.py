@@ -7,7 +7,9 @@ radiance limits: |a - b| <= 1e-4 + 1e-3 |b| in every channel on at
 least 99% of the rows (of a splatted film: of the pixels either run
 touched), and means within 0.1%. The bench (run/bench.py) and
 chip_smoke.py hold their renders through this module, and read the
-kernels' launch counters through `kernel_stats`.
+kernels' launch counters through `kernel_stats`. `plain_image` renders
+a whole image all-plain: chip_smoke.py's phase G writes its stand-in
+goldens with it.
 """
 
 from __future__ import annotations
@@ -85,31 +87,54 @@ def held(a, b, what: str = "radiance") -> dict:
             and abs(ratio - 1.0) <= MEAN_RTOL}
 
 
-def run_program(integ, scene, static, ids, seed, plain=False):
+def run_program(integ, scene, static, ids, seed, plain=False, it=1):
     """One sample of program `integ` ("ao", "pt", "vpt", "lt", "bdpt")
-    on the lanes (pixel or path indices) `ids` at iteration 1: (per-lane
-    radiance or None, splat film or None, rays traced). `plain` runs it
-    all-plain (for "pt", the plain wavefront)."""
+    on the lanes (pixel or path indices) `ids` at iteration `it`:
+    (per-lane radiance or None, splat film or None, rays traced). `plain`
+    runs it all-plain (for "pt", the plain wavefront)."""
     from gpu_pathtracer_tpu_torch.integrators import ao, bdpt, lt, pt, vpt
     px, py = ids % static.width, ids // static.width
     if integ in ("ao", "vpt"):
         program = ao if integ == "ao" else vpt
-        li, rays = program.render_lanes(scene, static, seed, 1, px, py, True,
-                                        plain=plain)
+        li, rays = program.render_lanes(scene, static, seed, it, px, py,
+                                        True, plain=plain)
         return li, None, rays
     if integ == "pt":
         if plain:
-            li, rays = pt.wavefront(scene, static, seed, 1, px, py, True,
+            li, rays = pt.wavefront(scene, static, seed, it, px, py, True,
                                     plain=True)
         else:
-            li, rays = pt.render_lanes(scene, static, seed, 1, px, py, True)
+            li, rays = pt.render_lanes(scene, static, seed, it, px, py, True)
         return li, None, rays
     if integ == "lt":
-        film, rays = lt.render_film(scene, static, seed, 1, ids, True,
+        film, rays = lt.render_film(scene, static, seed, it, ids, True,
                                     plain=plain)
         return None, film, rays
-    return bdpt.render_lanes(scene, static, seed, 1, px, py, True,
+    return bdpt.render_lanes(scene, static, seed, it, px, py, True,
                              plain=plain)
+
+
+def plain_image(integ, scene, static, seed, spp, factor=1):
+    """The tonemapped image (row 0 = bottom) of `spp` iterations of
+    program `integ` ("ao", "pt", "vpt", "lt", "bdpt") run all-plain on
+    every lane at `seed`: with `factor` 1, [H, W, 3] numpy, what a
+    `Renderer` over the kernels shows after `spp` iterations, within the
+    radiance limits. With `factor` f > 1, [H / f, W / f, 3]: the film
+    averaged over f x f pixel blocks before the tonemap, f^2 x spp
+    stratified samples a pixel."""
+    from gpu_pathtracer_tpu_torch.film import film as film_mod
+    w, h = static.width, static.height
+    ids = torch.arange(w * h, device=scene.device, dtype=torch.int32)
+    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=scene.device)
+    for it in range(1, spp + 1):
+        li, film, _ = run_program(integ, scene, static, ids, seed,
+                                  plain=True, it=it)
+        acc += (li if li is not None else 0.0) \
+            + (film if film is not None else 0.0)
+    h, w = h // factor, w // factor
+    acc = acc.reshape(h, factor, w, factor, 3).mean((1, 3)).reshape(-1, 3)
+    img = film_mod.tonemap(acc, spp, static.filmic)
+    return img.cpu().numpy().reshape(h, w, 3)
 
 
 def slice_ids(n_pix: int, device, n_lanes: int = SLICE_LANES):
