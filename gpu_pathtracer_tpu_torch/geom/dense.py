@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.geom import dense_cuda
 from gpu_pathtracer_tpu_torch.scene.model import GeometryType
 
@@ -179,8 +180,15 @@ def kinds_of(static):
 
 
 def f32n(x, n, device):
-    return torch.as_tensor(x, dtype=torch.float32, device=device) \
-        .expand(n).contiguous()
+    """`x` (a tensor or a Python number) as a float32 [n] on `device`. A
+    number goes to a CUDA device by a copy from pageable host memory,
+    which waits on the device: the span "sync.tmin" marks it."""
+    if isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    else:
+        with telemetry.sync("sync.tmin", torch.device(device)):
+            x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x.expand(n).contiguous()
 
 
 def dense_closest(scene, static, ro, rd, tmin, tmax, plain: bool = False):

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.kernels import (
     KernelStats, all_kinds, check_cuda_f32, check_launch, load_library,
 )
@@ -61,14 +62,17 @@ def check_overflow(device=None) -> None:
     """Raise if a walk launched on `device` (every device when None; a
     device without an index stands for every device of its type) since
     the last check overflowed its stack; clears the flag. Reads the flag
-    only on devices that launched a walk."""
+    only on devices that launched a walk, a read that waits on the device
+    (the span "sync.overflow")."""
     want = None if device is None else torch.device(device)
     for dev, entry in list(_OVERFLOW.items()):
         if want is not None and (dev.type != want.type or (
                 want.index is not None and dev.index != want.index)):
             continue
         flag, depth = entry
-        if flag.item():
+        with telemetry.span("sync.overflow"):
+            overflowed = flag.item()
+        if overflowed:
             flag.zero_()
             entry[1] = 0
             raise RuntimeError(f"bvh8_walk: a ray's stack passed {depth} "

@@ -83,6 +83,7 @@ from __future__ import annotations
 
 import torch
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.core.rng import (
     TRACK_CAMERA, TRACK_CONNECT, TRACK_LIGHT_PATH, TRACK_SAMPLE, track_tag,
 )
@@ -196,37 +197,47 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
 
 def _render_chunk(scene, static, seed, iteration, pixel_x, pixel_y, n_verts,
                   plain):
-    """`render_lanes` on lanes whose queue fits: (li, film, rays)."""
-    lanes = lane_ids_of(static, pixel_x, pixel_y)
-    n = lanes.shape[0]
-    dev = lanes.device
-    gate = plain or not lanes.is_cuda
-    v, w = bdpt_shade.start(scene, static, seed, iteration, lanes, pixel_x,
-                            pixel_y, n_verts, plain)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    if static.has_hetero:
-        lanes2, sites2 = torch.cat([lanes, lanes]), walk_sites(n, dev)
+    """`render_lanes` on lanes whose queue fits: (li, film, rays). Spans
+    (telemetry): "bdpt.start", per step "bdpt.hit" (the closest hit and
+    the sample walk) and "bdpt.step", then "bdpt.connect",
+    "bdpt.shadow" and "bdpt.finish"."""
+    with telemetry.span("bdpt.start"):
+        lanes = lane_ids_of(static, pixel_x, pixel_y)
+        n = lanes.shape[0]
+        dev = lanes.device
+        gate = plain or not lanes.is_cuda
+        v, w = bdpt_shade.start(scene, static, seed, iteration, lanes,
+                                pixel_x, pixel_y, n_verts, plain)
+        rays = torch.zeros((), dtype=torch.int64, device=dev)
+        if static.has_hetero:
+            lanes2, sites2 = torch.cat([lanes, lanes]), walk_sites(n, dev)
     n_steps = (n_verts - 1) + (INTERFACE_BUDGET if static.has_media else 0)
     for step in range(n_steps):
         if gate and not bool(w.alive.any()):
             break
         # finished rows get an empty interval (tmax 0): the hit kernels
         # leave them at once
-        t, prim, _ = traverse.closest_prim(scene, static, w.ro, w.rd,
-                                           scene.epsilon, w.tmax, plain)
-        found_t = None
-        if static.has_hetero:   # delta tracking's first collision in [0, t]
-            found_t, _ = media_mod.track(
-                scene, static, media_mod.MODE_SAMPLE, w.med_sample, w.ro,
-                w.rd, t, TrackKey(seed, iteration, lanes2,
-                                  track_tag(step + 1, 0), sites2), plain)
-        bdpt_shade.step(scene, static, step, seed, iteration, lanes, t, prim,
-                        found_t, v, w, rays, plain)
-    if static.n_lights == 0:   # no light subpath without an area light
-        v.count[n:] = 0
-    li, q = bdpt_shade.connect(scene, static, seed, iteration, lanes, v,
-                               rays, plain)
-    occ = shadow(scene, static, seed, iteration, lanes, q, rays, plain)
-    li, film = bdpt_shade.finish(li, q, occ, static.width * static.height,
-                                 plain)
+        with telemetry.span("bdpt.hit", step):
+            t, prim, _ = traverse.closest_prim(scene, static, w.ro, w.rd,
+                                               scene.epsilon, w.tmax, plain)
+            found_t = None
+            if static.has_hetero:   # delta tracking's first collision
+                found_t, _ = media_mod.track(
+                    scene, static, media_mod.MODE_SAMPLE, w.med_sample,
+                    w.ro, w.rd, t, TrackKey(seed, iteration, lanes2,
+                                            track_tag(step + 1, 0), sites2),
+                    plain)
+        with telemetry.span("bdpt.step", step):
+            bdpt_shade.step(scene, static, step, seed, iteration, lanes, t,
+                            prim, found_t, v, w, rays, plain)
+    with telemetry.span("bdpt.connect"):
+        if static.n_lights == 0:   # no light subpath without an area light
+            v.count[n:] = 0
+        li, q = bdpt_shade.connect(scene, static, seed, iteration, lanes, v,
+                                   rays, plain)
+    with telemetry.span("bdpt.shadow"):
+        occ = shadow(scene, static, seed, iteration, lanes, q, rays, plain)
+    with telemetry.span("bdpt.finish"):
+        li, film = bdpt_shade.finish(li, q, occ,
+                                     static.width * static.height, plain)
     return li, film, rays

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import torch
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.core.rng import (
     BSSRDF_DIMS, BSSRDF_TAG, PSS_CAM_DIMS, PhiloxStream, lane_stream,
 )
@@ -165,10 +166,11 @@ def wavefront(scene, static, seed, iteration, pixel_x, pixel_y,
               with_stats=False, psample=None, plain=False):
     """The wavefront estimator; `plain` runs it over the plain PyTorch
     intersection on any device (the megakernel's reference)."""
-    lanes = lane_ids_of(static, pixel_x, pixel_y)
-    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS,
-                       plain=plain)
-    ro, rd = primary_rays(scene, static, rng0, pixel_x, pixel_y)
+    with telemetry.span("pt.camera"):
+        lanes = lane_ids_of(static, pixel_x, pixel_y)
+        rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS,
+                           plain=plain)
+        ro, rd = primary_rays(scene, static, rng0, pixel_x, pixel_y)
     return trace_paths(scene, static, seed, iteration, lanes, ro, rd,
                        with_stats, psample, plain)
 
@@ -184,20 +186,23 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
     credit and arrival credit come from the shading step at b =
     max_depth. Each lane's radiance lands in the caller's order when the
     lane finishes. Lanes are sorted for coherence above DENSE_MAX prims
-    unless `psample` is given."""
+    unless `psample` is given. Spans (telemetry): "pt.camera" for the
+    primary rays' sort and the wave's start, then per bounce b
+    "pt.hit", "pt.shade", "pt.shadow" and "pt.sort"."""
     from gpu_pathtracer_tpu_torch.integrators import pt_shade
     n = ro.shape[0]
     dev = ro.device
     eps = scene.epsilon
     sort = psample is None and static.n_primitives > DENSE_MAX
     sort_shadows = sorts_shadows(static, ro)
-    slot = torch.arange(n, device=dev)   # the caller's order
-    lanes = lanes.to(torch.int32)
-    if sort:
-        slot = torch.sort(_pixel_key(static, lanes), stable=True).indices
-        ro, rd, lanes = ro[slot], rd[slot], lanes[slot]
-    w = pt_shade.start(static, lanes, slot, ro, rd, sort, sort_shadows,
-                       static.max_depth)
+    with telemetry.span("pt.camera"):
+        slot = torch.arange(n, device=dev)   # the caller's order
+        lanes = lanes.to(torch.int32)
+        if sort:
+            slot = torch.sort(_pixel_key(static, lanes), stable=True).indices
+            ro, rd, lanes = ro[slot], rd[slot], lanes[slot]
+        w = pt_shade.start(static, lanes, slot, ro, rd, sort, sort_shadows,
+                           static.max_depth)
     if psample is not None and w.rec.shape[0] > n:   # the pad's columns
         psample = torch.nn.functional.pad(psample,
                                           (0, w.rec.shape[0] - n))
@@ -206,20 +211,25 @@ def trace_paths(scene, static, seed, iteration, lanes, ro, rd,
         last = b == static.max_depth
         # finished lanes get an empty interval (tmax 0 < eps): the hit
         # kernels leave them at once; nothing reads their miss
-        t, prim, _ = traverse.closest_prim(scene, static, w.ro, w.rd, eps,
-                                           w.tmax, plain)
-        pt_shade.shade(scene, static, b, seed, iteration, w, t, prim, occ,
-                       psample, plain)
+        with telemetry.span("pt.hit", b):
+            t, prim, _ = traverse.closest_prim(scene, static, w.ro, w.rd,
+                                               eps, w.tmax, plain)
+        with telemetry.span("pt.shade", b):
+            pt_shade.shade(scene, static, b, seed, iteration, w, t, prim,
+                           occ, psample, plain)
+            if not last and static.has_bssrdf:
+                # the lanes the shading step ended there
+                _subsurface_hook(scene, static, seed, iteration, b, w, t,
+                                 prim, plain)
         if last:
             break
-        if static.has_bssrdf:   # the lanes the shading step ended there
-            _subsurface_hook(scene, static, seed, iteration, b, w, t, prim,
-                             plain)
-        occ = _occluded_sorted(scene, static, w.shadow_o, w.shadow_d,
-                               w.shadow_t, w.shadow_t > 0.0, eps, plain,
-                               w.shadow_key)
+        with telemetry.span("pt.shadow", b):
+            occ = _occluded_sorted(scene, static, w.shadow_o, w.shadow_d,
+                                   w.shadow_t, w.shadow_t > 0.0, eps, plain,
+                                   w.shadow_key)
         if sort:   # re-sort by the next ray's coherence key
-            pt_shade.advance(w)
+            with telemetry.span("pt.sort", b):
+                pt_shade.advance(w)
 
     # NaN/Inf guard (pathtracer.cu:1019-1020): poisoned lanes are zeroed
     li = w.out[:n]

@@ -37,7 +37,7 @@ from gpu_pathtracer_tpu_torch.core.rng import (
 from gpu_pathtracer_tpu_torch.geom.dense import DENSE_MAX, kinds_of
 from gpu_pathtracer_tpu_torch.integrators import pt
 from gpu_pathtracer_tpu_torch.integrators.common import primary_rays
-from gpu_pathtracer_tpu_torch import kernels
+from gpu_pathtracer_tpu_torch import kernels, telemetry
 from gpu_pathtracer_tpu_torch.kernels import (
     KernelStats, check_cuda_f32, check_launch, load_library,
 )
@@ -93,13 +93,15 @@ def render_lanes(scene, static, seed: int, iteration: int, pixel_x, pixel_y,
     if not pixel_x.is_cuda:
         return render_lanes_torch(scene, static, seed, iteration, pixel_x,
                                   pixel_y, with_stats, psample)
-    lanes = pt.lane_ids_of(static, pixel_x, pixel_y)
-    rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS)
-    ro, rd = primary_rays(scene, static, rng0, pixel_x, pixel_y)
-    li, rays = fused_call(scene, static, seed, iteration, lanes, ro, rd,
-                          psample)
-    if with_stats:
-        return li, rays.sum(dtype=torch.int64)
+    with telemetry.span("pt.camera"):
+        lanes = pt.lane_ids_of(static, pixel_x, pixel_y)
+        rng0 = lane_stream(seed, iteration, lanes, psample, 0, PSS_CAM_DIMS)
+        ro, rd = primary_rays(scene, static, rng0, pixel_x, pixel_y)
+    with telemetry.span("pt.fused"):
+        li, rays = fused_call(scene, static, seed, iteration, lanes, ro, rd,
+                              psample)
+        if with_stats:
+            return li, rays.sum(dtype=torch.int64)
     return li
 
 

@@ -52,7 +52,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gpu_pathtracer_tpu_torch import kernels
+from gpu_pathtracer_tpu_torch import kernels, telemetry
 from gpu_pathtracer_tpu_torch.core.rng import (
     PSS_BOUNCE_DIMS, PSS_CAM_DIMS, lane_stream,
 )
@@ -240,8 +240,9 @@ def start(static, lanes, slot, ro, rd, sort: bool, shadow_key: bool,
     fill = (lambda *s: torch.empty(*s, device=dev)) if ro.is_cuda else \
         (lambda *s: torch.full(s, torch.nan, device=dev))
     one = int(np.float32(1.0).view(np.int32))
-    row = torch.tensor([0, 0, 0, one, one, one, one, ALIVE, 0, 0, 0, 0,
-                        0, 0, 0, 0], **i32)
+    with telemetry.sync("sync.wave_row", dev):   # a pageable copy
+        row = torch.tensor([0, 0, 0, one, one, one, one, ALIVE, 0, 0, 0, 0,
+                            0, 0, 0, 0], **i32)
     rec = row.repeat(n_pad, 1)
     rec[:n, LANE] = lanes.to(torch.int32)
     rec[:n, SLOT] = slot.to(torch.int32)
@@ -258,7 +259,8 @@ def start(static, lanes, slot, ro, rd, sort: bool, shadow_key: bool,
         key = torch.full((n_pad,), DEAD_KEY, **i32)
         lists = torch.empty((2, n_pad), **i32)
         counts = torch.zeros((max_depth + 2, 2), **i32)
-        counts[0, 0] = n
+        with telemetry.sync("sync.wave_count", dev):   # a host scalar
+            counts[0, 0] = n
     return Wave(
         n=n, sorted=sort, rec=rec, spare=spare, ray=ray, tmax=tmax,
         order=None, key=key, lists=lists, counts=counts,

@@ -18,7 +18,11 @@ EXR of the radiance. Also:
   prints and writes the images and the checkpoint;
 - `--profile DIR`: a torch.profiler trace (CPU and CUDA activities) of
   the render loop, written to DIR as a Chrome trace;
-- the `[hbm]` line: the scene tables' device memory by category.
+- the `[hbm]` line: the scene tables' device memory by category;
+- the `[spans]` line: the median host ms a spp of each span the program
+  records (gpu_pathtracer_tpu_torch/telemetry.py: the spp's
+  "iteration", its phases, its sync.* host syncs) and the median count
+  of host syncs a spp, over the render's spp (the last 256).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import time
 
 import torch
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.film.imageio import save_exr, save_png
 from gpu_pathtracer_tpu_torch.parallel import dist
 from gpu_pathtracer_tpu_torch.run import checkpoint as ckpt
@@ -199,6 +204,11 @@ def _render(args, device) -> dict:
     rays = int(r.rays) - rays0
     say(f"[render] {done} spp in {dt:.3f}s "
         f"({done / dt:.3f} spp/s, {rays / dt / 1e6:.2f} Mrays/s)")
+    recs = telemetry.records()[-done:] if done > 0 else []
+    span_ms, syncs = telemetry.summary(recs)
+    say(f"[spans] median host ms a spp over {len(recs)} spp: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in span_ms.items())
+        + f"; {syncs:g} host syncs a spp")
     if args.checkpoint:
         ckpt.save_checkpoint(r, args.checkpoint)
         say(f"[out] checkpoint {args.checkpoint} @ {r.iteration} spp")

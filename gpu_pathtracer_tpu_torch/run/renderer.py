@@ -46,6 +46,7 @@ import os
 
 import torch
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.film import film as film_mod
 from gpu_pathtracer_tpu_torch.geom import packet_cuda, traverse
 from gpu_pathtracer_tpu_torch.parallel import dist
@@ -166,22 +167,33 @@ class Renderer:
         absolute film). The host synchronises for a scene that the BVH8
         walk serves, once, to read its stack-overflow flag
         (geom/packet_cuda.check_overflow), and where a program compacts
-        lanes (IR's gather, SPPM's deposits)."""
+        lanes (IR's gather, SPPM's deposits). The spp is one record of
+        `telemetry` (its "iteration" span and what the program records
+        inside)."""
         self.iteration += 1
-        args = (self.device_scene, self.static, self.seed, self.iteration)
-        if self.kind == "sppm":
-            self._sppm_state, self.acc, rays = self._program(
-                *args, self._sppm_state, self._px, self._py, with_stats=True,
-                shard=self.shard)
-            self._rays += rays
-        elif self.kind == "mlt":
-            self._mlt_state, self.acc, rays = self._program(
-                *args, self._mlt_state, with_stats=True, shard=self.shard)
-            self._rays += rays
-        else:
-            self._render_tiles(args)
-        if self._walks:
-            packet_cuda.check_overflow(self.device)
+        with telemetry.iteration(self.iteration):
+            args = (self.device_scene, self.static, self.seed,
+                    self.iteration)
+            if self.kind == "sppm":
+                self._sppm_state, self.acc, rays = self._program(
+                    *args, self._sppm_state, self._px, self._py,
+                    with_stats=True, shard=self.shard)
+                self._add_rays(rays)
+            elif self.kind == "mlt":
+                self._mlt_state, self.acc, rays = self._program(
+                    *args, self._mlt_state, with_stats=True,
+                    shard=self.shard)
+                self._add_rays(rays)
+            else:
+                self._render_tiles(args)
+            if self._walks:
+                packet_cuda.check_overflow(self.device)
+
+    def _add_rays(self, rays) -> None:
+        """Count the rays a program returned (0-d int64 on `device`), in
+        `rays` and in the spp's "rays" counter."""
+        telemetry.count("rays", rays)
+        self._rays += rays
 
     def _render_tiles(self, args) -> None:
         extra = ()
@@ -192,28 +204,30 @@ class Renderer:
                 # every rank makes the whole store; rank 0 counts its rays
                 self._vpls, rays = ir.generate_vpls(*args, with_stats=True)
                 if self.shard.rank == 0:
-                    self._rays += rays
+                    self._add_rays(rays)
             extra = (self._vpls, row)
         for t0 in range(self._lo, self._hi, self.tile_size):
             t1 = min(t0 + self.tile_size, self._hi)
+            li = film = None
             if self.kind == "film":
                 # paths t0 .. t1 - 1 of the W*H an iteration traces, as
                 # the reference; normalising by the path count (pixels /
                 # paths = 1) leaves the sum of the tiles' splats
                 film, rays = self._program(*args, self._ids[t0:t1],
                                            with_stats=True)
-                self.acc += film
             elif self.kind == "hybrid":
                 li, film, rays = self._program(
                     *args, self._px[t0:t1], self._py[t0:t1], with_stats=True)
-                self.acc[t0:t1] += li
-                self.acc += film
             else:
                 li, rays = self._program(
                     *args, self._px[t0:t1], self._py[t0:t1], *extra,
                     with_stats=True)
-                self.acc[t0:t1] += li
-            self._rays += rays
+            with telemetry.span("film.add"):
+                if li is not None:
+                    self.acc[t0:t1] += li
+                if film is not None:
+                    self.acc += film
+                self._add_rays(rays)
 
     def render(self, spp: int):
         for _ in range(spp):

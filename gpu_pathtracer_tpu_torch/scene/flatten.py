@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.core.vecmath import LUMA
 from gpu_pathtracer_tpu_torch.geom import bvh8 as bvh8_mod
 from gpu_pathtracer_tpu_torch.geom import tlas as tlas_mod
@@ -456,13 +457,16 @@ def flatten_numpy(scene: HostScene, instancing: bool = False,
     arrays (camera fields under "camera") and the StaticConfig fields
     (all but `bvh8_stack`, which device_scene_from_numpy derives).
     `instancing` plans TLAS/BLAS instances (geom/tlas.py); `cache` reads
-    and writes the BVH disk cache."""
+    and writes the BVH disk cache. The TLAS plan or the binary BVH, and
+    the BVH8 table, are each a set-up span "scene.bvh"."""
     fields = _prim_fields(scene)
     bmin, bmax = _prim_bboxes(scene, fields)
-    plan = tlas_mod.plan_instances(scene, bmin, bmax, cache) if instancing \
-        else None
+    with telemetry.span("scene.bvh"):
+        plan = tlas_mod.plan_instances(scene, bmin, bmax, cache) \
+            if instancing else None
+        bvh = load_or_build_bvh(bmin, bmax, cache=cache) if plan is None \
+            else None
     if plan is None:
-        bvh = load_or_build_bvh(bmin, bmax, cache=cache)
         order = bvh.prim_order
     else:
         # one-leaf stand-in: its prim order is the instanced slot layout
@@ -628,14 +632,16 @@ def flatten_numpy(scene: HostScene, instancing: bool = False,
     block_bbox[:, 3:6] = pb_max.reshape(nb, BLOCK, 3).max(axis=1)
 
     # the unified BVH8 table (geom/bvh8.py), instanced when planned
-    if plan is None:
-        bvh8_table, bvh8_n8 = bvh8_mod.build_bvh8(bvh, dense_prims[:P])
-        bvh8_aux = np.zeros((1, tlas_mod.AUX_COLS), np.float32)
-        bvh8_tlas_rows = bvh8_n_inst = 0
-    else:
-        bvh8_table, bvh8_n8, bvh8_aux, bvh8_tlas_rows = \
-            tlas_mod.build_instanced_table(plan, dense_prims[:P], bmin, bmax)
-        bvh8_n_inst = plan.n_inst
+    with telemetry.span("scene.bvh"):
+        if plan is None:
+            bvh8_table, bvh8_n8 = bvh8_mod.build_bvh8(bvh, dense_prims[:P])
+            bvh8_aux = np.zeros((1, tlas_mod.AUX_COLS), np.float32)
+            bvh8_tlas_rows = bvh8_n_inst = 0
+        else:
+            bvh8_table, bvh8_n8, bvh8_aux, bvh8_tlas_rows = \
+                tlas_mod.build_instanced_table(plan, dense_prims[:P], bmin,
+                                               bmax)
+            bvh8_n_inst = plan.n_inst
 
     prim_attrs = np.zeros((P, 40), np.float32)
     prim_attrs[:, 0:3] = v0
@@ -828,9 +834,13 @@ def flatten_scene(scene: HostScene, device, instancing: bool | None = None,
     """HostScene -> (DeviceScene on `device`, StaticConfig). Repeated
     meshes are instanced when `instancing` is true; None means "when
     `device` is a CUDA device". `cache` false builds every BVH anew,
-    without reading or writing the disk cache."""
+    without reading or writing the disk cache. Set-up spans:
+    "scene.flatten" (flatten_numpy, its "scene.bvh" spans inside) and
+    "scene.upload"."""
     device = torch.device(device)
     if instancing is None:
         instancing = device.type == "cuda"
-    arrays, static = flatten_numpy(scene, instancing, cache)
-    return device_scene_from_numpy(arrays, static, device)
+    with telemetry.span("scene.flatten"):
+        arrays, static = flatten_numpy(scene, instancing, cache)
+    with telemetry.span("scene.upload"):
+        return device_scene_from_numpy(arrays, static, device)

@@ -17,6 +17,7 @@ import os
 
 import numpy as np
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.film.imageio import (
     load_exr, load_texture, read_density_file,
 )
@@ -63,6 +64,13 @@ def _remap_roughness(r: float) -> float:
 
 
 def load_scene(path: str) -> HostScene:
+    """The scene file at `path` and the meshes it names, parsed (the
+    set-up span "scene.parse")."""
+    with telemetry.span("scene.parse"):
+        return _load_scene(path)
+
+
+def _load_scene(path: str) -> HostScene:
     base = os.path.dirname(os.path.abspath(path))
     with open(path) as f:
         doc = json.load(f)
