@@ -829,22 +829,25 @@ def k3_pair(scene, static):
 
 def k4_pair(scene, static, kinds=None):
     """(kernel, plain) of K4 on a flattened scene (flat or instanced), the
-    kernel's variant chosen from `kinds` (default: the scene's own)."""
+    kernel's variant chosen from `kinds` (default: the scene's own); an
+    instanced closest hit gets its world t, as on the main path."""
     from gpu_pathtracer_tpu_torch.geom import dense
     kinds = dense.kinds_of(static) if kinds is None else kinds
     return k4_table_pair(scene.bvh8_table, scene.bvh8_aux,
-                         static.bvh8_n_inst, static.bvh8_stack, kinds)
+                         static.bvh8_n_inst, static.bvh8_stack, kinds,
+                         scene.dense_prims)
 
 
-def k4_table_pair(table, aux, n_inst, stack, kinds):
+def k4_table_pair(table, aux, n_inst, stack, kinds, prims=None):
     """(kernel, plain) of K4 on a BVH8 table: f(ro, rd, tmin, tmax,
-    any_hit)."""
+    any_hit); an instanced table takes its scene's dense_prims (`prims`),
+    for a closest hit's world t."""
     from gpu_pathtracer_tpu_torch.geom import packet, packet_cuda
     args = (table, aux, n_inst)
     return (lambda ro, rd, t0, t1, any_hit: packet_cuda.bvh8_walk_cuda(
-                *args, ro, rd, t0, t1, any_hit, stack, kinds),
+                *args, ro, rd, t0, t1, any_hit, stack, kinds, prims=prims),
             lambda ro, rd, t0, t1, any_hit: packet.walk_torch(
-                *args, ro, rd, t0, t1, any_hit, kinds, stack))
+                *args, ro, rd, t0, t1, any_hit, kinds, stack, prims=prims))
 
 
 def variant_name(static) -> str:
@@ -1115,7 +1118,8 @@ def phase_b_k4(dev, rng) -> float:
                               tri, rays, canon, None))
         for label, (tab, aux, n_inst, stack), kinds, (o, d, lo, hi), \
                 canon, emp in cases:
-            kern, plain = k4_table_pair(tab, aux, n_inst, stack, kinds)
+            kern, plain = k4_table_pair(tab, aux, n_inst, stack, kinds,
+                                        scene.dense_prims)
             ck, ak = kern(o, d, lo, hi, False), kern(o, d, lo, hi, True)
             cp, ap = plain(o, d, lo, hi, False), plain(o, d, lo, hi, True)
             torch.cuda.synchronize()
@@ -5041,14 +5045,14 @@ def capture_main_k4():
     seen = {False: 0, True: 0}
 
     def wrapper(table, aux, n_inst, ro, rd, tmin, tmax, any_hit, stack,
-                kinds=(True, True, True)):
+                kinds=(True, True, True), **kw):
         seen[any_hit] += 1
         if seen[any_hit] == 2:
             MAIN_K4["any" if any_hit else "closest"] = (
                 table, aux, n_inst, ro.clone(), rd.clone(), tmin.clone(),
                 tmax.clone(), stack, kinds)
         return orig(table, aux, n_inst, ro, rd, tmin, tmax, any_hit, stack,
-                    kinds)
+                    kinds, **kw)
 
     packet_cuda.bvh8_walk_cuda = wrapper
     return lambda: setattr(packet_cuda, "bvh8_walk_cuda", orig)

@@ -53,16 +53,29 @@
 //   triangles only (no type branch) or all kinds;
 // - a ray with an empty interval (intersect.cuh::empty_interval: PT's
 //   finished lanes have tmax 0) is a miss at once;
-// - instanced scenes (aux rows staged in shared memory) walk instance-
-//   major, as the TPU kernel's default policy (packet_tpu.py:748-905): one
-//   pass slab-tests the instances' world boxes (aux cols 14:20) and keeps
-//   the 8 nearest entered in a sorted register list of keys (entry
-//   distance clamped at 0, instance in the low 6 bits), visited nearest
-//   first until one starts beyond the best t; a second pass collects the
-//   rest when more than 8 were entered. A visit maps the ray into the
-//   BLAS frame with aux cols 0:12 without renormalising the direction (so
-//   t stays the world t), walks from the root row in col 12 and adds the
-//   slot base in col 13 to the hit's BLAS-local id.
+// - instanced scenes walk instance-major (the kInst form of the kernel,
+//   aux rows staged in shared memory), as the TPU kernel's default policy
+//   (packet_tpu.py:748-905): one pass slab-tests the instances' world
+//   boxes (aux cols 14:20) and keeps the 8 nearest entered in a sorted
+//   register list of keys (entry distance clamped at 0, instance in the
+//   low 6 bits), visited nearest first until one starts beyond the best
+//   t; a second pass collects the rest when more than 8 were entered. A
+//   visit maps the ray into the BLAS frame with aux cols 0:12 without
+//   renormalising the direction (so t is the world t up to rounding),
+//   walks from the root row in col 12 and adds the slot base in col 13 to
+//   the hit's BLAS-local id. A closest hit on a triangle then takes its t
+//   from its world record (`prims`, the scene's dense_prims) with the
+//   plain version's arithmetic (tri_hit), as the flat walk does, so the
+//   hit point does not carry the BLAS frame's rounding. Each thread tallies the (ray, instance) pairs whose world
+//   box the first slab pass entered (`inst_entered`; the second pass
+//   counts nothing twice) and the BLAS walks begun (`blas_walks`); given
+//   `counts`, each warp adds its sums to counts[0] / counts[1] (int64)
+//   with one warp reduction and one atomicAdd each. The flat form (kInst
+//   false: every launch with n_inst 0) compiles none of this; it keeps
+//   the body the kernel had before the instanced form, whose instanced
+//   branch it never takes now, so that its registers and spill stay as
+//   they were (without that branch ptxas gives it 48 / 55 registers and
+//   no spill: a change to the flat walk, to be measured as one).
 // Any hit leaves a ray at its first hit. The record choice is held to the
 // plain version geom/packet.py::walk_torch within the hit limits (PERF.md
 // section 2), not bit for bit.
@@ -258,20 +271,22 @@ __device__ __forceinline__ Ray to_frame(const float* m, V3 o, V3 d) {
   return r;
 }
 
-template <bool kAll>
+template <bool kAll, bool kInst>
 __global__ void __launch_bounds__(kThreads)
     bvh8_walk_kernel(const float* __restrict__ table,
                      const float* __restrict__ aux, int n_inst,
+                     const float* __restrict__ prims,
                      const float* __restrict__ ro,
                      const float* __restrict__ rd,
                      const float* __restrict__ tmin_,
                      const float* __restrict__ tmax_,
                      float* __restrict__ t_out, int32_t* __restrict__ prim_out,
                      uint8_t* __restrict__ found_out,
-                     int32_t* __restrict__ overflow, int n, int stack_depth,
-                     int cap, int any_hit) {
+                     int32_t* __restrict__ overflow,
+                     unsigned long long* __restrict__ counts, int n,
+                     int stack_depth, int cap, int any_hit) {
   extern __shared__ float inst[];   // the aux rows
-  if (n_inst > 0) {
+  if (kInst || n_inst > 0) {
     for (int j = threadIdx.x; j < n_inst * 20; j += blockDim.x) {
       inst[j] = aux[j];
     }
@@ -281,6 +296,7 @@ __global__ void __launch_bounds__(kThreads)
   if (i >= n) return;
   const float t0 = tmin_[i];
   const float t1 = tmax_[i];
+  unsigned n_entered = 0, n_walks = 0;   // kInst's tallies
   Best b;
   b.tb = t1;
   b.ab = 1.f;
@@ -295,12 +311,12 @@ __global__ void __launch_bounds__(kThreads)
     int srow[kMaxGroups];   // the group stack: 128 bytes of local memory
     unsigned slist[kMaxGroups];
     cap = min(cap, kMaxGroups);
-    if (n_inst == 0) {
+    if (!kInst && n_inst == 0) {
       ok = walk<kAll>(table, 0, 0, w, t0, t1, stack_depth, cap, srow, slist,
                       any_hit, b);
     } else {
       unsigned floor_key = 0;   // keys below it were visited
-      bool more = true;
+      bool more = true, first = true;
       while (more && ok) {
         unsigned l[kList];
 #pragma unroll
@@ -321,6 +337,8 @@ __global__ void __launch_bounds__(kThreads)
           if (key < l[kList - 1]) list_insert(l, key);
         }
         more = entered > kList;
+        if (first) n_entered += entered;
+        first = false;
         while (l[0] != kNone) {
           const unsigned key = l[0];
           // every instance left starts beyond the best hit
@@ -330,6 +348,7 @@ __global__ void __launch_bounds__(kThreads)
           }
           const int k = (int)(key & (kMaxInst - 1));
           const float* m = inst + 20 * k;
+          ++n_walks;
           ok = walk<kAll>(table, (int)m[12], (int)m[13],
                           to_frame(m, w.o, w.d), t0, t1, stack_depth, cap,
                           srow, slist, any_hit, b);
@@ -343,6 +362,16 @@ __global__ void __launch_bounds__(kThreads)
           l[kList - 1] = kNone;
         }
       }
+      if (kInst && !any_hit && b.prim >= 0) {
+        // the world t of the record taken (the flat walk's arithmetic)
+        const float4* q =
+            reinterpret_cast<const float4*>(prims + (size_t)b.prim * 16);
+        const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
+        if (!kAll || q2.y == PRIM_TRIANGLE) {
+          tri_hit(w.o, w.d, mk(q0.x, q0.y, q0.z), mk(q0.w, q1.x, q1.y),
+                  mk(q1.z, q1.w, q2.x), -INFINITY, INFINITY, &b.t);
+        }
+      }
     }
   }
   if (!ok) atomicOr(overflow, 1);
@@ -351,6 +380,18 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     t_out[i] = b.t;   // tmax on a miss
     prim_out[i] = b.prim;
+  }
+  if (kInst && counts != nullptr) {
+    // the warp's threads below n (the others returned at the top)
+    const unsigned lane = threadIdx.x & 31u;
+    const int live = n - (i - (int)lane);
+    const unsigned mask = live >= 32 ? 0xFFFFFFFFu : (1u << live) - 1u;
+    const unsigned e = __reduce_add_sync(mask, n_entered);
+    const unsigned w = __reduce_add_sync(mask, n_walks);
+    if (lane == 0) {
+      atomicAdd(counts, (unsigned long long)e);
+      atomicAdd(counts + 1, (unsigned long long)w);
+    }
   }
 }
 
@@ -361,25 +402,40 @@ __global__ void __launch_bounds__(kThreads)
 // the caller keeps across launches) to 1 when a ray's walk would pass
 // stack_depth pending children or min(cap, 16) stacked groups (shared
 // memory: the n_inst aux rows). all_kinds = 0 takes the triangles-only
-// variant (the scene has no sphere and no line).
+// variant (the scene has no sphere and no line). n_inst > 0 takes the
+// instanced form: `prims` (the scene's dense_prims [P, 16]) gives a
+// closest hit on a triangle its world t, and `counts` (int64 [2] on the
+// device, or null) gets the walk's inst_entered and blas_walks added; a
+// flat walk (n_inst 0) reads neither.
 extern "C" int bvh8_walk(const float* table, const float* aux, int n_inst,
-                         const float* ro, const float* rd, const float* tmin_,
-                         const float* tmax_, float* t_out, int32_t* prim_out,
-                         uint8_t* found_out, int32_t* overflow, int n,
+                         const float* prims, const float* ro, const float* rd,
+                         const float* tmin_, const float* tmax_, float* t_out,
+                         int32_t* prim_out, uint8_t* found_out,
+                         int32_t* overflow, int64_t* counts, int n,
                          int stack_depth, int cap, int any_hit, int all_kinds,
                          void* stream) {
-  if (n_inst > kMaxInst || cap < 1) return -1;
+  if (n_inst > kMaxInst || cap < 1 || (n_inst > 0 && !prims)) return -1;
   const int blocks = (n + kThreads - 1) / kThreads;
   const size_t smem = sizeof(float) * 20 * (size_t)n_inst;
   cudaStream_t s = (cudaStream_t)stream;
-  if (all_kinds) {
-    bvh8_walk_kernel<true><<<blocks, kThreads, smem, s>>>(
-        table, aux, n_inst, ro, rd, tmin_, tmax_, t_out, prim_out, found_out,
-        overflow, n, stack_depth, cap, any_hit);
+  unsigned long long* c = reinterpret_cast<unsigned long long*>(counts);
+#define BVH8_WALK_ARGS                                                      \
+  table, aux, n_inst, prims, ro, rd, tmin_, tmax_, t_out, prim_out,         \
+      found_out, overflow, c, n, stack_depth, cap, any_hit
+  if (n_inst > 0) {
+    if (all_kinds) {
+      bvh8_walk_kernel<true, true><<<blocks, kThreads, smem, s>>>(
+          BVH8_WALK_ARGS);
+    } else {
+      bvh8_walk_kernel<false, true><<<blocks, kThreads, smem, s>>>(
+          BVH8_WALK_ARGS);
+    }
+  } else if (all_kinds) {
+    bvh8_walk_kernel<true, false><<<blocks, kThreads, 0, s>>>(BVH8_WALK_ARGS);
   } else {
-    bvh8_walk_kernel<false><<<blocks, kThreads, smem, s>>>(
-        table, aux, n_inst, ro, rd, tmin_, tmax_, t_out, prim_out, found_out,
-        overflow, n, stack_depth, cap, any_hit);
+    bvh8_walk_kernel<false, false><<<blocks, kThreads, 0, s>>>(
+        BVH8_WALK_ARGS);
   }
+#undef BVH8_WALK_ARGS
   return (int)cudaGetLastError();
 }

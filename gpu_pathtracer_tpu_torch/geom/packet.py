@@ -17,8 +17,17 @@ instances' world boxes (aux cols 14:20) with the ray's tmax, visit them
 in order of entry distance (ties by instance), skip those that start
 beyond the best t, map the ray into the instance's BLAS frame with aux
 cols 0:12 without renormalising the direction (so t stays the world t,
-tlas.py:9-14), walk from the root row in col 12, and add the slot base
-in col 13 to the hit's BLAS-local id.
+tlas.py:9-14; equal up to rounding), walk from the root row in col 12,
+and add the slot base in col 13 to the hit's BLAS-local id. A closest hit
+on a triangle then takes its t from its world record (`prims`, the
+scene's dense_prims) as the flat walk computes it, so that the hit point
+does not carry the BLAS frame's rounding: the instanced and the flat
+table give the same t wherever they take the same prim. An instanced
+walk counts, as the kernel does, the (ray, instance) pairs whose world
+box the ray enters (`inst_entered`) and the BLAS walks begun
+(`blas_walks`), over the rays with a non-empty interval; `walk_closest`
+/ `walk_any` hand the two counts, kept on the device, to the spp's
+counters of the same names (telemetry).
 
 On a CUDA tensor `walk_closest` / `walk_any` launch the hand-written
 kernel (csrc/bvh8_walk.cu through geom/packet_cuda.py, its triangles-only
@@ -38,9 +47,12 @@ from __future__ import annotations
 
 import torch
 
+from gpu_pathtracer_tpu_torch import telemetry
 from gpu_pathtracer_tpu_torch.geom import packet_cuda
 from gpu_pathtracer_tpu_torch.geom.blocked import last_min, safe_inv, slab
 from gpu_pathtracer_tpu_torch.geom.dense import f32n, kinds_of, rec_hits
+from gpu_pathtracer_tpu_torch.kernels import all_kinds
+from gpu_pathtracer_tpu_torch.scene.model import GeometryType
 
 BIG = 3.0e38   # entry distance of a missed instance
 
@@ -120,11 +132,13 @@ def _walk(table, lanes, o, d, inv, tmin, root, base, best_t, best,
 def walk_torch(table, aux, n_inst: int, ro, rd, tmin, tmax, any_hit: bool,
                kinds=(True, True, True),
                stack_depth: int = packet_cuda.MAX_STACK,
-               with_t: bool = False):
+               with_t: bool = False, counts=None, prims=None):
     """Plain version of the kernel: closest hit -> (t [N] = tmax on a
     miss, prim [N] i32 = -1 on a miss), or with `any_hit` -> found [N]
     (with `with_t` also the t of the hit each ray stopped at, tmax on a
-    miss: (found, t))."""
+    miss: (found, t)). An instanced walk takes the scene's dense_prims
+    (`prims`), for a closest hit's world t, and adds its inst_entered and
+    blas_walks to `counts` (int64 [2]) when given."""
     if ro.is_cuda:
         packet_cuda.STATS.plain_cuda += 1
     n = ro.shape[0]
@@ -140,9 +154,20 @@ def walk_torch(table, aux, n_inst: int, ro, rd, tmin, tmax, any_hit: bool,
               any_hit, kinds, stack_depth)
         return _result(best_t, best, any_hit, with_t)
 
+    if prims is None:
+        raise ValueError("an instanced walk takes the scene's world records "
+                         "(prims, dense_prims)")
+    # the kernel's empty interval (intersect.cuh::empty_interval): no
+    # instance is entered, no walk begun
+    empty = ~(best_t >= tmin)
+    if all_kinds(kinds):
+        empty &= ~(best_t > 0.0)
     box = aux[:n_inst]
     hit, tn = slab(box[:, 14:17], box[:, 17:20], ro[:, None, :],
                    inv[:, None, :], best_t[:, None])
+    hit &= ~empty[:, None]
+    if counts is not None:
+        counts[0] += hit.sum()
     dist = torch.where(hit, tn.clamp_min(0.0), BIG)
     dist, order = torch.sort(dist, dim=1, stable=True)
     for k in range(n_inst):
@@ -152,13 +177,31 @@ def walk_torch(table, aux, n_inst: int, ro, rd, tmin, tmax, any_hit: bool,
         lanes = go.nonzero().squeeze(1)
         if lanes.numel() == 0:
             continue
+        if counts is not None:
+            counts[1] += lanes.numel()
         m = box[order[lanes, k]]
         o = _xform(m, ro[lanes], True)
         d = _xform(m, rd[lanes], False)
         _walk(table, lanes, o, d, safe_inv(d), tmin[lanes],
               m[:, 12].to(torch.int32), m[:, 13].to(torch.int32), best_t,
               best, any_hit, kinds, stack_depth)
+    if not any_hit:
+        _world_t(prims, ro, rd, best_t, best)
     return _result(best_t, best, any_hit, with_t)
+
+
+def _world_t(prims, ro, rd, best_t, best):
+    """Set best_t, in place, to the world t of each lane's triangle hit:
+    its dense_prims record tested with the flat walk's arithmetic (the
+    kernel's tri_hit), whatever the test's verdict."""
+    lanes = (best >= 0).nonzero().squeeze(1)
+    rec = prims[best[lanes].long()]
+    _, t = rec_hits([rec[:, c] for c in range(12)],
+                    tuple(ro[lanes, k] for k in range(3)),
+                    tuple(rd[lanes, k] for k in range(3)), -torch.inf,
+                    torch.inf, (True, False, False))
+    tri = rec[:, 9] == float(GeometryType.TRIANGLE)
+    best_t[lanes] = torch.where(tri, t, best_t[lanes])
 
 
 def _result(best_t, best, any_hit, with_t):
@@ -167,19 +210,33 @@ def _result(best_t, best, any_hit, with_t):
     return (best >= 0, best_t) if with_t else best >= 0
 
 
+def _counts(static, device):
+    """An instanced scene's walk counts (int64 [2], zero), handed by
+    reference to the spp's "inst_entered" and "blas_walks" counters
+    (telemetry); None for a flat scene, which counts nothing."""
+    if not static.bvh8_n_inst:
+        return None
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    telemetry.count("inst_entered", counts[0])
+    telemetry.count("blas_walks", counts[1])
+    return counts
+
+
 def _kernel(scene, static, ro, rd, tmin, tmax, any_hit):
     n = ro.shape[0]
     return packet_cuda.bvh8_walk_cuda(
         scene.bvh8_table, scene.bvh8_aux, static.bvh8_n_inst,
         ro.contiguous(), rd.contiguous(), f32n(tmin, n, ro.device),
         f32n(tmax, n, ro.device), any_hit, static.bvh8_stack,
-        kinds_of(static))
+        kinds_of(static), counts=_counts(static, ro.device),
+        prims=scene.dense_prims)
 
 
 def _plain(scene, static, ro, rd, tmin, tmax, any_hit):
     return walk_torch(scene.bvh8_table, scene.bvh8_aux, static.bvh8_n_inst,
                       ro, rd, tmin, tmax, any_hit, kinds_of(static),
-                      static.bvh8_stack)
+                      static.bvh8_stack, counts=_counts(static, ro.device),
+                      prims=scene.dense_prims)
 
 
 def walk_closest(scene, static, ro, rd, tmin, tmax, plain: bool = False):

@@ -5,7 +5,11 @@ kernel on the current stream and counts the launch in `STATS`. It takes
 CUDA tensors only; the plain PyTorch version is geom/packet.py::
 walk_torch, which counts its calls on CUDA tensors in `STATS.plain_cuda`.
 `kinds` = (has_tri, has_sph, has_lin) picks the kernel's variant:
-triangles only for (True, False, False), else all kinds.
+triangles only for (True, False, False), else all kinds. An instanced
+walk takes the scene's world records (`prims`, dense_prims), from which
+a closest hit on a triangle gets its world t, and adds its (ray,
+instance) pairs entered and its BLAS walks begun to `counts` (int64 [2]
+on the device); a flat walk reads neither.
 
 A ray whose walk would pass its stack sets an overflow flag that stays
 on the device, one per device, accumulated across launches so that a
@@ -46,7 +50,7 @@ def _lib():
     if lib.bvh8_walk.argtypes is None:
         lib.bvh8_walk.restype = ctypes.c_int
         lib.bvh8_walk.argtypes = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P]
+                                  _P, _P, _I, _I, _I, _I, _I, _P]
     return lib
 
 
@@ -179,11 +183,14 @@ def group_cap(stack_depth: int) -> int:
 
 def bvh8_walk_cuda(table, aux, n_inst: int, ro, rd, tmin, tmax,
                    any_hit: bool, stack_depth: int,
-                   kinds=(True, True, True)):
+                   kinds=(True, True, True), counts=None, prims=None):
     """Closest hit -> (t [N] f32, prim [N] i32, -1 = miss; t = tmax on a
     miss), or with `any_hit` -> found [N] bool. `n_inst` 0 walks the flat
-    table from row 0; otherwise `aux [n_inst, 20]` lists the instances.
-    A stack overflow is reported by check_overflow, not here."""
+    table from row 0; otherwise `aux [n_inst, 20]` lists the instances,
+    `prims` (the scene's dense_prims [P, 16]) gives a closest hit on a
+    triangle its world t, and `counts` (int64 [2] or None) gets the walk's
+    inst_entered and blas_walks added. A stack overflow is reported by
+    check_overflow, not here."""
     device = ro.device
     n = ro.shape[0]
     check_cuda_f32("bvh8_table", table, (None, 128), device)
@@ -198,6 +205,13 @@ def bvh8_walk_cuda(table, aux, n_inst: int, ro, rd, tmin, tmax,
     check_cuda_f32("rd", rd, (n, 3), device)
     check_cuda_f32("tmin", tmin, (n,), device)
     check_cuda_f32("tmax", tmax, (n,), device)
+    if counts is not None:
+        check_cuda_f32("counts", counts, (2,), device, torch.int64)
+    if n_inst:
+        if prims is None:
+            raise ValueError("an instanced walk takes the scene's world "
+                             "records (prims, dense_prims)")
+        check_cuda_f32("prims", prims, (None, 16), device)
     if any_hit:
         found = torch.empty(n, dtype=torch.bool, device=device)
         t = prim = None
@@ -209,12 +223,15 @@ def bvh8_walk_cuda(table, aux, n_inst: int, ro, rd, tmin, tmax,
         return found if any_hit else (t, prim)
     overflow = overflow_flag(device, stack_depth)
     rc = _lib().bvh8_walk(
-        table.data_ptr(), aux.data_ptr(), n_inst, ro.data_ptr(),
-        rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+        table.data_ptr(), aux.data_ptr(), n_inst,
+        prims.data_ptr() if n_inst else None,
+        ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
         t.data_ptr() if t is not None else None,
         prim.data_ptr() if prim is not None else None,
         found.data_ptr() if found is not None else None,
-        overflow.data_ptr(), n, stack_depth, group_cap(stack_depth),
+        overflow.data_ptr(),
+        counts.data_ptr() if counts is not None and n_inst else None, n,
+        stack_depth, group_cap(stack_depth),
         int(any_hit), int(all_kinds(kinds)),
         torch.cuda.current_stream(device).cuda_stream)
     check_launch(rc, "bvh8_walk")

@@ -458,12 +458,16 @@ def flatten_numpy(scene: HostScene, instancing: bool = False,
     (all but `bvh8_stack`, which device_scene_from_numpy derives).
     `instancing` plans TLAS/BLAS instances (geom/tlas.py); `cache` reads
     and writes the BVH disk cache. The TLAS plan or the binary BVH, and
-    the BVH8 table, are each a set-up span "scene.bvh"."""
+    the BVH8 table, are each a set-up span "scene.bvh"; with
+    `instancing`, the plan (its BLAS builds included) and the instanced
+    table are each a "scene.tlas" span inside it."""
     fields = _prim_fields(scene)
     bmin, bmax = _prim_bboxes(scene, fields)
     with telemetry.span("scene.bvh"):
-        plan = tlas_mod.plan_instances(scene, bmin, bmax, cache) \
-            if instancing else None
+        plan = None
+        if instancing:
+            with telemetry.span("scene.tlas"):
+                plan = tlas_mod.plan_instances(scene, bmin, bmax, cache)
         bvh = load_or_build_bvh(bmin, bmax, cache=cache) if plan is None \
             else None
     if plan is None:
@@ -638,9 +642,10 @@ def flatten_numpy(scene: HostScene, instancing: bool = False,
             bvh8_aux = np.zeros((1, tlas_mod.AUX_COLS), np.float32)
             bvh8_tlas_rows = bvh8_n_inst = 0
         else:
-            bvh8_table, bvh8_n8, bvh8_aux, bvh8_tlas_rows = \
-                tlas_mod.build_instanced_table(plan, dense_prims[:P], bmin,
-                                               bmax)
+            with telemetry.span("scene.tlas"):
+                bvh8_table, bvh8_n8, bvh8_aux, bvh8_tlas_rows = \
+                    tlas_mod.build_instanced_table(plan, dense_prims[:P],
+                                                   bmin, bmax)
             bvh8_n_inst = plan.n_inst
 
     prim_attrs = np.zeros((P, 40), np.float32)

@@ -34,9 +34,13 @@ Names (PERF.md section 3 gives the metric that reads each):
   deferred overflow check (geom/packet_cuda.py);
 - set-up: "scene.parse", "scene.flatten" (flatten_numpy, enclosing its
   "scene.bvh" spans: the binary BVH or the TLAS plan, and the BVH8
-  table), "scene.upload".
+  table; with instancing, each holds a "scene.tlas" span: the TLAS plan
+  with its BLAS builds, the instanced BVH8 table), "scene.upload".
 Counters: "hit_lanes" (the lanes each closest- or any-hit call is
-launched over), "rays" (the spp's device-side ray count).
+launched over), "rays" (the spp's device-side ray count); on an
+instanced scene, per BVH8 walk call, "inst_entered" (the (ray, instance)
+pairs whose world box the ray entered) and "blas_walks" (the BLAS walks
+begun), device tensors kept by reference (geom/packet.py).
 
 One recorder serves the process; spans are opened and closed by the
 thread that renders. `reset()` empties it.

@@ -124,9 +124,9 @@ def test_stack_bound_covers_the_walk(instancing):
         np.random.default_rng(6), 512, -3.0, 3.0, -1.5, 1.5))
     args = (td.bvh8_table, td.bvh8_aux, ts.bvh8_n_inst, ro, rd, 1e-3,
             torch.inf, False)
-    packet.walk_torch(*args, stack_depth=ts.bvh8_stack)
+    packet.walk_torch(*args, stack_depth=ts.bvh8_stack, prims=td.dense_prims)
     with pytest.raises(RuntimeError, match="stack"):
-        packet.walk_torch(*args, stack_depth=2)
+        packet.walk_torch(*args, stack_depth=2, prims=td.dense_prims)
 
 
 def test_instanced_vs_flat_hit_geometry(instancing):

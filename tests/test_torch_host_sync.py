@@ -14,7 +14,8 @@ constructions they replace (written out here), and the deferred check's
 contract: after a spp whose walk set the flag, the renderer raises with
 the stack depth at the next spp's check or at the next film read. The
 `card` tests run two spp of a knot through the BVH8 walk, the knot in
-its own (K3) regime and cornell BDPT under
+its own (K3) regime, the 1M-prim forest through the instanced walk and
+cornell BDPT under
 `torch.cuda.set_sync_debug_mode("error")` (the deferred wait aside), and
 the deferred raise on the card. They import no JAX; on a machine with a
 card, run them without the suite's conftest.py, which imports JAX:
@@ -237,6 +238,23 @@ def test_knot_spp_makes_no_sync(route, card, tmp_path, monkeypatch,
     recs = _no_sync_spp(r, monkeypatch)
     want = ["sync.overflow"] if route == "bvh8" else []
     assert [[s.name for s in x.syncs()] for x in recs] == [want, want]
+
+
+@pytest.mark.card
+def test_forest_spp_makes_no_sync(card, monkeypatch, fresh_flags):
+    """The 1,000,012-prim forest at 1024^2, instanced as on the card's
+    main path: no sync in two spp but the deferred overflow wait, and
+    each spp's K4 calls hand their walk counts to its record (read after
+    the debug mode is off): each BLAS walk is of an entered instance."""
+    r = Renderer(str(tp.REPO / "scenes" / "knot_port" / "forest.json"),
+                 device=card, cache=False)
+    assert traverse.regime(r.static) == "instanced"
+    assert r.static.bvh8_n_inst == 11
+    recs = _no_sync_spp(r, monkeypatch)
+    assert [[s.name for s in x.syncs()] for x in recs] \
+        == [["sync.overflow"]] * 2
+    for x in recs:
+        assert 0 < x.total("blas_walks") <= x.total("inst_entered")
 
 
 @pytest.mark.card

@@ -246,7 +246,7 @@ def plain_hits(kind, td, ts, ro, rd, eps, tmax, any_hit):
         out = blocked.blocked_hit_torch(td.dense_prims, td.block_bbox, *args)
     else:
         out = packet.walk_torch(td.bvh8_table, td.bvh8_aux, ts.bvh8_n_inst,
-                                *args, ts.bvh8_stack)
+                                *args, ts.bvh8_stack, prims=td.dense_prims)
     return out if any_hit else (*out, out[1] >= 0)
 
 
